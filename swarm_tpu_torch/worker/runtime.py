@@ -1,0 +1,260 @@
+"""Worker poll loop of the port — the jarm path of ``swarm_tpu/worker/runtime.py``.
+
+Same observable protocol as the JAX worker: poll ``/get-job``, walk the job
+through ``starting → downloading → executing → uploading → complete`` (or
+``cmd failed`` / ``upload failed - unknown``) via ``/update-job``, with 0.8 s
+between jobs and 10 s when idle, and stop after ``max_jobs`` attempts when
+that is set. The ``jarm`` backend probes each target with the ten JARM
+ClientHellos and clusters the fingerprints with the density-peaks kernels
+on ``device`` (the card unless the CPU is asked for); its output is
+byte-identical to the JAX worker's. A job of any other backend ends
+``cmd failed`` ("backend not ported").
+
+Not ported yet (ROADMAP.md): lease heartbeats, the output spool, graceful
+drain, the retrying transport, tracing and telemetry.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Optional, Union
+
+import requests
+import torch
+
+from swarm_tpu_torch.datamodel import SCAN_ID_RE, JobStatus
+from swarm_tpu_torch.ops import cluster as cl
+from swarm_tpu_torch.utils.device import resolve_device
+from swarm_tpu_torch.worker.executor import ProbeExecutor
+from swarm_tpu_torch.worker.modules import ModuleRegistry, ModuleSpec
+
+
+@dataclasses.dataclass
+class WorkerConfig:
+    server_url: str = "http://127.0.0.1:5001"
+    api_key: str = "CHANGE_THIS"
+    worker_id: str = "worker-0"
+    modules_dir: str = "modules"
+    max_jobs: int = 0  # 0 = unlimited
+    poll_interval_idle_s: float = 10.0
+    poll_interval_busy_s: float = 0.8
+
+    #: environment names read by :meth:`from_env`, as the JAX worker's
+    #: config reads them (``SWARM_<FIELD>``, then the reference aliases)
+    _ENV = {
+        "server_url": ("SWARM_SERVER_URL", "SERVER_URL"),
+        "api_key": ("SWARM_API_KEY", "API_KEY"),
+        "worker_id": ("SWARM_WORKER_ID", "WORKER_ID"),
+        "modules_dir": ("SWARM_MODULES_DIR",),
+        "max_jobs": ("SWARM_MAX_JOBS",),
+    }
+
+    @classmethod
+    def from_env(cls, **overrides) -> "WorkerConfig":
+        """Defaults, then the environment, then ``overrides`` not None."""
+        values: dict = {}
+        for field, names in cls._ENV.items():
+            for name in names:
+                if os.environ.get(name):
+                    values[field] = os.environ[name]
+                    break
+        values.update({k: v for k, v in overrides.items() if v is not None})
+        if "max_jobs" in values:
+            values["max_jobs"] = int(values["max_jobs"])
+        return cls(**values)
+
+
+class ServerClient:
+    """HTTP client for the worker-facing server API."""
+
+    def __init__(self, server_url: str, api_key: str, timeout: float = 30.0):
+        self.base = server_url.rstrip("/")
+        self.timeout = timeout
+        self.session = requests.Session()
+        self.session.headers["Authorization"] = f"Bearer {api_key}"
+
+    def _request(self, method: str, path: str, **kw) -> requests.Response:
+        return self.session.request(
+            method, f"{self.base}{path}", timeout=self.timeout, **kw
+        )
+
+    def get_job(self, worker_id: str) -> Optional[dict]:
+        resp = self._request("GET", "/get-job", params={"worker_id": worker_id})
+        return resp.json() if resp.status_code == 200 else None
+
+    def update_job(
+        self, job_id: str, changes: dict, worker_id: Optional[str] = None
+    ) -> bool:
+        if worker_id is not None:
+            changes = {**changes, "worker_id": worker_id}  # fencing token
+        resp = self._request("POST", f"/update-job/{job_id}", json=changes)
+        return resp.status_code == 200
+
+    def get_input_chunk(self, scan_id: str, chunk_index: int) -> Optional[bytes]:
+        resp = self._request("GET", f"/get-input-chunk/{scan_id}/{chunk_index}")
+        return resp.content if resp.status_code == 200 else None
+
+    def put_output_chunk(self, scan_id: str, chunk_index: int, data: bytes) -> bool:
+        resp = self._request(
+            "POST", f"/put-output-chunk/{scan_id}/{chunk_index}", data=data
+        )
+        return resp.status_code == 200
+
+
+class JobProcessor:
+    def __init__(
+        self,
+        cfg: WorkerConfig,
+        client: Optional[ServerClient] = None,
+        registry: Optional[ModuleRegistry] = None,
+        device: Optional[Union[str, torch.device]] = None,
+    ):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.client = client or ServerClient(cfg.server_url, cfg.api_key)
+        self.registry = registry or ModuleRegistry(cfg.modules_dir)
+        self.jobs_done = 0
+
+    def process_jobs(self) -> None:
+        """The poll loop; returns after ``cfg.max_jobs`` attempts when set."""
+        while True:
+            try:
+                job = self.client.get_job(self.cfg.worker_id)
+            except (requests.RequestException, ValueError) as e:
+                print(f"error getting job: {e}")
+                time.sleep(self.cfg.poll_interval_idle_s)
+                continue
+            if not job:
+                time.sleep(self.cfg.poll_interval_idle_s)
+                continue
+            try:
+                self.process_chunk(job)
+            except requests.RequestException as e:
+                print(f"error processing job: {e}")
+            # max_jobs bounds attempts: a failing job must not leave a
+            # --max-jobs worker polling forever
+            self.jobs_done += 1
+            if self.cfg.max_jobs and self.jobs_done >= self.cfg.max_jobs:
+                return
+            time.sleep(self.cfg.poll_interval_busy_s)
+
+    def process_chunk(self, job: dict) -> None:
+        job_id = job.get("job_id") or f"{job['scan_id']}_{job['chunk_index']}"
+        scan_id, chunk_index = job["scan_id"], int(job["chunk_index"])
+        # the server validates scan ids, but they flow into URL paths
+        if not SCAN_ID_RE.match(str(scan_id)):
+            self.client.update_job(job_id, {"status": JobStatus.CMD_FAILED})
+            return
+
+        def update(status: str, **extra) -> bool:
+            return self.client.update_job(
+                job_id, {"status": status, **extra}, worker_id=self.cfg.worker_id
+            )
+
+        self._run_chunk(job, scan_id, chunk_index, update)
+
+    def _run_chunk(self, job: dict, scan_id: str, chunk_index: int, update) -> None:
+        """Download → execute → upload."""
+        update(JobStatus.STARTING)
+        update(JobStatus.DOWNLOADING)
+        t0 = time.perf_counter()
+        data = self.client.get_input_chunk(scan_id, chunk_index)
+        download_s = time.perf_counter() - t0
+        if data is None:
+            update(JobStatus.CMD_FAILED)
+            return
+
+        update(JobStatus.EXECUTING)
+        try:
+            module = self.registry.load(job["module"])
+        except (OSError, ValueError) as e:
+            print(f"module load failed: {e}")
+            update(JobStatus.CMD_FAILED)
+            return
+        if module.backend != "jarm":
+            print(f"module {module.name}: backend {module.backend!r} not ported")
+            update(JobStatus.CMD_FAILED, message="backend not ported")
+            return
+        t0 = time.perf_counter()
+        try:
+            output = self._execute_jarm(module, data)
+        except Exception as e:  # one bad chunk must not stop the worker
+            print(f"execution failed: {type(e).__name__}: {e}")
+            update(JobStatus.CMD_FAILED)
+            return
+        execute_s = time.perf_counter() - t0
+
+        update(JobStatus.UPLOADING)
+        t0 = time.perf_counter()
+        try:
+            ok = self.client.put_output_chunk(scan_id, chunk_index, output)
+        except requests.RequestException:
+            ok = False
+        upload_s = time.perf_counter() - t0
+        if not ok:
+            update(JobStatus.UPLOAD_FAILED_UNKNOWN)
+            return
+        perf = {
+            "download_s": round(download_s, 6),
+            "execute_s": round(execute_s, 6),
+            "upload_s": round(upload_s, 6),
+            "input_bytes": len(data),
+            "output_bytes": len(output),
+        }
+        update(JobStatus.COMPLETE, perf=perf)
+
+    def _execute_jarm(self, module: ModuleSpec, data: bytes) -> bytes:
+        """Active TLS fingerprinting (JARM + JA3S) with density-peaks
+        clustering of the fingerprints on ``self.device``. Output: one
+        line per target with its fingerprint, cluster label, and cluster
+        size."""
+        fps = ProbeExecutor(module.probe).run_jarm(
+            data.decode("utf-8", "surrogateescape").splitlines()
+        )
+        alive = [fp for fp in fps if fp.alive]
+        lab: list[int] = []
+        sizes: dict[int, int] = {}
+        if alive:
+            radius = float(module.raw.get("cluster_radius", 32.0))
+            packed = cl.pack_strings([fp.jarmx for fp in alive])
+            labels, _rho = cl.density_cluster(packed, radius, device=self.device)
+            lab = [int(x) for x in labels]
+            for label in lab:
+                sizes[label] = sizes.get(label, 0) + 1
+        lines = []
+        alive_iter = iter(lab)
+        for fp in fps:
+            if fp.alive:
+                label = next(alive_iter)
+                lines.append(
+                    f"{fp.line()} cluster={label} cluster_size={sizes[label]}"
+                )
+            else:
+                lines.append(fp.line())
+        return ("\n".join(lines) + "\n").encode() if lines else b""
+
+
+def main(argv: Optional[list[str]] = None) -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="swarm_tpu_torch worker (jarm)")
+    parser.add_argument("--server-url", default=None)
+    parser.add_argument("--api-key", default=None)
+    parser.add_argument("--worker-id", default=None)
+    parser.add_argument("--modules-dir", default=None)
+    parser.add_argument("--max-jobs", type=int, default=None)
+    parser.add_argument(
+        "--device", default=None,
+        help="torch device for the clustering kernels (default: cuda)",
+    )
+    args = parser.parse_args(argv)
+    cfg = WorkerConfig.from_env(
+        server_url=args.server_url,
+        api_key=args.api_key,
+        worker_id=args.worker_id,
+        modules_dir=args.modules_dir,
+        max_jobs=args.max_jobs,
+    )
+    JobProcessor(cfg, device=args.device).process_jobs()

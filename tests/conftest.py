@@ -57,6 +57,10 @@ import pytest  # noqa: E402
 
 
 def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's kernels); skipped without one",
+    )
     # jax warns at compile time when donated buffers can't alias into
     # outputs; EXPECTED on the split-phase dispatch (outputs are tiny
     # packed planes — donation buys early staged-buffer release, not

@@ -8,19 +8,29 @@ prints one JSON line per phase:
 
 1. ``device``  — the card (``nvidia-smi`` name and power limit); exits
    non-zero without a CUDA device.
-2. ``build``   — compiles the cluster kernels (``nvcc``, sm_90a) and the
-   native scan library (``make``) from the checkout's sources, in
-   parallel; the seconds are set-up.
-3. ``kernels`` — each kernel against its plain PyTorch version on the
-   card, at N in {1, 7, 300, 4097, 65536} on random, JARM-like and
-   all-duplicate rows, radius in {0, 32, 40}: rho, delta and parent must
-   be exactly equal (tolerance 0: all values are integers or
-   integer-valued f32). Then times at N = 65,536.
-4. ``scale``   — ``density_cluster`` at N = 65,536 fingerprints of 512
+2. ``build``   — compiles the cluster kernels (``nvcc``, sm_90a), the
+   tensor-core rate probe (``ops/csrc/mma_rate.cu``, its own library)
+   and the native scan library (``make``) from the checkout's sources,
+   in parallel; the seconds are set-up. Prints each cluster kernel's
+   registers and shared memory (``ptxas -v``) and fails if ptxas
+   reports a spill.
+3. ``mma``     — the probe's ``mma.sync`` rates: 1-bit m16n8k256
+   .and.popc (the kernels' product; it prices each kernel's bound, as
+   the data sheet gives no 1-bit rate), .xor.popc, and int8 m16n8k32.
+4. ``kernels`` — each kernel against its plain PyTorch version on the
+   card, at N in {1, 7, 16, 127, 128, 129, 300, 4097, 8193, 65536} on
+   random and JARM-like rows and one all-duplicate set of 4,097, radius
+   in {0, 0.5, 32, 40, 512}: rho, delta and parent must be exactly equal
+   (tolerance 0: all values are integers or integer-valued f32), the
+   parent kernel with its 32-bit key and with the 64-bit key it takes
+   above 2^21 rows. Then times at N = 65,536, the parent kernel alone
+   with either key in turns.
+5. ``scale``   — ``density_cluster`` at N = 65,536 fingerprints of 512
    bits, radius 40: fingerprints/s.
-5. ``trace``   — one such call under ``torch.profiler``: its span, the
-   kernels' and copies' spans on the card, and the card's idle share.
-6. ``worker``  — the main path: local TLS listeners answering with
+6. ``trace``   — one such call under ``torch.profiler``: its span, the
+   kernels' and copies' spans on the card, the card's idle share, and
+   that idle time split among the call's host steps.
+7. ``worker``  — the main path: local TLS listeners answering with
    synthesized ServerHellos, a stdlib stand-in of the server's worker
    routes handing out one ``jarm`` job, and the port's
    ``JobProcessor.process_jobs()`` on ``cuda``. The job must end
@@ -35,6 +45,7 @@ and the script exits non-zero without that line.
 
 from __future__ import annotations
 
+import ctypes
 import http.server
 import json
 import re
@@ -50,12 +61,15 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
+MMA_PROBE = REPO / "swarm_tpu_torch" / "ops" / "csrc" / "mma_rate.cu"
 
-# H100 SXM data-sheet peaks (dense, 700 W) used for each kernel's bound
+# H100 SXM data-sheet memory rate (700 W), for each kernel's bound
 HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
 
 API_KEY = "chip-smoke"
+
+#: the host steps of ``density_cluster`` (``record_function`` spans)
+HOST_SPANS = ("carry_packed", "density_order", "unpermute", "read_back", "label_pass")
 
 
 def emit(obj: dict) -> None:
@@ -295,18 +309,63 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> None:
+def phase_build() -> ctypes.CDLL:
+    """Build everything; → the rate probe's library."""
     from swarm_tpu_torch.native import scanio
     from swarm_tpu_torch.ops import kernels
 
+    probe_path = kernels.BUILD_DIR / "libswarm_mma_rate.so"
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         nvcc = pool.submit(kernels.load_library)
+        probe = pool.submit(kernels.compile_library, (MMA_PROBE,), probe_path)
         make = pool.submit(scanio.ensure_lib)
         nvcc.result()
+        probe.result()
         make.result()
-    ptxas = [ln.strip() for ln in kernels.build_log.splitlines() if "Used" in ln]
+    ptxas = kernels.ptxas_report(kernels.build_log)
     emit({"phase": "build", "setup_seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    built = {k["kernel"].split("<")[0] for k in ptxas}
+    for want in ("cluster_counts_kernel", "cluster_parent_kernel"):
+        if want not in built:
+            raise AssertionError(f"build: ptxas reported no {want}")
+    spilled = [k for k in ptxas if k.get("spill_stores") or k.get("spill_loads")]
+    if spilled:
+        raise AssertionError(f"build: ptxas reports spills: {spilled}")
+    lib = ctypes.CDLL(str(probe_path))
+    lib.mma_rate.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_void_p, ctypes.c_void_p]
+    lib.mma_rate.restype = ctypes.c_int
+    return lib
+
+
+def phase_mma(probe: ctypes.CDLL) -> float:
+    """The probe's mma.sync rates, each warp issuing 8 independent
+    products a round on register operands, 8 warps a block, 8 blocks an
+    SM; → the 1-bit .and.popc rate in products/s."""
+    import torch
+
+    blocks = 8 * torch.cuda.get_device_properties(0).multi_processor_count
+    iters = 2048
+    mmas = blocks * 8 * iters * 8
+    out = torch.empty(blocks * 256, dtype=torch.int32, device="cuda")
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def launch(variant: int) -> None:
+        rc = probe.mma_rate(variant, iters, blocks, ctypes.c_void_p(out.data_ptr()), stream)
+        if rc != 0:
+            raise RuntimeError(f"mma_rate: CUDA error {rc} at launch")
+
+    rates = {}
+    for variant, name, k in ((1, "b1_and_popc_m16n8k256", 256),
+                             (2, "b1_xor_popc_m16n8k256", 256), (0, "s8_m16n8k32", 32)):
+        ms = cuda_ms(lambda: launch(variant), 3)
+        rates[name] = {
+            "ms": ms, "mma_per_s": mmas / ms * 1e3,
+            "tops": mmas * 16 * 8 * k * 2 / ms / 1e9,
+        }
+    emit({"phase": "mma", "blocks": blocks, "iters": iters, "rates": rates})
+    return rates["b1_and_popc_m16n8k256"]["mma_per_s"]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -324,13 +383,13 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def phase_kernels(rng: np.random.Generator, big: np.ndarray) -> dict:
+def phase_kernels(rng: np.random.Generator, big: np.ndarray, b1_mma_per_s: float) -> dict:
     import torch
 
     from swarm_tpu_torch.ops import cluster, kernels
 
     sets = []
-    for n in (1, 7, 300, 4097, 65536):
+    for n in (1, 7, 16, 127, 128, 129, 300, 4097, 8193, 65536):
         sets.append((f"random{n}", random_rows(rng, n)))
         sets.append((f"jarm{n}", big if n == 65536 else jarm_like_rows(rng, n)))
     sets.append(("duplicate4097", np.repeat(random_rows(rng, 1), 4097, axis=0)))
@@ -338,20 +397,26 @@ def phase_kernels(rng: np.random.Generator, big: np.ndarray) -> dict:
     cases = 0
     for name, packed in sets:
         x = cluster.carry_packed(packed, "cuda")
-        for radius in (0.0, 32.0, 40.0):
+        for radius in (0.0, 0.5, 32.0, 40.0, 512.0):
             rho = kernels.cluster_counts(x, radius)
             rho_p = cluster.neighbor_counts_plain(x, radius)
-            delta, parent = kernels.cluster_parent(x, rho)
+            delta, parent = cluster.nearest_denser_in_order(x, rho)
             delta_p, parent_p = cluster.nearest_denser_plain(x, rho)
+            # the 64-bit key the wrapper takes above 2^21 rows, here too
+            delta_w, parent_w = cluster.nearest_denser_in_order(
+                x, rho, lambda r, o: kernels.parent_in_order(r, o, key_shift=32))
             torch.cuda.synchronize()
             e_counts = float((rho - rho_p).abs().max())
             e_parent = max(
                 float((delta.double() - delta_p.double()).abs().max()),
                 float((parent - parent_p).abs().max()),
+                float((delta_w.double() - delta_p.double()).abs().max()),
+                float((parent_w - parent_p).abs().max()),
             )
             if e_counts or e_parent or not (
                 torch.equal(rho, rho_p) and torch.equal(delta, delta_p)
                 and torch.equal(parent, parent_p)
+                and torch.equal(delta_w, delta_p) and torch.equal(parent_w, parent_p)
             ):
                 raise AssertionError(
                     f"kernel != plain on {name} radius {radius}: "
@@ -366,13 +431,21 @@ def phase_kernels(rng: np.random.Generator, big: np.ndarray) -> dict:
     radius = 40.0
     x = cluster.carry_packed(big, "cuda")
     rho = kernels.cluster_counts(x, radius)
+    # the parent kernel alone, without the density-order glue (sort,
+    # gather, scatter back), with the 32-bit and the 64-bit key in turns
+    order = torch.argsort(-rho, stable=True)
+    rows, order32 = x.index_select(0, order), order.to(torch.int32)
+    key_ms = {21: [], 32: []}
+    for shift in (21, 32, 32, 21):
+        key_ms[shift].append(cuda_ms(lambda: kernels.parent_in_order(rows, order32, shift), 10))
+    del rows, order32
     times = {
         "cluster_counts": (
             cuda_ms(lambda: kernels.cluster_counts(x, radius), 10),
             cuda_ms(lambda: cluster.neighbor_counts_plain(x, radius), 3),
         ),
         "cluster_parent": (
-            cuda_ms(lambda: kernels.cluster_parent(x, rho), 10),
+            cuda_ms(lambda: cluster.nearest_denser_in_order(x, rho), 10),
             cuda_ms(lambda: cluster.nearest_denser_plain(x, rho), 3),
         ),
     }
@@ -381,25 +454,38 @@ def phase_kernels(rng: np.random.Generator, big: np.ndarray) -> dict:
     del planes
     torch.cuda.empty_cache()
     # least time: the larger of the bytes read and written once at the HBM
-    # rate and the multiply-adds of the 0/1 bit planes at the int8
-    # tensor-core peak (int8 mma with int32 accumulation is exact here).
+    # rate and the 1-bit products at the rate the mma phase measured.
     # Distance is symmetric and, of two rows, exactly one is the denser,
-    # so either function needs each unordered pair once: 2·512·N(N−1)/2.
-    ops = 512.0 * n * (n - 1)
+    # so either function needs each unordered pair once: N(N−1)/2 pairs,
+    # 128 a 16×8 tile, one m16n8k256 .and.popc product per 256 bits
+    # (hamming = pop_i + pop_j − 2·popc(a & b)), two for 512 bits.
+    products = n * (n - 1) / 128
     io_bytes = {
         "cluster_counts": n * 64 + n * 4,
         "cluster_parent": n * 64 + n * 4 + n * 8,
     }
+    design = {
+        "cluster_counts": (
+            "mma.sync b1 m16n8k256 .and.popc (hamming = popc(a&~b) + popc(~a&b)), "
+            "packed rows, cp.async 3-stage, full square, threshold in the accumulator"
+        ),
+        "cluster_parent": (
+            "mma.sync b1 m16n8k256 .and.popc, packed rows in density order, "
+            "cp.async 3-stage, triangle (row tiles t and T-1-t a block), "
+            "(d << 21 | j) min key, (d << 32 | j) above 2^21 rows"
+        ),
+    }
     out = {}
     for name, line in (("cluster_counts", 91), ("cluster_parent", 124)):
         ms, plain_ms = times[name]
-        t_ops = ops / INT8_OPS_PER_S * 1e3
+        t_ops = products / b1_mma_per_s * 1e3
         t_bytes = io_bytes[name] / HBM_BYTES_PER_S * 1e3
         out[name] = {
             "name": name,
             "route": "cuda",
             "source": "swarm_tpu_torch/ops/csrc/cluster.cu",
             "replaces": f"swarm_tpu/ops/cluster.py:{line}",
+            "design": design[name],
             "launches": 0,  # filled from the main path's run
             "match": True,
             "max_abs_err": err[name],
@@ -408,14 +494,19 @@ def phase_kernels(rng: np.random.Generator, big: np.ndarray) -> dict:
             "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_rate": "1-bit mma.sync m16n8k256 .and.popc, measured (mma phase)",
             "library_ms": library_ms,
             "library_call": (
                 "torch.matmul bf16 [N,512]x[512,N] of the bit planes: the "
                 "matrix-unit work of the Pallas kernel, not the whole function"
             ),
         }
+    # the wrapper's time includes the density-order glue
+    out["cluster_parent"]["kernel_only_ms"] = float(np.mean(key_ms[21]))
+    out["cluster_parent"]["kernel_only_64bit_key_ms"] = float(np.mean(key_ms[32]))
     emit({"phase": "kernels", "cases": cases, "exact": True,
           "timing": {k: {"ms": v["ms"], "plain_ms": v["plain_ms"]} for k, v in out.items()},
+          "parent_kernel_only_ms": {"key32": key_ms[21], "key64": key_ms[32]},
           "library_ms": library_ms})
     return out
 
@@ -501,12 +592,29 @@ def phase_trace(big: np.ndarray) -> None:
             kernels_ms[short] = kernels_ms.get(short, 0.0) + float(e["dur"]) / 1e3
     copies_ms = sum(float(e["dur"]) for e in device if e["cat"] != "kernel") / 1e3
     span_ms = (t1 - t0) / 1e3
+    # the host steps inside the call (record_function spans of
+    # ops/cluster.py) and the card's idle time within each
+    host_spans = {}
+    for e in events:
+        if e.get("cat") != "user_annotation" or e.get("name") not in HOST_SPANS:
+            continue
+        s0, s1 = float(e["ts"]), float(e["ts"]) + float(e["dur"])
+        busy = _union_us([(max(s0, a), min(s1, b)) for a, b in spans if min(s1, b) > max(s0, a)])
+        acc = host_spans.setdefault(e["name"], {"ms": 0.0, "card_idle_ms": 0.0})
+        acc["ms"] += (s1 - s0) / 1e3
+        acc["card_idle_ms"] += (s1 - s0 - busy) / 1e3
+    missing = [name for name in HOST_SPANS if name not in host_spans]
+    if missing:
+        raise AssertionError(f"trace: no host span for {missing}")
+    idle_ms = span_ms - busy_us / 1e3
     emit({
         "phase": "trace", "n": big.shape[0], "radius": radius,
         "call_ms": span_ms, "device_events": len(device),
         "kernels_ms": kernels_ms, "copies_ms": copies_ms,
         "device_busy_ms": busy_us / 1e3,
-        "idle_share": (1.0 - busy_us / 1e3 / span_ms) if device else None,
+        "idle_share": (idle_ms / span_ms) if device else None,
+        "host_spans": host_spans,
+        "idle_outside_spans_ms": idle_ms - sum(v["card_idle_ms"] for v in host_spans.values()),
     })
 
 
@@ -564,10 +672,11 @@ def main() -> int:
     smi = phase_device()
     import torch
 
-    phase_build()
+    probe = phase_build()
+    b1_rate = phase_mma(probe)
     rng = np.random.default_rng(0)
     big = jarm_like_rows(rng, 65536)
-    summary = phase_kernels(rng, big)
+    summary = phase_kernels(rng, big, b1_rate)
     phase_scale(big, smi)
     phase_trace(big)
     launches = phase_worker()

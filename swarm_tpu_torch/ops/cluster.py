@@ -15,12 +15,16 @@ and a host label pass give density-peaks clustering (Rodriguez & Laio):
   others join their parent's (:func:`density_cluster`).
 
 On the card the two reductions are the hand-written kernels of
-``csrc/cluster.cu`` (launched through ``ops/kernels.py``). The plain
-PyTorch versions here, :func:`neighbor_counts_plain` and
-:func:`nearest_denser_plain`, compute the same function in row tiles of
-``256 × N`` and serve tensors on the CPU; on the card they are the
-reference the kernels are held to. Every value is an integer or an
-integer-valued f32, so the two agree exactly.
+``csrc/cluster.cu`` (launched through ``ops/kernels.py``). The parent
+search runs on the rows sorted densest first
+(:func:`nearest_denser_in_order`, shared by the kernel's path and the
+CPU's), where "denser" is "earlier" and only a triangle of pairs is
+walked; :func:`parent_in_order_plain` is that kernel's plain tile
+computation. The plain PyTorch versions of the whole functions,
+:func:`neighbor_counts_plain` and :func:`nearest_denser_plain`, compute
+them in row tiles of ``256 × N``; on the card they are the reference the
+kernels are held to. Every value is an integer or an integer-valued f32,
+so all of them agree exactly.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from swarm_tpu_torch.ops import kernels
 from swarm_tpu_torch.utils.device import resolve_device
@@ -101,9 +106,10 @@ def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
     return bits.reshape(packed.shape[0], packed.shape[1] * 32).to(torch.float32)
 
 
-def _distance_tiles(packed: torch.Tensor):
+def _distance_tiles(packed: torch.Tensor, triangle: bool = False):
     """Yield (start, stop, dist) over row tiles: dist = pop_i + pop_j −
-    2·(a_i·a_j) as float32 [tile, N], exact for 0/1 rows of 512 bits."""
+    2·(a_i·a_j) as float32 [tile, N] (``triangle``: [tile, stop], the
+    columns up to the tile's last row), exact for 0/1 rows of 512 bits."""
     bits = unpack_bits(packed)
     pop = bits.sum(dim=1)
     n = bits.shape[0]
@@ -114,7 +120,8 @@ def _distance_tiles(packed: torch.Tensor):
     try:
         for s in range(0, n, _PLAIN_TILE):
             e = min(s + _PLAIN_TILE, n)
-            dist = pop[s:e, None] + pop[None, :] - 2.0 * (bits[s:e] @ bits.T)
+            cols = e if triangle else n
+            dist = pop[s:e, None] + pop[None, :cols] - 2.0 * (bits[s:e] @ bits[:cols].T)
             yield s, e, dist
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -157,6 +164,73 @@ def nearest_denser_plain(
 
 
 # ---------------------------------------------------------------------------
+# The parent search in density order (the kernel's path and the CPU's)
+
+#: the 32-bit parent key (d << 21) | j holds the original index j for up
+#: to this many rows (d <= 512 takes the other 11 bits); above it the key
+#: is (d << 32) | j in 64 bits, in the kernel as here
+KEY32_MAX_ROWS = 1 << 21
+
+
+def parent_key_shift(n: int) -> int:
+    """Bits below the distance in the parent key for ``n`` rows."""
+    return 21 if n <= KEY32_MAX_ROWS else 32
+
+
+def parent_in_order_plain(
+    rows: torch.Tensor, order: torch.Tensor, key_shift: Optional[int] = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the ``cluster_parent`` kernel: ``rows`` in density
+    order, ``order`` their original indices → (delta f32, parent int32)
+    in that order. Row p's candidates are the rows before it; each
+    pair's key is (d << shift) | j with j the original index, and the
+    least key wins: the smallest distance, then the lowest index."""
+    n = rows.shape[0]
+    shift = parent_key_shift(n) if key_shift is None else key_shift
+    none = (1 << (shift + 11)) - 1  # all ones: the 32-bit kernel's ~0u
+    delta = torch.empty(n, dtype=torch.float32, device=rows.device)
+    parent = torch.empty(n, dtype=torch.int32, device=rows.device)
+    j = order.to(torch.int64)
+    pos = torch.arange(n, device=rows.device)
+    for s, e, dist in _distance_tiles(rows, triangle=True):
+        key = (dist.to(torch.int64) << shift) | j[None, :e]
+        best = torch.where(pos[None, :e] < pos[s:e, None], key, none).min(dim=1).values
+        found = best != none
+        delta[s:e] = torch.where(found, (best >> shift).to(torch.float32), NO_PARENT_DELTA)
+        parent[s:e] = torch.where(found, best & ((1 << shift) - 1), -1).to(torch.int32)
+    return delta, parent
+
+
+def nearest_denser_in_order(
+    packed: torch.Tensor, rho: torch.Tensor, in_order=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(delta f32 [N], parent int32 [N]): distance and index of each
+    row's nearest strictly denser row (ties in rho go to the lower
+    index); 3.0e38 and -1 where there is none. Sorts the rows densest
+    first (rho descending, index ascending: then "j is denser than i" is
+    "j comes first"), gathers them, searches them with ``in_order(rows,
+    order)`` (default: the ``cluster_parent`` kernel's wrapper
+    :func:`kernels.parent_in_order`) and scatters the results back to
+    the original rows."""
+    n = packed.shape[0]
+    if rho.dtype != torch.int32 or rho.shape != (n,) or not rho.is_contiguous():
+        raise ValueError("rho must be a contiguous int32 [N]")
+    if rho.device != packed.device:
+        raise ValueError("rho and packed must be on the same device")
+    in_order = kernels.parent_in_order if in_order is None else in_order
+    with record_function("density_order"):
+        order = torch.argsort(-rho, stable=True)
+        rows = packed.index_select(0, order)
+    delta_o, parent_o = in_order(rows, order.to(torch.int32))
+    with record_function("unpermute"):
+        delta = torch.empty_like(delta_o)
+        parent = torch.empty_like(parent_o)
+        delta[order] = delta_o
+        parent[order] = parent_o
+    return delta, parent
+
+
+# ---------------------------------------------------------------------------
 # Public API (numpy in, numpy out, as the JAX package's)
 
 
@@ -178,7 +252,7 @@ def nearest_denser(
     """
     x = carry_packed(packed, device)
     rho_t = torch.tensor(np.asarray(rho, dtype=np.int32), device=x.device)
-    delta, parent = kernels.cluster_parent(x, rho_t)
+    delta, parent = nearest_denser_in_order(x, rho_t)
     return delta.cpu().numpy(), parent.cpu().numpy()
 
 
@@ -191,29 +265,32 @@ def density_cluster(
     clusters; every other row joins its parent's cluster. Two kernel
     launches (O(N²) compute, O(N) memory) + one O(N) host pass.
     """
-    x = carry_packed(packed, device)
+    with record_function("carry_packed"):
+        x = carry_packed(packed, device)
     n = x.shape[0]
     rho_t = kernels.cluster_counts(x, radius)
-    delta_t, parent_t = kernels.cluster_parent(x, rho_t)
-    rho = rho_t.cpu().numpy()
-    delta = delta_t.cpu().numpy()
-    parent = parent_t.cpu().numpy()
-    # Peaks seed clusters numbered in densest-first stable order;
-    # everyone else resolves to its chain's first peak by pointer
-    # jumping — parents are strictly (denser | equal-rho-lower-index),
-    # so chains are acyclic and terminate at a peak in <= log2(n) hops.
-    peaks = (parent < 0) | (delta > radius)
-    order = np.argsort(-rho, kind="stable")  # densest first
-    peak_ids = order[peaks[order]]
-    label_of = np.full(n, -1, dtype=np.int32)
-    label_of[peak_ids] = np.arange(len(peak_ids), dtype=np.int32)
-    anchor = np.where(peaks, np.arange(n), parent)
-    while True:
-        nxt = anchor[anchor]
-        if np.array_equal(nxt, anchor):
-            break
-        anchor = nxt
-    labels = label_of[anchor]
+    delta_t, parent_t = nearest_denser_in_order(x, rho_t)
+    with record_function("read_back"):
+        rho = rho_t.cpu().numpy()
+        delta = delta_t.cpu().numpy()
+        parent = parent_t.cpu().numpy()
+    with record_function("label_pass"):
+        # Peaks seed clusters numbered in densest-first stable order;
+        # everyone else resolves to its chain's first peak by pointer
+        # jumping — parents are strictly (denser | equal-rho-lower-index),
+        # so chains are acyclic and terminate at a peak in <= log2(n) hops.
+        peaks = (parent < 0) | (delta > radius)
+        order = np.argsort(-rho, kind="stable")  # densest first
+        peak_ids = order[peaks[order]]
+        label_of = np.full(n, -1, dtype=np.int32)
+        label_of[peak_ids] = np.arange(len(peak_ids), dtype=np.int32)
+        anchor = np.where(peaks, np.arange(n), parent)
+        while True:
+            nxt = anchor[anchor]
+            if np.array_equal(nxt, anchor):
+                break
+            anchor = nxt
+        labels = label_of[anchor]
     if (labels < 0).any():
         raise RuntimeError("density_cluster: a parent chain did not end at a peak")
     return labels, rho

@@ -83,7 +83,7 @@ def test_kernels_plain_match_oracle(kind, radius):
     x = tc.carry_packed(packed, "cpu")
     before = dict(kernels.LAUNCHES)
     rho_t = kernels.cluster_counts(x, radius)
-    delta_t, parent_t = kernels.cluster_parent(x, rho_t)
+    delta_t, parent_t = tc.nearest_denser_in_order(x, rho_t)
     np.testing.assert_array_equal(rho_t.numpy(), rho)
     np.testing.assert_array_equal(delta_t.numpy(), delta)
     np.testing.assert_array_equal(parent_t.numpy(), parent)
@@ -121,7 +121,11 @@ def test_wrappers_reject_bad_input():
     with pytest.raises(ValueError):
         kernels.cluster_counts(x.t().contiguous().t(), 1.0)
     with pytest.raises(ValueError):
-        kernels.cluster_parent(x, torch.zeros(7, dtype=torch.int32))
+        tc.nearest_denser_in_order(x, torch.zeros(7, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        kernels.parent_in_order(x, torch.zeros(7, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        kernels.parent_in_order(x, torch.zeros(8, dtype=torch.int64))
 
 
 def test_default_device_is_cuda():
@@ -132,15 +136,16 @@ def test_default_device_is_cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", (4097, 129))
 @pytest.mark.parametrize("kind", KINDS)
-def test_kernels_match_plain_on_card(kind):
+def test_kernels_match_plain_on_card(kind, n):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    packed = make_rows(kind, 4097, seed=5)
+    packed = make_rows(kind, n, seed=5)
     x = tc.carry_packed(packed, "cuda")
-    for radius in (0.0, 32.0, 40.0):
+    for radius in (0.0, 0.5, 32.0, 40.0, 512.0):
         rho = kernels.cluster_counts(x, radius)
-        delta, parent = kernels.cluster_parent(x, rho)
+        delta, parent = tc.nearest_denser_in_order(x, rho)
         rho_p = tc.neighbor_counts_plain(x, radius)
         delta_p, parent_p = tc.nearest_denser_plain(x, rho)
         torch.cuda.synchronize()

@@ -1,20 +1,24 @@
 """Build, bind and launch the port's hand-written CUDA kernels.
 
-``csrc/cluster.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface at first use, and bound with ``ctypes``.
-The build goes to ``swarm_tpu_torch/_build/`` and uses only the sources in
-the repository.
+Each source under ``csrc/`` — ``cluster.cu`` (the density-peaks kernels)
+and ``match.cu`` (the template-match kernels) — is compiled with ``nvcc``
+for ``sm_90a`` into a shared library of its own with a plain C interface
+at first use, and bound with ``ctypes``. The builds go to
+``swarm_tpu_torch/_build/`` and use only the sources in the repository;
+the two libraries can build in parallel.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
-anything else, allocates its outputs with ``torch.empty``, launches on
-PyTorch's current stream, raises if the launcher reports a CUDA error,
-and adds one to its launch count. A tensor on the CPU goes to the plain
-PyTorch version in ``ops/cluster.py`` instead; a CUDA tensor always
-launches the kernel or raises.
+anything else, allocates its outputs with ``torch.empty``/``zeros``,
+launches on PyTorch's current stream, raises if the launcher reports a
+CUDA error, and adds one to its launch count. A tensor on the CPU goes
+to the plain PyTorch version (``ops/cluster.py``, ``ops/match.py``,
+``ops/regexdev.py``) instead; a CUDA tensor always launches the kernel
+or raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import re
@@ -23,16 +27,20 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 FP_WORDS = 16
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = (_CSRC / "cluster.cu",)
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-_LIB_PATH = BUILD_DIR / "libswarm_cluster.so"
+#: library name -> (its sources, the shared library they build)
+LIBRARIES = {
+    "cluster": ((_CSRC / "cluster.cu",), BUILD_DIR / "libswarm_cluster.so"),
+    "match": ((_CSRC / "match.cu",), BUILD_DIR / "libswarm_match.so"),
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -40,17 +48,45 @@ NVCC_FLAGS = (
 
 #: launches made by each wrapper, for showing which kernels a run went
 #: through; :func:`reset_launches` zeroes them
-LAUNCHES: dict[str, int] = {"cluster_counts": 0, "cluster_parent": 0}
+LAUNCHES: dict[str, int] = {
+    "cluster_counts": 0, "cluster_parent": 0,
+    "match_phase_a": 0, "match_verify": 0, "match_regex_scan": 0,
+}
 
-_lib: Optional[ctypes.CDLL] = None  # guarded-by: _load_lock
+_libs: dict[str, ctypes.CDLL] = {}  # guarded-by: _load_lock
 _load_lock = threading.Lock()
-#: compiler output of the last build (ptxas register / shared-memory use)
-build_log = ""
+#: compiler output of each library's last build (ptxas register /
+#: shared-memory use), by library name
+build_logs: dict[str, str] = {}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+#: while :func:`record_calls` is active, the (name, args) of each match
+#: wrapper call, in call order
+_recorded: Optional[list] = None
+
+
+@contextlib.contextmanager
+def record_calls():
+    """Collect the arguments of every match-kernel wrapper call made in
+    the block, as ``(name, args)`` in call order, so that the exact
+    calls a path made can be replayed (against a kernel's plain version,
+    or to time it). Recording never launches or counts anything."""
+    global _recorded
+    saved, _recorded = _recorded, []
+    try:
+        yield _recorded
+    finally:
+        _recorded = saved
+
+
+def _record(name: str, args: tuple) -> None:
+    if _recorded is not None:
+        _recorded.append((name, args))
 
 
 def _nvcc() -> str:
@@ -63,11 +99,11 @@ def _nvcc() -> str:
     raise FileNotFoundError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _stale() -> bool:
-    if not _LIB_PATH.exists():
+def _stale(sources: tuple[Path, ...], lib_path: Path) -> bool:
+    if not lib_path.exists():
         return True
-    built = _LIB_PATH.stat().st_mtime
-    return any(src.stat().st_mtime > built for src in _SOURCES)
+    built = lib_path.stat().st_mtime
+    return any(src.stat().st_mtime > built for src in sources)
 
 
 def compile_library(sources: tuple[Path, ...], lib_path: Path) -> str:
@@ -87,14 +123,14 @@ def compile_library(sources: tuple[Path, ...], lib_path: Path) -> str:
     return proc.stdout + proc.stderr
 
 
-def build() -> float:
-    """Compile the kernels if the library is missing or older than its
+def build(name: str) -> float:
+    """Compile library ``name`` if it is missing or older than its
     sources; → seconds spent compiling (0 when up to date)."""
-    global build_log
-    if not _stale():
+    sources, lib_path = LIBRARIES[name]
+    if not _stale(sources, lib_path):
         return 0.0
     t0 = time.perf_counter()
-    build_log = compile_library(_SOURCES, _LIB_PATH)
+    build_logs[name] = compile_library(sources, lib_path)
     return time.perf_counter() - t0
 
 
@@ -124,28 +160,48 @@ def ptxas_report(log: str) -> list[dict]:
 
 
 def _short_name(mangled: str) -> str:
-    """'_ZN12_GLOBAL__N_121cluster_parent_kernelIjEEv...' → 'cluster_parent_kernel<uint32>'."""
-    found = re.search(r"([a-z][a-z_]*_kernel)(?:I([jy])E)?", mangled)
+    """'_ZN12_GLOBAL__N_121cluster_parent_kernelIjEEv...' → 'cluster_parent_kernel<uint32>',
+    '..match_regex_scan_kernelILi3EEv..' → 'match_regex_scan_kernel<3>'."""
+    found = re.search(r"([a-z][a-z_]*_kernel)(?:I([jy])E|ILi(\d+)E)?", mangled)
     if not found:
         return mangled
-    base, key = found.groups()
+    base, key, lanes = found.groups()
+    if lanes:
+        return f"{base}<{lanes}>"
     return f"{base}<{'uint32' if key == 'j' else 'uint64'}>" if key else base
 
 
-def load_library() -> ctypes.CDLL:
-    """Build on first use and bind the launchers."""
-    global _lib
+def _bind(name: str, lib: ctypes.CDLL) -> None:
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_float
+    if name == "cluster":
+        lib.cluster_counts.argtypes = [vp, i32, f32, vp, vp]
+        lib.cluster_parent.argtypes = [vp, vp, i32, i32, vp, vp, vp]
+        fns = (lib.cluster_counts, lib.cluster_parent)
+    else:
+        tables = [i32, i32, vp, vp, vp, vp, vp, vp]  # rows, count, descriptors
+        lib.match_phase_a.argtypes = tables + [vp, i32, i32, vp, vp, vp]
+        lib.match_verify.argtypes = (
+            tables + [vp, i32, i32] + [vp] * 11 + [i32, i32, i32]
+            + [vp, vp, vp, vp, i32, vp]
+        )
+        lib.match_regex_scan.argtypes = (
+            [i32, i32, vp, vp, vp, vp] + [vp] * 14 + [i32, i32, vp, vp]
+        )
+        fns = (lib.match_phase_a, lib.match_verify, lib.match_regex_scan)
+    for fn in fns:
+        fn.restype = ctypes.c_int
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build library ``name`` on first use and bind its launchers."""
     with _load_lock:
-        if _lib is None:
-            build()
-            lib = ctypes.CDLL(str(_LIB_PATH))
-            vp, i32, f32 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_float
-            lib.cluster_counts.argtypes = [vp, i32, f32, vp, vp]
-            lib.cluster_counts.restype = ctypes.c_int
-            lib.cluster_parent.argtypes = [vp, vp, i32, i32, vp, vp, vp]
-            lib.cluster_parent.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+        lib = _libs.get(name)
+        if lib is None:
+            build(name)
+            lib = ctypes.CDLL(str(LIBRARIES[name][1]))
+            _bind(name, lib)
+            _libs[name] = lib
+        return lib
 
 
 def _check_packed(packed: torch.Tensor) -> None:
@@ -177,7 +233,7 @@ def cluster_counts(packed: torch.Tensor, radius: float) -> torch.Tensor:
         return neighbor_counts_plain(packed, radius)
     if packed.data_ptr() % 16:
         raise ValueError("packed must be 16-byte aligned")
-    lib = load_library()
+    lib = load_library("cluster")
     n = packed.shape[0]
     rho = torch.empty(n, dtype=torch.int32, device=packed.device)
     if n == 0:
@@ -217,7 +273,7 @@ def parent_in_order(
         return parent_in_order_plain(rows, order, shift)
     if rows.data_ptr() % 16 or order.data_ptr() % 16:
         raise ValueError("rows and order must be 16-byte aligned")
-    lib = load_library()
+    lib = load_library("cluster")
     delta = torch.empty(n, dtype=torch.float32, device=rows.device)
     parent = torch.empty(n, dtype=torch.int32, device=rows.device)
     if n == 0:
@@ -232,3 +288,206 @@ def parent_in_order(
     _raise_on(rc, "cluster_parent")
     LAUNCHES["cluster_parent"] += 1
     return delta, parent
+
+
+# ---------------------------------------------------------------------------
+# Template-match kernels (csrc/match.cu)
+
+MATCH_MAX_TABLES = 64  # kMaxTables in csrc/match.cu
+MATCH_MAX_VARIANTS = 16  # kMaxVariants
+
+
+class StreamView(NamedTuple):
+    """One stream a match kernel reads: uint8 [B, W] bytes, int32 [B]
+    lengths, read ASCII-lowercased when ``lowered``."""
+
+    data: torch.Tensor
+    lengths: torch.Tensor
+    lowered: bool
+
+
+def _need(t: torch.Tensor, dtype: torch.dtype, name: str, device: torch.device) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _host(a: np.ndarray) -> ctypes.c_void_p:
+    return ctypes.c_void_p(a.ctypes.data)
+
+
+def _views(views: list, device: torch.device, limit: int) -> tuple:
+    """Check the stream views → host descriptor arrays (data pointers,
+    length pointers, widths, lowered flags); the caller keeps them alive
+    across the launch."""
+    if not 1 <= len(views) <= limit:
+        raise ValueError(f"{len(views)} streams, the kernels take 1..{limit}")
+    rows = views[0].data.shape[0]
+    for i, v in enumerate(views):
+        _need(v.data, torch.uint8, f"stream {i}", device)
+        _need(v.lengths, torch.int32, f"lengths {i}", device)
+        if v.data.dim() != 2 or v.data.shape[0] != rows or v.lengths.shape != (rows,):
+            raise ValueError(f"stream {i}: shapes {tuple(v.data.shape)} / {tuple(v.lengths.shape)}")
+    return (
+        np.array([v.data.data_ptr() for v in views], dtype=np.int64),
+        np.array([v.lengths.data_ptr() for v in views], dtype=np.int64),
+        np.array([v.data.shape[1] for v in views], dtype=np.int32),
+        np.array([int(v.lowered) for v in views], dtype=np.int32),
+    )
+
+
+def _tables(views: list, qs, col_starts, device: torch.device) -> tuple:
+    desc = _views(views, device, MATCH_MAX_TABLES)
+    qs = np.ascontiguousarray(qs, dtype=np.int32)
+    col_starts = np.ascontiguousarray(col_starts, dtype=np.int32)
+    if qs.shape != (len(views),) or col_starts.shape != (len(views) + 1,):
+        raise ValueError("one q per table and T + 1 column starts")
+    if qs.min() < 1 or qs.max() > 8:
+        raise ValueError("gram sizes must lie in 1..8")
+    return (*desc, qs, col_starts)
+
+
+def match_phase_a(
+    views: list, qs, col_starts, bloom: torch.Tensor, budget: int, kclamp: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Phase A of the match: each table's bloom probe over every window
+    of its stream, and the first ``kclamp`` fired (table, window)
+    columns of each row in ascending order → (col int32 [B, budget],
+    -1 past them; n_surv int32 [B], the row's count of fired windows).
+    ``bloom`` is the stacked int32 [T, BLOOM_WORDS] bitmap."""
+    _record("match_phase_a", (views, qs, col_starts, bloom, budget, kclamp))
+    device = views[0].data.device
+    if device.type == "cpu":
+        from swarm_tpu_torch.ops.match import phase_a_plain
+
+        return phase_a_plain(views, qs, col_starts, bloom, budget, kclamp)
+    desc = _tables(views, qs, col_starts, device)
+    _need(bloom, torch.int32, "bloom", device)
+    if bloom.dim() != 2 or bloom.shape[0] < len(views):
+        raise ValueError(f"bloom must be [T, words], got {tuple(bloom.shape)}")
+    if not 1 <= kclamp <= budget:
+        raise ValueError(f"need 1 <= kclamp ({kclamp}) <= budget ({budget})")
+    rows = views[0].data.shape[0]
+    col = torch.empty((rows, budget), dtype=torch.int32, device=device)
+    n_surv = torch.empty((rows,), dtype=torch.int32, device=device)
+    if rows == 0:
+        return col, n_surv
+    lib = load_library("match")
+    with torch.cuda.device(device):
+        rc = lib.match_phase_a(
+            rows, len(views), *map(_host, desc), _ptr(bloom), budget, kclamp,
+            _ptr(col), _ptr(n_surv), _stream(bloom),
+        )
+    _raise_on(rc, "match_phase_a")
+    LAUNCHES["match_phase_a"] += 1
+    return col, n_surv
+
+
+#: the stacked table arrays match_verify reads, in launcher order
+VERIFY_TABLE_KEYS = (
+    "group_h1", "entry_start", "entry_count", "n_groups", "entry_h2",
+    "entry_slot", "entry_off", "entry_len", "entry_suf_delta",
+    "entry_suf_h1", "entry_suf_h2",
+)
+
+
+def match_verify(
+    views: list, qs, col_starts, col: torch.Tensor, kc: int, tab: dict,
+    max_group: int, slot_bytes: torch.Tensor, slot_len: torch.Tensor,
+    plane_width: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Phase B's gather-verify of the candidates ``col[:, :kc]`` →
+    (value bool [B, plane_width], uncertain bool [B, plane_width]) slot
+    planes. ``tab`` holds the stacked tables (int32 tensors, the uint32
+    ones as their bits)."""
+    _record("match_verify", (views, qs, col_starts, col, kc, tab, max_group,
+                             slot_bytes, slot_len, plane_width))
+    device = col.device
+    if device.type == "cpu":
+        from swarm_tpu_torch.ops.match import verify_plain
+
+        return verify_plain(views, qs, col_starts, col, kc, tab, max_group,
+                            slot_bytes, slot_len, plane_width)
+    desc = _tables(views, qs, col_starts, device)
+    _need(col, torch.int32, "col", device)
+    rows = views[0].data.shape[0]
+    if col.dim() != 2 or col.shape[0] != rows or not 0 <= kc <= col.shape[1]:
+        raise ValueError(f"col {tuple(col.shape)} cannot give {kc} columns")
+    for key in VERIFY_TABLE_KEYS:
+        _need(tab[key], torch.int32, key, device)
+    gmax, emax = tab["group_h1"].shape[1], tab["entry_h2"].shape[1]
+    _need(slot_bytes, torch.uint8, "slot_bytes", device)
+    _need(slot_len, torch.int32, "slot_len", device)
+    value = torch.zeros((rows, plane_width), dtype=torch.bool, device=device)
+    unc = torch.zeros((rows, plane_width), dtype=torch.bool, device=device)
+    if rows == 0 or kc == 0:
+        return value, unc
+    lib = load_library("match")
+    with torch.cuda.device(device):
+        rc = lib.match_verify(
+            rows, len(views), *map(_host, desc), _ptr(col), col.shape[1], kc,
+            *(_ptr(tab[key]) for key in VERIFY_TABLE_KEYS), gmax, emax,
+            max_group, _ptr(slot_bytes), _ptr(slot_len), _ptr(value), _ptr(unc),
+            plane_width, _stream(col),
+        )
+    _raise_on(rc, "match_verify")
+    LAUNCHES["match_verify"] += 1
+    return value, unc
+
+
+#: the regex arrays match_regex_scan reads, in launcher order, and dtypes
+REGEX_KEYS = (
+    ("var_of_seq", torch.int32), ("bytemap", torch.int32), ("seed", torch.int32),
+    ("skip", torch.int32), ("accept", torch.int32), ("self", torch.int32),
+    ("anchored", torch.bool), ("end_mode", torch.int32),
+    ("start_wb", torch.bool), ("end_wb", torch.bool),
+)
+
+
+def match_regex_scan(
+    variants: list, pair_b: torch.Tensor, pair_s: torch.Tensor,
+    valid: torch.Tensor, rx: dict, word_tab: torch.Tensor, r_closure: int,
+) -> torch.Tensor:
+    """The shift-and scan of K compacted (row, sequence) pairs over
+    their stream variants → matched bool [K] (False where not
+    ``valid``). ``rx`` holds the device regex arrays (bytemap [NSEQ,
+    256, L] and the [NSEQ, L] lane masks as int32 bits)."""
+    _record("match_regex_scan", (variants, pair_b, pair_s, valid, rx, word_tab, r_closure))
+    device = pair_b.device
+    if device.type == "cpu":
+        from swarm_tpu_torch.ops.regexdev import regex_scan_plain
+
+        return regex_scan_plain(variants, pair_b, pair_s, valid, rx, word_tab, r_closure)
+    desc = _views(variants, device, MATCH_MAX_VARIANTS)
+    k = pair_b.shape[0]
+    _need(pair_b, torch.int64, "pair_b", device)
+    _need(pair_s, torch.int64, "pair_s", device)
+    _need(valid, torch.bool, "valid", device)
+    if pair_s.shape != (k,) or valid.shape != (k,):
+        raise ValueError("pair_b, pair_s and valid must be [K]")
+    for key, dtype in REGEX_KEYS:
+        _need(rx[key], dtype, key, device)
+    _need(word_tab, torch.bool, "word_tab", device)
+    lanes = rx["bytemap"].shape[2]
+    if not 1 <= lanes <= 3 or word_tab.shape != (256,):
+        raise ValueError(f"{lanes} state lanes (1..3) / word table {tuple(word_tab.shape)}")
+    matched = torch.empty((k,), dtype=torch.bool, device=device)
+    if k == 0:
+        return matched
+    lib = load_library("match")
+    with torch.cuda.device(device):
+        rc = lib.match_regex_scan(
+            k, len(variants), *map(_host, desc), _ptr(pair_b), _ptr(pair_s),
+            _ptr(valid), *(_ptr(rx[key]) for key, _ in REGEX_KEYS),
+            _ptr(word_tab), lanes, int(r_closure), _ptr(matched), _stream(pair_b),
+        )
+    _raise_on(rc, "match_regex_scan")
+    LAUNCHES["match_regex_scan"] += 1
+    return matched

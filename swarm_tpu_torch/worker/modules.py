@@ -1,20 +1,31 @@
 """Module registry: ``modules/<name>.json`` files, read as the JAX
 package's ``swarm_tpu/worker/modules.py`` reads them.
 
-A module file names its ``backend`` and the backend's settings, e.g. the
-jarm module::
+A module file names its ``backend`` and the backend's settings, e.g.::
 
     {"backend": "jarm", "input_format": "targets", "cluster_radius": 32.0,
      "probe": {"type": "tls", "ports": [443], "concurrency": 256, ...}}
+    {"backend": "tpu", "templates": "${SWARM_TEMPLATES_DIR}",
+     "input_format": "jsonl"}
 
-The port runs the ``jarm`` backend; the worker fails a job of any other
-backend with "backend not ported".
+The port runs the ``jarm`` backend and the ``tpu`` backend's ``jsonl``
+input with JSONL output (the template-fingerprint match). The worker
+fails a job of any other backend or form with a message that names
+what is not ported.
+
+``jsonl`` rows: each input line is a JSON response row ``{host, port,
+status, body?, header?, banner?}`` (``*_b64`` variants base64).
 """
 
 from __future__ import annotations
 
+import base64
 import json
+import os
 from pathlib import Path
+from typing import Optional
+
+from swarm_tpu_torch.fingerprints.model import Response
 
 
 class ModuleSpec:
@@ -22,7 +33,30 @@ class ModuleSpec:
         self.name = name
         self.raw = raw
         self.backend = raw.get("backend", "command")
+        self._templates_raw: Optional[str] = raw.get("templates")
+        self.input_format: str = raw.get("input_format", "jsonl")
+        self.output_format: str = raw.get("output_format", "matches_jsonl")
         self.probe: dict = raw.get("probe", {})
+
+    @property
+    def templates_dir(self) -> Optional[str]:
+        """Resolved template-corpus path (``$VAR`` references expanded),
+        verified to exist: a corpus that cannot be found fails the job
+        loudly rather than matching nothing."""
+        if self._templates_raw is None:
+            return None
+        d = os.path.expandvars(self._templates_raw)
+        if "$" in d:
+            raise ValueError(
+                f"module {self.name}: templates path {self._templates_raw!r} "
+                "references an unset environment variable (set "
+                "SWARM_TEMPLATES_DIR)"
+            )
+        if not os.path.isdir(d):
+            raise ValueError(
+                f"module {self.name}: templates directory {d!r} does not exist"
+            )
+        return d
 
 
 class ModuleRegistry:
@@ -34,3 +68,53 @@ class ModuleRegistry:
         path = self.modules_dir / f"{safe}.json"
         with path.open() as f:
             return ModuleSpec(safe, json.load(f))
+
+
+# ---------------------------------------------------------------------------
+# Response rows of the jsonl input format (the JAX worker's own code)
+
+
+def _bytes_field(obj: dict, name: str) -> bytes:
+    if f"{name}_b64" in obj:
+        return base64.b64decode(obj[f"{name}_b64"])
+    value = obj.get(name)
+    if value is None:
+        return b""
+    if isinstance(value, bytes):
+        return value
+    return str(value).encode("utf-8", "surrogateescape")
+
+
+def parse_response_line(line: str) -> Optional[Response]:
+    line = line.strip()
+    if not line:
+        return None
+    try:
+        obj = json.loads(line)
+    except ValueError:
+        # bare target line — pass through as an empty response so the
+        # row count is stable; real probing is the front-end's job
+        host, _, port = line.partition(":")
+        return Response(host=host, port=int(port) if port.isdigit() else 0)
+    banner = _bytes_field(obj, "banner") if ("banner" in obj or "banner_b64" in obj) else None
+    return Response(
+        host=str(obj.get("host", "")),
+        port=int(obj.get("port", 0) or 0),
+        status=int(obj.get("status", 0) or 0),
+        body=_bytes_field(obj, "body"),
+        header=_bytes_field(obj, "header"),
+        banner=banner,
+        alive=bool(obj.get("alive", True)),
+    )
+
+
+def format_match_line(row: Response, matches) -> str:
+    out = {
+        "host": row.host,
+        "port": row.port,
+        "matches": matches.template_ids,
+        "extractions": matches.extractions,
+    }
+    if not row.alive:
+        out["unreachable"] = True
+    return json.dumps(out, sort_keys=True)

@@ -1,14 +1,23 @@
-"""Worker poll loop of the port — the jarm path of ``swarm_tpu/worker/runtime.py``.
+"""Worker poll loop of the port — the jarm and template-match paths of
+``swarm_tpu/worker/runtime.py``.
 
 Same observable protocol as the JAX worker: poll ``/get-job``, walk the job
 through ``starting → downloading → executing → uploading → complete`` (or
 ``cmd failed`` / ``upload failed - unknown``) via ``/update-job``, with 0.8 s
 between jobs and 10 s when idle, and stop after ``max_jobs`` attempts when
-that is set. The ``jarm`` backend probes each target with the ten JARM
-ClientHellos and clusters the fingerprints with the density-peaks kernels
-on ``device`` (the card unless the CPU is asked for); its output is
-byte-identical to the JAX worker's. A job of any other backend ends
-``cmd failed`` ("backend not ported").
+that is set. Two backends run on ``device`` (the card unless the CPU is
+asked for), their output byte-identical to the JAX worker's:
+
+- ``jarm`` probes each target with the ten JARM ClientHellos and clusters
+  the fingerprints with the density-peaks kernels;
+- ``tpu`` (the ``fingerprint`` module) matches JSONL response rows against
+  the module's template corpus with the port's ``MatchEngine``, one engine
+  per templates directory, and writes one JSONL hit line per row.
+
+A job of any other backend ends ``cmd failed`` ("backend not ported"), and
+so does a ``tpu`` job in a form the port does not run yet (``targets``
+input, ``nuclei`` output, a corpus with workflow templates, the pipelined
+scheduler), with a message that names it.
 
 Not ported yet (ROADMAP.md): lease heartbeats, the output spool, graceful
 drain, the retrying transport, tracing and telemetry.
@@ -28,7 +37,14 @@ from swarm_tpu_torch.datamodel import SCAN_ID_RE, JobStatus
 from swarm_tpu_torch.ops import cluster as cl
 from swarm_tpu_torch.utils.device import resolve_device
 from swarm_tpu_torch.worker.executor import ProbeExecutor
-from swarm_tpu_torch.worker.modules import ModuleRegistry, ModuleSpec
+from swarm_tpu_torch.fingerprints.nuclei import load_corpus
+from swarm_tpu_torch.ops.engine import MatchEngine
+from swarm_tpu_torch.worker.modules import (
+    ModuleRegistry,
+    ModuleSpec,
+    format_match_line,
+    parse_response_line,
+)
 
 
 @dataclasses.dataclass
@@ -40,6 +56,7 @@ class WorkerConfig:
     max_jobs: int = 0  # 0 = unlimited
     poll_interval_idle_s: float = 10.0
     poll_interval_busy_s: float = 0.8
+    pipeline: str = "off"  # the JAX worker's continuous-batching flag
 
     #: environment names read by :meth:`from_env`, as the JAX worker's
     #: config reads them (``SWARM_<FIELD>``, then the reference aliases)
@@ -49,6 +66,7 @@ class WorkerConfig:
         "worker_id": ("SWARM_WORKER_ID", "WORKER_ID"),
         "modules_dir": ("SWARM_MODULES_DIR",),
         "max_jobs": ("SWARM_MAX_JOBS",),
+        "pipeline": ("SWARM_PIPELINE",),
     }
 
     @classmethod
@@ -116,6 +134,8 @@ class JobProcessor:
         self.client = client or ServerClient(cfg.server_url, cfg.api_key)
         self.registry = registry or ModuleRegistry(cfg.modules_dir)
         self.jobs_done = 0
+        #: MatchEngine per templates directory
+        self.engines: dict = {}
 
     def process_jobs(self) -> None:
         """The poll loop; returns after ``cfg.max_jobs`` attempts when set."""
@@ -173,13 +193,18 @@ class JobProcessor:
             print(f"module load failed: {e}")
             update(JobStatus.CMD_FAILED)
             return
-        if module.backend != "jarm":
+        execute = {"jarm": self._execute_jarm, "tpu": self._execute_tpu}.get(module.backend)
+        if execute is None:
             print(f"module {module.name}: backend {module.backend!r} not ported")
             update(JobStatus.CMD_FAILED, message="backend not ported")
             return
         t0 = time.perf_counter()
         try:
-            output = self._execute_jarm(module, data)
+            output = execute(module, data)
+        except NotPorted as e:
+            print(f"module {module.name}: {e}")
+            update(JobStatus.CMD_FAILED, message=str(e))
+            return
         except Exception as e:  # one bad chunk must not stop the worker
             print(f"execution failed: {type(e).__name__}: {e}")
             update(JobStatus.CMD_FAILED)
@@ -235,11 +260,47 @@ class JobProcessor:
                 lines.append(fp.line())
         return ("\n".join(lines) + "\n").encode() if lines else b""
 
+    def engine_for(self, templates_dir: str) -> MatchEngine:
+        """The MatchEngine of a corpus, compiled at first use."""
+        engine = self.engines.get(templates_dir)
+        if engine is None:
+            templates, _errors = load_corpus(templates_dir)
+            engine = MatchEngine(templates, device=self.device)
+            self.engines[templates_dir] = engine
+        return engine
+
+    def _execute_tpu(self, module: ModuleSpec, data: bytes) -> bytes:
+        """Template match of JSONL response rows: rows → MatchEngine →
+        one JSONL hit line per row."""
+        if module.input_format != "jsonl":
+            raise NotPorted(f"tpu input_format {module.input_format!r} not ported")
+        if module.output_format == "nuclei":
+            raise NotPorted("tpu output_format 'nuclei' not ported")
+        if str(self.cfg.pipeline).lower() in ("on", "1", "true"):
+            raise NotPorted("pipeline 'on' (the batch scheduler) not ported")
+        if not module.templates_dir:
+            raise ValueError(f"tpu module {module.name} missing 'templates'")
+        engine = self.engine_for(module.templates_dir)
+        if any(t.protocol == "workflow" for t in engine.templates):
+            raise NotPorted("workflow templates not ported")
+        rows = []
+        for line in data.decode("utf-8", "surrogateescape").splitlines():
+            row = parse_response_line(line)
+            if row is not None:
+                rows.append(row)
+        results = engine.match(rows)
+        lines = [format_match_line(row, m) for row, m in zip(rows, results)]
+        return ("\n".join(lines) + "\n").encode() if lines else b""
+
+
+class NotPorted(Exception):
+    """A job asks for a form of its backend the port does not run yet."""
+
 
 def main(argv: Optional[list[str]] = None) -> None:
     import argparse
 
-    parser = argparse.ArgumentParser(description="swarm_tpu_torch worker (jarm)")
+    parser = argparse.ArgumentParser(description="swarm_tpu_torch worker (jarm, fingerprint)")
     parser.add_argument("--server-url", default=None)
     parser.add_argument("--api-key", default=None)
     parser.add_argument("--worker-id", default=None)
@@ -247,7 +308,7 @@ def main(argv: Optional[list[str]] = None) -> None:
     parser.add_argument("--max-jobs", type=int, default=None)
     parser.add_argument(
         "--device", default=None,
-        help="torch device for the clustering kernels (default: cuda)",
+        help="torch device for the kernels (default: cuda)",
     )
     args = parser.parse_args(argv)
     cfg = WorkerConfig.from_env(

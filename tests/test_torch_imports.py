@@ -10,7 +10,9 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
+import torch
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -31,7 +33,46 @@ def test_module_list_covers_the_slice():
         "swarm_tpu_torch.ops.cluster", "swarm_tpu_torch.ops.kernels",
         "swarm_tpu_torch.tls.jarm", "swarm_tpu_torch.native.scanio",
         "swarm_tpu_torch.worker.runtime", "swarm_tpu_torch.utils.device",
+        # the template-match path
+        "swarm_tpu_torch.fingerprints.model", "swarm_tpu_torch.fingerprints.regexlin",
+        "swarm_tpu_torch.fingerprints.dslc", "swarm_tpu_torch.fingerprints.nuclei",
+        "swarm_tpu_torch.fingerprints.workflows", "swarm_tpu_torch.fingerprints.extractors",
+        "swarm_tpu_torch.fingerprints.compile", "swarm_tpu_torch.ops.hashing",
+        "swarm_tpu_torch.ops.encoding", "swarm_tpu_torch.ops.cpu_ref",
+        "swarm_tpu_torch.ops.md5", "swarm_tpu_torch.ops.regexdev",
+        "swarm_tpu_torch.ops.match", "swarm_tpu_torch.ops.engine",
+        "swarm_tpu_torch.worker.modules",
     } <= names
+
+
+def _entry_points():
+    """Each entry point of the port, built with the given device."""
+    from swarm_tpu_torch.fingerprints.compile import compile_corpus
+    from swarm_tpu_torch.fingerprints.nuclei import load_corpus
+    from swarm_tpu_torch.ops.cluster import density_cluster
+    from swarm_tpu_torch.ops.engine import MatchEngine
+    from swarm_tpu_torch.ops.match import DeviceDB
+    from swarm_tpu_torch.worker.runtime import JobProcessor, WorkerConfig
+
+    templates, _ = load_corpus(REPO / "tests" / "data" / "templates" / "http")
+    return {
+        "MatchEngine": lambda device: MatchEngine(templates, device=device),
+        "DeviceDB": lambda device: DeviceDB(compile_corpus(templates), device=device),
+        "JobProcessor": lambda device: JobProcessor(WorkerConfig(), device=device),
+        "density_cluster": lambda device: density_cluster(
+            np.zeros((2, 16), dtype=np.uint32), 1.0, device=device),
+    }
+
+
+@pytest.mark.parametrize(
+    "name", ["MatchEngine", "DeviceDB", "JobProcessor", "density_cluster"])
+def test_entry_points_run_on_cuda_unless_asked(name):
+    build = _entry_points()[name]
+    build("cpu")  # the CPU when asked for
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build(None)
 
 
 @pytest.mark.parametrize("module", port_modules())

@@ -175,7 +175,7 @@ class RecordingClient:
         return True
 
 
-@pytest.mark.parametrize("module", ["echo", "fingerprint", "missing"])
+@pytest.mark.parametrize("module", ["echo", "missing"])
 def test_unported_backend_fails_job(module):
     job = {"job_id": "s_1_0", "scan_id": "s_1", "chunk_index": 0, "module": module}
     client = RecordingClient(job, b"10.0.0.1\n")

@@ -8,8 +8,10 @@ prints one JSON line per phase:
 
 1. ``device``  — the card (``nvidia-smi`` name and power limit); exits
    non-zero without a CUDA device.
-2. ``build``   — compiles the cluster kernels and the match kernels
-   (``nvcc``, sm_90a, one library a source), the tensor-core rate probe
+2. ``build``   — compiles the cluster kernels, the match kernels, the md5
+   kernel and the verdict kernel (``nvcc``, sm_90a, one library a source:
+   ``cluster.cu``, ``match.cu``, ``md5.cu``, ``verdicts.cu``), the
+   tensor-core rate probe
    (``ops/csrc/mma_rate.cu``, its own library) and the native scan
    library (``make``) from the checkout's sources, all in parallel; the
    seconds are set-up. Prints each kernel's registers and shared memory
@@ -41,29 +43,40 @@ prints one JSON line per phase:
    (3,989 http templates; 6,895 word, 1,779 regex, 766 dsl matchers),
    compiled by the port; its compiled shape beside the reference's.
 9. ``match_kernels`` — each match kernel (``ops/csrc/match.cu``:
-   ``match_phase_a``, ``match_verify``, ``match_regex_scan``) against
-   its plain version on the card, exact, on the very calls
-   ``DeviceDB.match`` makes (``kernels.record_calls``) for: a 2,048-row
-   stress batch (max_body 2,048, max_header 512, as bench.py, no content
-   dedup), one row, empty rows, rows at full width, rows over the
-   candidate budget, a batch over k_pairs; the planes of each against
-   the same batch through the plain versions.
+   ``match_phase_a``, ``match_verify``, ``match_regex_scan``;
+   ``ops/csrc/md5.cu``: ``match_md5``; ``ops/csrc/verdicts.cu``:
+   ``match_verdicts``) against its plain version on the card, exact, on
+   the very calls ``DeviceDB.match`` makes (``kernels.record_calls``)
+   for: a 2,048-row stress batch (max_body 2,048, max_header 512, as
+   bench.py, no content dedup), one row, empty rows, rows at full width,
+   rows over the candidate budget, a batch over k_pairs, and a batch of
+   the ``tests/data/templates`` corpus, whose workflow gates read the
+   verdict kernel's m_value; the planes of each against the same batch
+   through the plain versions. Then ``match_md5`` on the md5 edge
+   lengths (0, 55, 56, 63, 64, 119, 120, W, ...) with bytes past each
+   length that are not zero, against its plain version and hashlib, and
+   ``match_verdicts`` on the stress batch's call without the digest,
+   without the regex overlay, and on random slot planes.
 10. ``match``  — ``MatchEngine`` as the worker builds it: its first
-   batch as in 9, then ``MatchEngine.match`` of 2,048 rows, warm:
-   rows/s, ms by stage, unique rows and confirms per batch; a sample of
-   rows against the oracle.
+   batch as in 9, then ``MatchEngine.match`` of 2,048 rows, warm, called
+   for a 2-second window: rows/s over the window (and, apart, the
+   median call's rate, which leaves a GC pause out), ms by stage and by
+   call, GC collections, unique rows and confirms per batch; a sample
+   of rows against the oracle.
 11. ``match_trace`` — one such call under ``torch.profiler``.
 12. ``fingerprint_worker`` — the main path of the match: the stand-in
    server hands out one ``fingerprint`` job of 2,048 JSONL rows over the
    synthetic corpus, and the port's worker runs it on ``cuda``. It must
    end ``complete`` with one line per row, the first 256 byte-identical
    to the same module on the CPU and a sample to the oracle, and all
-   three match kernels launched. The job's kernel calls are recorded.
+   five match kernels launched. The job's kernel calls are recorded.
 13. ``match_timing`` — each match kernel on the job's recorded calls:
    exact against its plain version, ms per launch beside its plain
-   version's, and its bound from the call's data.
+   version's, and its bound from the call's data (for ``match_md5``,
+   one thread a row, also its latency bound: the longest row's
+   dependent rounds at the card's maximum SM clock).
 
-Then the ``{"kernels": [...]}`` summary (all five kernels), the ``nvidia-smi`` line, and as
+Then the ``{"kernels": [...]}`` summary (all seven kernels), the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises
 and the script exits non-zero without that line.
 """
@@ -72,6 +85,7 @@ from __future__ import annotations
 
 import base64
 import ctypes
+import gc
 import hashlib
 import http.server
 import json
@@ -547,9 +561,13 @@ def phase_build() -> ctypes.CDLL:
     from swarm_tpu_torch.ops import kernels
 
     probe_path = kernels.BUILD_DIR / "libswarm_mma_rate.so"
+    # built anew from the checkout's sources, so that ptxas reports on
+    # every kernel even where an earlier run left the libraries
+    for _sources, lib_path in kernels.LIBRARIES.values():
+        lib_path.unlink(missing_ok=True)
     t0 = time.perf_counter()
     # one nvcc per source, all started together
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(len(kernels.LIBRARIES) + 2) as pool:
         jobs = [pool.submit(kernels.load_library, name) for name in kernels.LIBRARIES]
         jobs.append(pool.submit(kernels.compile_library, (MMA_PROBE,), probe_path))
         jobs.append(pool.submit(scanio.ensure_lib))
@@ -560,7 +578,8 @@ def phase_build() -> ctypes.CDLL:
     emit({"phase": "build", "setup_seconds": time.perf_counter() - t0, "ptxas": ptxas})
     built = {k["kernel"].split("<")[0] for k in ptxas}
     for want in ("cluster_counts_kernel", "cluster_parent_kernel", "match_phase_a_kernel",
-                 "match_verify_kernel", "match_regex_scan_kernel"):
+                 "match_verify_kernel", "match_regex_scan_kernel", "match_md5_kernel",
+                 "match_verdicts_kernel"):
         if want not in built:
             raise AssertionError(f"build: ptxas reported no {want}")
     spilled = [k for k in ptxas if k.get("spill_stores") or k.get("spill_loads")]
@@ -600,6 +619,15 @@ def phase_mma(probe: ctypes.CDLL) -> float:
         }
     emit({"phase": "mma", "blocks": blocks, "iters": iters, "rates": rates})
     return rates["b1_and_popc_m16n8k256"]["mma_per_s"]
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (``nvidia-smi clocks.max.sm``), Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -918,6 +946,9 @@ def phase_worker() -> dict:
 # bench.py's batch (bench.py:119-121): the stress batch's widths, and the
 # rows of the stress batch and of the fingerprint job
 MAX_BODY, MAX_HEADER, JOB_ROWS = 2048, 512, 2048
+# the match phase's window of warm MatchEngine.match calls, in seconds
+# (at least three calls): long enough to take in the GC's pauses
+MATCH_WINDOW_S = 2.0
 # the reference corpus after compilation (BENCH_r05.json, corpus line)
 REFERENCE_COMPILED = {"device_templates": 3750, "word_slots": 14291,
                       "device_regex_matchers": 944, "host_tail": 0}
@@ -925,7 +956,14 @@ REFERENCE_COMPILED = {"device_templates": 3750, "word_slots": 14291,
 # (67 TFLOP/s float32), used as the rate of the kernels' 32-bit integer
 # work: Hopper issues int32 at no more than that, so the bound is a floor
 SCALAR_OPS_PER_S = 67e12
-MATCH_KERNELS = ("match_phase_a", "match_verify", "match_regex_scan")
+MATCH_KERNELS = ("match_phase_a", "match_verify", "match_regex_scan", "match_md5",
+                 "match_verdicts")
+#: md5's dependent chain a round (add, F, add, rotate, add after the
+#: independent x + k + a) and the cycles of one dependent integer
+#: operation, for the one-thread-a-row kernel's latency bound
+MD5_CHAIN_OPS, DEPENDENT_OP_CYCLES = 4, 4
+#: the md5 lengths where the padding changes shape (tests/test_torch_verdicts.py)
+MD5_EDGE_LENGTHS = (0, 1, 55, 56, 63, 64, 119, 120, 127, 128, 183, 184)
 
 
 def port_rows(dicts: list) -> list:
@@ -977,15 +1015,16 @@ def phase_corpus() -> tuple:
 
 def plain_versions() -> dict:
     """Each match kernel's plain PyTorch version, by kernel name."""
-    from swarm_tpu_torch.ops import match, regexdev
+    from swarm_tpu_torch.ops import match, md5, regexdev
 
     return {"match_phase_a": match.phase_a_plain, "match_verify": match.verify_plain,
-            "match_regex_scan": regexdev.regex_scan_plain}
+            "match_regex_scan": regexdev.regex_scan_plain, "match_md5": md5.md5_words,
+            "match_verdicts": match.verdicts_plain}
 
 
 class plain_kernels:
-    """Route the match path's three kernel calls to their plain versions
-    for the comparisons here; the port itself never does this."""
+    """Route the match path's kernel calls to their plain versions for
+    the comparisons here; the port itself never does this."""
 
     def __enter__(self):
         from swarm_tpu_torch.ops import kernels
@@ -1002,9 +1041,14 @@ class plain_kernels:
 
 
 def _diff(a, b) -> float:
-    """Largest absolute difference of two integer or bool tensors."""
+    """Largest absolute difference of two integer or bool tensors (two
+    Nones: a plane neither computed)."""
     import torch
 
+    if a is None or b is None:
+        if a is not None or b is not None:
+            raise AssertionError("one version computed a plane the other did not")
+        return 0.0
     if a.shape != b.shape:
         raise AssertionError(f"shapes differ: {tuple(a.shape)} vs {tuple(b.shape)}")
     if a.numel() == 0:
@@ -1057,6 +1101,7 @@ def match_case(dev_db, batch) -> dict:
     _same_planes(planes, planes_p)
     rx = [args for name, args in calls if name == "match_regex_scan"]
     return {
+        "workflow_planes": planes[6] is not None,
         "rows": int(len(batch.status)), "budget": lc["budget"],
         "survivor_max": lc.get("survivor_max"), "verify_k": lc.get("verify_k"),
         "overflow_rows": int(planes[5].sum()),
@@ -1089,6 +1134,32 @@ def kernel_work(name: str, args: tuple) -> tuple:
         live = int((col[:, :kc] >= 0).sum())
         return (live * (4 + 8 + 64 + 4 * 16 + max_group * 40) + 2 * col.shape[0] * pw,
                 live * (40 + max_group * (16 + 64)))
+    if name == "match_md5":
+        # each row's walked blocks read once (within the stream's width),
+        # the lengths read, the digests (four 32-bit words) written; ~9
+        # 32-bit operations a round, 64 rounds a block
+        stream, lens, _max_len = args
+        blocks = md5_blocks(stream, lens)
+        read = (blocks * 64).clamp(max=stream.shape[1])
+        rows = stream.shape[0]
+        return int(read.sum()) + rows * 4 + rows * 16, int(blocks.sum()) * 64 * 9
+    if name == "match_verdicts":
+        # both slot planes, the scalars, digest (four 32-bit words) and
+        # overlay and the corpus layout read once; the output planes
+        # written once: t and op value and unc, m_unc, and m_value only
+        # for a corpus with workflow gates; per row, ~6 operations a
+        # member gathered and ~20 a matcher
+        layout, value, _unc, _ln, _st, digest, rx = args
+        rows, ns = value.shape
+        nbytes = 2 * rows * ns + rows * (4 + 4 * 5)
+        nbytes += 0 if digest is None else rows * 16
+        nbytes += 0 if rx is None else 2 * rows * layout.n_rx
+        nbytes += sum(t.numel() * t.element_size() for t in layout.csr.values())
+        nbytes += rows * (2 * layout.nt + 2 * layout.nop + layout.nm)
+        nbytes += rows * layout.nm if layout.has_gates else 0
+        members = sum(int(layout.csr[k].numel())
+                      for k in ("m_slot_idx", "m_neg_idx", "op_m_idx", "t_op_idx"))
+        return nbytes, rows * (6 * members + 20 * layout.nm)
     # match_regex_scan: each live pair's bytes and one bytemap row per
     # byte; the shift-and's lane operations per byte
     variants, pair_b, pair_s, valid, rx, _wt, r_closure = args
@@ -1100,7 +1171,23 @@ def kernel_work(name: str, args: tuple) -> tuple:
             scan * lanes * (8 + 3 * int(r_closure)) + scan * 12)
 
 
+def md5_blocks(stream, lens):
+    """Blocks the md5 kernel walks for each row: the padded message's
+    floor((len + 72) / 64), at most the stream's width / 64 + 1."""
+    return ((lens.to("cpu").long() + 72) // 64).clamp(0, stream.shape[1] // 64 + 1)
+
+
 def _call_shape(name: str, args: tuple) -> dict:
+    if name == "match_md5":
+        blocks = md5_blocks(args[0], args[1])
+        return {"rows": int(args[0].shape[0]), "width": int(args[0].shape[1]),
+                "blocks": int(blocks.sum()), "max_blocks": int(blocks.max())}
+    if name == "match_verdicts":
+        layout, value = args[0], args[1]
+        return {"rows": int(value.shape[0]), "slots": int(value.shape[1]),
+                "matchers": layout.nm, "ops": layout.nop, "templates": layout.nt,
+                "digest": args[5] is not None, "rx": args[6] is not None,
+                "m_value": layout.has_gates}
     if name == "match_phase_a":
         return {"rows": int(args[0][0].data.shape[0]),
                 "widths": sorted({int(v.data.shape[1]) for v in args[0]})}
@@ -1137,14 +1224,112 @@ def edge_batches(templates, plants) -> dict:
     }
 
 
+def tree_batch():
+    """The ``tests/data/templates`` corpus (its workflow lowers gate
+    planes) compiled by the port, and 256 encoded rows built from its
+    words, statuses, a 16-byte body (its md5 check), a 1,500-byte body
+    (its size dsl) and a widget header (its header regex)."""
+    from swarm_tpu_torch.fingerprints.compile import compile_corpus
+    from swarm_tpu_torch.fingerprints.model import Response
+    from swarm_tpu_torch.fingerprints.nuclei import load_corpus
+    from swarm_tpu_torch.ops.encoding import encode_batch
+
+    templates, _ = load_corpus(REPO / "tests" / "data" / "templates")
+    db = compile_corpus(templates)
+    rng = np.random.default_rng(5)
+    words = sorted({w for tpl in templates for _, m in tpl.all_matchers() for w in m.words})
+    statuses = sorted({s for tpl in templates for _, m in tpl.all_matchers() for s in m.status}
+                      | {200, 404})
+    rows = []
+    for i in range(256):
+        pick = [words[j] for j in rng.choice(len(words), int(rng.integers(0, 4)), replace=False)]
+        body = ("<html>" + " ".join(pick) + "</html>").encode()
+        shape = i % 8
+        if shape == 1:
+            body = bytes(rng.integers(32, 127, 16, dtype=np.uint8))
+        elif shape == 2:
+            body = body.ljust(1500, b"x")
+        header = b"Server: nginx"
+        if shape == 3:
+            header += b"\r\nX-Widget-Version: %d.%d" % (i % 7, i % 5)
+        rows.append(Response(host=f"t{i}", port=80, status=int(rng.choice(statuses)),
+                             body=body, header=header))
+    return db, encode_batch(rows, max_body=4096, max_header=1024, build_all=False,
+                            width_multiple=512)
+
+
+def md5_edge_case() -> dict:
+    """``match_md5`` on 1,024 rows at each of the worker's and the stress
+    batch's body widths: the md5 edge lengths, W - 9, W - 8, W - 1, W and
+    random lengths, every byte past a length not zero. Exact against its
+    plain version on the card and against hashlib."""
+    import torch
+
+    from swarm_tpu_torch.ops import kernels
+    from swarm_tpu_torch.ops.md5 import md5_words
+
+    rng = np.random.default_rng(12)
+    out = {}
+    for width in (MAX_BODY, 4096):
+        lens = [n for n in MD5_EDGE_LENGTHS] + [width - 9, width - 8, width - 1, width]
+        lens = np.array(lens + rng.integers(0, width + 1, 1024 - len(lens)).tolist(),
+                        dtype=np.int32)
+        stream = rng.integers(1, 256, (len(lens), width), dtype=np.uint8)
+        s, n = torch.from_numpy(stream).cuda(), torch.from_numpy(lens).cuda()
+        got = kernels.match_md5(s, n)
+        want = md5_words(s, n)
+        host = np.stack([np.frombuffer(hashlib.md5(stream[i, :k].tobytes()).digest(), "<u4")
+                         for i, k in enumerate(lens)]).astype(np.int64)
+        err = max(_diff(got, want), float(np.abs(got.cpu().numpy() - host).max()))
+        if err:
+            raise AssertionError(f"match_md5 differs at width {width}: {err}")
+        out[f"width_{width}"] = {"rows": len(lens), "edge_lengths": len(MD5_EDGE_LENGTHS) + 4}
+    return out
+
+
+def verdict_variants(args: tuple) -> dict:
+    """``match_verdicts`` against its plain version on one recorded call
+    without its digest (the md5 checks fail closed), without its regex
+    overlay, without both, and on seeded random slot planes."""
+    import torch
+
+    from swarm_tpu_torch.ops import kernels
+    from swarm_tpu_torch.ops.match import verdicts_plain
+
+    layout, value, unc, ln, st, digest, rx = args
+    if digest is None or rx is None:
+        raise AssertionError("the recorded verdict call has no digest or no overlay")
+    gen = torch.Generator(device=value.device).manual_seed(3)
+    rand_v = torch.rand(value.shape, generator=gen, device=value.device) < 0.3
+    rand_u = torch.rand(value.shape, generator=gen, device=value.device) < 0.2
+    variants = {
+        "no_digest": (layout, value, unc, ln, st, None, rx),
+        "no_rx": (layout, value, unc, ln, st, digest, None),
+        "neither": (layout, value, unc, ln, st, None, None),
+        "random_planes": (layout, rand_v, rand_u, ln, st, digest, rx),
+    }
+    out = {}
+    for name, a in variants.items():
+        got, want = kernels.match_verdicts(*a), verdicts_plain(*a)
+        err = max(_diff(x, y) for x, y in zip(got, want))
+        if err:
+            raise AssertionError(f"match_verdicts differs from its plain version ({name})")
+        out[name] = {"t_unc": int(want[1].sum()), "m_unc": int(want[5].sum())}
+    return out
+
+
 def phase_match_kernels(templates, plants, db) -> dict:
     """Each match kernel against its plain version on the card, exact, on
     the calls ``DeviceDB.match`` makes for: a 2,048-row stress batch in
     bench.py's shape (encoded without content dedup, so wider than any
     batch the worker's engine gives), the edge cases, a candidate budget
     small enough that rows overflow it, and k_pairs below the stress
-    batch's fired regex pairs. Exactness only: the kernels are timed on
+    batch's fired regex pairs; a batch of the workflow corpus
+    (:func:`tree_batch`); md5 on its edge lengths (:func:`md5_edge_case`)
+    and the verdict kernel on variants of the stress batch's call
+    (:func:`verdict_variants`). Exactness only: the kernels are timed on
     the main path's own calls (:func:`phase_match_timing`)."""
+    from swarm_tpu_torch.ops import kernels
     from swarm_tpu_torch.ops.encoding import encode_batch
     from swarm_tpu_torch.ops.match import DeviceDB
 
@@ -1153,6 +1338,16 @@ def phase_match_kernels(templates, plants, db) -> dict:
                           max_body=MAX_BODY, max_header=MAX_HEADER, build_all=False,
                           width_multiple=512)
     cases = {"stress_2048_raw": match_case(dev_db, stress)}
+    with kernels.record_calls() as calls:
+        dev_db.match(stress.streams, stress.lengths, stress.status)
+    (verdict_args,) = [a for n, a in calls if n == "match_verdicts"]
+    variants = verdict_variants(verdict_args)
+    del calls, verdict_args
+    md5_edges = md5_edge_case()
+    tree_db, tree = tree_batch()
+    cases["workflow_tree"] = match_case(DeviceDB(tree_db, device="cuda"), tree)
+    if not cases["workflow_tree"]["workflow_planes"]:
+        raise AssertionError("the tree corpus's batch has no workflow planes")
     for name, batch in edge_batches(templates, plants).items():
         cases[name] = match_case(dev_db, batch)
     small = DeviceDB(db, candidate_k=4, device="cuda")
@@ -1176,10 +1371,14 @@ def phase_match_kernels(templates, plants, db) -> dict:
     if cases["k_pairs_overflow"]["rx_pairs"] != half:
         raise AssertionError("the k_pairs case did not fill its pairs")
     for name, case in cases.items():
-        missing = [k for k in MATCH_KERNELS if not case["calls"].get(k)]
+        # the tree corpus's batch: no fired regex pair needs the scan
+        need = MATCH_KERNELS if name != "workflow_tree" else (
+            "match_phase_a", "match_verify", "match_md5", "match_verdicts")
+        missing = [k for k in need if not case["calls"].get(k)]
         if missing:
             raise AssertionError(f"case {name} made no call of {missing}")
-    emit({"phase": "match_kernels", "exact": True, "cases": cases})
+    emit({"phase": "match_kernels", "exact": True, "cases": cases,
+          "verdict_variants": variants, "md5_edges": md5_edges})
     return {k: max(c["err"][k] for c in cases.values()) for k in MATCH_KERNELS}
 
 
@@ -1187,9 +1386,11 @@ def phase_match(templates, plants, db, smi: str) -> tuple:
     """``MatchEngine`` as the worker builds it (its default batch_rows,
     max_body and max_header): its first batch's ``DeviceDB.match`` on the
     card against the plain versions (:func:`match_case`); then
-    ``MatchEngine.match`` of 2,048 rows, warm: rows/s, host seconds by
-    stage, unique rows and confirms per batch; and a 64-row sample
-    against the oracle."""
+    ``MatchEngine.match`` of 2,048 rows, warm, over a window of
+    ``MATCH_WINDOW_S`` seconds: rows/s, host seconds by
+    stage and of the host work outside the stages (dedup, result
+    assembly, the rest), unique rows and confirms per batch; and a
+    64-row sample against the oracle."""
     import torch
 
     from swarm_tpu_torch.ops import cpu_ref
@@ -1204,20 +1405,41 @@ def phase_match(templates, plants, db, smi: str) -> tuple:
     eng.match(rows)  # warm
     torch.cuda.synchronize()
     st0 = dict(eng.stats.__dict__)
-    reps = 3
     stage = {k: 0.0 for k in ("upload_s", "phase_a_s", "scalar_read_s", "phase_b_s", "collect_s")}
+    # calls for MATCH_WINDOW_S seconds, so that the rate takes in the
+    # pauses of Python's cyclic GC as a long-running worker pays them;
+    # each call's wall ms, and the collections in the window by
+    # generation (a full, generation-2 collection walks every object the
+    # corpus holds)
+    per_call = []
+    gc0 = [g["collections"] for g in gc.get_stats()]
     t0 = time.perf_counter()
-    for _ in range(reps):
+    while len(per_call) < 3 or time.perf_counter() - t0 < MATCH_WINDOW_S:
+        tc = time.perf_counter()
         results = eng.match(rows)
+        per_call.append((time.perf_counter() - tc) * 1e3)
         for k in stage:
             stage[k] += eng.device.last_compact.get(k, 0.0)
     seconds = time.perf_counter() - t0
+    reps = len(per_call)
+    gc_runs = [g["collections"] - n for g, n in zip(gc.get_stats(), gc0)]
     st = {k: v - st0[k] for k, v in eng.stats.__dict__.items()}
     batches = st["batches"]
     # last_compact holds each call's last batch: a batch of each call
     ms = {"encode": st["encode_seconds"] / batches * 1e3}
     ms.update({k[:-2]: v / reps * 1e3 for k, v in stage.items()})
     ms["host_resolution"] = st["host_seconds"] / batches * 1e3
+    # MatchEngine.match's host work outside those stages, on one batch:
+    # the content dedup, and the per-row assembly of the results
+    first_rows = rows[: eng.batch_rows]
+    t0 = time.perf_counter()
+    _dedup_rows(first_rows)
+    outside = {"dedup": (time.perf_counter() - t0) * 1e3}
+    packed = eng.match_packed(first_rows)
+    t0 = time.perf_counter()
+    eng.rowmatches_from_packed(packed, len(first_rows))
+    outside["assemble"] = (time.perf_counter() - t0) * 1e3
+    outside["rest"] = seconds / batches * 1e3 - sum(ms.values()) - sum(outside.values())
 
     # a sample against the oracle: every corpus template on 64 rows
     sample = list(range(0, JOB_ROWS, 64))[:48] + [i for i, r in enumerate(results)
@@ -1236,8 +1458,12 @@ def phase_match(templates, plants, db, smi: str) -> tuple:
         "phase": "match", "planes_identical_to_plain": True, "first_batch": first_batch,
         "rows": JOB_ROWS, "batch_rows": eng.batch_rows, "max_body": eng.max_body,
         "max_header": eng.max_header, "reps": reps,
-        "rows_per_s": reps * JOB_ROWS / seconds, "batches_per_call": batches / reps,
+        "rows_per_s": reps * JOB_ROWS / seconds,
+        # the median call's rate: leaves out a GC pause, so not the headline
+        "rows_per_s_median_call": JOB_ROWS / float(np.median(per_call)) * 1e3,
+        "batches_per_call": batches / reps,
         "ms_per_batch": seconds / batches * 1e3, "ms_by_stage": ms,
+        "ms_outside_stages": outside, "ms_per_call": per_call, "gc_collections": gc_runs,
         "unique_rows_per_batch": st["unique_rows"] / batches,
         "confirms_per_batch": st["host_confirm_pairs"] / batches,
         "overflow_rows_per_batch": st["overflow_rows"] / batches,
@@ -1259,7 +1485,7 @@ MATCH_SPANS = (
 def phase_match_trace(eng, rows) -> None:
     """One warm ``MatchEngine.match`` batch under ``torch.profiler``: the
     host time and the card's idle time of each step, the card's busy
-    time, and the kernels it ran (the three match kernels by name, the
+    time, and the kernels it ran (the five match kernels by name, the
     torch ops summed)."""
     import torch
 
@@ -1284,7 +1510,7 @@ def phase_fingerprint_worker(templates, plants, db) -> dict:
     the same dicts is placed in the worker's per-directory engine cache.
     The job must end ``complete``, one line per row, the first 256 lines
     byte-identical to the same module on the CPU, a sample equal to the
-    oracle's, and all three match kernels launched. → (launches, the
+    oracle's, and all five match kernels launched. → (launches, the
     job's recorded kernel calls)."""
     import os
     import tempfile
@@ -1378,6 +1604,7 @@ def phase_match_timing(calls: list, smi: str) -> dict:
 
     max_err = check_calls(calls)
     plain = plain_versions()
+    clock_hz = sm_clock_hz()
     timing = {}
     for name in MATCH_KERNELS:
         per = []
@@ -1387,8 +1614,13 @@ def phase_match_timing(calls: list, smi: str) -> dict:
             nbytes, ops = kernel_work(name, args)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = ops / SCALAR_OPS_PER_S * 1e3
+            shape = _call_shape(name, args)
+            if name == "match_md5":
+                # one thread a row: the longest row's dependent rounds
+                shape["latency_ms"] = (shape["max_blocks"] * 64 * MD5_CHAIN_OPS
+                                       * DEPENDENT_OP_CYCLES / clock_hz * 1e3)
             per.append({
-                **_call_shape(name, args),
+                **shape,
                 "ms": cuda_ms(lambda a=args: getattr(kernels, name)(*a), 10),
                 "plain_ms": cuda_ms(lambda a=args: plain[name](*a), 2),
                 "bytes": nbytes, "operations": ops,
@@ -1404,7 +1636,10 @@ def phase_match_timing(calls: list, smi: str) -> dict:
             "bound_by": "operations" if mean["operations_ms"] >= mean["bytes_ms"] else "bytes",
             "calls": per,
         }
-    emit({"phase": "match_timing", "exact": True, "timing": timing, "card": smi})
+        if name == "match_md5":
+            timing[name]["latency_bound_ms"] = sum(p["latency_ms"] for p in per) / len(per)
+    emit({"phase": "match_timing", "exact": True, "timing": timing, "sm_clock_hz": clock_hz,
+          "card": smi})
     return timing, max_err
 
 
@@ -1434,16 +1669,23 @@ def main() -> int:
         "match_phase_a": "swarm_tpu/ops/match.py:1350",
         "match_verify": "swarm_tpu/ops/match.py:1465",
         "match_regex_scan": "swarm_tpu/ops/regexdev.py:134",
+        "match_md5": "swarm_tpu/ops/md5.py:42",
+        "match_verdicts": "swarm_tpu/ops/match.py:1807",
     }
+    sources = {"match_md5": "swarm_tpu_torch/ops/csrc/md5.cu",
+               "match_verdicts": "swarm_tpu_torch/ops/csrc/verdicts.cu"}
     for name in MATCH_KERNELS:
         t = timing[name]
         summary[name] = {
-            "name": name, "route": "cuda", "source": "swarm_tpu_torch/ops/csrc/match.cu",
+            "name": name, "route": "cuda",
+            "source": sources.get(name, "swarm_tpu_torch/ops/csrc/match.cu"),
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": max(max_err[name], job_err[name]),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "job_rows": JOB_ROWS,
         }
+        if "latency_bound_ms" in t:
+            summary[name]["latency_bound_ms"] = t["latency_bound_ms"]
     print(json.dumps({"kernels": list(summary.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

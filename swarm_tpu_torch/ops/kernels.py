@@ -1,19 +1,21 @@
 """Build, bind and launch the port's hand-written CUDA kernels.
 
-Each source under ``csrc/`` — ``cluster.cu`` (the density-peaks kernels)
-and ``match.cu`` (the template-match kernels) — is compiled with ``nvcc``
-for ``sm_90a`` into a shared library of its own with a plain C interface
-at first use, and bound with ``ctypes``. The builds go to
-``swarm_tpu_torch/_build/`` and use only the sources in the repository;
-the two libraries can build in parallel.
+Each source under ``csrc/`` — ``cluster.cu`` (the density-peaks kernels),
+``match.cu`` (phase A, the gather-verify and the regex scan of the
+template match), ``md5.cu`` (the body's md5) and ``verdicts.cu`` (the
+verdict lowering) — is compiled with ``nvcc`` for ``sm_90a`` into a
+shared library of its own with a plain C interface at first use, and
+bound with ``ctypes``. The builds go to ``swarm_tpu_torch/_build/`` and
+use only the sources in the repository; the libraries can build in
+parallel.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else, allocates its outputs with ``torch.empty``/``zeros``,
 launches on PyTorch's current stream, raises if the launcher reports a
 CUDA error, and adds one to its launch count. A tensor on the CPU goes
 to the plain PyTorch version (``ops/cluster.py``, ``ops/match.py``,
-``ops/regexdev.py``) instead; a CUDA tensor always launches the kernel
-or raises.
+``ops/regexdev.py``, ``ops/md5.py``) instead; a CUDA tensor always
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 LIBRARIES = {
     "cluster": ((_CSRC / "cluster.cu",), BUILD_DIR / "libswarm_cluster.so"),
     "match": ((_CSRC / "match.cu",), BUILD_DIR / "libswarm_match.so"),
+    "md5": ((_CSRC / "md5.cu",), BUILD_DIR / "libswarm_md5.so"),
+    "verdicts": ((_CSRC / "verdicts.cu",), BUILD_DIR / "libswarm_verdicts.so"),
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -51,10 +55,12 @@ NVCC_FLAGS = (
 LAUNCHES: dict[str, int] = {
     "cluster_counts": 0, "cluster_parent": 0,
     "match_phase_a": 0, "match_verify": 0, "match_regex_scan": 0,
+    "match_md5": 0, "match_verdicts": 0,
 }
 
-_libs: dict[str, ctypes.CDLL] = {}  # guarded-by: _load_lock
-_load_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}  # guarded-by: _load_locks[name]
+#: one lock a library, so that the libraries build in parallel
+_load_locks = {name: threading.Lock() for name in LIBRARIES}
 #: compiler output of each library's last build (ptxas register /
 #: shared-memory use), by library name
 build_logs: dict[str, str] = {}
@@ -161,14 +167,19 @@ def ptxas_report(log: str) -> list[dict]:
 
 def _short_name(mangled: str) -> str:
     """'_ZN12_GLOBAL__N_121cluster_parent_kernelIjEEv...' → 'cluster_parent_kernel<uint32>',
-    '..match_regex_scan_kernelILi3EEv..' → 'match_regex_scan_kernel<3>'."""
-    found = re.search(r"([a-z][a-z_]*_kernel)(?:I([jy])E|ILi(\d+)E)?", mangled)
-    if not found:
-        return mangled
-    base, key, lanes = found.groups()
-    if lanes:
-        return f"{base}<{lanes}>"
-    return f"{base}<{'uint32' if key == 'j' else 'uint64'}>" if key else base
+    '..match_regex_scan_kernelILi3EEv..' → 'match_regex_scan_kernel<3>'. The
+    name is the length-prefixed identifier that ends in ``_kernel``."""
+    for found in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", mangled):
+        n = int(found.group(1))
+        base, rest = found.group(2)[:n], found.group(2)[n:]
+        if len(base) != n or not base.endswith("_kernel"):
+            continue
+        args = re.match(r"I([jy])E|ILi(\d+)E", rest)
+        if args is None:
+            return base
+        key, lanes = args.groups()
+        return f"{base}<{lanes}>" if lanes else f"{base}<{'uint32' if key == 'j' else 'uint64'}>"
+    return mangled
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:
@@ -177,6 +188,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.cluster_counts.argtypes = [vp, i32, f32, vp, vp]
         lib.cluster_parent.argtypes = [vp, vp, i32, i32, vp, vp, vp]
         fns = (lib.cluster_counts, lib.cluster_parent)
+    elif name == "md5":
+        lib.match_md5.argtypes = [vp, vp, i32, i32, vp, vp]
+        fns = (lib.match_md5,)
+    elif name == "verdicts":
+        lib.match_verdicts.argtypes = [vp, i32, vp, vp, i32] + [vp] * 11
+        fns = (lib.match_verdicts,)
     else:
         tables = [i32, i32, vp, vp, vp, vp, vp, vp]  # rows, count, descriptors
         lib.match_phase_a.argtypes = tables + [vp, i32, i32, vp, vp, vp]
@@ -194,7 +211,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
 
 def load_library(name: str) -> ctypes.CDLL:
     """Build library ``name`` on first use and bind its launchers."""
-    with _load_lock:
+    with _load_locks[name]:
         lib = _libs.get(name)
         if lib is None:
             build(name)
@@ -491,3 +508,173 @@ def match_regex_scan(
     _raise_on(rc, "match_regex_scan")
     LAUNCHES["match_regex_scan"] += 1
     return matched
+
+
+# ---------------------------------------------------------------------------
+# md5 (csrc/md5.cu) and the verdict lowering (csrc/verdicts.cu)
+
+
+def match_md5(
+    stream: torch.Tensor, lengths: torch.Tensor, max_len: Optional[int] = None
+) -> torch.Tensor:
+    """MD5 of each row's first ``lengths[b]`` bytes of ``stream`` (uint8
+    [B, W], W a multiple of 64) → int64 [B, 4], the four little-endian
+    state words as uint32 values (the JAX ``md5_words``). Bytes at or
+    past a row's length are not read as message bytes. ``max_len`` (a
+    host int, at least every length) bounds the plain version's block
+    loop; the kernel takes each row's block count from its length on
+    the card."""
+    _record("match_md5", (stream, lengths, max_len))
+    device = stream.device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    _need(stream, torch.uint8, "stream", device)
+    _need(lengths, torch.int32, "lengths", device)
+    if stream.dim() != 2 or stream.shape[1] % 64 or lengths.shape != (stream.shape[0],):
+        raise ValueError(
+            f"stream must be [B, W] with W % 64 == 0 and lengths [B], got "
+            f"{tuple(stream.shape)} / {tuple(lengths.shape)}")
+    if device.type == "cpu":
+        from swarm_tpu_torch.ops.md5 import md5_words
+
+        return md5_words(stream, lengths, max_len=max_len)
+    rows, width = stream.shape
+    if stream.data_ptr() % 16:
+        raise ValueError("stream must be 16-byte aligned")
+    digest = torch.empty((rows, 4), dtype=torch.int64, device=device)
+    if rows == 0:
+        return digest
+    lib = load_library("md5")
+    with torch.cuda.device(device):
+        rc = lib.match_md5(_ptr(stream), _ptr(lengths), rows, width, _ptr(digest),
+                           _stream(stream))
+    _raise_on(rc, "match_md5")
+    LAUNCHES["match_md5"] += 1
+    return digest
+
+
+#: the verdict layout's arrays (``ops/match.py`` ``verdict_layout_np``)
+#: in the order of csrc/verdicts.cu's VerdictLayout, with their dtypes
+VERDICT_LAYOUT_KEYS = (
+    ("m_slot_off", torch.int32), ("m_slot_idx", torch.int32),
+    ("m_neg_off", torch.int32), ("m_neg_idx", torch.int32),
+    ("op_m_off", torch.int32), ("op_m_idx", torch.int32),
+    ("t_op_off", torch.int32), ("t_op_idx", torch.int32),
+    ("m_flags", torch.int32), ("op_flags", torch.int32), ("m_rx", torch.int32),
+    ("scalar_src", torch.int32), ("scalar_cmp", torch.float32),
+    ("scalar_mask", torch.int32), ("m_status", torch.int32), ("m_size", torch.int32),
+    ("m_size_src", torch.int32), ("m_md5", torch.int32),
+)
+#: shared memory a block may use on Hopper (csrc/verdicts.cu keeps the
+#: row's matcher and op planes there: 2 * (NM + NOP) bytes)
+MAX_SHARED_BYTES = 232448
+
+
+class VerdictLayoutC(ctypes.Structure):
+    """csrc/verdicts.cu's VerdictLayout: device pointers, then counts."""
+
+    _fields_ = [(key, ctypes.c_void_p) for key, _ in VERDICT_LAYOUT_KEYS] + [
+        (key, ctypes.c_int32) for key in ("nm", "nop", "nt", "n_conj", "n_status", "n_rx")
+    ]
+
+
+def verdict_struct(layout) -> VerdictLayoutC:
+    """The kernel's struct for a ``match.VerdictLayout``, made once per
+    corpus (its tensors stay alive on the layout). Checks the arrays'
+    dtypes, device and shapes."""
+    csr = layout.csr
+    for key, dtype in VERDICT_LAYOUT_KEYS:
+        _need(csr[key], dtype, key, layout.device)
+    nm, nop, nt = layout.nm, layout.nop, layout.nt
+    for key, n in (("m_slot_off", nm + 1), ("m_neg_off", nm + 1), ("op_m_off", nop + 1),
+                   ("t_op_off", nt + 1), ("m_flags", nm), ("op_flags", nop), ("m_rx", nm),
+                   ("m_size_src", nm)):
+        if csr[key].shape != (n,):
+            raise ValueError(f"{key} must be [{n}], got {tuple(csr[key].shape)}")
+    n_conj = csr["scalar_src"].shape[1]
+    n_status = csr["m_status"].shape[1]
+    for key, shape in (("scalar_src", (nm, n_conj)), ("scalar_cmp", (nm, n_conj)),
+                       ("scalar_mask", (nm, n_conj)), ("m_status", (nm, n_status)),
+                       ("m_size", (nm, n_status)), ("m_md5", (nm, 4))):
+        if csr[key].shape != shape:
+            raise ValueError(f"{key} must be {list(shape)}, got {tuple(csr[key].shape)}")
+    return VerdictLayoutC(
+        *(csr[key].data_ptr() for key, _ in VERDICT_LAYOUT_KEYS),
+        nm, nop, nt, n_conj, n_status, layout.n_rx,
+    )
+
+
+def match_verdicts(
+    layout, value_bits: torch.Tensor, uncertain_bits: torch.Tensor, lengths: dict,
+    status: torch.Tensor, md5_digest: Optional[torch.Tensor] = None, rx=None,
+) -> tuple:
+    """The verdict lowering (the JAX ``eval_verdicts``, full) of slot
+    planes ``value_bits`` / ``uncertain_bits`` (bool [B, NS]) with the
+    batch's ``lengths`` (int32 [B] for each of ``encoding.STREAMS``),
+    ``status`` (int32 [B]), the md5 digest (int64 [B, 4]) or None (md5
+    checks fail closed) and the device-regex overlay ``rx`` ((value,
+    unc) bool [B, NRXM]) or None → (t_value, t_unc, op_value, op_unc,
+    m_value, m_unc) bool planes, m_value None unless the corpus has
+    workflow gates (``layout.has_gates``). ``layout`` is the corpus's
+    ``match.VerdictLayout`` on the same device."""
+    from swarm_tpu_torch.ops.encoding import STREAMS
+    from swarm_tpu_torch.ops.match import CHECK_SOURCES
+
+    _record("match_verdicts", (layout, value_bits, uncertain_bits, lengths, status,
+                               md5_digest, rx))
+    device = value_bits.device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    if layout.device != device:
+        raise ValueError(f"the layout is on {layout.device}, the planes on {device}")
+    _need(value_bits, torch.bool, "value_bits", device)
+    _need(uncertain_bits, torch.bool, "uncertain_bits", device)
+    rows = value_bits.shape[0]
+    if value_bits.dim() != 2 or value_bits.shape[1] < 1 or uncertain_bits.shape != value_bits.shape:
+        raise ValueError(f"slot planes {tuple(value_bits.shape)} / {tuple(uncertain_bits.shape)}")
+    _need(status, torch.int32, "status", device)
+    for name in STREAMS:
+        _need(lengths[name], torch.int32, f"lengths[{name!r}]", device)
+    if status.shape != (rows,) or any(lengths[n].shape != (rows,) for n in STREAMS):
+        raise ValueError("status and every stream's lengths must be [B]")
+    if md5_digest is not None:
+        _need(md5_digest, torch.int64, "md5_digest", device)
+        if md5_digest.shape != (rows, 4):
+            raise ValueError(f"md5_digest must be [B, 4], got {tuple(md5_digest.shape)}")
+    if rx is not None:
+        for name, plane in zip(("rx_value", "rx_unc"), rx):
+            _need(plane, torch.bool, name, device)
+            if plane.shape != (rows, layout.n_rx):
+                raise ValueError(f"{name} must be [B, {layout.n_rx}], got {tuple(plane.shape)}")
+    if device.type == "cpu":
+        from swarm_tpu_torch.ops.match import verdicts_plain
+
+        return verdicts_plain(layout, value_bits, uncertain_bits, lengths, status,
+                              md5_digest, rx)
+    smem = 2 * (layout.nm + layout.nop)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"{layout.nm} matchers and {layout.nop} ops need {smem} bytes of shared "
+            f"memory a row, more than the {MAX_SHARED_BYTES} a block may use")
+    planes = tuple(
+        None if n is None else torch.empty((rows, n), dtype=torch.bool, device=device)
+        for n in (layout.nt, layout.nt, layout.nop, layout.nop,
+                  layout.nm if layout.has_gates else None, layout.nm)
+    )
+    if rows == 0:
+        return planes
+    lib = load_library("verdicts")
+    sources = (ctypes.c_void_p * len(CHECK_SOURCES))(
+        *(t.data_ptr() for t in (status if n == "status" else lengths[n] for n in CHECK_SOURCES)))
+    rx_value, rx_unc = rx if rx is not None else (None, None)
+    null = ctypes.c_void_p(None)
+    with torch.cuda.device(device):
+        rc = lib.match_verdicts(
+            ctypes.byref(layout.struct), rows, _ptr(value_bits), _ptr(uncertain_bits),
+            value_bits.shape[1], sources,
+            *(null if t is None else _ptr(t) for t in (md5_digest, rx_value, rx_unc, *planes)),
+            _stream(value_bits),
+        )
+    _raise_on(rc, "match_verdicts")
+    LAUNCHES["match_verdicts"] += 1
+    return planes

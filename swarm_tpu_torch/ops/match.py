@@ -12,10 +12,12 @@ path. Per batch, on the card unless the CPU is asked for:
    (``compile.survivor_bucket``).
 2. **Phase B**: the gather-verify of those candidates (kernel
    ``match_verify``), tiny slots by dense shifted compare, the md5 of
-   the body where the corpus checks digests (``ops/md5.py``), the device
-   regex (``ops/regexdev.py``, kernel ``match_regex_scan``), and the
-   verdict lowering (:func:`eval_verdicts`, torch ops) with its
-   three-valued uncertainty, packed into ONE fused byte buffer.
+   the body where the corpus checks digests (kernel ``match_md5``,
+   ``csrc/md5.cu``), the device regex (``ops/regexdev.py``, kernel
+   ``match_regex_scan``), and the verdict lowering with its three-valued
+   uncertainty (kernel ``match_verdicts``, ``csrc/verdicts.cu``, over the
+   CSR layout of :class:`VerdictLayout`; the workflow gates stay torch
+   ops), packed into ONE fused byte buffer.
 3. **Collect**: one host read of that buffer, sliced back into the
    planes by :func:`split_fused`.
 
@@ -415,7 +417,7 @@ def tiny_slot_bits(
 
 
 # ---------------------------------------------------------------------------
-# Verdict lowering (torch ops)
+# Verdict lowering: plain version (torch ops) and the layout of kernel match_verdicts
 
 
 def _scatter_or(dst: torch.Tensor, rows: torch.Tensor, src: torch.Tensor) -> None:
@@ -425,27 +427,40 @@ def _scatter_or(dst: torch.Tensor, rows: torch.Tensor, src: torch.Tensor) -> Non
     dst |= acc > 0
 
 
+def full_planes(arrays: dict, planes: tuple) -> tuple:
+    """(t_value, t_unc, op_value, op_unc, m_value, m_unc) → the planes
+    the JAX ``eval_verdicts(full=True)`` returns: m_value dropped (it
+    may be None without gates), the four workflow gate planes appended
+    when the corpus has gate tables (``arrays``: :func:`verdict_arrays`)."""
+    t_value, t_unc, op_value, op_unc, m_value, m_unc = planes
+    wf = arrays.get("wf")
+    if wf is not None:
+        gates = _apply_workflow_gates(wf, t_value, t_unc, op_value, op_unc, m_value, m_unc)
+        return (t_value, t_unc, op_value, op_unc, m_unc, *gates)
+    return t_value, t_unc, op_value, op_unc, m_unc
+
+
 def eval_verdicts(
     db: "fpc.CompiledDB",
     value_bits: torch.Tensor,
     uncertain_bits: torch.Tensor,
     lengths: dict,
     status: torch.Tensor,
-    full: bool = False,
     md5_digest: Optional[torch.Tensor] = None,
     rx=None,
     arrays: Optional[dict] = None,
-):
-    """Slot bits + scalars → (t_value, t_uncertain) [B, NT] bool, or
-    with ``full`` (t_value, t_unc, op_value, op_unc, m_unc) and, when
-    the corpus lowered workflow gate tables, the four gate planes.
+) -> tuple:
+    """Slot bits + scalars → (t_value, t_unc, op_value, op_unc, m_value,
+    m_unc) bool planes: the JAX ``eval_verdicts`` op for op, as torch
+    ops (the plain version of kernel ``match_verdicts``), up to its
+    ``full`` tail (:func:`full_planes`).
 
-    The JAX ``eval_verdicts`` op for op: uncertainty is refined with
-    three-valued logic at every reduction (a verdict decided by its
-    certain inputs clears its uncertain bit). The scalar, status, size
-    and md5 checks are computed for the matchers of that kind only:
-    the JAX code computes them for every matcher and reads them only
-    under that kind's mask, so the planes are the same."""
+    Uncertainty is refined with three-valued logic at every reduction
+    (a verdict decided by its certain inputs clears its uncertain bit).
+    The scalar, status, size and md5 checks are computed for the
+    matchers of that kind only: the JAX code computes them for every
+    matcher and reads them only under that kind's mask, so the planes
+    are the same."""
     dev = value_bits.device
     if arrays is None:
         arrays = verdict_arrays(db, dev)
@@ -453,10 +468,9 @@ def eval_verdicts(
     NM = int(db.m_kind.shape[0])
     NS = value_bits.shape[1]
 
-    len_body = lengths["body"].to(torch.float32)
     svars = torch.stack(
-        [status.to(torch.float32), len_body, lengths["header"].to(torch.float32),
-         lengths["all"].to(torch.float32), len_body],
+        [(status if name == "status" else lengths[name]).to(torch.float32)
+         for name in SCALAR_VAR_SOURCES],
         dim=1,
     )  # [B, SCALAR_VARS]
 
@@ -583,13 +597,7 @@ def eval_verdicts(
         gu = op_unc[:, idx]
         t_value[:, rows] = gv.any(-1)
         t_unc[:, rows] = gu.any(-1) & ~(gv & ~gu).any(-1)
-    if full:
-        wf = arrays.get("wf")
-        if wf is not None:
-            gates = _apply_workflow_gates(wf, t_value, t_unc, op_value, op_unc, m_value, m_unc)
-            return (t_value, t_unc, op_value, op_unc, m_unc, *gates)
-        return t_value, t_unc, op_value, op_unc, m_unc
-    return t_value, t_unc
+    return t_value, t_unc, op_value, op_unc, m_value, m_unc
 
 
 def _apply_workflow_gates(wf: dict, t_value, t_unc, op_value, op_unc, m_value, m_unc):
@@ -647,6 +655,130 @@ def verdict_arrays(db: "fpc.CompiledDB", device: torch.device) -> dict:
     return arrays
 
 
+#: the values a scalar or size check reads, by source index: each
+#: stream's length in ``encoding.STREAMS`` order, then the status (the
+#: order of kernel ``match_verdicts``'s ``sources``; its kStatusSource
+#: is the last)
+CHECK_SOURCES = STREAMS + ("status",)
+#: the scalar programs' variables (``compile.SV_*``, by id) by source
+SCALAR_VAR_SOURCES = ("status", "body", "header", "all", "body")
+assert len(SCALAR_VAR_SOURCES) == fpc.SCALAR_VARS
+
+#: the matcher flag bits of the verdict layout, bit i = 1 << i, by the
+#: ``verdict_arrays_np`` entry each copies (csrc/verdicts.cu kM*)
+M_FLAG_BITS = ("m_cond_and", "m_negative", "m_residue", "m_md5_check", "is_words",
+               "is_rx_prefilter", "is_scalar", "is_status", "is_size")
+#: the operation flag bits (csrc/verdicts.cu kOp*)
+OP_FLAG_BITS = ("op_cond_and", "op_prefilter")
+
+
+def _csr(buckets, owners: int) -> tuple:
+    """IndexBucket (rows, idx) pairs → CSR (off int32 [owners + 1],
+    members int32): owner o's members are members[off[o]:off[o + 1]],
+    its bucket row as it is (padding included); empty for an owner in
+    no bucket. An owner in two buckets, or out of range, is refused:
+    the bucket lists give each owner one row."""
+    rows = [np.asarray(r, dtype=np.int64) for r, _ in buckets]
+    flat = np.concatenate(rows) if rows else np.zeros(0, dtype=np.int64)
+    if flat.size and (flat.min() < 0 or flat.max() >= owners):
+        raise ValueError(f"bucket owner out of [0, {owners})")
+    if np.bincount(flat, minlength=owners).max(initial=0) > 1:
+        raise ValueError("an owner has rows in two buckets")
+    count = np.zeros(owners, dtype=np.int64)
+    for r, (_rows, idx) in zip(rows, buckets):
+        count[r] = idx.shape[1]
+    off = np.zeros(owners + 1, dtype=np.int64)
+    np.cumsum(count, out=off[1:])
+    members = np.zeros(int(off[-1]), dtype=np.int32)
+    for r, (_rows, idx) in zip(rows, buckets):
+        members[off[r][:, None] + np.arange(idx.shape[1])] = idx
+    return off.astype(np.int32), members
+
+
+def verdict_layout_np(db: "fpc.CompiledDB") -> dict:
+    """The corpus half of kernel ``match_verdicts``, from the same
+    ``verdict_arrays_np`` its plain version reads: each bucket list as
+    CSR (``m_slot``, ``m_neg``, ``op_m``, ``t_op`` ``_off`` / ``_idx``),
+    the matcher and op flags as bits, the scalar programs' one-hot check
+    selection as a 7-bit mask per (matcher, conjunct), each conjunct's
+    variable and each size matcher's stream resolved (clamped as the
+    plain version clamps them) to an index of :data:`CHECK_SOURCES`
+    (``scalar_src``, ``m_size_src``), and ``m_rx``, each matcher's
+    column of the device-regex overlay or -1."""
+    va = fpc.verdict_arrays_np(db)
+    nm = int(db.m_kind.shape[0])
+    nop = int(db.op_cond_and.shape[0])
+    nt = max(db.num_templates, 1)
+    out = {}
+    for key, buckets, owners in (
+        ("m_slot", va["m_slot_buckets"], nm), ("m_neg", va["m_negslot_buckets"], nm),
+        ("op_m", va["op_m_buckets"], nop), ("t_op", va["t_op_buckets"], nt),
+    ):
+        out[f"{key}_off"], out[f"{key}_idx"] = _csr(buckets, owners)
+    out["m_flags"] = np.zeros(nm, dtype=np.int32)
+    for bit, key in enumerate(M_FLAG_BITS):
+        out["m_flags"] |= va[key].astype(np.int32) << bit
+    out["op_flags"] = np.zeros(nop, dtype=np.int32)
+    for bit, key in enumerate(OP_FLAG_BITS):
+        out["op_flags"] |= va[key].astype(np.int32) << bit
+    rx_ids = np.asarray(va["rx_m_ids"], dtype=np.int64)
+    if rx_ids.size and (rx_ids.min() < 0 or rx_ids.max() >= nm):
+        raise ValueError(f"rx matcher id out of [0, {nm})")
+    out["m_rx"] = np.full(nm, -1, dtype=np.int32)
+    for col, m in enumerate(rx_ids):  # a repeated id keeps its last column
+        out["m_rx"][m] = col
+    onehot = va["scalar_onehot"]  # [NCHECKS, NM, C]
+    var_src = np.array([CHECK_SOURCES.index(n) for n in SCALAR_VAR_SOURCES], dtype=np.int32)
+    var_id = _clamped(torch.from_numpy(va["scalar_var"]), len(SCALAR_VAR_SOURCES))
+    out["scalar_src"] = var_src[var_id.numpy()]
+    out["scalar_cmp"] = va["scalar_cmp"]
+    out["scalar_mask"] = np.zeros(onehot.shape[1:], dtype=np.int32)
+    for bit in range(onehot.shape[0]):
+        out["scalar_mask"] |= onehot[bit].astype(np.int32) << bit
+    if va["m_size"].shape != va["m_status"].shape:
+        raise ValueError("m_size and m_status must have one shape")
+    size_stream = _clamped(torch.from_numpy(va["m_size_stream"]), len(STREAMS))
+    out["m_size_src"] = size_stream.numpy().astype(np.int32)
+    for key in ("m_status", "m_size", "m_md5"):
+        out[key] = va[key]
+    return out
+
+
+class VerdictLayout:
+    """The verdict lowering's corpus half on one device, built once per
+    corpus: ``csr``, the layout kernel ``match_verdicts`` reads
+    (:func:`verdict_layout_np`, int32 tensors, float32 ``scalar_cmp``,
+    ``m_md5`` as int32 bits), and ``arrays``, the bucketed arrays of its
+    plain version and of the workflow gates (:func:`verdict_arrays`)."""
+
+    def __init__(self, db: "fpc.CompiledDB", device: torch.device):
+        self.db = db
+        self.csr = to_device(verdict_layout_np(db), device)
+        # the tensors' own device ("cuda:0" for "cuda"), as the planes carry it
+        self.device = self.csr["m_flags"].device
+        self.arrays = verdict_arrays(db, self.device)
+        self.nm = int(db.m_kind.shape[0])
+        self.nop = int(db.op_cond_and.shape[0])
+        self.nt = max(db.num_templates, 1)
+        self.n_rx = len(db.rx_m_ids)
+        # m_value leaves the lowering only for the workflow gates
+        self.has_gates = self.arrays.get("wf") is not None
+        # the kernel's struct of the csr tensors' pointers, made once
+        self.struct = kernels.verdict_struct(self)
+
+
+def verdicts_plain(
+    layout: VerdictLayout, value_bits: torch.Tensor, uncertain_bits: torch.Tensor,
+    lengths: dict, status: torch.Tensor, md5_digest: Optional[torch.Tensor] = None, rx=None,
+) -> tuple:
+    """Plain version of kernel ``match_verdicts`` (same contract):
+    :func:`eval_verdicts` over the layout's bucketed arrays, m_value
+    None when the corpus has no workflow gates."""
+    planes = eval_verdicts(layout.db, value_bits, uncertain_bits, lengths, status,
+                           md5_digest=md5_digest, rx=rx, arrays=layout.arrays)
+    return planes if layout.has_gates else (*planes[:4], None, planes[5])
+
+
 # ---------------------------------------------------------------------------
 # DeviceDB
 
@@ -679,7 +811,7 @@ class DeviceDB:
             meta, arrays_np = fpc.build_device_layout(self.db)
             arrays = to_device({k: v for k, v in arrays_np.items() if k != "verdict"},
                                self.device)
-            arrays["verdict"] = verdict_arrays(self.db, self.device)
+            arrays["verdict"] = VerdictLayout(self.db, self.device)
             arrays["word_tab"] = to_device(_word_table(), self.device)
             self._meta, self._arrays = meta, arrays
         return self._meta, self._arrays
@@ -704,7 +836,6 @@ class DeviceDB:
         fused output tensor, still on the device. Each step runs in a
         ``record_function`` span (``match.<step>``) that a profiler
         trace reads."""
-        from swarm_tpu_torch.ops.md5 import md5_words
         from swarm_tpu_torch.ops.regexdev import regex_verify
 
         db = self.db
@@ -752,17 +883,18 @@ class DeviceDB:
         digest = None
         if meta.has_md5 and "body" in s:
             with record_function("match.md5"):
+                # host lengths: the plain version's block bound, no sync
                 max_len = int(np.max(lengths["body"])) if len(lengths["body"]) else 0
-                digest = md5_words(s["body"], ln["body"], max_len=max_len)
+                digest = kernels.match_md5(s["body"], ln["body"], max_len=max_len)
         rx = None
         if meta.n_rx:
             with record_function("match.regex"):
                 rx = regex_verify(db, s, ln, value, k_pairs=db.rx_k_pairs(B),
                                   arrays=arrays["rx"], word_tab=arrays["word_tab"])
         with record_function("match.verdicts"):
-            planes = eval_verdicts(db, value, unc, ln, st, full=True, md5_digest=digest,
-                                   rx=rx, arrays=arrays["verdict"])
-            out = fuse_planes(planes, overflow)
+            layout = arrays["verdict"]
+            planes = kernels.match_verdicts(layout, value, unc, ln, st, digest, rx)
+            out = fuse_planes(full_planes(layout.arrays, planes), overflow)
         lc["phase_b_s"] = time.perf_counter() - t3
         self.last_compact = lc
         return out

@@ -7,8 +7,11 @@ across the batch it vectorizes: a loop over 64-byte blocks, 64 rounds
 of 32-bit ops per block, every lane a row.
 
 PyTorch for the CPU has no uint32 arithmetic, so each 32-bit word is
-carried as int64 masked with ``0xFFFFFFFF``. These are plain torch ops,
-one launch each on the card (a kernel candidate, ROADMAP.md).
+carried as int64 masked with ``0xFFFFFFFF``. These plain torch ops are
+the plain version of kernel ``match_md5`` (``csrc/md5.cu``, one thread
+a row), which ``DeviceDB`` launches on the card through
+``kernels.match_md5``; the CPU tests and ``chip_smoke.py`` hold the two
+together.
 """
 
 from __future__ import annotations

@@ -404,13 +404,14 @@ def test_record_calls_replays_dispatch(corpora):
     kernels.reset_launches()
     with kernels.record_calls() as calls:
         dev.match(tb.streams, tb.lengths, tb.status)
-    assert [name for name, _ in calls] == ["match_phase_a", "match_verify", "match_regex_scan"]
+    assert [name for name, _ in calls] == ["match_phase_a", "match_verify", "match_md5",
+                                           "match_regex_scan", "match_verdicts"]
     assert not any(kernels.LAUNCHES.values())
     # replaying the recorded phase A gives the col the verify was handed
     col, _n_surv = kernels.match_phase_a(*calls[0][1])
     assert torch.equal(col, calls[1][1][3])
     dev.match(tb.streams, tb.lengths, tb.status)
-    assert len(calls) == 3  # nothing is recorded outside the block
+    assert len(calls) == 5  # nothing is recorded outside the block
 
 
 def test_devicedb_defaults_to_cuda(corpora):

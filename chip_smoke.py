@@ -54,9 +54,13 @@ prints one JSON line per phase:
    verdict kernel's m_value; the planes of each against the same batch
    through the plain versions. Then ``match_md5`` on the md5 edge
    lengths (0, 55, 56, 63, 64, 119, 120, W, ...) with bytes past each
-   length that are not zero, against its plain version and hashlib, and
+   length that are not zero, against its plain version and hashlib,
    ``match_verdicts`` on the stress batch's call without the digest,
-   without the regex overlay, and on random slot planes.
+   without the regex overlay, on random slot planes and on its first 1,
+   33 and 257 rows, and ``match_regex_scan`` on hand-written regex
+   corpora of 1 and 3 state lanes with skip runs (closure rounds), over
+   rows whose pairs are 0, 1, 255, 256, 257 bytes long and the stream's
+   full width.
 10. ``match``  — ``MatchEngine`` as the worker builds it: its first
    batch as in 9, then ``MatchEngine.match`` of 2,048 rows, warm, called
    for a 2-second window: rows/s over the window (and, apart, the
@@ -71,10 +75,15 @@ prints one JSON line per phase:
    to the same module on the CPU and a sample to the oracle, and all
    five match kernels launched. The job's kernel calls are recorded.
 13. ``match_timing`` — each match kernel on the job's recorded calls:
-   exact against its plain version, ms per launch beside its plain
-   version's, and its bound from the call's data (for ``match_md5``,
-   one thread a row, also its latency bound: the longest row's
-   dependent rounds at the card's maximum SM clock).
+   exact against its plain version, ms per call through the wrapper
+   (host work included; the kernels line's ``ms``) and on the card
+   alone (``card_ms``: the calls queued behind a spin kernel) beside its
+   plain version's (for ``match_verdicts``, whose call is two launches,
+   also each launch's card time from a trace: ``pack_card_ms``,
+   ``eval_card_ms``), and its bound from the call's data (for
+   ``match_md5``, one thread a row, and ``match_regex_scan``, one lane a
+   pair, also a latency bound: the longest row's or pair's dependent
+   chain at the card's maximum SM clock).
 
 Then the ``{"kernels": [...]}`` summary (all seven kernels), the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -272,6 +281,87 @@ def synthetic_corpus(seed: int = 0, n_templates: int = CORPUS_TEMPLATES,
         docs.append(doc)
         plants.append(plant)
     return docs, plants
+
+
+#: positions kernel match_regex_scan stages a piece (csrc/match.cu
+#: kRegexPiece): the scan's edge lengths are one either side of it
+REGEX_PIECE = 256
+
+
+def _regex_template(i: int, part: str, patterns: list) -> dict:
+    return {"id": f"regex-{i}", "info": {"name": f"regex {i}", "severity": "info"},
+            "requests": [{"method": "GET", "path": ["{{BaseURL}}/"], "matchers": [
+                {"type": "regex", "part": part, "regex": patterns}]}]}
+
+
+#: (part, pattern): each compiles to device sequences of at most 32
+#: positions; skip runs up to 4, anchors, $ / \Z, leading and trailing \b
+REGEX_SHORT = [
+    ("body", r"zab?c?d"),                  # a skip run of 2
+    ("body", r"zqw?e?r?t?y"),              # a skip run of 4
+    ("body", r"ver(sion)?[ :]*[0-9]+"),    # two sequences, skip runs of 1
+    ("body", r"\bfoo[0-9]+\b"),            # \b at both ends
+    ("body", r"\bword\b"),
+    ("body", r"end-\b"),                  # a trailing \b after a byte that is no word byte
+    ("body", r"\b-x[0-9]"),               # a leading \b before one
+    ("body", r"the end\Z"),
+    ("body", r"last line$"),               # $, also before a trailing newline
+    ("body", r"(?i)Alpha-[a-z]{2,4}"),     # case-insensitive, a skip run of 2
+    ("header", r"^Server: x[a-z]+"),       # anchored at the stream's start
+    ("header", r"(?i)x-gen: [0-9]{3}\b"),
+    ("body", r"[0-9]{2}[a-z]\b"),          # no literal to gate it: every row scans it
+]
+#: a sequence of 42 positions: two state lanes
+REGEX_MID = [("body", r"qa[0-9]{40}b")]
+#: a sequence of 72 positions: three state lanes
+REGEX_LONG = [("body", r"(?i)token=[0-9a-f]{64}[;,]?!")]
+
+
+def regex_docs(lanes: int) -> list:
+    """A hand-written regex corpus whose device sequences take ``lanes``
+    (1, 2 or 3) uint32 state lanes, with skip runs up to 4 (the scan's
+    closure rounds), anchors, ``$`` and ``\\Z``, and leading and trailing
+    ``\\b``."""
+    entries = (REGEX_SHORT + (REGEX_MID if lanes >= 2 else [])
+               + (REGEX_LONG if lanes >= 3 else []))
+    return [_regex_template(i, part, [pattern]) for i, (part, pattern) in enumerate(entries)]
+
+
+def _ending(length: int, tail: bytes, fill: bytes = b".") -> bytes:
+    """A body of ``length`` bytes ending in ``tail``."""
+    return (fill * length)[: length - len(tail)] + tail
+
+
+def regex_rows(width: int = 1024) -> list[dict]:
+    """Rows for :func:`regex_docs`: matches and near misses at the
+    lengths where the scan has edges: 0 and 1, one piece
+    (:data:`REGEX_PIECE`) and one either side, and ``width``, the
+    stream's full width."""
+    hexes = "0123456789abcdef" * 4
+    bodies = [
+        b"", b"z", b"d", b"12x", b"12xy", b"zad", b"zabcd", b"zabbd", b"zqy", b"zqwerty",
+        b"zqwertyy", b"version: 12", b"ver3", b"vers 4",
+        b"foo123", b"xfoo123", b"foo123x", b"a foo9 b", b"word", b"words", b"sword",
+        b"the end-", b"the end-x", b"end--", b"-x1", b"a-x1",
+        b"the end", b"the end\n", b"the end!", b"last line", b"last line\n",
+        b"last line\n\n", b"last line x",
+        b"ALPHA-AbC", b"alpha-a", b"xalpha-abcdef",
+        b"qa" + b"7" * 40 + b"b", b"qa" + b"7" * 39 + b"b",
+        ("TOKEN=" + hexes.upper() + ";!").encode(), ("token=" + hexes + "!").encode(),
+        ("token=" + hexes[:-1] + "!").encode(),
+    ]
+    for n in (REGEX_PIECE - 1, REGEX_PIECE, REGEX_PIECE + 1):
+        bodies += [_ending(n, b" foo77"), _ending(n, b"zabd"), _ending(n, b"the end"),
+                   _ending(n, b" word"), _ending(n, b"zabd", b"zabd.")]
+    # matches across the piece's edge
+    bodies += [_ending(REGEX_PIECE + 2, b"zabd...."), _ending(REGEX_PIECE + 3, b" foo1234 "),
+               _ending(REGEX_PIECE, b"end-"), _ending(REGEX_PIECE + 1, b"end-x")]
+    bodies += [_ending(width, b" foo1"), _ending(width, b"last line\n"),
+               _ending(width, b"zqwerty"), _ending(width, ("token=" + hexes + ",!").encode())]
+    headers = [b"Server: xyz", b"server: xyz", b"X-Server: xyz", b"X-Gen: 123",
+               b"x-gen: 1234", b"Server: x\r\nX-Gen: 999"]
+    return [{"host": f"r{i}", "port": 80, "status": 200, "body": body,
+             "header": headers[i % len(headers)]} for i, body in enumerate(bodies)]
 
 
 def realistic_rows(n: int, seed: int = 7, plants: list | None = None) -> list[dict]:
@@ -579,7 +669,7 @@ def phase_build() -> ctypes.CDLL:
     built = {k["kernel"].split("<")[0] for k in ptxas}
     for want in ("cluster_counts_kernel", "cluster_parent_kernel", "match_phase_a_kernel",
                  "match_verify_kernel", "match_regex_scan_kernel", "match_md5_kernel",
-                 "match_verdicts_kernel"):
+                 "match_verdicts_pack_kernel", "match_verdicts_kernel"):
         if want not in built:
             raise AssertionError(f"build: ptxas reported no {want}")
     spilled = [k for k in ptxas if k.get("spill_stores") or k.get("spill_loads")]
@@ -637,6 +727,33 @@ def cuda_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def card_ms(fn, reps: int, clock_hz: float) -> float:
+    """The card's time a call of ``fn``, without the host's: after a
+    warm call, ``reps`` calls are queued behind a spin kernel
+    (``torch.cuda._sleep``) that outlasts their enqueue, so they run back
+    to back and the events around them time the card's work alone. For
+    a kernel shorter than its wrapper's host work, :func:`cuda_ms` times
+    the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    enqueue_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((2 * enqueue_s + 1e-3) * clock_hz))
     start.record()
     for _ in range(reps):
         fn()
@@ -812,6 +929,24 @@ def _union_us(spans: list[tuple[float, float]]) -> float:
     return total
 
 
+def verdict_split_ms(args: tuple, reps: int = 10) -> dict:
+    """The card's time a ``kernels.match_verdicts`` call of ``args``
+    spends in each of its two launches, the pack and the evaluation:
+    the kernels' own spans in a trace of ``reps`` calls."""
+    from swarm_tpu_torch.ops import kernels
+
+    def run():
+        for _ in range(reps):
+            kernels.match_verdicts(*args)
+
+    run()  # warm
+    got = profile_call(run, "verdict_split", ())["kernels_ms"]
+    if set(got) != {"match_verdicts_pack_kernel", "match_verdicts_kernel"}:
+        raise AssertionError(f"a verdict call's trace holds kernels {sorted(got)}")
+    return {"pack_card_ms": got["match_verdicts_pack_kernel"] / reps,
+            "eval_card_ms": got["match_verdicts_kernel"] / reps}
+
+
 def profile_call(run, name: str, span_names: tuple) -> dict:
     """One call of ``run`` under ``torch.profiler`` in a span ``name``:
     the call's span on the host, each kernel's and each copy's span on
@@ -962,6 +1097,10 @@ MATCH_KERNELS = ("match_phase_a", "match_verify", "match_regex_scan", "match_md5
 #: independent x + k + a) and the cycles of one dependent integer
 #: operation, for the one-thread-a-row kernel's latency bound
 MD5_CHAIN_OPS, DEPENDENT_OP_CYCLES = 4, 4
+#: the regex scan's dependent chain a byte (csrc/match.cu regex_step),
+#: run by one lane a pair: a funnel shift, then one three-input logic
+#: operation; each closure round adds a shift and an OR of an AND
+REGEX_CHAIN_OPS, REGEX_CLOSURE_OPS = 2, 2
 #: the md5 lengths where the padding changes shape (tests/test_torch_verdicts.py)
 MD5_EDGE_LENGTHS = (0, 1, 55, 56, 63, 64, 119, 120, 127, 128, 183, 184)
 
@@ -1194,7 +1333,21 @@ def _call_shape(name: str, args: tuple) -> dict:
     if name == "match_verify":
         return {"rows": int(args[3].shape[0]), "verify_k": int(args[4]),
                 "live_candidates": int((args[3][:, : args[4]] >= 0).sum())}
-    return {"pairs": int(args[1].shape[0]), "live_pairs": int(args[3].sum())}
+    _variants, pair_b, _pair_s, valid, rx, _wt, r_closure = args
+    return {"pairs": int(pair_b.shape[0]), "live_pairs": int(valid.sum()),
+            "max_pair_len": int(regex_pair_lengths(args).max(initial=0)),
+            "lanes": int(rx["bytemap"].shape[2]), "r_closure": int(r_closure)}
+
+
+def regex_pair_lengths(args: tuple) -> np.ndarray:
+    """The stream length of each live pair of a recorded
+    ``match_regex_scan`` call."""
+    import torch
+
+    variants, pair_b, pair_s, valid, rx = args[:5]
+    lens = torch.stack([v.lengths for v in variants], 1).to(torch.int64)
+    n = lens[pair_b, rx["var_of_seq"].to(torch.int64)[pair_s]]
+    return n[valid].cpu().numpy()
 
 
 def edge_batches(templates, plants) -> dict:
@@ -1290,7 +1443,9 @@ def md5_edge_case() -> dict:
 def verdict_variants(args: tuple) -> dict:
     """``match_verdicts`` against its plain version on one recorded call
     without its digest (the md5 checks fail closed), without its regex
-    overlay, without both, and on seeded random slot planes."""
+    overlay, without both, on seeded random slot planes, and on its first
+    1, 33 and 257 rows (a word of 32 rows partly filled, and one row past
+    whole words)."""
     import torch
 
     from swarm_tpu_torch.ops import kernels
@@ -1308,6 +1463,9 @@ def verdict_variants(args: tuple) -> dict:
         "neither": (layout, value, unc, ln, st, None, None),
         "random_planes": (layout, rand_v, rand_u, ln, st, digest, rx),
     }
+    for n in (1, 33, 257):
+        variants[f"rows_{n}"] = (layout, value[:n], unc[:n], {k: t[:n] for k, t in ln.items()},
+                                 st[:n], digest[:n], tuple(p[:n] for p in rx))
     out = {}
     for name, a in variants.items():
         got, want = kernels.match_verdicts(*a), verdicts_plain(*a)
@@ -1315,6 +1473,42 @@ def verdict_variants(args: tuple) -> dict:
         if err:
             raise AssertionError(f"match_verdicts differs from its plain version ({name})")
         out[name] = {"t_unc": int(want[1].sum()), "m_unc": int(want[5].sum())}
+    return out
+
+
+def regex_edge_cases() -> dict:
+    """``match_regex_scan`` where the job's corpus never takes it: the
+    hand-written regex corpora (:func:`regex_docs`) with 1 and 3 state
+    lanes and skip runs up to 4 (``r_closure`` > 0), over
+    :func:`regex_rows`. Each batch goes through ``DeviceDB.match`` on the
+    card with every kernel against its plain version, exact
+    (:func:`match_case`); the case fails unless its scan had live pairs
+    of length 0, 1, one piece and one either side, and the full width."""
+    from swarm_tpu_torch.fingerprints.compile import compile_corpus
+    from swarm_tpu_torch.fingerprints.nuclei import parse_template
+    from swarm_tpu_torch.ops import kernels
+    from swarm_tpu_torch.ops.encoding import encode_batch
+    from swarm_tpu_torch.ops.match import DeviceDB
+
+    batch = encode_batch(port_rows(regex_rows()), max_body=4096, max_header=1024,
+                         build_all=False, width_multiple=512)
+    out = {}
+    for lanes in (1, 3):
+        dev_db = DeviceDB(compile_corpus([parse_template(d) for d in regex_docs(lanes)]),
+                          device="cuda")
+        case = match_case(dev_db, batch)
+        with kernels.record_calls() as calls:
+            dev_db.match(batch.streams, batch.lengths, batch.status)
+        (args,) = [a for name, a in calls if name == "match_regex_scan"]
+        shape = _call_shape("match_regex_scan", args)
+        n = regex_pair_lengths(args)
+        width = max(int(v.data.shape[1]) for v in args[0])
+        edges = (0, 1, REGEX_PIECE - 1, REGEX_PIECE, REGEX_PIECE + 1, width)
+        missing = [e for e in edges if not (n == e).any()]
+        if shape["lanes"] != lanes or shape["r_closure"] < 1 or missing:
+            raise AssertionError(f"regex corpus of {lanes} lanes: {shape}, no pair of {missing}")
+        out[f"lanes_{lanes}"] = {**shape, "edge_lengths": list(edges),
+                                 "err": case["err"]["match_regex_scan"]}
     return out
 
 
@@ -1344,6 +1538,7 @@ def phase_match_kernels(templates, plants, db) -> dict:
     variants = verdict_variants(verdict_args)
     del calls, verdict_args
     md5_edges = md5_edge_case()
+    regex_edges = regex_edge_cases()
     tree_db, tree = tree_batch()
     cases["workflow_tree"] = match_case(DeviceDB(tree_db, device="cuda"), tree)
     if not cases["workflow_tree"]["workflow_planes"]:
@@ -1378,7 +1573,7 @@ def phase_match_kernels(templates, plants, db) -> dict:
         if missing:
             raise AssertionError(f"case {name} made no call of {missing}")
     emit({"phase": "match_kernels", "exact": True, "cases": cases,
-          "verdict_variants": variants, "md5_edges": md5_edges})
+          "verdict_variants": variants, "md5_edges": md5_edges, "regex_edges": regex_edges})
     return {k: max(c["err"][k] for c in cases.values()) for k in MATCH_KERNELS}
 
 
@@ -1597,9 +1792,14 @@ def phase_match_timing(calls: list, smi: str) -> dict:
     """Each match kernel on the exact calls the ``fingerprint`` job made
     (``kernels.record_calls`` around the worker run: its batches as the
     worker's engine deduplicated and encoded them): exact against its
-    plain version, then its ms per launch (CUDA events) beside its plain
-    version's, and its bound from each call's data, all averaged over
-    the job's calls."""
+    plain version, then its ms per call (CUDA events around the
+    wrapper's calls, and on the card alone, :func:`card_ms`) beside its
+    plain version's, and its bound from each call's data, all averaged
+    over the job's calls; for the regex scan also its card time with no
+    live pair, for the verdict lowering each of its two launches' card
+    time (:func:`verdict_split_ms`)."""
+    import torch
+
     from swarm_tpu_torch.ops import kernels
 
     max_err = check_calls(calls)
@@ -1619,24 +1819,39 @@ def phase_match_timing(calls: list, smi: str) -> dict:
                 # one thread a row: the longest row's dependent rounds
                 shape["latency_ms"] = (shape["max_blocks"] * 64 * MD5_CHAIN_OPS
                                        * DEPENDENT_OP_CYCLES / clock_hz * 1e3)
+            if name == "match_regex_scan":
+                # one lane a pair runs the recurrence: the longest live
+                # pair's bytes, each a dependent chain
+                chain = REGEX_CHAIN_OPS + REGEX_CLOSURE_OPS * shape["r_closure"]
+                shape["latency_ms"] = (shape["max_pair_len"] * chain * DEPENDENT_OP_CYCLES
+                                       / clock_hz * 1e3)
             per.append({
                 **shape,
                 "ms": cuda_ms(lambda a=args: getattr(kernels, name)(*a), 10),
+                "card_ms": card_ms(lambda a=args: getattr(kernels, name)(*a), 10, clock_hz),
                 "plain_ms": cuda_ms(lambda a=args: plain[name](*a), 2),
+                **(verdict_split_ms(args) if name == "match_verdicts" else {}),
                 "bytes": nbytes, "operations": ops,
                 "bytes_ms": t_bytes, "operations_ms": t_ops,
             })
+            if name == "match_regex_scan":
+                # the launch and the pass over the K pairs with none
+                # live: what the call costs besides the scans
+                idle = (*args[:3], torch.zeros_like(args[3]), *args[4:])
+                per[-1]["no_live_pair_card_ms"] = card_ms(
+                    lambda a=idle: kernels.match_regex_scan(*a), 10, clock_hz)
         if not per:
             raise AssertionError(f"the job made no call of {name}")
-        mean = {k: sum(p[k] for p in per) / len(per)
-                for k in ("ms", "plain_ms", "bytes_ms", "operations_ms")}
+        keys = ("ms", "card_ms", "plain_ms", "bytes_ms", "operations_ms",
+                *(("pack_card_ms", "eval_card_ms") if name == "match_verdicts" else ()))
+        mean = {k: sum(p[k] for p in per) / len(per) for k in keys}
         timing[name] = {
-            "ms": mean["ms"], "plain_ms": mean["plain_ms"],
+            **{k: mean[k] for k in keys if k not in ("bytes_ms", "operations_ms")},
             "bound_ms": sum(max(p["bytes_ms"], p["operations_ms"]) for p in per) / len(per),
             "bound_by": "operations" if mean["operations_ms"] >= mean["bytes_ms"] else "bytes",
             "calls": per,
         }
-        if name == "match_md5":
+        if "latency_ms" in per[0]:
             timing[name]["latency_bound_ms"] = sum(p["latency_ms"] for p in per) / len(per)
     emit({"phase": "match_timing", "exact": True, "timing": timing, "sm_clock_hz": clock_hz,
           "card": smi})
@@ -1681,9 +1896,14 @@ def main() -> int:
             "source": sources.get(name, "swarm_tpu_torch/ops/csrc/match.cu"),
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": max(max_err[name], job_err[name]),
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None, "job_rows": JOB_ROWS,
+            "ms": t["ms"], "card_ms": t["card_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+            "job_rows": JOB_ROWS,
         }
+        if name == "match_verdicts":
+            # a call is two launches: ms are a call's, launches count both
+            summary[name].update(launches_per_call=2, pack_card_ms=t["pack_card_ms"],
+                                 eval_card_ms=t["eval_card_ms"])
         if "latency_bound_ms" in t:
             summary[name]["latency_bound_ms"] = t["latency_bound_ms"]
     print(json.dumps({"kernels": list(summary.values())}), flush=True)

@@ -46,15 +46,25 @@
 // stores 1 into a zeroed byte plane, so concurrent writers of one slot
 // agree.  Bound: the candidates' table lookups and byte compares.
 //
-// match_regex_scan: one thread per compacted (row, sequence) pair.  It
-// keeps the shift-and state of up to 96 NFA positions in L uint32 lanes
-// (L = 1..3, a template argument), looks up bytemap[seq, byte] per byte,
-// closes over skippable positions r_closure times, and handles anchors,
-// a leading / trailing \b (pending / pend_word) and $ / \Z with the
-// trailing newline, exactly as the lax.scan step does.  Bytes past the
-// row's length leave the state of the JAX scan unchanged but for a
-// cleared d, so the loop stops at the length.  Bound: one bytemap row
-// read and a few lane operations per byte of each live pair.
+// match_regex_scan: a warp per compacted (row, sequence) pair, four
+// one-warp blocks an SM walking the K pairs (each answers the pairs
+// that are not valid 32 at a time; the live pairs are a prefix, so
+// each gets a warp of its own).  It keeps the shift-and state of up
+// to 96 NFA positions in L uint32 lanes (L = 1..3, a template
+// argument) and handles anchors, a leading / trailing \b and $ / \Z
+// with the trailing newline exactly as the lax.scan step does; bytes
+// past the row's length leave nothing that is read changed, so the
+// scan stops at the length.  A byte's state update is a few lane
+// operations behind three dependent loads (the byte, its wordness,
+// its bytemap row), and a batch has only tens of live pairs.  So, per
+// piece of 256 positions, the warp stages off the chain what each
+// position needs (its class words, its seed and self loop terms and
+// its end-rule mask, from the bytemap and word table in shared
+// memory; the bytes come in with 8-byte loads issued a piece ahead),
+// and lane 0 then runs the recurrence from shared memory, a funnel
+// shift and one logic operation of dependent chain a byte (see
+// RegexStage).  Bound: the live pairs' bytes and one bytemap row
+// each; held by the longest pair's serial chain.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -295,75 +305,265 @@ struct RegexArgs {
   bool* matched;  // [K]
 };
 
+// The staged scan.  A warp owns a pair; per piece of kRegexPiece
+// positions the 32 lanes stage, off the state chain, everything of a
+// position that does not depend on the state, and then lane 0 runs the
+// recurrence over the piece from shared memory and registers.
+//
+// The step of the lax.scan, for a live position with class words bc:
+//   d' = ((shift(d) | (s_ok ? seed : 0)) & bc) | (d & self & bc)
+//      = (shift(d) & A) | ((d & T) | S)
+// with A = bc, T = self & bc and S = s_ok ? seed & bc : 0, each a
+// function of the position alone; then r_closure rounds of
+// d |= shift(d) & skip.  The chain a byte is a funnel shift and one
+// three-input logic operation (and two more a closure round); d & T | S
+// runs beside the shift.
+//
+// The accept test folds the end rules into a position mask E: a pair
+// matches when some position's d & accept is non-zero with E set, so
+// lane 0 only ORs d & E into acc (one operation a lane) and tests acc &
+// accept once at the end.  E is the scan's end rule at that position:
+// without a trailing \b, end_ok (any position; $ / \Z at the last, $
+// also before a trailing newline); with one, the byte boundary after
+// it, as the pending / pend_word logic of the scan resolves it (the
+// next byte's wordness differs, or, at the last byte, the byte is a
+// word byte).  Positions at or past the pair's length have E = 0 and
+// change nothing that is read.
+
+constexpr int kRegexPiece = 256;
+constexpr int kRegexGroup = 4;  // positions a step group (one uint4 a plane)
+constexpr int kRegexPad = kRegexPiece + kRegexGroup;  // the prefetch reads one group past
+// warps the scan launches an SM: enough to spread the live pairs, few
+// enough that the blocks of pairs that are not valid cost no launch wave
+constexpr int kRegexWarpsPerSm = 4;
+
+template <int L>
+struct RegexStage {
+  uint32_t a[L][kRegexPad];  // bc
+  uint32_t s[L][kRegexPad];  // s_ok ? seed & bc : 0
+  uint32_t t[L][kRegexPad];  // self & bc
+  uint32_t e[kRegexPad];     // ~0 where an accept counts, else 0
+};
+
 template <int L>
 __device__ __forceinline__ void lane_shift(const uint32_t (&d)[L], uint32_t (&out)[L]) {
 #pragma unroll
-  for (int l = L - 1; l > 0; --l) out[l] = (d[l] << 1) | (d[l - 1] >> 31);
+  for (int l = L - 1; l > 0; --l) out[l] = __funnelshift_l(d[l - 1], d[l], 1);
   out[0] = d[0] << 1;
 }
 
+// component q of v; q is a constant once the caller's loop is unrolled
+__device__ __forceinline__ uint32_t component(const uint4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
 template <int L>
-__global__ void match_regex_scan_kernel(Variants vars, RegexArgs a) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= a.K) return;
-  if (!a.valid[k]) {
-    a.matched[k] = false;
-    return;
-  }
-  const int b = (int)a.pair_b[k];
-  const int seq = (int)a.pair_s[k];
-  const StreamRef s = vars.s[a.var_of_seq[seq]];
-  const int n = s.len[b];
-  uint32_t seed[L], skip[L], accept[L], sloop[L], d[L];
+__device__ __forceinline__ void load_group(const RegexStage<L>& st, int g, uint4 (&a)[L],
+                                           uint4 (&s)[L], uint4 (&t)[L], uint4& e) {
 #pragma unroll
   for (int l = 0; l < L; ++l) {
-    seed[l] = __ldg(a.seed + (size_t)seq * L + l);
-    skip[l] = __ldg(a.skip + (size_t)seq * L + l);
-    accept[l] = __ldg(a.accept + (size_t)seq * L + l);
-    sloop[l] = __ldg(a.self_loop + (size_t)seq * L + l);
-    d[l] = 0u;
+    a[l] = *reinterpret_cast<const uint4*>(&st.a[l][g]);
+    s[l] = *reinterpret_cast<const uint4*>(&st.s[l][g]);
+    t[l] = *reinterpret_cast<const uint4*>(&st.t[l][g]);
   }
-  const bool anchored = a.anchored[seq];
-  const int end_mode = a.end_mode[seq];
-  const bool start_wb = a.start_wb[seq], end_wb = a.end_wb[seq];
-  const bool trail_nl = n > 0 && read_byte(s, b, n - 1) == 0x0Au;
-  const uint32_t* bmap = a.bytemap + (size_t)seq * 256 * L;
-  bool matched = false, prev_word = false, pending = false, pend_word = false;
-  for (int pos = 0; pos < n; ++pos) {
-    const uint32_t c = read_byte(s, b, pos);
-    const bool w_c = a.word_tab[c];
-    // a trailing-\b accept of the previous byte resolves here
-    matched = matched || (pending && (pend_word != w_c));
-    pending = false;
-    const bool s_ok = (!anchored || pos == 0) && (!start_wb || (w_c != prev_word));
-    uint32_t sh[L], bc[L];
-    lane_shift<L>(d, sh);
+  e = *reinterpret_cast<const uint4*>(&st.e[g]);
+}
+
+template <int L, bool Closure>
+__device__ __forceinline__ void regex_step(uint32_t (&d)[L], uint32_t (&acc)[L],
+                                           const uint32_t (&a)[L], const uint32_t (&s)[L],
+                                           const uint32_t (&t)[L], uint32_t e,
+                                           const uint32_t (&skip)[L], int r_closure) {
+  uint32_t sh[L];
+  lane_shift<L>(d, sh);
 #pragma unroll
-    for (int l = 0; l < L; ++l) {
-      bc[l] = __ldg(bmap + (size_t)c * L + l);
-      d[l] = ((sh[l] | (s_ok ? seed[l] : 0u)) & bc[l]) | (d[l] & sloop[l] & bc[l]);
-    }
-    for (int r = 0; r < a.r_closure; ++r) {
+  for (int l = 0; l < L; ++l) d[l] = (sh[l] & a[l]) | ((d[l] & t[l]) | s[l]);
+  if (Closure) {
+    for (int r = 0; r < r_closure; ++r) {
       lane_shift<L>(d, sh);
 #pragma unroll
       for (int l = 0; l < L; ++l) d[l] |= sh[l] & skip[l];
     }
-    bool acc = false;
-#pragma unroll
-    for (int l = 0; l < L; ++l) acc = acc || ((d[l] & accept[l]) != 0u);
-    const bool end_ok = end_mode == kEndNone ||
-                        (end_mode == kEndZ && pos == n - 1) ||
-                        (end_mode == kEndDollar &&
-                         (pos == n - 1 || (trail_nl && pos == n - 2)));
-    matched = matched || (acc && end_ok && !end_wb);
-    if (acc && end_wb) {
-      pending = true;
-      pend_word = w_c;
-    }
-    prev_word = w_c;
   }
-  // the end of the stream is a boundary exactly after a word byte
-  a.matched[k] = matched || (pending && pend_word);
+#pragma unroll
+  for (int l = 0; l < L; ++l) acc[l] |= d[l] & e;
+}
+
+// the recurrence over the staged positions [0, cnt), rounded up to
+// whole groups (the positions past the pair's length have E = 0)
+template <int L, bool Closure>
+__device__ __forceinline__ void regex_scan_piece(const RegexStage<L>& st, int cnt,
+                                                 uint32_t (&d)[L], uint32_t (&acc)[L],
+                                                 const uint32_t (&skip)[L], int r_closure) {
+  uint4 a[L], s[L], t[L], e;
+  load_group<L>(st, 0, a, s, t, e);
+  for (int g = 0; g < cnt; g += kRegexGroup) {
+    // the next group's loads go out before this group's chain
+    uint4 na[L], ns[L], nt[L], ne;
+    load_group<L>(st, g + kRegexGroup, na, ns, nt, ne);
+#pragma unroll
+    for (int q = 0; q < kRegexGroup; ++q) {
+      uint32_t x[L], y[L], z[L];
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        x[l] = component(a[l], q);
+        y[l] = component(s[l], q);
+        z[l] = component(t[l], q);
+      }
+      regex_step<L, Closure>(d, acc, x, y, z, component(e, q), skip, r_closure);
+    }
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      a[l] = na[l];
+      s[l] = ns[l];
+      t[l] = nt[l];
+    }
+    e = ne;
+  }
+}
+
+// 8 bytes of row at [q, q + 8), zero at or past lim (bytes past the
+// stream's width read as zero, as read_byte has them)
+__device__ __forceinline__ uint2 load8(const uint8_t* row, int q, int lim) {
+  if (q + 8 <= lim && (reinterpret_cast<uintptr_t>(row + q) & 7u) == 0u) {
+    return *reinterpret_cast<const uint2*>(row + q);
+  }
+  uint32_t w[2] = {0u, 0u};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (q + j < lim) w[j >> 2] |= (uint32_t)row[q + j] << (8 * (j & 3));
+  }
+  return make_uint2(w[0], w[1]);
+}
+
+__device__ __forceinline__ uint32_t byte_of(uint2 v, int j) {
+  return ((j < 4 ? v.x : v.y) >> (8 * (j & 3))) & 0xFFu;
+}
+
+template <int L>
+struct RegexShared {
+  RegexStage<L> st;
+  uint32_t smap[256 * L];              // the pair's sequence's bytemap
+  uint8_t sbytes[kRegexPiece + 2];     // positions p0 - 1 .. p0 + P
+  uint8_t sword[256];                  // the word table
+};
+
+// One pair k, by the whole warp; writes matched[k]
+template <int L>
+__device__ __forceinline__ void regex_scan_pair(const Variants& vars, const RegexArgs& a,
+                                                RegexShared<L>& sh, int k, int lane) {
+  const int b = (int)a.pair_b[k];
+  const int seq = (int)a.pair_s[k];
+  const StreamRef s = vars.s[a.var_of_seq[seq]];
+  const uint8_t* row = s.data + (size_t)b * s.width;
+  const int mine = lane * (kRegexPiece / 32);  // this lane's 8 positions of a piece
+  // the first two pieces' bytes go out before the length is known:
+  // bytes past the length change nothing that is read
+  uint2 cur = load8(row, mine, s.width);
+  uint2 nxt = load8(row, kRegexPiece + mine, s.width);
+  const uint32_t* bmap = a.bytemap + (size_t)seq * 256 * L;
+  __syncwarp();  // the previous pair is done with the shared arrays
+  for (int i = lane; i < 256 * L; i += 32) sh.smap[i] = __ldg(bmap + i);
+  uint32_t seed[L], skip[L], sloop[L], d[L], acc[L];
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    seed[l] = __ldg(a.seed + (size_t)seq * L + l);
+    skip[l] = __ldg(a.skip + (size_t)seq * L + l);
+    sloop[l] = __ldg(a.self_loop + (size_t)seq * L + l);
+    d[l] = 0u;
+    acc[l] = 0u;
+  }
+  const bool anchored = a.anchored[seq];
+  const int end_mode = a.end_mode[seq];
+  const bool start_wb = a.start_wb[seq], end_wb = a.end_wb[seq];
+  const int n = s.len[b];
+  const bool trail_nl = n > 0 && n - 1 < s.width && row[n - 1] == 0x0Au;
+  // without a trailing \b an accept counts at positions >= end_lo
+  const int end_lo = end_mode == kEndNone ? 0 : (end_mode == kEndDollar && trail_nl ? n - 2 : n - 1);
+  bool prev_w = false;  // the wordness of the byte before the piece
+  for (int p0 = 0; p0 < n; p0 += kRegexPiece) {
+    // the piece's bytes, lowered as the view reads them, and the first
+    // byte of the next piece
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t c = byte_of(cur, j);
+      sh.sbytes[1 + mine + j] = (uint8_t)(s.lowered ? lower_ascii(c) : c);
+    }
+    if (lane == 0) {
+      const uint32_t c = byte_of(nxt, 0);
+      sh.sbytes[kRegexPiece + 1] = (uint8_t)(s.lowered ? lower_ascii(c) : c);
+    }
+    __syncwarp();
+    // the piece after next: its loads run under this piece's work
+    const uint2 after = load8(row, p0 + 2 * kRegexPiece + mine, s.width);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = mine + j, pos = p0 + i;
+      const uint32_t c = sh.sbytes[1 + i];
+      const bool w = sh.sword[c];
+      const bool w_prev = i == 0 ? prev_w : sh.sword[sh.sbytes[i]];
+      const bool w_next = sh.sword[sh.sbytes[2 + i]];
+      const bool s_ok = (!anchored || pos == 0) && (!start_wb || w != w_prev);
+      bool e_ok;
+      if (end_wb) {
+        e_ok = pos + 1 < n ? w != w_next : w;
+      } else {
+        e_ok = pos >= end_lo;
+      }
+      sh.st.e[i] = pos < n && e_ok ? ~0u : 0u;
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        const uint32_t bc = sh.smap[c * L + l];
+        sh.st.a[l][i] = bc;
+        sh.st.s[l][i] = s_ok ? seed[l] & bc : 0u;
+        sh.st.t[l][i] = sloop[l] & bc;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) {
+      const int cnt = min(kRegexPiece, n - p0);
+      if (a.r_closure > 0) {
+        regex_scan_piece<L, true>(sh.st, cnt, d, acc, skip, a.r_closure);
+      } else {
+        regex_scan_piece<L, false>(sh.st, cnt, d, acc, skip, 0);
+      }
+    }
+    __syncwarp();
+    prev_w = sh.sword[sh.sbytes[kRegexPiece]];
+    __syncwarp();  // every lane has read sbytes before the next piece writes it
+    cur = nxt;
+    nxt = after;
+  }
+  if (lane == 0) {
+    uint32_t hit = 0u;
+#pragma unroll
+    for (int l = 0; l < L; ++l) hit |= acc[l] & __ldg(a.accept + (size_t)seq * L + l);
+    a.matched[k] = hit != 0u;
+  }
+}
+
+// A warp a block, a few blocks an SM, each warp taking the pairs k =
+// blockIdx.x + i * gridDim.x: 32 of them at a time are checked for
+// validity with one load a lane, the pairs that are not valid answered
+// at once, and the valid ones scanned in turn.  The live pairs are a
+// prefix, so each lands on a warp of its own.
+template <int L>
+__global__ void __launch_bounds__(32) match_regex_scan_kernel(Variants vars, RegexArgs a) {
+  __shared__ __align__(16) RegexShared<L> sh;
+  const int lane = threadIdx.x;
+  for (int i = lane; i < 256; i += 32) sh.sword[i] = a.word_tab[i] ? 1 : 0;
+  const int stride = gridDim.x;
+  for (int k0 = blockIdx.x; k0 < a.K; k0 += 32 * stride) {
+    const int kk = k0 + lane * stride;
+    const bool v = kk < a.K && a.valid[kk];
+    if (kk < a.K && !v) a.matched[kk] = false;
+    unsigned live = __ballot_sync(0xffffffffu, v);
+    while (live) {
+      const int j = __ffs(live) - 1;
+      live &= live - 1;
+      regex_scan_pair<L>(vars, a, sh, k0 + j * stride, lane);
+    }
+  }
 }
 
 Tables make_tables(int32_t n, const int64_t* data, const int64_t* lens,
@@ -465,7 +665,8 @@ int match_verify(int32_t n_rows, int32_t n_tables, const int64_t* data,
 }
 
 // The shift-and scan of K compacted pairs over the stream variants
-// (host arrays of device pointers, widths and lowered flags), L lanes.
+// (host arrays of device pointers, widths and lowered flags), L lanes;
+// sms, the card's SM count, which the caller reads once.
 int match_regex_scan(int32_t K, int32_t n_vars, const int64_t* data,
                      const int64_t* lens, const int32_t* widths,
                      const int32_t* lowered, const int64_t* pair_b,
@@ -476,8 +677,8 @@ int match_regex_scan(int32_t K, int32_t n_vars, const int64_t* data,
                      const bool* anchored, const int32_t* end_mode,
                      const bool* start_wb, const bool* end_wb,
                      const bool* word_tab, int32_t lanes, int32_t r_closure,
-                     bool* matched, void* stream) {
-  if (n_vars < 1 || n_vars > kMaxVariants) return (int)cudaErrorInvalidValue;
+                     int32_t sms, bool* matched, void* stream) {
+  if (n_vars < 1 || n_vars > kMaxVariants || sms < 1) return (int)cudaErrorInvalidValue;
   Variants v{};
   v.n = n_vars;
   for (int i = 0; i < n_vars; ++i) {
@@ -505,13 +706,12 @@ int match_regex_scan(int32_t K, int32_t n_vars, const int64_t* data,
   a.r_closure = r_closure;
   a.matched = matched;
   if (K == 0) return 0;
-  const int threads = 128;
-  const int blocks = (K + threads - 1) / threads;
   cudaStream_t st = (cudaStream_t)stream;
+  const int warps = std::min(K, kRegexWarpsPerSm * sms);  // a warp a block
   switch (lanes) {
-    case 1: match_regex_scan_kernel<1><<<blocks, threads, 0, st>>>(v, a); break;
-    case 2: match_regex_scan_kernel<2><<<blocks, threads, 0, st>>>(v, a); break;
-    case 3: match_regex_scan_kernel<3><<<blocks, threads, 0, st>>>(v, a); break;
+    case 1: match_regex_scan_kernel<1><<<warps, 32, 0, st>>>(v, a); break;
+    case 2: match_regex_scan_kernel<2><<<warps, 32, 0, st>>>(v, a); break;
+    case 3: match_regex_scan_kernel<3><<<warps, 32, 0, st>>>(v, a); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

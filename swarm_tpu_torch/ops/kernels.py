@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import os
 import re
 import shutil
@@ -192,7 +193,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.match_md5.argtypes = [vp, vp, i32, i32, vp, vp]
         fns = (lib.match_md5,)
     elif name == "verdicts":
-        lib.match_verdicts.argtypes = [vp, i32, vp, vp, i32] + [vp] * 11
+        lib.match_verdicts.argtypes = [vp, i32, vp, vp, i32] + [vp] * 12
         fns = (lib.match_verdicts,)
     else:
         tables = [i32, i32, vp, vp, vp, vp, vp, vp]  # rows, count, descriptors
@@ -202,7 +203,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             + [vp, vp, vp, vp, i32, vp]
         )
         lib.match_regex_scan.argtypes = (
-            [i32, i32, vp, vp, vp, vp] + [vp] * 14 + [i32, i32, vp, vp]
+            [i32, i32, vp, vp, vp, vp] + [vp] * 14 + [i32, i32, i32, vp, vp]
         )
         fns = (lib.match_phase_a, lib.match_verify, lib.match_regex_scan)
     for fn in fns:
@@ -230,6 +231,12 @@ def _check_packed(packed: torch.Tensor) -> None:
         raise ValueError("packed must be contiguous")
     if packed.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {packed.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """The SM count of card ``index``, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:
@@ -503,7 +510,8 @@ def match_regex_scan(
         rc = lib.match_regex_scan(
             k, len(variants), *map(_host, desc), _ptr(pair_b), _ptr(pair_s),
             _ptr(valid), *(_ptr(rx[key]) for key, _ in REGEX_KEYS),
-            _ptr(word_tab), lanes, int(r_closure), _ptr(matched), _stream(pair_b),
+            _ptr(word_tab), lanes, int(r_closure), _sm_count(device.index),
+            _ptr(matched), _stream(pair_b),
         )
     _raise_on(rc, "match_regex_scan")
     LAUNCHES["match_regex_scan"] += 1
@@ -563,10 +571,10 @@ VERDICT_LAYOUT_KEYS = (
     ("m_flags", torch.int32), ("op_flags", torch.int32), ("m_rx", torch.int32),
     ("scalar_src", torch.int32), ("scalar_cmp", torch.float32),
     ("scalar_mask", torch.int32), ("m_status", torch.int32), ("m_size", torch.int32),
-    ("m_size_src", torch.int32), ("m_md5", torch.int32),
+    ("m_size_src", torch.int32), ("m_md5", torch.int32), ("chunks", torch.int32),
 )
-#: shared memory a block may use on Hopper (csrc/verdicts.cu keeps the
-#: row's matcher and op planes there: 2 * (NM + NOP) bytes)
+#: shared memory a block may use on Hopper (csrc/verdicts.cu keeps a
+#: chunk's matcher, op and template words there: ``match.chunk_smem``)
 MAX_SHARED_BYTES = 232448
 
 
@@ -574,7 +582,8 @@ class VerdictLayoutC(ctypes.Structure):
     """csrc/verdicts.cu's VerdictLayout: device pointers, then counts."""
 
     _fields_ = [(key, ctypes.c_void_p) for key, _ in VERDICT_LAYOUT_KEYS] + [
-        (key, ctypes.c_int32) for key in ("nm", "nop", "nt", "n_conj", "n_status", "n_rx")
+        (key, ctypes.c_int32)
+        for key in ("nm", "nop", "nt", "n_conj", "n_status", "n_rx", "n_chunks", "chunk_smem")
     ]
 
 
@@ -582,6 +591,8 @@ def verdict_struct(layout) -> VerdictLayoutC:
     """The kernel's struct for a ``match.VerdictLayout``, made once per
     corpus (its tensors stay alive on the layout). Checks the arrays'
     dtypes, device and shapes."""
+    from swarm_tpu_torch.ops.match import CHUNK_FIELDS
+
     csr = layout.csr
     for key, dtype in VERDICT_LAYOUT_KEYS:
         _need(csr[key], dtype, key, layout.device)
@@ -593,14 +604,18 @@ def verdict_struct(layout) -> VerdictLayoutC:
             raise ValueError(f"{key} must be [{n}], got {tuple(csr[key].shape)}")
     n_conj = csr["scalar_src"].shape[1]
     n_status = csr["m_status"].shape[1]
+    if n_conj > 32 or n_status > 32:  # the kernel loads them a lane each
+        raise ValueError(f"{n_conj} scalar conjuncts / {n_status} status values a matcher, "
+                         "the kernel takes at most 32")
     for key, shape in (("scalar_src", (nm, n_conj)), ("scalar_cmp", (nm, n_conj)),
                        ("scalar_mask", (nm, n_conj)), ("m_status", (nm, n_status)),
-                       ("m_size", (nm, n_status)), ("m_md5", (nm, 4))):
+                       ("m_size", (nm, n_status)), ("m_md5", (nm, 4)),
+                       ("chunks", (layout.n_chunks, len(CHUNK_FIELDS)))):
         if csr[key].shape != shape:
             raise ValueError(f"{key} must be {list(shape)}, got {tuple(csr[key].shape)}")
     return VerdictLayoutC(
         *(csr[key].data_ptr() for key, _ in VERDICT_LAYOUT_KEYS),
-        nm, nop, nt, n_conj, n_status, layout.n_rx,
+        nm, nop, nt, n_conj, n_status, layout.n_rx, layout.n_chunks, layout.chunk_smem,
     )
 
 
@@ -616,7 +631,9 @@ def match_verdicts(
     unc) bool [B, NRXM]) or None → (t_value, t_unc, op_value, op_unc,
     m_value, m_unc) bool planes, m_value None unless the corpus has
     workflow gates (``layout.has_gates``). ``layout`` is the corpus's
-    ``match.VerdictLayout`` on the same device."""
+    ``match.VerdictLayout`` on the same device. On the card a call is two
+    launches, the pack of the planes into row-sliced words and the
+    evaluation, and its launch count adds both."""
     from swarm_tpu_torch.ops.encoding import STREAMS
     from swarm_tpu_torch.ops.match import CHECK_SOURCES
 
@@ -651,11 +668,10 @@ def match_verdicts(
 
         return verdicts_plain(layout, value_bits, uncertain_bits, lengths, status,
                               md5_digest, rx)
-    smem = 2 * (layout.nm + layout.nop)
-    if smem > MAX_SHARED_BYTES:
+    if layout.chunk_smem > MAX_SHARED_BYTES:
         raise ValueError(
-            f"{layout.nm} matchers and {layout.nop} ops need {smem} bytes of shared "
-            f"memory a row, more than the {MAX_SHARED_BYTES} a block may use")
+            f"the corpus's widest verdict chunk needs {layout.chunk_smem} bytes of shared "
+            f"memory, more than the {MAX_SHARED_BYTES} a block may use")
     planes = tuple(
         None if n is None else torch.empty((rows, n), dtype=torch.bool, device=device)
         for n in (layout.nt, layout.nt, layout.nop, layout.nop,
@@ -664,6 +680,9 @@ def match_verdicts(
     if rows == 0:
         return planes
     lib = load_library("verdicts")
+    # scratch: the row-sliced words of the slot planes and the overlay
+    cols = 2 * value_bits.shape[1] + (2 * layout.n_rx if rx is not None else 0)
+    words = torch.empty(((rows + 31) // 32) * cols, dtype=torch.int32, device=device)
     sources = (ctypes.c_void_p * len(CHECK_SOURCES))(
         *(t.data_ptr() for t in (status if n == "status" else lengths[n] for n in CHECK_SOURCES)))
     rx_value, rx_unc = rx if rx is not None else (None, None)
@@ -673,8 +692,8 @@ def match_verdicts(
             ctypes.byref(layout.struct), rows, _ptr(value_bits), _ptr(uncertain_bits),
             value_bits.shape[1], sources,
             *(null if t is None else _ptr(t) for t in (md5_digest, rx_value, rx_unc, *planes)),
-            _stream(value_bits),
+            _ptr(words), _stream(value_bits),
         )
     _raise_on(rc, "match_verdicts")
-    LAUNCHES["match_verdicts"] += 1
+    LAUNCHES["match_verdicts"] += 2  # the pack and the evaluation
     return planes

@@ -704,7 +704,8 @@ def verdict_layout_np(db: "fpc.CompiledDB") -> dict:
     variable and each size matcher's stream resolved (clamped as the
     plain version clamps them) to an index of :data:`CHECK_SOURCES`
     (``scalar_src``, ``m_size_src``), and ``m_rx``, each matcher's
-    column of the device-regex overlay or -1."""
+    column of the device-regex overlay or -1; and ``chunks``, the
+    kernel's grid of template chunks (:func:`verdict_chunks`)."""
     va = fpc.verdict_arrays_np(db)
     nm = int(db.m_kind.shape[0])
     nop = int(db.op_cond_and.shape[0])
@@ -741,7 +742,100 @@ def verdict_layout_np(db: "fpc.CompiledDB") -> dict:
     out["m_size_src"] = size_stream.numpy().astype(np.int32)
     for key in ("m_status", "m_size", "m_md5"):
         out[key] = va[key]
+    out["chunks"] = verdict_chunks(out)
     return out
+
+
+#: the columns of the verdict kernel's chunk table (csrc/verdicts.cu
+#: kChunkFields): the chunk's templates, the ops and matchers it
+#: computes, and the ops and matchers whose planes it writes
+CHUNK_FIELDS = ("t_lo", "t_hi", "op_lo", "op_hi", "op_own_lo", "op_own_hi",
+                "m_lo", "m_hi", "m_own_lo", "m_own_hi")
+#: the most templates, and the widest matcher or op range its templates
+#: reach, that the chunking puts in one chunk: one owner a thread of the
+#: kernel's 128-thread block
+CHUNK_OWNERS = 128
+
+
+def _hulls(off: np.ndarray, idx: np.ndarray, n: int, of_lo: np.ndarray, of_hi: np.ndarray,
+           empty: tuple) -> tuple:
+    """Over each CSR owner's members j (clamped into [0, n) as the kernel
+    clamps them), the least ``of_lo[j]`` and the greatest ``of_hi[j]`` →
+    (lo, hi) int64; ``empty`` for an owner without members, a pair that
+    min / max unions leave alone."""
+    owners = len(off) - 1
+    lo, hi = np.full(owners, empty[0], dtype=np.int64), np.full(owners, empty[1], dtype=np.int64)
+    if idx.size and n > 0:
+        j = _clamped(torch.from_numpy(idx), n).numpy()
+        seg = np.repeat(np.arange(owners), np.diff(off))
+        np.minimum.at(lo, seg, of_lo[j])
+        np.maximum.at(hi, seg, of_hi[j])
+    return lo, hi
+
+
+def _owned(lo: np.ndarray, hi: np.ndarray, n: int) -> np.ndarray:
+    """Boundaries [K + 1] that split [0, n) into K contiguous owned
+    ranges, chunk k's starting where the first member it reaches (or,
+    reaching none, the next chunk's) lies, never before chunk k - 1's."""
+    nxt = np.where(hi > lo, lo, n)
+    nxt = np.minimum.accumulate(nxt[::-1])[::-1]  # the next chunk that reaches any
+    bounds = np.zeros(len(lo) + 1, dtype=np.int64)
+    bounds[1:-1] = np.maximum.accumulate(np.minimum(nxt[1:], n))
+    bounds[-1] = n
+    return bounds
+
+
+def verdict_chunks(lay: dict, owners: int = CHUNK_OWNERS) -> np.ndarray:
+    """The verdict kernel's chunk table (:data:`CHUNK_FIELDS`, int32
+    [K, 10]) for a :func:`verdict_layout_np` layout: contiguous template
+    ranges, each grown while it holds at most ``owners`` templates and
+    the ops and matchers its templates reach span at most ``owners``.
+    The owned op and matcher ranges partition [0, NOP) and [0, NM), so
+    each plane entry is written once; a chunk computes the hull of what
+    it owns and what its templates (ops) reach, so every member it reads
+    lies in its shared words. In a corpus whose templates reach their
+    ops and matchers in order the hulls are the reached ranges; any
+    other order only widens them."""
+    nm, nop = len(lay["m_flags"]), len(lay["op_flags"])
+    nt = len(lay["t_op_off"]) - 1
+    ops, matchers = np.arange(nop), np.arange(nm)
+    t_olo, t_ohi = _hulls(lay["t_op_off"], lay["t_op_idx"], nop, ops, ops + 1, (nop, 0))
+    o_mlo, o_mhi = _hulls(lay["op_m_off"], lay["op_m_idx"], nm, matchers, matchers + 1, (nm, 0))
+    # each template's matcher hull: the union of its ops' hulls
+    t_mlo, t_mhi = _hulls(lay["t_op_off"], lay["t_op_idx"], nop, o_mlo, o_mhi, (nm, 0))
+    starts = [0]
+    hull = (nop, 0, nm, 0)
+    for t in range(nt):
+        grown = (min(hull[0], t_olo[t]), max(hull[1], t_ohi[t]),
+                 min(hull[2], t_mlo[t]), max(hull[3], t_mhi[t]))
+        if t > starts[-1] and (t - starts[-1] >= owners or grown[1] - grown[0] > owners
+                               or grown[3] - grown[2] > owners):
+            starts.append(t)
+            grown = (t_olo[t], t_ohi[t], t_mlo[t], t_mhi[t])
+        hull = grown
+    starts.append(nt)
+    t_lo, t_hi = np.array(starts[:-1]), np.array(starts[1:])
+    r_olo = np.minimum.reduceat(t_olo, t_lo)
+    r_ohi = np.maximum.reduceat(t_ohi, t_lo)
+    op_own = _owned(r_olo, r_ohi, nop)
+    op_lo = np.minimum(op_own[:-1], r_olo)
+    op_hi = np.maximum(op_own[1:], r_ohi)
+    # the matchers of every op a chunk computes, its owned ones included
+    r_mlo = np.array([o_mlo[a:b].min(initial=nm) for a, b in zip(op_lo, op_hi)])
+    r_mhi = np.array([o_mhi[a:b].max(initial=0) for a, b in zip(op_lo, op_hi)])
+    m_own = _owned(r_mlo, r_mhi, nm)
+    m_lo = np.minimum(m_own[:-1], r_mlo)
+    m_hi = np.maximum(m_own[1:], r_mhi)
+    return np.stack([t_lo, t_hi, op_lo, op_hi, op_own[:-1], op_own[1:], m_lo, m_hi,
+                     m_own[:-1], m_own[1:]], axis=1).astype(np.int32)
+
+
+def chunk_smem(chunks: np.ndarray) -> int:
+    """Shared memory the verdict kernel's block takes for the widest
+    chunk: a value and an unc word for each matcher, op and template it
+    computes."""
+    c = np.asarray(chunks, dtype=np.int64)
+    return int(8 * ((c[:, 1] - c[:, 0]) + (c[:, 3] - c[:, 2]) + (c[:, 7] - c[:, 6])).max())
 
 
 class VerdictLayout:
@@ -763,6 +857,8 @@ class VerdictLayout:
         self.n_rx = len(db.rx_m_ids)
         # m_value leaves the lowering only for the workflow gates
         self.has_gates = self.arrays.get("wf") is not None
+        self.n_chunks = int(self.csr["chunks"].shape[0])
+        self.chunk_smem = chunk_smem(self.csr["chunks"].cpu().numpy())
         # the kernel's struct of the csr tensors' pointers, made once
         self.struct = kernels.verdict_struct(self)
 

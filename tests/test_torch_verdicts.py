@@ -7,7 +7,10 @@ CPU the wrappers take their plain versions (``ops/md5.py`` ``md5_words``,
 (``ops/csrc/md5.cu``, ``ops/csrc/verdicts.cu``) run only on a card, where
 the tests marked ``cuda`` hold them against their plain versions. The
 kernel's layout is checked here by :func:`walk_layout`, a numpy walk of
-the CSR arrays in the kernel's own order of work.
+the CSR arrays row by row, and by :func:`walk_chunks`, a numpy walk of
+the kernel's own design: the slot planes packed into row-sliced words,
+then chunk by chunk of ``match.verdict_chunks``, every any / all a word
+operation, at row counts that leave a word partly filled.
 
 Corpora: ``tests/data/templates`` (the whole tree: its workflow lowers
 gate planes, which read m_value) and a 300-template synthetic corpus from
@@ -361,6 +364,251 @@ def test_walked_layout_equals_port_and_jax(corpora, verdict_inputs, corpus, plan
     assert walked[5].any() or planes == "dispatch"  # uncertain matchers
 
 
+# ---------------------------------------------------------------------------
+# The kernel's design: rows in the bits of a word, template chunks
+
+
+def pack_words(plane: np.ndarray) -> np.ndarray:
+    """bool [B, n] → the kernel's row-sliced words uint32 [W, n], W =
+    ceil(B / 32): bit r of word w is row 32 w + r, rows past B zero."""
+    B, n = plane.shape
+    W = (B + 31) // 32
+    padded = np.zeros((W * 32, n), dtype=np.uint64)
+    padded[:B] = plane
+    shifted = padded.reshape(W, 32, n) << np.arange(32, dtype=np.uint64)[None, :, None]
+    return np.bitwise_or.reduce(shifted, axis=1).astype(np.uint32)
+
+
+def _words(rows: np.ndarray) -> np.ndarray:
+    """A per-row bool mask [B] → its words [W] (the kernel's loop over
+    a word's rows)."""
+    return pack_words(rows[:, None])[:, 0]
+
+
+def _reduce_words(off, idx, owner: int, n: int, base: int, v, u):
+    """(all v, any v, any u, any v & ~u, any ~v & ~u) words [W] of one
+    owner's members, clamped into [0, n), read at j - base from [., W]
+    word arrays; None without members."""
+    lo, hi = int(off[owner]), int(off[owner + 1])
+    if hi <= lo:
+        return None
+    j = np.array([_clamped(int(x), n) - base for x in idx[lo:hi]])
+    gv, gu = v[j], u[j]
+    orr = np.bitwise_or.reduce
+    return (np.bitwise_and.reduce(gv, 0), orr(gv, 0), orr(gu, 0), orr(gv & ~gu, 0),
+            orr(~gv & ~gu, 0))
+
+
+def walk_chunks(lay: dict, value, unc, lengths: dict, status, digest=None, rx=None) -> tuple:
+    """The verdict lowering as csrc/verdicts.cu computes it: the slot
+    planes (and the overlay) packed into row-sliced words, then chunk by
+    chunk of ``lay["chunks"]`` (``match.verdict_chunks``) matchers, ops
+    and templates over the chunk's word arrays, every any / all a word
+    operation, the per-row checks built into masks; each plane entry
+    written from the chunk that owns it → (t_value, t_unc, op_value,
+    op_unc, m_value, m_unc) bool planes. Fails if an entry is written
+    twice or never."""
+    bit = {k: 1 << i for i, k in enumerate(tm.M_FLAG_BITS)}
+    obit = {k: 1 << i for i, k in enumerate(tm.OP_FLAG_BITS)}
+    B, NS = value.shape
+    nm, nop = len(lay["m_flags"]), len(lay["op_flags"])
+    nt = len(lay["t_op_off"]) - 1
+    vw, uw = pack_words(value), pack_words(unc)
+    rvw, ruw = (None, None) if rx is None else (pack_words(rx[0]), pack_words(rx[1]))
+    srcs = np.stack([status if n == "status" else lengths[n] for n in tm.CHECK_SOURCES], 1)
+    W = vw.shape[0]
+    ones = np.full(W, 0xFFFFFFFF, dtype=np.uint32)
+    zeros = np.zeros(W, dtype=np.uint32)
+    out = {k: np.zeros((W, n), dtype=np.uint32) for k, n in (
+        ("tv", nt), ("tu", nt), ("ov", nop), ("ou", nop), ("mv", nm), ("mu", nm))}
+    written = {k: np.zeros(n, dtype=np.int64) for k, n in (("t", nt), ("op", nop), ("m", nm))}
+    for ch in lay["chunks"]:
+        t_lo, t_hi, op_lo, op_hi, op_own_lo, op_own_hi, m_lo, m_hi, m_own_lo, m_own_hi = map(
+            int, ch)
+        mv = np.zeros((m_hi - m_lo, W), dtype=np.uint32)
+        mu = np.zeros_like(mv)
+        for m in range(m_lo, m_hi):
+            fl = int(lay["m_flags"][m])
+            slot_red, u = ones, zeros
+            r = _reduce_words(lay["m_slot_off"], lay["m_slot_idx"], m, NS, 0, vw.T, uw.T)
+            if r is not None:
+                all_v, any_v, any_u, any_vnu, _ = r
+                is_and = bool(fl & bit["m_cond_and"])
+                slot_red = all_v if is_and else any_v
+                u = any_u & ~(~all_v if is_and else any_vnu)
+            neg_present = neg_df = zeros
+            r = _reduce_words(lay["m_neg_off"], lay["m_neg_idx"], m, NS, 0, vw.T, uw.T)
+            if r is not None:
+                neg_present, neg_df = r[1], r[3]
+                u = u | r[2]
+            scalar_ok = ones
+            if fl & bit["is_scalar"]:
+                for c in range(lay["scalar_src"].shape[1]):
+                    v = srcs[:, lay["scalar_src"][m, c]].astype(np.float32)
+                    cmp, mask = lay["scalar_cmp"][m, c], int(lay["scalar_mask"][m, c])
+                    checks = (v == cmp, v != cmp, v < cmp, v > cmp, v <= cmp, v >= cmp,
+                              np.ones(B, bool))
+                    conj = np.zeros(B, bool)
+                    for i, chk in enumerate(checks):
+                        if mask >> i & 1:
+                            conj |= chk
+                    scalar_ok = scalar_ok & _words(conj)
+            status_ok = size_ok = zeros
+            if fl & bit["is_status"]:
+                status_ok = _words((status[:, None] == lay["m_status"][m][None]).any(1))
+            if fl & bit["is_size"]:
+                sel = srcs[:, lay["m_size_src"][m]]
+                size_ok = _words((sel[:, None] == lay["m_size"][m][None]).any(1))
+            md5_ok = ones
+            if fl & bit["m_md5_check"]:
+                if digest is not None:
+                    want = lay["m_md5"][m].astype(np.uint32).astype(np.int64)
+                    md5_ok = _words((digest == want[None]).all(1))
+                else:
+                    u = ones
+            val = zeros
+            if fl & bit["is_words"]:
+                val = slot_red
+            if fl & bit["is_scalar"]:
+                val = scalar_ok & slot_red & ~neg_present & md5_ok
+            if fl & bit["is_status"]:
+                val = status_ok
+            if fl & bit["is_size"]:
+                val = size_ok
+            if fl & bit["is_scalar"]:
+                u = u & scalar_ok & md5_ok & ~neg_df
+            if fl & (bit["m_residue"] | bit["is_rx_prefilter"]):
+                u = u | val
+            if rvw is not None and lay["m_rx"][m] >= 0:
+                val, u = rvw[:, lay["m_rx"][m]], ruw[:, lay["m_rx"][m]]
+            if fl & bit["m_negative"]:
+                val = ~val
+            mv[m - m_lo], mu[m - m_lo] = val, u
+        ov = np.zeros((op_hi - op_lo, W), dtype=np.uint32)
+        ou = np.zeros_like(ov)
+        for o in range(op_lo, op_hi):
+            r = _reduce_words(lay["op_m_off"], lay["op_m_idx"], o, nm, m_lo, mv, mu)
+            fl = int(lay["op_flags"][o])
+            if r is not None:
+                all_v, any_v, any_u, any_vnu, any_nvnu = r
+                is_and = bool(fl & obit["op_cond_and"])
+                ov[o - op_lo] = all_v if is_and else any_v
+                ou[o - op_lo] = any_u & ~(any_nvnu if is_and else any_vnu)
+            if fl & obit["op_prefilter"]:
+                ou[o - op_lo] = ov[o - op_lo]
+        for t in range(t_lo, t_hi):
+            r = _reduce_words(lay["t_op_off"], lay["t_op_idx"], t, nop, op_lo, ov, ou)
+            if r is not None:
+                out["tv"][:, t], out["tu"][:, t] = r[1], r[2] & ~r[3]
+        out["ov"][:, op_own_lo:op_own_hi] = ov[op_own_lo - op_lo:op_own_hi - op_lo].T
+        out["ou"][:, op_own_lo:op_own_hi] = ou[op_own_lo - op_lo:op_own_hi - op_lo].T
+        out["mv"][:, m_own_lo:m_own_hi] = mv[m_own_lo - m_lo:m_own_hi - m_lo].T
+        out["mu"][:, m_own_lo:m_own_hi] = mu[m_own_lo - m_lo:m_own_hi - m_lo].T
+        written["t"][t_lo:t_hi] += 1
+        written["op"][op_own_lo:op_own_hi] += 1
+        written["m"][m_own_lo:m_own_hi] += 1
+    assert all((n == 1).all() for n in written.values()), "an entry written twice or never"
+
+    def unpack(words):  # [W, n] → bool [B, n]
+        rows = (words[:, None, :] >> np.arange(32, dtype=np.uint32)[None, :, None]) & 1
+        return rows.reshape(W * 32, -1)[:B].astype(bool)
+
+    return tuple(unpack(out[k]) for k in ("tv", "tu", "ov", "ou", "mv", "mu"))
+
+
+def rows_case(args, rows: int, digest: bool, rx: bool) -> tuple:
+    """The recorded call's rows drawn with repeats to ``rows`` rows
+    (seeded), a twentieth of their slot bits flipped and a tenth set
+    uncertain, with or without the digest and the overlay."""
+    layout, value, unc, ln, st, dg, overlay = args
+    rng = np.random.default_rng(rows)
+    pick = torch.from_numpy(rng.integers(0, value.shape[0], rows))
+    flip = torch.from_numpy(rng.random((rows, value.shape[1])) < 0.05)
+    more = torch.from_numpy(rng.random((rows, value.shape[1])) < 0.1)
+    return (layout, (value[pick] ^ flip).contiguous(), (unc[pick] | more).contiguous(),
+            {k: v[pick].contiguous() for k, v in ln.items()}, st[pick].contiguous(),
+            dg[pick].contiguous() if digest else None,
+            tuple(p[pick].contiguous() for p in overlay) if rx else None)
+
+
+ROW_COUNTS = (1, 31, 32, 33, 256)
+WORD_CASES = [(d, r) for d in (True, False) for r in (True, False) if d or r]
+
+
+@pytest.mark.parametrize("digest,rx", WORD_CASES,
+                         ids=[f"{'digest' if d else 'nodigest'}-{'rx' if r else 'norx'}"
+                              for d, r in WORD_CASES])
+@pytest.mark.parametrize("rows", ROW_COUNTS)
+@pytest.mark.parametrize("corpus", ["synthetic", "tree"])
+def test_word_chunk_walk_equals_port_and_jax(corpora, verdict_inputs, corpus, rows, digest, rx):
+    c = corpora[corpus]
+    layout, value, unc, ln, st, dg, overlay = rows_case(verdict_inputs[corpus], rows, digest, rx)
+    lay = tm.verdict_layout_np(c.t_db)
+    walked = walk_chunks(lay, value.numpy(), unc.numpy(), {k: v.numpy() for k, v in ln.items()},
+                         st.numpy(), _np(dg), None if overlay is None else tuple(map(_np, overlay)))
+    port = kernels.match_verdicts(layout, value, unc, ln, st, dg, overlay)
+    for i, (a, b) in enumerate(zip(walked, port)):
+        if b is not None:
+            assert np.array_equal(a, b.numpy()), f"plane {i}"
+    full = tm.full_planes(layout.arrays, tuple(torch.from_numpy(p) for p in walked))
+    want = jax_verdicts(c, value, unc, ln, st, dg, overlay)
+    for i, (a, b) in enumerate(zip(full, want)):
+        assert np.array_equal(a.numpy(), b), f"plane {i}"
+    assert walked[5].any() or rows == 1  # uncertain matchers
+
+
+def test_chunks_partition_and_cover_the_corpus(corpora):
+    """The chunk table: the templates in order, the owned op and matcher
+    ranges a partition, every member a chunk reads inside what it
+    computes; on the synthetic corpus, whose templates reach their ops
+    and matchers in order, enough chunks to give the card ~4 blocks an
+    SM at 256 rows, none wider than its block."""
+    for name, c in corpora.items():
+        lay = tm.verdict_layout_np(c.t_db)
+        ch = lay["chunks"].astype(np.int64)
+        assert ch.shape[1] == len(tm.CHUNK_FIELDS) == 10
+        nm, nop, nt = len(lay["m_flags"]), len(lay["op_flags"]), len(lay["t_op_off"]) - 1
+        for lo, hi, n in ((0, 1, nt), (4, 5, nop), (8, 9, nm)):
+            assert ch[0, lo] == 0 and ch[-1, hi] == n and (ch[1:, lo] == ch[:-1, hi]).all()
+        assert (ch[:, 2] <= ch[:, 4]).all() and (ch[:, 5] <= ch[:, 3]).all()
+        assert (ch[:, 6] <= ch[:, 8]).all() and (ch[:, 9] <= ch[:, 7]).all()
+        for k in range(len(ch)):
+            _hull_inside(lay["t_op_off"], lay["t_op_idx"], ch[k, 0], ch[k, 1], nop, ch[k, 2], ch[k, 3])
+            _hull_inside(lay["op_m_off"], lay["op_m_idx"], ch[k, 2], ch[k, 3], nm, ch[k, 6], ch[k, 7])
+        assert tm.chunk_smem(ch) <= kernels.MAX_SHARED_BYTES
+    docs, _ = synthetic_corpus(0)
+    lay = tm.verdict_layout_np(t_compile.compile_corpus([t_nuclei.parse_template(d) for d in docs]))
+    ch = lay["chunks"]
+    assert len(ch) * 8 >= 4 * 132  # 256 rows: 8 words
+    assert (ch[:, 7] - ch[:, 6]).max() <= tm.CHUNK_OWNERS >= (ch[:, 1] - ch[:, 0]).max()
+    assert ((ch[:, 7] - ch[:, 6]) == (ch[:, 9] - ch[:, 8])).all()  # reached in order: no overlap
+
+
+def _hull_inside(off, idx, lo, hi, n, in_lo, in_hi) -> None:
+    members = idx[off[lo]:off[hi]]
+    if members.size:
+        j = tm._clamped(torch.from_numpy(members), n).numpy()
+        assert in_lo <= j.min() and j.max() < in_hi
+
+
+def test_chunks_of_an_unordered_layout():
+    """Templates that reach ops and matchers out of order, an op and a
+    matcher no template reaches, a template without ops: the chunks
+    widen their hulls and still own each entry once."""
+    lay = {"t_op_off": np.array([0, 2, 2, 3, 4]), "t_op_idx": np.array([3, 0, 1, -1]),
+           "op_m_off": np.array([0, 1, 3, 3, 5, 6]), "op_m_idx": np.array([6, 0, 1, 2, 5, 3]),
+           "m_flags": np.zeros(7, np.int32), "op_flags": np.zeros(5, np.int32)}
+    ch = tm.verdict_chunks(lay, owners=1).astype(np.int64)
+    assert ch[:, 0].tolist() == [0, 1, 2, 3] and ch[-1, 1] == 4
+    for lo, hi, n in ((4, 5, 5), (8, 9, 7)):
+        assert ch[0, lo] == 0 and ch[-1, hi] == n and (ch[1:, lo] == ch[:-1, hi]).all()
+    for k in range(len(ch)):
+        _hull_inside(lay["t_op_off"], lay["t_op_idx"], ch[k, 0], ch[k, 1], 5, ch[k, 2], ch[k, 3])
+        _hull_inside(lay["op_m_off"], lay["op_m_idx"], ch[k, 2], ch[k, 3], 7, ch[k, 6], ch[k, 7])
+        assert ch[k, 2] <= ch[k, 4] <= ch[k, 5] <= ch[k, 3]
+        assert ch[k, 6] <= ch[k, 8] <= ch[k, 9] <= ch[k, 7]
+
+
 def test_inputs_reach_every_rule(corpora, verdict_inputs):
     """The corpora give the walk every kind of matcher and rule to check."""
     lay = tm.verdict_layout_np(corpora["synthetic"].t_db)
@@ -408,6 +656,8 @@ def test_layout_struct_and_flags_match_the_kernel_source():
     # the check sources: the kernel takes as many as the layout indexes,
     # the status last; the scalar variables resolve as compile numbers them
     assert int(re.search(r"constexpr int kSources = (\d+);", src).group(1)) == len(tm.CHECK_SOURCES)
+    assert int(re.search(r"constexpr int kChunkFields = (\d+);", src).group(1)) == len(
+        tm.CHUNK_FIELDS)
     assert "kStatusSource = kSources - 1;" in src and tm.CHECK_SOURCES[-1] == "status"
     assert tm.CHECK_SOURCES[:-1] == STREAMS
     var = {t_compile.SV_STATUS: "status", t_compile.SV_LEN_BODY: "body",

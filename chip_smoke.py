@@ -57,10 +57,16 @@ prints one JSON line per phase:
    length that are not zero, against its plain version and hashlib,
    ``match_verdicts`` on the stress batch's call without the digest,
    without the regex overlay, on random slot planes and on its first 1,
-   33 and 257 rows, and ``match_regex_scan`` on hand-written regex
+   33 and 257 rows and on a corpus whose status and size matchers hold
+   40 values, and ``match_regex_scan`` on hand-written regex
    corpora of 1 and 3 state lanes with skip runs (closure rounds), over
    rows whose pairs are 0, 1, 255, 256, 257 bytes long and the stream's
-   full width.
+   full width; ``match_phase_a`` and ``match_verify`` on the edges of
+   ``candidate_edges`` (widths that are not a multiple of 32, gram sizes
+   other than 4 and 8, rows shorter than q, 0 and 1 rows, kclamp below
+   the budget, an overflow row, tables without groups, groups past
+   emax, slots longer than 64 bytes, suffix grams outside the width, a
+   verify that fails at its last byte).
 10. ``match``  — ``MatchEngine`` as the worker builds it: its first
    batch as in 9, then ``MatchEngine.match`` of 2,048 rows, warm, called
    for a 2-second window: rows/s over the window (and, apart, the
@@ -83,7 +89,10 @@ prints one JSON line per phase:
    ``eval_card_ms``), and its bound from the call's data (for
    ``match_md5``, one thread a row, and ``match_regex_scan``, one lane a
    pair, also a latency bound: the longest row's or pair's dependent
-   chain at the card's maximum SM clock).
+   chain at the card's maximum SM clock); for ``match_phase_a``,
+   ``match_verify`` and ``match_regex_scan`` also the card time of the
+   same call with no live work (every row empty, every candidate or
+   pair dead): the launch and the walk apart from the work.
 
 Then the ``{"kernels": [...]}`` summary (all seven kernels), the ``nvidia-smi`` line, and as
 the last line ``{"ok": true, "device": {...}}``. Any failed check raises
@@ -362,6 +371,97 @@ def regex_rows(width: int = 1024) -> list[dict]:
                b"x-gen: 1234", b"Server: x\r\nX-Gen: 999"]
     return [{"host": f"r{i}", "port": 80, "status": 200, "body": body,
              "header": headers[i % len(headers)]} for i, body in enumerate(bodies)]
+
+
+#: a status matcher of 40 codes and a size matcher of 40 sizes: wider
+#: than the 32 lanes of a warp of the verdict kernel, which takes a
+#: matcher's values 32 a pass
+WIDE_STATUS = tuple(range(200, 240))
+WIDE_SIZES = tuple(11 + 3 * i for i in range(40))
+
+
+def wide_matcher_docs() -> list:
+    """Templates whose status and size matchers hold more than 32 values:
+    ``many-status`` (the 40 codes AND the word "nginx") and ``many-size``
+    (a body of one of the 40 sizes)."""
+    def doc(tid: str, matchers: list, condition: str = "or") -> dict:
+        return {"id": tid, "info": {"name": tid, "severity": "info"},
+                "http": [{"method": "GET", "path": ["{{BaseURL}}/"],
+                          "matchers-condition": condition, "matchers": matchers}]}
+
+    return [
+        doc("many-status", [{"type": "status", "status": list(WIDE_STATUS)},
+                            {"type": "word", "words": ["nginx"]}], "and"),
+        doc("many-size", [{"type": "size", "size": list(WIDE_SIZES), "part": "body"}]),
+    ]
+
+
+def wide_matcher_rows() -> list[dict]:
+    """Rows for :func:`wide_matcher_docs`: "hello nginx" (11 bytes, the
+    first size) with the first, a middle and the last of the 40 codes and
+    two codes outside them; bodies of the 36th and the 40th size (values
+    past the first 32) and two sizes outside them."""
+    rows = [{"host": f"s{code}", "port": 80, "status": code, "body": b"hello nginx"}
+            for code in (200, 231, 239, 240, 404)]
+    rows += [{"host": f"n{n}", "port": 80, "status": 200, "body": b"x" * n}
+             for n in (WIDE_SIZES[35], WIDE_SIZES[39], WIDE_SIZES[39] + 1, 12)]
+    return rows
+
+
+#: gram sizes other than the compiler's 4 and 8, which kernels
+#: match_phase_a and match_verify take by a slower path
+GENERIC_Q = (1, 3, 5, 7, 2, 6)
+
+
+def candidate_edges(streams: dict, lengths: dict, table_q: tuple, tab: dict,
+                    slot_bytes: np.ndarray, slot_len: np.ndarray) -> dict:
+    """Edge cases of phase A and the verify, made from one batch's numpy
+    inputs (the streams after the "all" synthesis, their lengths, the
+    tables' gram sizes, the stacked verify tables, the slot bytes and
+    the slot lengths): name → the same six, edited. Widths that are not
+    a multiple of 32 (rows past their width too); gram sizes other than
+    4 and 8; rows shorter than q; tables without groups; groups that run
+    past emax (their entry indices clamp); every slot longer than the 64
+    verified bytes; suffix grams outside the width; the last verified
+    byte of every slot changed (each verify fails at its last byte).
+    Each edit copies what it changes."""
+    def lengths_of(fn):
+        return {k: fn(v) for k, v in lengths.items()}
+
+    def edit(**kw):
+        base = dict(streams=streams, lengths=lengths, table_q=table_q, tab=tab,
+                    slot_bytes=slot_bytes, slot_len=slot_len)
+        base.update(kw)
+        return tuple(base.values())
+
+    out = {"base": edit()}
+    # cut each stream to 19 bytes short of a multiple of 32
+    cut = {k: np.ascontiguousarray(v[:, : max(v.shape[1] - v.shape[1] % 32 - 19, 5)])
+           for k, v in streams.items()}
+    out["width_not_32"] = edit(streams=cut)
+    q = tuple(GENERIC_Q[i % len(GENERIC_Q)] for i in range(len(table_q)))
+    out["generic_q"] = edit(table_q=q)
+    rows = next(iter(lengths.values())).shape[0]
+    short = np.arange(rows, dtype=np.int32) % 9  # 0..8 bytes: shorter than q or just past it
+    out["short_rows"] = edit(lengths=lengths_of(lambda v: np.minimum(v, short).astype(v.dtype)))
+    no_groups = dict(tab, n_groups=tab["n_groups"].copy())
+    no_groups["n_groups"][::3] = 0
+    out["no_groups"] = edit(tab=no_groups)
+    emax = tab["entry_h2"].shape[1]
+    clamp = dict(tab, entry_start=tab["entry_start"].copy())
+    clamp["entry_start"][1::2] = np.maximum(clamp["entry_start"][1::2], emax - 3)
+    out["past_emax"] = edit(tab=clamp)
+    out["long_slots"] = edit(slot_len=slot_len + 64)
+    far = dict(tab, entry_suf_delta=tab["entry_suf_delta"].copy())
+    width = max(v.shape[1] for v in streams.values())
+    far["entry_suf_delta"][::2, ::2] += width
+    far["entry_suf_delta"][::2, 1::2] -= width
+    out["suffix_outside"] = edit(tab=far)
+    last = np.clip(np.minimum(slot_len, 64) - 1, 0, 63)
+    changed = slot_bytes.copy()
+    changed[np.arange(len(last)), last] ^= 1
+    out["last_byte_differs"] = edit(slot_bytes=changed)
+    return out
 
 
 def realistic_rows(n: int, seed: int = 7, plants: list | None = None) -> list[dict]:
@@ -667,8 +767,8 @@ def phase_build() -> ctypes.CDLL:
              for k in kernels.ptxas_report(kernels.build_logs.get(name, ""))]
     emit({"phase": "build", "setup_seconds": time.perf_counter() - t0, "ptxas": ptxas})
     built = {k["kernel"].split("<")[0] for k in ptxas}
-    for want in ("cluster_counts_kernel", "cluster_parent_kernel", "match_phase_a_kernel",
-                 "match_verify_kernel", "match_regex_scan_kernel", "match_md5_kernel",
+    for want in ("cluster_counts_kernel", "cluster_parent_kernel", "match_phase_a_probe_kernel",
+                 "match_phase_a_rank_kernel", "match_verify_kernel", "match_regex_scan_kernel", "match_md5_kernel",
                  "match_verdicts_pack_kernel", "match_verdicts_kernel"):
         if want not in built:
             raise AssertionError(f"build: ptxas reported no {want}")
@@ -940,8 +1040,14 @@ def verdict_split_ms(args: tuple, reps: int = 10) -> dict:
             kernels.match_verdicts(*args)
 
     run()  # warm
-    got = profile_call(run, "verdict_split", ())["kernels_ms"]
-    if set(got) != {"match_verdicts_pack_kernel", "match_verdicts_kernel"}:
+    want = {"match_verdicts_pack_kernel", "match_verdicts_kernel"}
+    # the profiler now and then hands back a trace with no device events
+    # at all (once in eight runs of this script on an H100): up to three traces
+    for _ in range(3):
+        got = profile_call(run, "verdict_split", ())["kernels_ms"]
+        if got:
+            break
+    if set(got) != want:
         raise AssertionError(f"a verdict call's trace holds kernels {sorted(got)}")
     return {"pack_card_ms": got["match_verdicts_pack_kernel"] / reps,
             "eval_card_ms": got["match_verdicts_kernel"] / reps}
@@ -1466,14 +1572,41 @@ def verdict_variants(args: tuple) -> dict:
     for n in (1, 33, 257):
         variants[f"rows_{n}"] = (layout, value[:n], unc[:n], {k: t[:n] for k, t in ln.items()},
                                  st[:n], digest[:n], tuple(p[:n] for p in rx))
+    variants["status_values_40"] = wide_verdict_call()
     out = {}
     for name, a in variants.items():
         got, want = kernels.match_verdicts(*a), verdicts_plain(*a)
         err = max(_diff(x, y) for x, y in zip(got, want))
         if err:
             raise AssertionError(f"match_verdicts differs from its plain version ({name})")
-        out[name] = {"t_unc": int(want[1].sum()), "m_unc": int(want[5].sum())}
+        out[name] = {"t_value": int(want[0].sum()), "t_unc": int(want[1].sum()),
+                     "m_unc": int(want[5].sum())}
+    # three rows fire both templates, four rows the size template alone
+    if out["status_values_40"]["t_value"] != 3 * 2 + 4:
+        raise AssertionError(f"the wide matchers' verdicts: {out['status_values_40']}")
     return out
+
+
+def wide_verdict_call() -> tuple:
+    """The ``match_verdicts`` call ``DeviceDB.match`` makes on the card for
+    :func:`wide_matcher_rows` over :func:`wide_matcher_docs`, whose status
+    and size matchers hold 40 values."""
+    from swarm_tpu_torch.fingerprints.compile import compile_corpus
+    from swarm_tpu_torch.fingerprints.nuclei import parse_template
+    from swarm_tpu_torch.ops import kernels
+    from swarm_tpu_torch.ops.encoding import encode_batch
+    from swarm_tpu_torch.ops.match import DeviceDB
+
+    dev_db = DeviceDB(compile_corpus([parse_template(d) for d in wide_matcher_docs()]),
+                      device="cuda")
+    batch = encode_batch(port_rows(wide_matcher_rows()), max_body=4096, max_header=1024,
+                         build_all=False, width_multiple=512)
+    with kernels.record_calls() as calls:
+        dev_db.match(batch.streams, batch.lengths, batch.status)
+    (args,) = [a for name, a in calls if name == "match_verdicts"]
+    if args[0].csr["m_status"].shape[1] <= 32:
+        raise AssertionError("the wide corpus's status matcher is not wider than 32")
+    return args
 
 
 def regex_edge_cases() -> dict:
@@ -1512,6 +1645,75 @@ def regex_edge_cases() -> dict:
     return out
 
 
+def candidate_edge_cases(templates, plants, db) -> dict:
+    """``match_phase_a`` and ``match_verify`` against their plain versions
+    on the card, exact, on the edits of :func:`candidate_edges` of a
+    64-row batch (63 planted rows and one over the candidate budget), on
+    its first row and on none, each at kclamp 16 of a budget of 64 and
+    at the engine's budget."""
+    import dataclasses
+
+    import torch
+
+    from swarm_tpu_torch.fingerprints.compile import survivor_bucket
+    from swarm_tpu_torch.fingerprints.model import Response
+    from swarm_tpu_torch.ops import kernels
+    from swarm_tpu_torch.ops.encoding import encode_batch
+    from swarm_tpu_torch.ops.match import (DeviceDB, col_starts_of, phase_a_plain,
+                                           table_views, verify_plain)
+
+    dev_db = DeviceDB(db, device="cuda")
+    meta, arrays = dev_db._ensure_layout()
+    words = [w.encode() for tpl in templates for _, m in tpl.all_matchers() for w in m.words]
+    dense = Response(host="h", port=80, status=200, body=b"".join(words)[: 3 * MAX_BODY])
+    batch = encode_batch(port_rows(realistic_rows(63, seed=13, plants=plants)) + [dense],
+                         max_body=MAX_BODY, max_header=MAX_HEADER, build_all=False,
+                         width_multiple=512)
+    s, ln, _st = dev_db.upload(batch.streams, batch.lengths, batch.status)
+    edits = candidate_edges({k: v.cpu().numpy() for k, v in s.items()},
+                            {k: v.cpu().numpy() for k, v in ln.items()}, meta.table_q,
+                            {k: v.cpu().numpy() for k, v in arrays["tab"].items()},
+                            arrays["slot_bytes"].cpu().numpy(), arrays["slot_len"].cpu().numpy())
+    bloom, plane_width = arrays["tab"]["bloom"], max(db.num_slots, 1)
+    out = {}
+    for edge, (streams, lengths, table_q, tab, slot_bytes, slot_len) in edits.items():
+        meta_e = dataclasses.replace(meta, table_q=tuple(table_q))
+        s_e = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in streams.items()}
+        l_e = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in lengths.items()}
+        corpus = kernels.VerifyCorpus({k: torch.from_numpy(v).cuda() for k, v in tab.items()},
+                                      meta.max_group, torch.from_numpy(slot_bytes).cuda(),
+                                      torch.from_numpy(slot_len).cuda())
+        err, shape = 0.0, {}
+        for rows in (None, 1, 0):
+            views = [kernels.StreamView(v.data[:rows].contiguous(), v.lengths[:rows].contiguous(),
+                                        v.lowered) for v in table_views(meta_e, s_e, l_e)]
+            tabs = kernels.MatchTables(views, meta_e.table_q, col_starts_of(meta_e, s_e))
+            for budget, k in ((64, 16), (dev_db._budget(), dev_db._budget())):
+                k = max(1, min(k, int(tabs.col_starts[-1])))
+                args = (tabs, tabs.qs, tabs.col_starts, bloom, budget, k)
+                col, n_surv = kernels.match_phase_a(*args)
+                err = max(err, *(_diff(a, b) for a, b in zip((col, n_surv), phase_a_plain(*args))))
+                kc = survivor_bucket(int(n_surv.clamp(max=k).max()) if tabs.rows else 0, budget)
+                vargs = (tabs, tabs.qs, tabs.col_starts, col, kc, corpus, meta.max_group,
+                         corpus.slot_bytes, corpus.slot_len, plane_width)
+                planes, want = kernels.match_verify(*vargs), verify_plain(*vargs)
+                err = max(err, *(_diff(a, b) for a, b in zip(planes, want)))
+                if rows is None and budget == 64:
+                    shape = {"overflow_rows": int((n_surv > k).sum()),
+                             "live_candidates": int((col[:, :kc] >= 0).sum()),
+                             "value_bits": int(want[0].sum()), "unc_bits": int(want[1].sum()),
+                             "widths": sorted({int(v.data.shape[1]) for v in views}),
+                             "q": sorted(set(tabs.qs))}
+        if err:
+            raise AssertionError(f"phase A / verify differ from their plain versions ({edge})")
+        out[edge] = {**shape, "err": err}
+    if not (out["base"]["overflow_rows"] and out["long_slots"]["unc_bits"]
+            and all(w % 32 for w in out["width_not_32"]["widths"])
+            and out["last_byte_differs"]["value_bits"] < out["base"]["value_bits"]):
+        raise AssertionError(f"the candidate edge cases miss an edge: {out}")
+    return out
+
+
 def phase_match_kernels(templates, plants, db) -> dict:
     """Each match kernel against its plain version on the card, exact, on
     the calls ``DeviceDB.match`` makes for: a 2,048-row stress batch in
@@ -1539,6 +1741,7 @@ def phase_match_kernels(templates, plants, db) -> dict:
     del calls, verdict_args
     md5_edges = md5_edge_case()
     regex_edges = regex_edge_cases()
+    cand_edges = candidate_edge_cases(templates, plants, db)
     tree_db, tree = tree_batch()
     cases["workflow_tree"] = match_case(DeviceDB(tree_db, device="cuda"), tree)
     if not cases["workflow_tree"]["workflow_planes"]:
@@ -1573,7 +1776,8 @@ def phase_match_kernels(templates, plants, db) -> dict:
         if missing:
             raise AssertionError(f"case {name} made no call of {missing}")
     emit({"phase": "match_kernels", "exact": True, "cases": cases,
-          "verdict_variants": variants, "md5_edges": md5_edges, "regex_edges": regex_edges})
+          "verdict_variants": variants, "md5_edges": md5_edges, "regex_edges": regex_edges,
+          "candidate_edges": cand_edges})
     return {k: max(c["err"][k] for c in cases.values()) for k in MATCH_KERNELS}
 
 
@@ -1788,6 +1992,21 @@ def phase_fingerprint_worker(templates, plants, db) -> dict:
     return launches, calls
 
 
+def idle_call(name: str, args: tuple) -> tuple:
+    """A recorded phase A or verify call with no live work: the same
+    streams with every length 0, or the same candidates all -1."""
+    import torch
+
+    from swarm_tpu_torch.ops import kernels
+
+    if name == "match_phase_a":
+        views, qs, cs = args[:3]
+        empty = kernels.MatchTables([kernels.StreamView(v.data, torch.zeros_like(v.lengths),
+                                                        v.lowered) for v in views], qs, cs)
+        return (empty, qs, cs, *args[3:])
+    return (*args[:3], torch.full_like(args[3], -1), *args[4:])
+
+
 def phase_match_timing(calls: list, smi: str) -> dict:
     """Each match kernel on the exact calls the ``fingerprint`` job made
     (``kernels.record_calls`` around the worker run: its batches as the
@@ -1840,10 +2059,17 @@ def phase_match_timing(calls: list, smi: str) -> dict:
                 idle = (*args[:3], torch.zeros_like(args[3]), *args[4:])
                 per[-1]["no_live_pair_card_ms"] = card_ms(
                     lambda a=idle: kernels.match_regex_scan(*a), 10, clock_hz)
+            if name in ("match_phase_a", "match_verify"):
+                # the launch and the walk with no live work: every row
+                # empty (phase A), every candidate -1 (the verify)
+                per[-1]["no_live_work_card_ms"] = card_ms(
+                    lambda a=idle_call(name, args): getattr(kernels, name)(*a), 10, clock_hz)
         if not per:
             raise AssertionError(f"the job made no call of {name}")
         keys = ("ms", "card_ms", "plain_ms", "bytes_ms", "operations_ms",
-                *(("pack_card_ms", "eval_card_ms") if name == "match_verdicts" else ()))
+                *(("pack_card_ms", "eval_card_ms") if name == "match_verdicts" else ()),
+                *(("no_live_work_card_ms",) if "no_live_work_card_ms" in per[0] else ()),
+                *(("no_live_pair_card_ms",) if "no_live_pair_card_ms" in per[0] else ()))
         mean = {k: sum(p[k] for p in per) / len(per) for k in keys}
         timing[name] = {
             **{k: mean[k] for k in keys if k not in ("bytes_ms", "operations_ms")},
@@ -1904,8 +2130,13 @@ def main() -> int:
             # a call is two launches: ms are a call's, launches count both
             summary[name].update(launches_per_call=2, pack_card_ms=t["pack_card_ms"],
                                  eval_card_ms=t["eval_card_ms"])
+        if name == "match_phase_a":  # the probe and the rank pass
+            summary[name]["launches_per_call"] = 2
         if "latency_bound_ms" in t:
             summary[name]["latency_bound_ms"] = t["latency_bound_ms"]
+        for key in ("no_live_work_card_ms", "no_live_pair_card_ms"):
+            if key in t:
+                summary[name][key] = t[key]
     print(json.dumps({"kernels": list(summary.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

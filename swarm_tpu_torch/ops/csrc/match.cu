@@ -15,36 +15,81 @@
 //
 // Streams.  Each word table probes one (stream, lowered, q) view: the
 // stream is uint8 [B, W] row-major, its lengths int32 [B]; "lowered"
-// ASCII-lowercases each byte as it is read.  A table's descriptor holds
-// the stream's pointer, lengths pointer, width and q; the launchers take
-// them as host arrays and pass them to the kernel by value.  The uint32
-// corpus arrays (hashes, bloom words, regex lanes) arrive as int32
-// tensors holding the same bits.
+// ASCII-lowercases each byte as it is read.  The uint32 corpus arrays
+// (hashes, bloom words, regex lanes) arrive as int32 tensors holding the
+// same bits.  Phase A and the verify take the batch's tables as one
+// TableSet (kernels.TableSetC, built once per dispatch, passed by value)
+// and the verify its corpus arrays as one VerifyCorpus
+// (kernels.VerifyCorpusC, built once per corpus).
 //
-// match_phase_a: a block owns a row.  Table by table (ascending, the
-// table-major candidate axis of the JAX code) it stages the row's bytes
-// in shared memory, hashes each window i < len - q + 1 with the two
-// rolling polynomials (uint32 wrap, ops/hashing.py), probes the table's
-// bloom bitmap with both bits, and ranks the fired windows with a
-// block-wide ballot scan in window order.  The first min(n_surv, K)
-// fired columns (col_start[t] + i) go to col[b, rank]; the rest of the
-// row's `budget` columns hold -1, and n_surv[b] is the row's total.  The
-// [B, C] rank plane of the JAX code is never written.  Windows past
-// len - q cannot fire (the JAX position bound), so they are not hashed.
-// Bound: the streams' bytes read once and the blooms' probed words; the
-// hashing is 2q multiply-adds a window.
+// match_phase_a  (replaces swarm_tpu/ops/match.py prefilter_counts +
+// compact_candidates).  For each row, each table's two-hash bloom probe
+// of every window i < min(W, len - q + 1); the fired (table, window)
+// columns col_start[t] + i in ascending table-major order: col[b, r] the
+// r-th for r < min(n_surv, kclamp), -1 after it up to budget; n_surv[b]
+// the row's count, overflow included.
+//   Bound: 2q multiply-adds and two bloom bits a live window, the
+//   streams' bytes read once: sub-microsecond at the fingerprint job's
+//   shapes.  What holds a design that probes the bitmaps in device
+//   memory is the gathers: each bit is a load from a random line, and an
+//   SM's L1 takes about one such line a cycle, so a batch's ~2.7 M
+//   probes (512 rows) need ~10 us spread over all 132 SMs, and a block
+//   a row puts the longest row's ~40 k probes on one SM (~20 us: the
+//   earlier design, and this one's first version).  So the probes read
+//   the bitmaps from shared memory, and a row is spread over blocks:
+//   1. probe pass: a block takes one group (up to kGroupTables tables
+//      that read one (stream, lowered) view, the JAX _combo_groups
+//      pairing; the compiler emits a q = 4 and a q = 8 table a view)
+//      for kProbeRows rows, and stages the group's bitmaps (32 KB a
+//      table) in shared memory.  A thread owns whole 32-window words: it
+//      loads the word's 40 bytes once (five 8-byte loads), lowers them
+//      in registers, hashes every window for both q at once (h8(p) =
+//      h4(p) + base^4 h4(p + 4), each h4 computed once, uint32 wrap),
+//      probes both tables' bitmaps and keeps each table's fired windows
+//      as a 32-bit mask, written to the word's (table, word) slot of the
+//      row's masks.  Words are the table's own (windows 32 k .. 32 k +
+//      31 of table t), so no word straddles two tables whatever the
+//      widths, and windows past the table's live count are masked off.
+//      The grid is (rows / 8) x groups: 192 blocks at 256 rows.
+//   2. rank pass: a block a row takes its live slots in table-major
+//      order, a contiguous run a thread; one block-wide exclusive scan
+//      of the runs' popcounts ranks every fired window, and each thread
+//      writes its own fired columns with rank < kclamp, then the -1
+//      tail; n_surv is the scan's total.
+//   A call is these two launches.  Views whose q is not 4 or 8 take a
+//   slower path (each window hashed from its bytes); the compiler emits
+//   none.
 //
-// match_verify: one thread per (row, candidate column).  The candidate's
-// table is the last t with col_start[t] <= col; its window hash is
-// recomputed from the bytes (zero past W, as the JAX hash plane pads),
-// the table's sorted group_h1[:n_groups] is binary-searched, and each
-// group entry e (clamped to emax - 1 as the JAX gather clamps) is
-// screened by h2, the suffix-gram hashes at pos + suf_delta (in bounds
-// only), the word's bounds, and then byte-verified against slot_bytes
-// for min(len, 64) bytes.  A verified entry sets value[b, slot], and
-// unc[b, slot] when the slot is longer than VERIFY_WIDTH.  Every write
-// stores 1 into a zeroed byte plane, so concurrent writers of one slot
-// agree.  Bound: the candidates' table lookups and byte compares.
+// match_verify  (replaces swarm_tpu/ops/match.py verify_candidates).
+// For each live candidate of col[:, :kc]: its table (the last t with
+// col_start[t] <= c), the window's (h1, h2) (zero past W), the lower
+// bound of h1 in the table's sorted group_h1[:n_groups] (clamped to
+// gmax - 1), then for up to min(max_group, count) entries (each index
+// clamped to emax - 1) the h2, suffix-gram (in bounds only) and bounds
+// screens and a byte verify of min(len, 64) bytes against slot_bytes; a
+// verified entry sets value[b, slot], and unc[b, slot] when the slot is
+// longer than 64.  Every write stores 1 into zeroed planes, so two
+// candidates that verify one slot agree.
+//   Bound: the live candidates' lookups and compares, a few KB; held by
+//   each candidate's chain of dependent loads.  The earlier design gave
+//   a thread each (row, candidate), 93-96% of them dead, and each live
+//   one a serial chain: table scan, q byte loads, a 12-level binary
+//   search, up to 8 entries, a 64-load byte compare.  Here a warp takes
+//   a live candidate: the warps stride over the (candidate, row) slots,
+//   candidate-major, consecutive slots on consecutive warps, checking 32
+//   of theirs with one load and leaving the dead ones at once (the live
+//   ones are a prefix of each row, so the live slots come first and
+//   spread over distinct warps).
+//   The table is one ballot over the column starts; the window hash one
+//   byte a lane and three shuffles; the lower bound a 32-way fan-out
+//   search, one load a lane and a ballot a level (3 levels for 2,815
+//   groups); the group's entries screened one a lane, together (h2,
+//   the suffix gram from its bytes, the bounds); the verify bytes of
+//   each that passes compared across the warp in one load round, 2 a
+//   lane, then __all_sync.  (A suffix hashed a byte a lane, entry by
+//   entry, ran slower on the job's calls.)  The two planes are zeroed by one
+//   fill of a [2, B, plane_width] tensor in the wrapper (one launch a
+//   call, where there were two).
 //
 // match_regex_scan: a warp per compacted (row, sequence) pair, four
 // one-warp blocks an SM walking the K pairs (each answers the pairs
@@ -70,6 +115,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <climits>
 
 namespace {
 
@@ -80,8 +126,25 @@ constexpr int kBloomWords = kBloomBits / 32;
 constexpr int kVerifyWidth = 64;
 constexpr uint32_t kBase1 = 0x01000193u;
 constexpr uint32_t kBase2 = 0x85EBCA77u;
-constexpr int kPhaseAThreads = 256;
+constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kEndNone = 0, kEndZ = 1, kEndDollar = 2;
+
+// phase A: threads a block, the windows of a thread's word, the
+// tables of a group (one (stream, lowered) view), the bytes a word reads
+constexpr int kPhaseAThreads = 256;
+constexpr int kWordWindows = 32;
+constexpr int kGroupTables = 2;
+constexpr int kWordBytes = 40;  // 32 windows + 7 bytes of the last 8-gram, in 8-byte loads
+// windows a step of a thread's word (the bytes shift down a step at a
+// time), and the rows a probe block takes of one group
+constexpr int kProbeBatch = 8;
+constexpr int kProbeRows = 8;
+// the verify: warps a block, and warps the launch asks for an SM
+constexpr int kVerifyWarps = 4;
+constexpr int kVerifyWarpsPerSm = 32;
+// lanes of the window hash (one byte a lane), and of the fan-out search
+constexpr int kGramLanes = 8;
+constexpr int kFanOut = 32;
 
 struct StreamRef {
   const uint8_t* data;  // [B, width]
@@ -90,15 +153,47 @@ struct StreamRef {
   int32_t lowered;
 };
 
-struct Tables {
-  int32_t n;
+// The batch's word tables, built once per dispatch (kernels.TableSetC,
+// same field order).  group_table lists the tables of each group, -1
+// past its last; word_base[t] = sum over tables before t of
+// ceil(width / 32), table t's first (table, word) slot of a row of phase
+// A's masks, and scan_words = word_base[n_tables], a row's slots.
+struct TableSet {
+  int32_t n_tables, n_groups, scan_words, pad;
   StreamRef s[kMaxTables];
   int32_t q[kMaxTables];
   int32_t col_start[kMaxTables + 1];
+  int32_t word_base[kMaxTables + 1];
+  int32_t group_table[kMaxTables][kGroupTables];
+};
+
+// The verify's corpus arrays, built once per corpus (kernels.VerifyCorpusC,
+// same field order): the stacked [T, gmax] group and [T, emax] entry
+// tables, then the slot bytes [NS, kVerifyWidth] and lengths [NS].
+struct VerifyCorpus {
+  const uint32_t* group_h1;
+  const int32_t* entry_start;
+  const int32_t* entry_count;
+  const int32_t* n_groups;  // [T]
+  const uint32_t* entry_h2;
+  const int32_t* entry_slot;
+  const int32_t* entry_off;
+  const int32_t* entry_len;
+  const int32_t* entry_suf_delta;
+  const uint32_t* entry_suf_h1;
+  const uint32_t* entry_suf_h2;
+  const uint8_t* slot_bytes;
+  const int32_t* slot_len;
+  int32_t gmax, emax, max_group, n_tables;
 };
 
 __device__ __forceinline__ uint32_t lower_ascii(uint32_t c) {
   return (c >= 65u && c <= 90u) ? c + 32u : c;
+}
+
+// the four bytes of x ASCII-lowercased ('A'..'Z' get bit 5)
+__device__ __forceinline__ uint32_t lower4(uint32_t x) {
+  return x | (__vcmpgeu4(x, 0x41414141u) & __vcmpleu4(x, 0x5a5a5a5au) & 0x20202020u);
 }
 
 __device__ __forceinline__ uint32_t read_byte(const StreamRef& s, int b, int p) {
@@ -122,158 +217,399 @@ __device__ __forceinline__ void hash_at(const StreamRef& s, int q, int b, int p,
   }
 }
 
-__device__ __forceinline__ bool bloom_hit(const uint32_t* bloom, uint32_t h1,
-                                          uint32_t h2) {
-  const uint32_t i1 = h1 & (kBloomBits - 1), i2 = h2 & (kBloomBits - 1);
-  const uint32_t w1 = __ldg(bloom + (i1 >> 5)), w2 = __ldg(bloom + (i2 >> 5));
-  return ((w1 >> (i1 & 31)) & (w2 >> (i2 & 31)) & 1u) != 0u;
+// inclusive scan of v over the warp's lanes
+__device__ __forceinline__ int warp_scan(int v, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int u = __shfl_up_sync(kFullMask, v, d);
+    if (lane >= d) v += u;
+  }
+  return v;
+}
+
+// out[i] = v_0 + ... + v_(i-1) for i in [0, 64], of 64 values held two a
+// lane (v0: value lane, v1: value 32 + lane); by one whole warp
+__device__ __forceinline__ void exclusive_scan64(int v0, int v1, int lane, int* out) {
+  const int i0 = warp_scan(v0, lane);
+  const int total0 = __shfl_sync(kFullMask, i0, 31);
+  const int i1 = warp_scan(v1, lane);
+  out[lane] = i0 - v0;
+  out[32 + lane] = total0 + i1 - v1;
+  if (lane == 31) out[64] = total0 + i1;
 }
 
 // ---------------------------------------------------------------------------
 // Phase A
 
+// byte p of the word's bytes (p a constant once the caller is unrolled)
+__device__ __forceinline__ uint32_t word_byte(const uint32_t (&w)[kWordBytes / 4], int p) {
+  return (w[p >> 2] >> (8 * (p & 3))) & 0xFFu;
+}
+
+// the 4-gram hash at p under the powers r1 = base, r2 = base^2, r3 = base^3
+__device__ __forceinline__ uint32_t gram4(const uint32_t (&w)[kWordBytes / 4], int p, uint32_t r1,
+                                          uint32_t r2, uint32_t r3) {
+  return word_byte(w, p) + r1 * word_byte(w, p + 1) + r2 * word_byte(w, p + 2) +
+         r3 * word_byte(w, p + 3);
+}
+
+// bytes [p, p + kWordBytes) of row b, zero at or past the width, as
+// little-endian words, lowered when the view is
+__device__ __forceinline__ void load_word_bytes(const StreamRef& s, int b, int p,
+                                                uint32_t (&w)[kWordBytes / 4]) {
+  const uint8_t* row = s.data + (size_t)b * s.width;
+  if (p + kWordBytes <= s.width && (reinterpret_cast<uintptr_t>(row + p) & 7u) == 0u) {
+    const uint2* src = reinterpret_cast<const uint2*>(row + p);
+#pragma unroll
+    for (int i = 0; i < kWordBytes / 8; ++i) {
+      const uint2 v = __ldg(src + i);
+      w[2 * i] = v.x;
+      w[2 * i + 1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kWordBytes / 4; ++i) w[i] = 0u;
+#pragma unroll
+    for (int j = 0; j < kWordBytes; ++j) {
+      if (p + j < s.width) w[j >> 2] |= (uint32_t)row[p + j] << (8 * (j & 3));
+    }
+  }
+  if (s.lowered) {
+#pragma unroll
+    for (int i = 0; i < kWordBytes / 4; ++i) w[i] = lower4(w[i]);
+  }
+}
+
+// both bloom bits of (h1, h2) in a table's bitmap in shared memory
+__device__ __forceinline__ uint32_t bloom_bit(const uint32_t* sb, uint32_t h1, uint32_t h2) {
+  const uint32_t i1 = h1 & (kBloomBits - 1), i2 = h2 & (kBloomBits - 1);
+  return (sb[i1 >> 5] >> (i1 & 31)) & (sb[i2 >> 5] >> (i2 & 31)) & 1u;
+}
+
+// The fired-window masks of word k of group g in row b: mask[j] bit i is
+// window 32 k + i of the group's table j; live[j] of the word's windows
+// can fire (the rest are masked off).  sbloom holds the group's bitmaps,
+// kBloomWords a table.  For q = 4 and q = 8 the hashes come from the
+// word's bytes in registers, both q at once; any other q hashes each
+// window from its bytes.
+__device__ __forceinline__ void probe_group_word(const TableSet& ts, const uint32_t* sbloom,
+                                                 int g, int b, int k,
+                                                 const int (&live)[kGroupTables],
+                                                 uint32_t (&mask)[kGroupTables]) {
+  int tab[kGroupTables];
+  bool fast = true;
+#pragma unroll
+  for (int j = 0; j < kGroupTables; ++j) {
+    const int t = ts.group_table[g][j];
+    tab[j] = t < 0 ? ts.group_table[g][0] : t;  // an absent table has no live window
+    fast &= ts.q[tab[j]] == 4 || ts.q[tab[j]] == 8;
+    mask[j] = 0u;
+  }
+  const StreamRef s = ts.s[tab[0]];
+  if (!fast) {
+#pragma unroll
+    for (int j = 0; j < kGroupTables; ++j) {
+      for (int i = 0; i < live[j]; ++i) {
+        uint32_t h1, h2;
+        hash_at(s, ts.q[tab[j]], b, kWordWindows * k + i, h1, h2);
+        mask[j] |= bloom_bit(sbloom + j * kBloomWords, h1, h2) << i;
+      }
+    }
+    return;
+  }
+  uint32_t w[kWordBytes / 4];
+  load_word_bytes(s, b, kWordWindows * k, w);
+  bool eight[kGroupTables];
+#pragma unroll
+  for (int j = 0; j < kGroupTables; ++j) eight[j] = ts.q[tab[j]] == 8;
+  constexpr uint32_t a1 = kBase1, a2 = a1 * kBase1, a3 = a2 * kBase1, a4 = a3 * kBase1;
+  constexpr uint32_t c1 = kBase2, c2 = c1 * kBase2, c3 = c2 * kBase2, c4 = c3 * kBase2;
+  // kProbeBatch windows a step, the step not unrolled (unrolled, the
+  // compiler hoists every step's loads and spills): w holds the step's
+  // bytes from w[0], shifted down after each step
+#pragma unroll 1
+  for (int i0 = 0; i0 < kWordWindows; i0 += kProbeBatch) {
+#pragma unroll
+    for (int ii = 0; ii < kProbeBatch; ++ii) {
+      // h4 at ii and at ii + 4; h8 at ii = h4(ii) + base^4 h4(ii + 4)
+      const uint32_t x1 = gram4(w, ii, a1, a2, a3), x2 = gram4(w, ii, c1, c2, c3);
+      const uint32_t y1 = gram4(w, ii + 4, a1, a2, a3), y2 = gram4(w, ii + 4, c1, c2, c3);
+      const uint32_t e1 = x1 + a4 * y1, e2 = x2 + c4 * y2;
+#pragma unroll
+      for (int j = 0; j < kGroupTables; ++j) {
+        const uint32_t bit = bloom_bit(sbloom + j * kBloomWords, eight[j] ? e1 : x1,
+                                       eight[j] ? e2 : x2);
+        mask[j] |= (i0 + ii < live[j] ? bit : 0u) << (i0 + ii);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q + kProbeBatch / 4 < kWordBytes / 4; ++q) w[q] = w[q + kProbeBatch / 4];
+  }
+}
+
+// Pass 1: a block takes one group's tables for kProbeRows rows.  It
+// stages the group's bitmaps (32 KB a table) in shared memory, and each
+// thread then probes whole words of those rows, writing each table's
+// mask to the word's slot, masks[b, word_base[t] + k] (live words only).
 __global__ void __launch_bounds__(kPhaseAThreads)
-match_phase_a_kernel(Tables tabs, const uint32_t* __restrict__ bloom, int budget,
-                     int kclamp, int32_t* __restrict__ col,
-                     int32_t* __restrict__ n_surv) {
-  extern __shared__ uint8_t srow[];
-  __shared__ int warp_count[kPhaseAThreads / 32];
+match_phase_a_probe_kernel(const TableSet ts, const uint32_t* __restrict__ bloom, int n_rows,
+                           uint32_t* __restrict__ masks) {
+  extern __shared__ uint4 sbloom4[];  // [kGroupTables][kBloomWords] words
+  __shared__ int s_live[kProbeRows][kGroupTables];  // each row's live windows a table
+  __shared__ int s_rbase[kProbeRows + 1];            // each row's first word of the block
+  const uint32_t* sbloom = reinterpret_cast<const uint32_t*>(sbloom4);
+  const int g = blockIdx.y, r0 = blockIdx.x * kProbeRows;
+  const int tid = threadIdx.x, lane = tid & 31;
+#pragma unroll
+  for (int j = 0; j < kGroupTables; ++j) {
+    const int t = ts.group_table[g][j];
+    if (t < 0) continue;
+    const uint4* src = reinterpret_cast<const uint4*>(bloom + (size_t)t * kBloomWords);
+    for (int i = tid; i < kBloomWords / 4; i += kPhaseAThreads) {
+      sbloom4[j * (kBloomWords / 4) + i] = __ldg(src + i);
+    }
+  }
+  if (tid < 32) {
+    int words = 0;
+    if (lane < kProbeRows) {
+#pragma unroll
+      for (int j = 0; j < kGroupTables; ++j) {
+        const int t = ts.group_table[g][j];
+        int live = 0;
+        if (t >= 0 && r0 + lane < n_rows) {
+          live = max(min(ts.s[t].width, __ldg(ts.s[t].len + r0 + lane) - ts.q[t] + 1), 0);
+        }
+        s_live[lane][j] = live;
+        words = max(words, (live + kWordWindows - 1) / kWordWindows);
+      }
+    }
+    const int inc = warp_scan(words, lane);
+    if (lane < kProbeRows) s_rbase[lane] = inc - words;
+    if (lane == kProbeRows - 1) s_rbase[kProbeRows] = inc;
+  }
+  __syncthreads();
+  const int total = s_rbase[kProbeRows];
+  for (int x = tid; x < total; x += kPhaseAThreads) {
+    int r = 0;
+    while (s_rbase[r + 1] <= x) ++r;
+    const int k = x - s_rbase[r], b = r0 + r;
+    int live[kGroupTables];
+#pragma unroll
+    for (int j = 0; j < kGroupTables; ++j) {
+      live[j] = min(max(s_live[r][j] - kWordWindows * k, 0), kWordWindows);
+    }
+    uint32_t m[kGroupTables];
+    probe_group_word(ts, sbloom, g, b, k, live, m);
+#pragma unroll
+    for (int j = 0; j < kGroupTables; ++j) {
+      const int t = ts.group_table[g][j];
+      if (t >= 0 && live[j] > 0) masks[(size_t)b * ts.scan_words + ts.word_base[t] + k] = m[j];
+    }
+  }
+}
+
+// Pass 2: a block a row.  The row's live (table, word) slots in
+// table-major order, a contiguous run of them a thread, one block-wide
+// exclusive scan of the runs' popcounts, then each thread writes its
+// fired columns with rank < kclamp, and the -1 tail; n_surv is the total.
+__global__ void __launch_bounds__(kPhaseAThreads)
+match_phase_a_rank_kernel(const TableSet ts, const uint32_t* __restrict__ masks, int budget,
+                          int kclamp, int32_t* __restrict__ col, int32_t* __restrict__ n_surv) {
+  __shared__ int s_wbase[kMaxTables + 1];  // each table's first live slot; [n_tables] = all
+  __shared__ int s_warp[kPhaseAThreads / 32];
   const int b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   int32_t* out = col + (size_t)b * budget;
-  for (int j = tid; j < budget; j += kPhaseAThreads) out[j] = -1;
-  int base = 0;  // fired windows ranked so far (same value in every thread)
-  for (int t = 0; t < tabs.n; ++t) {
-    const StreamRef s = tabs.s[t];
-    const int q = tabs.q[t];
-    const int nwin = min(s.width, s.len[b] - q + 1);
-    if (nwin <= 0) continue;
-    __syncthreads();  // the previous table's reads of srow are done
-    const int staged = nwin + q - 1;  // <= len <= width
-    const uint8_t* src = s.data + (size_t)b * s.width;
-    for (int i = tid; i < staged; i += kPhaseAThreads) {
-      const uint32_t c = src[i];
-      srow[i] = (uint8_t)(s.lowered ? lower_ascii(c) : c);
-    }
-    __syncthreads();
-    uint32_t pw1[8], pw2[8];
-    pw1[0] = pw2[0] = 1u;
+  const uint32_t* row = masks + (size_t)b * ts.scan_words;
+  if (warp == 0) {
+    int nw[2];
 #pragma unroll
-    for (int j = 1; j < 8; ++j) {
-      pw1[j] = pw1[j - 1] * kBase1;
-      pw2[j] = pw2[j - 1] * kBase2;
-    }
-    const uint32_t* tb = bloom + (size_t)t * kBloomWords;
-    const int cs = tabs.col_start[t];
-    for (int i0 = 0; i0 < nwin; i0 += kPhaseAThreads) {
-      const int i = i0 + tid;
-      bool fired = false;
-      if (i < nwin) {
-        uint32_t h1 = 0u, h2 = 0u;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          if (j < q) {
-            const uint32_t c = srow[i + j];
-            h1 += c * pw1[j];
-            h2 += c * pw2[j];
-          }
-        }
-        fired = bloom_hit(tb, h1, h2);
+    for (int h = 0; h < 2; ++h) {
+      const int t = lane + 32 * h;
+      nw[h] = 0;
+      if (t < ts.n_tables) {
+        const int live = max(min(ts.s[t].width, __ldg(ts.s[t].len + b) - ts.q[t] + 1), 0);
+        nw[h] = (live + kWordWindows - 1) / kWordWindows;
       }
-      const unsigned ballot = __ballot_sync(0xffffffffu, fired);
-      if (lane == 0) warp_count[warp] = __popc(ballot);
-      __syncthreads();
-      int before = 0, total = 0;
+    }
+    exclusive_scan64(nw[0], nw[1], lane, s_wbase);
+  }
+  __syncthreads();
+  const int slots = s_wbase[ts.n_tables];
+  const int per = (slots + kPhaseAThreads - 1) / kPhaseAThreads;
+  const int j0 = min(slots, tid * per), j1 = min(slots, j0 + per);
+  int t0 = 0;
+  while (j0 < j1 && s_wbase[t0 + 1] <= j0) ++t0;
+  int cnt = 0;
+  for (int j = j0, t = t0; j < j1; ++j) {
+    while (s_wbase[t + 1] <= j) ++t;
+    cnt += __popc(__ldg(row + ts.word_base[t] + j - s_wbase[t]));
+  }
+  const int inc = warp_scan(cnt, lane);
+  if (lane == 31) s_warp[warp] = inc;
+  __syncthreads();
+  int before = 0, total = 0;
 #pragma unroll
-      for (int w = 0; w < kPhaseAThreads / 32; ++w) {
-        const int c = warp_count[w];
-        before += (w < warp) ? c : 0;
-        total += c;
-      }
-      const int rank = base + before + __popc(ballot & ((1u << lane) - 1u));
-      if (fired && rank < kclamp) out[rank] = cs + i;
-      base += total;
-      __syncthreads();  // warp_count is rewritten next round
+  for (int w = 0; w < kPhaseAThreads / 32; ++w) {
+    const int c = s_warp[w];
+    before += w < warp ? c : 0;
+    total += c;
+  }
+  int rank = before + inc - cnt;
+  for (int j = j0, t = t0; j < j1 && rank < kclamp; ++j) {
+    while (s_wbase[t + 1] <= j) ++t;
+    const int k = j - s_wbase[t];
+    const int base = ts.col_start[t] + kWordWindows * k;
+    uint32_t m = __ldg(row + ts.word_base[t] + k);
+    while (m != 0u && rank < kclamp) {
+      out[rank++] = base + __ffs(m) - 1;
+      m &= m - 1u;
     }
   }
-  if (tid == 0) n_surv[b] = base;
+  for (int r = min(total, kclamp) + tid; r < budget; r += kPhaseAThreads) out[r] = -1;
+  if (tid == 0) n_surv[b] = total;
 }
 
 // ---------------------------------------------------------------------------
 // Phase B: gather-verify
 
-struct VerifyArgs {
-  const int32_t* col;  // [B, col_stride], the first kc columns used
-  int32_t col_stride, kc, n_rows;
-  const uint32_t* group_h1;  // [T, gmax]
-  const int32_t* entry_start;
-  const int32_t* entry_count;
-  const int32_t* n_groups;  // [T]
-  const uint32_t* entry_h2;  // [T, emax]
-  const int32_t* entry_slot;
-  const int32_t* entry_off;
-  const int32_t* entry_len;
-  const int32_t* entry_suf_delta;
-  const uint32_t* entry_suf_h1;
-  const uint32_t* entry_suf_h2;
-  int32_t gmax, emax, max_group;
-  const uint8_t* slot_bytes;  // [NS, VERIFY_WIDTH]
-  const int32_t* slot_len;    // [NS]
-  uint8_t* value;             // [B, plane_width], zeroed
-  uint8_t* unc;
-  int32_t plane_width;
-};
+// (h1, h2) of bytes[p, p + q) of row b by the whole warp: lane j < q
+// reads byte p + j (zero past the width) times base^j (pw1 / pw2), and
+// the 8-lane group sums them
+__device__ __forceinline__ void warp_gram_hash(const StreamRef& s, int q, int b, int p,
+                                               uint32_t pw1, uint32_t pw2, int lane,
+                                               uint32_t& h1, uint32_t& h2) {
+  const uint32_t byte = lane < q ? read_byte(s, b, p + lane) : 0u;
+  h1 = byte * pw1;
+  h2 = byte * pw2;
+#pragma unroll
+  for (int d = 1; d < kGramLanes; d <<= 1) {
+    h1 += __shfl_xor_sync(kFullMask, h1, d);
+    h2 += __shfl_xor_sync(kFullMask, h2, d);
+  }
+  h1 = __shfl_sync(kFullMask, h1, 0);
+  h2 = __shfl_sync(kFullMask, h2, 0);
+}
 
-__global__ void match_verify_kernel(Tables tabs, VerifyArgs a) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)a.n_rows * a.kc) return;
-  const int b = (int)(idx / a.kc), j = (int)(idx % a.kc);
-  const int c = a.col[(size_t)b * a.col_stride + j];
-  if (c < 0) return;
-  int t = 0;
-  while (t + 1 < tabs.n && tabs.col_start[t + 1] <= c) ++t;
-  const StreamRef s = tabs.s[t];
-  const int q = tabs.q[t];
-  const int cpos = c - tabs.col_start[t];
-  const int W = s.width;
-  const int slen = s.len[b];
+// One live candidate column c of row b, by the whole warp.  cs0 / cs1:
+// the column starts of tables lane and 32 + lane (INT_MAX past the
+// last); pw1 / pw2: base^lane, the lane's power of the window hash.
+__device__ __forceinline__ void verify_candidate(const TableSet& ts, const VerifyCorpus& vc,
+                                                 int c, int b, int cs0, int cs1, uint32_t pw1,
+                                                 uint32_t pw2, int lane, uint8_t* value,
+                                                 uint8_t* unc, int plane_width) {
+  // its table: the last t with col_start[t] <= c
+  const unsigned le0 = __ballot_sync(kFullMask, cs0 <= c);
+  const unsigned le1 = __ballot_sync(kFullMask, cs1 <= c);
+  const int t = le1 ? 63 - __clz(le1) : 31 - __clz(le0);
+  const StreamRef s = ts.s[t];
+  const int q = ts.q[t];
+  const int cpos = c - ts.col_start[t];
+  const int slen = __ldg(s.len + b);
   uint32_t h1, h2;
-  hash_at(s, q, b, cpos, h1, h2);
+  warp_gram_hash(s, q, b, cpos, pw1, pw2, lane, h1, h2);
 
-  // lower bound of h1 in the table's sorted groups
-  const uint32_t* gh = a.group_h1 + (size_t)t * a.gmax;
-  const int ng = a.n_groups[t];
-  int lo = 0, hi = ng;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(gh + mid) < h1) lo = mid + 1; else hi = mid;
+  // the lower bound of h1 in group_h1[t, :ng]: 32 pivots a level, one a
+  // lane; the lanes whose pivot is below h1 are a prefix, their count
+  // picks the interval
+  const uint32_t* gh = vc.group_h1 + (size_t)t * vc.gmax;
+  const int ng = __ldg(vc.n_groups + t);
+  int lo = 0, hi = ng;  // the bound lies in [lo, hi]
+  while (hi > lo) {
+    const int step = (hi - lo + kFanOut - 1) / kFanOut;
+    const int i = lo + (lane + 1) * step - 1;
+    const bool below = i < hi && __ldg(gh + min(i, vc.gmax - 1)) < h1;
+    const int n = __popc(__ballot_sync(kFullMask, below));
+    lo += n * step;
+    hi = min(lo + step - 1, hi);
   }
   if (lo >= ng) return;
-  const int gidx = min(lo, a.gmax - 1);
-  if (__ldg(gh + gidx) != h1) return;
-  const size_t grow = (size_t)t * a.gmax + gidx;
-  const int e_start = a.entry_start[grow];
-  const int e_count = a.entry_count[grow];
-  const size_t erow = (size_t)t * a.emax;
-  for (int g = 0; g < a.max_group && g < e_count; ++g) {
-    const size_t e = erow + min(e_start + g, a.emax - 1);
-    if (__ldg(a.entry_h2 + e) != h2) continue;
-    const int spos = cpos + a.entry_suf_delta[e];
-    if (spos < 0 || spos >= W) continue;
-    uint32_t s1, s2;
-    hash_at(s, q, b, spos, s1, s2);
-    if (s1 != __ldg(a.entry_suf_h1 + e) || s2 != __ldg(a.entry_suf_h2 + e)) continue;
-    const int off = a.entry_off[e], len = a.entry_len[e];
-    const int start = cpos - off;
-    if (start < 0 || start + len > slen || start + len > W) continue;
-    const int slot = a.entry_slot[e];
-    const uint8_t* want = a.slot_bytes + (size_t)slot * kVerifyWidth;
-    const int lv = min(len, kVerifyWidth);
-    bool eq = true;
-    for (int o = 0; o < lv && eq; ++o) eq = read_byte(s, b, start + o) == want[o];
-    if (!eq) continue;
-    a.value[(size_t)b * a.plane_width + slot] = 1;
-    if (a.slot_len[slot] > kVerifyWidth) a.unc[(size_t)b * a.plane_width + slot] = 1;
+  const int gidx = min(lo, vc.gmax - 1);
+  const size_t grow = (size_t)t * vc.gmax + gidx;
+  const uint32_t g1 = __ldg(gh + gidx);
+  const int e_start = __ldg(vc.entry_start + grow), e_count = __ldg(vc.entry_count + grow);
+  if (g1 != h1) return;
+  const int n_e = min(vc.max_group, e_count);
+  const size_t erow = (size_t)t * vc.emax;
+  for (int g0 = 0; g0 < n_e; g0 += 32) {
+    // lane g screens entry g0 + g: h2, the suffix gram, the word's bounds
+    bool hit = false;
+    int start = 0, slot = 0, nv = 0;
+    if (g0 + lane < n_e) {
+      const size_t e = erow + min(e_start + g0 + lane, vc.emax - 1);
+      const uint32_t eh2 = __ldg(vc.entry_h2 + e);
+      const int spos = cpos + __ldg(vc.entry_suf_delta + e);
+      const uint32_t sh1 = __ldg(vc.entry_suf_h1 + e), sh2 = __ldg(vc.entry_suf_h2 + e);
+      const int off = __ldg(vc.entry_off + e), len = __ldg(vc.entry_len + e);
+      slot = __ldg(vc.entry_slot + e);
+      if (eh2 == h2 && spos >= 0 && spos < s.width) {
+        uint32_t s1, s2;
+        hash_at(s, q, b, spos, s1, s2);
+        start = cpos - off;
+        hit = s1 == sh1 && s2 == sh2 && start >= 0 && start + len <= slen &&
+              start + len <= s.width;
+        nv = min(len, kVerifyWidth);
+      }
+    }
+    // each entry that passes: its verify bytes across the warp, two a
+    // lane, in one load round
+    unsigned todo = __ballot_sync(kFullMask, hit);
+    while (todo) {
+      const int src = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const int st = __shfl_sync(kFullMask, start, src);
+      const int n = __shfl_sync(kFullMask, nv, src);
+      const int sl = __shfl_sync(kFullMask, slot, src);
+      const uint8_t* want = vc.slot_bytes + (size_t)sl * kVerifyWidth;
+      bool eq = true;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int o = 2 * lane + h;
+        if (o < n) eq &= read_byte(s, b, st + o) == (uint32_t)__ldg(want + o);
+      }
+      if (__all_sync(kFullMask, eq) && lane == 0) {
+        value[(size_t)b * plane_width + sl] = 1;
+        if (__ldg(vc.slot_len + sl) > kVerifyWidth) unc[(size_t)b * plane_width + sl] = 1;
+      }
+    }
+  }
+}
+
+// The warps stride over the (candidate, row) slots j * n_rows + b, slot
+// s on warp s mod n_warps, 32 of a warp's slots checked with one load a
+// lane; the dead ones (-1) leave at once, each live one takes the warp.
+// Candidate-major, the live prefixes of all rows fill the low slots and
+// land on distinct warps: no kc can line a row's candidates up on one
+// warp.
+__global__ void __launch_bounds__(32 * kVerifyWarps)
+match_verify_kernel(const TableSet ts, const VerifyCorpus vc, const int32_t* __restrict__ col,
+                    int col_stride, int kc, int n_rows, uint8_t* __restrict__ value,
+                    uint8_t* __restrict__ unc, int plane_width) {
+  const int lane = threadIdx.x & 31;
+  const long long n_warps = (long long)gridDim.x * kVerifyWarps;
+  const long long warp_id = (long long)blockIdx.x * kVerifyWarps + (threadIdx.x >> 5);
+  const int cs0 = lane < ts.n_tables ? ts.col_start[lane] : INT_MAX;
+  const int cs1 = lane + 32 < ts.n_tables ? ts.col_start[lane + 32] : INT_MAX;
+  uint32_t pw1 = 1u, pw2 = 1u;
+  for (int j = 0; j < (lane & (kGramLanes - 1)); ++j) {
+    pw1 *= kBase1;
+    pw2 *= kBase2;
+  }
+  const long long slots = (long long)n_rows * kc;
+  for (long long s0 = warp_id; s0 < slots; s0 += 32 * n_warps) {
+    const long long slot = s0 + lane * n_warps;
+    int c = -1, b = 0;
+    if (slot < slots) {
+      b = (int)(slot % n_rows);
+      c = __ldg(col + (size_t)b * col_stride + (int)(slot / n_rows));
+    }
+    unsigned live = __ballot_sync(kFullMask, c >= 0);
+    while (live) {
+      const int src = __ffs(live) - 1;
+      live &= live - 1;
+      verify_candidate(ts, vc, __shfl_sync(kFullMask, c, src), __shfl_sync(kFullMask, b, src),
+                       cs0, cs1, pw1, pw2, lane, value, unc, plane_width);
+    }
   }
 }
 
@@ -566,23 +902,6 @@ __global__ void __launch_bounds__(32) match_regex_scan_kernel(Variants vars, Reg
   }
 }
 
-Tables make_tables(int32_t n, const int64_t* data, const int64_t* lens,
-                   const int32_t* widths, const int32_t* lowered,
-                   const int32_t* qs, const int32_t* col_starts) {
-  Tables t{};
-  t.n = n;
-  for (int i = 0; i < n; ++i) {
-    t.s[i].data = reinterpret_cast<const uint8_t*>(data[i]);
-    t.s[i].len = reinterpret_cast<const int32_t*>(lens[i]);
-    t.s[i].width = widths[i];
-    t.s[i].lowered = lowered[i];
-    t.q[i] = qs[i];
-    t.col_start[i] = col_starts[i];
-  }
-  t.col_start[n] = col_starts[n];
-  return t;
-}
-
 }  // namespace
 
 extern "C" {
@@ -590,77 +909,52 @@ extern "C" {
 int match_max_tables() { return kMaxTables; }
 int match_max_variants() { return kMaxVariants; }
 
-// Phase A over n_rows rows.  Tables are given as host arrays (stream and
-// lengths device pointers, widths, lowered flags, q, col_starts [T + 1]);
-// bloom is int32 [T, BLOOM_WORDS]; col int32 [B, budget]; n_surv int32 [B].
-int match_phase_a(int32_t n_rows, int32_t n_tables, const int64_t* data,
-                  const int64_t* lens, const int32_t* widths,
-                  const int32_t* lowered, const int32_t* qs,
-                  const int32_t* col_starts, const int32_t* bloom,
-                  int32_t budget, int32_t kclamp, int32_t* col,
-                  int32_t* n_surv, void* stream) {
-  if (n_tables < 1 || n_tables > kMaxTables) return (int)cudaErrorInvalidValue;
-  const Tables t = make_tables(n_tables, data, lens, widths, lowered, qs, col_starts);
-  int max_width = 0;
-  for (int i = 0; i < n_tables; ++i) max_width = std::max(max_width, widths[i]);
-  const size_t smem = (size_t)max_width + 8;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        match_phase_a_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  match_phase_a_kernel<<<n_rows, kPhaseAThreads, smem, (cudaStream_t)stream>>>(
-      t, reinterpret_cast<const uint32_t*>(bloom), budget, kclamp, col, n_surv);
+// Phase A over n_rows rows, two launches.  tables: the batch's TableSet
+// (kernels.TableSetC), a host struct passed as void* so that no type of
+// the unnamed namespace is in the exported signature; bloom int32 [T,
+// BLOOM_WORDS]; masks int32 scratch [B, scan_words]; col int32 [B,
+// budget]; n_surv int32 [B].
+int match_phase_a(const void* tables, int32_t n_rows, const int32_t* bloom, int32_t budget,
+                  int32_t kclamp, int32_t* masks, int32_t* col, int32_t* n_surv,
+                  void* stream) {
+  const TableSet& ts = *static_cast<const TableSet*>(tables);
+  if (ts.n_tables < 1 || ts.n_tables > kMaxTables || ts.n_groups < 1 ||
+      ts.n_groups > kMaxTables || kclamp < 1 || kclamp > budget)
+    return (int)cudaErrorInvalidValue;
+  if (n_rows == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = (size_t)kGroupTables * kBloomWords * sizeof(uint32_t);
+  cudaError_t e = cudaFuncSetAttribute(match_phase_a_probe_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((n_rows + kProbeRows - 1) / kProbeRows, ts.n_groups);
+  match_phase_a_probe_kernel<<<grid, kPhaseAThreads, smem, st>>>(
+      ts, reinterpret_cast<const uint32_t*>(bloom), n_rows, reinterpret_cast<uint32_t*>(masks));
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  match_phase_a_rank_kernel<<<n_rows, kPhaseAThreads, 0, st>>>(
+      ts, reinterpret_cast<const uint32_t*>(masks), budget, kclamp, col, n_surv);
   return (int)cudaGetLastError();
 }
 
-// Gather-verify of col[:, :kc] (row stride col_stride).  The corpus
-// pointers follow VerifyArgs; value and unc are zeroed bool [B, plane_width].
-int match_verify(int32_t n_rows, int32_t n_tables, const int64_t* data,
-                 const int64_t* lens, const int32_t* widths,
-                 const int32_t* lowered, const int32_t* qs,
-                 const int32_t* col_starts, const int32_t* col,
-                 int32_t col_stride, int32_t kc, const int32_t* group_h1,
-                 const int32_t* entry_start, const int32_t* entry_count,
-                 const int32_t* n_groups, const int32_t* entry_h2,
-                 const int32_t* entry_slot, const int32_t* entry_off,
-                 const int32_t* entry_len, const int32_t* entry_suf_delta,
-                 const int32_t* entry_suf_h1, const int32_t* entry_suf_h2,
-                 int32_t gmax, int32_t emax, int32_t max_group,
-                 const uint8_t* slot_bytes, const int32_t* slot_len,
-                 uint8_t* value, uint8_t* unc, int32_t plane_width,
-                 void* stream) {
-  if (n_tables < 1 || n_tables > kMaxTables) return (int)cudaErrorInvalidValue;
-  const Tables t = make_tables(n_tables, data, lens, widths, lowered, qs, col_starts);
-  VerifyArgs a;
-  a.col = col;
-  a.col_stride = col_stride;
-  a.kc = kc;
-  a.n_rows = n_rows;
-  a.group_h1 = reinterpret_cast<const uint32_t*>(group_h1);
-  a.entry_start = entry_start;
-  a.entry_count = entry_count;
-  a.n_groups = n_groups;
-  a.entry_h2 = reinterpret_cast<const uint32_t*>(entry_h2);
-  a.entry_slot = entry_slot;
-  a.entry_off = entry_off;
-  a.entry_len = entry_len;
-  a.entry_suf_delta = entry_suf_delta;
-  a.entry_suf_h1 = reinterpret_cast<const uint32_t*>(entry_suf_h1);
-  a.entry_suf_h2 = reinterpret_cast<const uint32_t*>(entry_suf_h2);
-  a.gmax = gmax;
-  a.emax = emax;
-  a.max_group = max_group;
-  a.slot_bytes = slot_bytes;
-  a.slot_len = slot_len;
-  a.value = value;
-  a.unc = unc;
-  a.plane_width = plane_width;
-  const long long n = (long long)n_rows * kc;
-  if (n == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
-  match_verify_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(t, a);
+// Gather-verify of col[:, :kc] (row stride col_stride).  tables: the
+// batch's TableSet; corpus: the VerifyCorpus (kernels.VerifyCorpusC),
+// both host structs passed as void*; value and unc zeroed bool [B,
+// plane_width]; sms, the card's SM count, which the caller reads once.
+int match_verify(const void* tables, const void* corpus, int32_t n_rows, const int32_t* col,
+                 int32_t col_stride, int32_t kc, uint8_t* value, uint8_t* unc,
+                 int32_t plane_width, int32_t sms, void* stream) {
+  const TableSet& ts = *static_cast<const TableSet*>(tables);
+  const VerifyCorpus& vc = *static_cast<const VerifyCorpus*>(corpus);
+  if (ts.n_tables < 1 || ts.n_tables > kMaxTables || vc.n_tables != ts.n_tables ||
+      vc.gmax < 1 || vc.emax < 1 || sms < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long slots = (long long)n_rows * kc;
+  if (slots == 0) return 0;
+  const long long warps = std::min<long long>(slots, (long long)kVerifyWarpsPerSm * sms);
+  const int blocks = (int)((warps + kVerifyWarps - 1) / kVerifyWarps);
+  match_verify_kernel<<<blocks, 32 * kVerifyWarps, 0, (cudaStream_t)stream>>>(
+      ts, vc, col, col_stride, kc, n_rows, value, unc, plane_width);
   return (int)cudaGetLastError();
 }
 

@@ -166,13 +166,18 @@ __device__ __forceinline__ bool scalar_check(int mask, float v, float c) {
 }
 
 // A warp's word of rows (lane r: row r, whose value is got) equal to
-// one of matcher mt's n values of vals [NM, n]; lane s loads value s,
-// so the values come in one load round
+// one of matcher mt's n values of vals [NM, n], for any n: the values
+// come 32 a pass, lane s loading value p + s, so each pass is one load
+// round; a row's hits of all passes are OR-ed before the one ballot
 __device__ __forceinline__ uint32_t any_value(const int32_t* vals, int mt, int n, int32_t got,
                                               int lane) {
-  const int32_t want = lane < n ? __ldg(vals + mt * n + lane) : 0;
+  const int32_t* row = vals + (size_t)mt * n;
   bool ok = false;
-  for (int s = 0; s < n; ++s) ok |= got == __shfl_sync(kFullMask, want, s);
+  for (int p = 0; p < n; p += 32) {
+    const int32_t want = p + lane < n ? __ldg(row + p + lane) : 0;
+    const int cnt = min(32, n - p);
+    for (int s = 0; s < cnt; ++s) ok |= got == __shfl_sync(kFullMask, want, s);
+  }
   return __ballot_sync(kFullMask, ok);
 }
 
@@ -453,9 +458,10 @@ int match_verdicts(const void* layout, int32_t n_rows, const uint8_t* value,
                    uint8_t* m_unc, int32_t* words, void* stream) {
   if (n_rows <= 0) return 0;
   const VerdictLayout L = *static_cast<const VerdictLayout*>(layout);
-  // a matcher's conjuncts and values are loaded a lane each
+  // a matcher's conjuncts are loaded a lane each (the compiler caps them
+  // at 6); its status and size values 32 a pass, any number of them
   if (ns < 1 || L.nt < 1 || L.nm < 0 || L.nop < 0 || L.n_chunks < 1 || L.n_conj > 32 ||
-      L.n_status > 32)
+      L.n_status < 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int n_words = (n_rows + 31) / 32;

@@ -35,6 +35,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from swarm_tpu_torch.ops.hashing import BLOOM_WORDS
+
 FP_WORDS = 16
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -196,12 +198,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.match_verdicts.argtypes = [vp, i32, vp, vp, i32] + [vp] * 12
         fns = (lib.match_verdicts,)
     else:
-        tables = [i32, i32, vp, vp, vp, vp, vp, vp]  # rows, count, descriptors
-        lib.match_phase_a.argtypes = tables + [vp, i32, i32, vp, vp, vp]
-        lib.match_verify.argtypes = (
-            tables + [vp, i32, i32] + [vp] * 11 + [i32, i32, i32]
-            + [vp, vp, vp, vp, i32, vp]
-        )
+        lib.match_phase_a.argtypes = [vp, i32, vp, i32, i32, vp, vp, vp, vp]
+        lib.match_verify.argtypes = [vp, vp, i32, vp, i32, i32, vp, vp, i32, i32, vp]
         lib.match_regex_scan.argtypes = (
             [i32, i32, vp, vp, vp, vp] + [vp] * 14 + [i32, i32, i32, vp, vp]
         )
@@ -319,6 +317,7 @@ def parent_in_order(
 
 MATCH_MAX_TABLES = 64  # kMaxTables in csrc/match.cu
 MATCH_MAX_VARIANTS = 16  # kMaxVariants
+VERIFY_WIDTH = 64  # kVerifyWidth: the bytes of a slot that are verified
 
 
 class StreamView(NamedTuple):
@@ -347,18 +346,27 @@ def _host(a: np.ndarray) -> ctypes.c_void_p:
     return ctypes.c_void_p(a.ctypes.data)
 
 
-def _views(views: list, device: torch.device, limit: int) -> tuple:
-    """Check the stream views → host descriptor arrays (data pointers,
-    length pointers, widths, lowered flags); the caller keeps them alive
-    across the launch."""
+def _check_views(views, limit: int) -> torch.device:
+    """Check 1..``limit`` stream views: uint8 [B, W] and int32 [B],
+    contiguous, one row count and one device → the device."""
     if not 1 <= len(views) <= limit:
         raise ValueError(f"{len(views)} streams, the kernels take 1..{limit}")
+    device = views[0].data.device
     rows = views[0].data.shape[0]
     for i, v in enumerate(views):
         _need(v.data, torch.uint8, f"stream {i}", device)
         _need(v.lengths, torch.int32, f"lengths {i}", device)
         if v.data.dim() != 2 or v.data.shape[0] != rows or v.lengths.shape != (rows,):
             raise ValueError(f"stream {i}: shapes {tuple(v.data.shape)} / {tuple(v.lengths.shape)}")
+    return device
+
+
+def _views(views: list, device: torch.device, limit: int) -> tuple:
+    """Check the stream views → host descriptor arrays (data pointers,
+    length pointers, widths, lowered flags); the caller keeps them alive
+    across the launch."""
+    if _check_views(views, limit) != device:
+        raise ValueError(f"the streams are on {views[0].data.device}, expected {device}")
     return (
         np.array([v.data.data_ptr() for v in views], dtype=np.int64),
         np.array([v.lengths.data_ptr() for v in views], dtype=np.int64),
@@ -367,54 +375,135 @@ def _views(views: list, device: torch.device, limit: int) -> tuple:
     )
 
 
-def _tables(views: list, qs, col_starts, device: torch.device) -> tuple:
-    desc = _views(views, device, MATCH_MAX_TABLES)
-    qs = np.ascontiguousarray(qs, dtype=np.int32)
-    col_starts = np.ascontiguousarray(col_starts, dtype=np.int32)
-    if qs.shape != (len(views),) or col_starts.shape != (len(views) + 1,):
-        raise ValueError("one q per table and T + 1 column starts")
-    if qs.min() < 1 or qs.max() > 8:
-        raise ValueError("gram sizes must lie in 1..8")
-    return (*desc, qs, col_starts)
+#: tables of one (stream, lowered) view that phase A hashes together
+#: (kGroupTables in csrc/match.cu)
+GROUP_TABLES = 2
+#: windows of a phase A word (kWordWindows): a row's mask slots are each
+#: table's ceil(width / 32) words
+WORD_WINDOWS = 32
+
+
+class StreamRefC(ctypes.Structure):
+    """csrc/match.cu's StreamRef."""
+
+    _fields_ = [("data", ctypes.c_void_p), ("len", ctypes.c_void_p),
+                ("width", ctypes.c_int32), ("lowered", ctypes.c_int32)]
+
+
+class TableSetC(ctypes.Structure):
+    """csrc/match.cu's TableSet: the batch's word tables."""
+
+    _fields_ = [
+        ("n_tables", ctypes.c_int32), ("n_groups", ctypes.c_int32),
+        ("scan_words", ctypes.c_int32), ("pad", ctypes.c_int32),
+        ("s", StreamRefC * MATCH_MAX_TABLES), ("q", ctypes.c_int32 * MATCH_MAX_TABLES),
+        ("col_start", ctypes.c_int32 * (MATCH_MAX_TABLES + 1)),
+        ("word_base", ctypes.c_int32 * (MATCH_MAX_TABLES + 1)),
+        ("group_table", (ctypes.c_int32 * GROUP_TABLES) * MATCH_MAX_TABLES),
+    ]
+
+
+def table_groups(views: list) -> list:
+    """The tables phase A hashes together: those that read one (stream,
+    lowered) view, in first-appearance order, at most
+    :data:`GROUP_TABLES` a group → lists of table indices."""
+    by_view: dict = {}
+    for t, v in enumerate(views):
+        by_view.setdefault((v.data.data_ptr(), v.lowered), []).append(t)
+    return [ts[i:i + GROUP_TABLES] for ts in by_view.values()
+            for i in range(0, len(ts), GROUP_TABLES)]
+
+
+class MatchTables(tuple):
+    """The word tables of one batch: its :class:`StreamView` s (the tuple
+    itself, as the plain versions read them) with their gram sizes
+    ``qs`` and column starts ``col_starts`` (T + 1), checked once, and
+    ``struct``, the :class:`TableSetC` that ``match_phase_a`` and
+    ``match_verify`` launch with. ``DeviceDB.dispatch`` builds one a batch
+    and hands it to both wrappers, so the descriptor is built once a
+    dispatch; a wrapper given plain views builds its own."""
+
+    def __new__(cls, views, qs, col_starts):
+        self = super().__new__(cls, views)
+        device = _check_views(self, MATCH_MAX_TABLES)
+        q = np.ascontiguousarray(qs, dtype=np.int32)
+        cs = np.ascontiguousarray(col_starts, dtype=np.int32)
+        if q.shape != (len(self),) or cs.shape != (len(self) + 1,):
+            raise ValueError("one q per table and T + 1 column starts")
+        if q.min() < 1 or q.max() > 8:
+            raise ValueError("gram sizes must lie in 1..8")
+        widths = np.array([v.data.shape[1] for v in self], dtype=np.int64)
+        if cs[0] != 0 or not np.array_equal(np.diff(cs.astype(np.int64)), widths):
+            raise ValueError(f"column starts {cs.tolist()} are not the tables' widths "
+                             f"{widths.tolist()} laid end to end")
+        self.qs, self.col_starts, self.device = qs, col_starts, device
+        self.rows = self[0].data.shape[0]
+        groups = table_groups(self)
+        st = TableSetC()
+        st.n_tables, st.n_groups = len(self), len(groups)
+        words = np.concatenate([[0], np.cumsum((widths + WORD_WINDOWS - 1) // WORD_WINDOWS)])
+        st.scan_words = int(words[-1])
+        st.word_base[: len(words)] = words.tolist()
+        for t, v in enumerate(self):
+            st.s[t] = StreamRefC(v.data.data_ptr(), v.lengths.data_ptr(), v.data.shape[1],
+                                 int(v.lowered))
+            st.q[t] = int(q[t])
+        st.col_start[: len(cs)] = cs.tolist()
+        for g, ts in enumerate(groups):
+            st.group_table[g][:] = ts + [-1] * (GROUP_TABLES - len(ts))
+        self.struct = st
+        return self
+
+
+def match_tables(views, qs, col_starts) -> MatchTables:
+    """``views`` itself when it is the :class:`MatchTables` built for
+    these ``qs`` and ``col_starts``, else a new one."""
+    if isinstance(views, MatchTables) and views.qs is qs and views.col_starts is col_starts:
+        return views
+    return MatchTables(views, qs, col_starts)
 
 
 def match_phase_a(
-    views: list, qs, col_starts, bloom: torch.Tensor, budget: int, kclamp: int
+    views, qs, col_starts, bloom: torch.Tensor, budget: int, kclamp: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Phase A of the match: each table's bloom probe over every window
     of its stream, and the first ``kclamp`` fired (table, window)
     columns of each row in ascending order → (col int32 [B, budget],
     -1 past them; n_surv int32 [B], the row's count of fired windows).
-    ``bloom`` is the stacked int32 [T, BLOOM_WORDS] bitmap."""
+    ``bloom`` is the stacked int32 [T, BLOOM_WORDS] bitmap; ``views``
+    the tables' stream views, or the batch's :class:`MatchTables`. On
+    the card a call is two launches, the probe and the rank pass, and
+    its launch count adds both."""
     _record("match_phase_a", (views, qs, col_starts, bloom, budget, kclamp))
     device = views[0].data.device
     if device.type == "cpu":
         from swarm_tpu_torch.ops.match import phase_a_plain
 
         return phase_a_plain(views, qs, col_starts, bloom, budget, kclamp)
-    desc = _tables(views, qs, col_starts, device)
+    tabs = match_tables(views, qs, col_starts)
     _need(bloom, torch.int32, "bloom", device)
-    if bloom.dim() != 2 or bloom.shape[0] < len(views):
-        raise ValueError(f"bloom must be [T, words], got {tuple(bloom.shape)}")
+    if bloom.dim() != 2 or bloom.shape[0] < len(tabs) or bloom.shape[1] != BLOOM_WORDS:
+        raise ValueError(f"bloom must be [T, {BLOOM_WORDS}], got {tuple(bloom.shape)}")
     if not 1 <= kclamp <= budget:
         raise ValueError(f"need 1 <= kclamp ({kclamp}) <= budget ({budget})")
-    rows = views[0].data.shape[0]
+    rows = tabs.rows
     col = torch.empty((rows, budget), dtype=torch.int32, device=device)
     n_surv = torch.empty((rows,), dtype=torch.int32, device=device)
     if rows == 0:
         return col, n_surv
     lib = load_library("match")
+    # scratch: each row's fired-window masks, a (table, word) slot each
+    masks = torch.empty(rows * tabs.struct.scan_words, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
-        rc = lib.match_phase_a(
-            rows, len(views), *map(_host, desc), _ptr(bloom), budget, kclamp,
-            _ptr(col), _ptr(n_surv), _stream(bloom),
-        )
+        rc = lib.match_phase_a(ctypes.byref(tabs.struct), rows, _ptr(bloom), budget, kclamp,
+                               _ptr(masks), _ptr(col), _ptr(n_surv), _stream(bloom))
     _raise_on(rc, "match_phase_a")
-    LAUNCHES["match_phase_a"] += 1
+    LAUNCHES["match_phase_a"] += 2  # the probe and the rank pass
     return col, n_surv
 
 
-#: the stacked table arrays match_verify reads, in launcher order
+#: the stacked table arrays match_verify reads, in the order of
+#: csrc/match.cu's VerifyCorpus
 VERIFY_TABLE_KEYS = (
     "group_h1", "entry_start", "entry_count", "n_groups", "entry_h2",
     "entry_slot", "entry_off", "entry_len", "entry_suf_delta",
@@ -422,15 +511,58 @@ VERIFY_TABLE_KEYS = (
 )
 
 
+class VerifyCorpusC(ctypes.Structure):
+    """csrc/match.cu's VerifyCorpus."""
+
+    _fields_ = [(key, ctypes.c_void_p) for key in VERIFY_TABLE_KEYS] + [
+        ("slot_bytes", ctypes.c_void_p), ("slot_len", ctypes.c_void_p),
+        ("gmax", ctypes.c_int32), ("emax", ctypes.c_int32), ("max_group", ctypes.c_int32),
+        ("n_tables", ctypes.c_int32),
+    ]
+
+
+class VerifyCorpus(dict):
+    """The corpus half of ``match_verify``: the stacked tables (the dict
+    itself, as the plain version reads them), ``max_group``,
+    ``slot_bytes`` and ``slot_len``, checked once, and ``struct``, the
+    :class:`VerifyCorpusC` of their pointers. ``DeviceDB`` builds one a
+    corpus; a wrapper given a plain dict builds its own."""
+
+    def __init__(self, tab: dict, max_group: int, slot_bytes: torch.Tensor,
+                 slot_len: torch.Tensor):
+        super().__init__(tab)
+        device = tab["group_h1"].device
+        for key in VERIFY_TABLE_KEYS:
+            _need(tab[key], torch.int32, key, device)
+        _need(slot_bytes, torch.uint8, "slot_bytes", device)
+        _need(slot_len, torch.int32, "slot_len", device)
+        n_tables, gmax = tab["group_h1"].shape
+        emax = tab["entry_h2"].shape[1]
+        if tab["n_groups"].shape != (n_tables,) or any(
+                tab[k].shape != (n_tables, gmax) for k in ("entry_start", "entry_count")) or any(
+                tab[k].shape != (n_tables, emax) for k in VERIFY_TABLE_KEYS[4:]):
+            raise ValueError("the verify tables must be [T], [T, gmax] and [T, emax]")
+        if slot_bytes.dim() != 2 or slot_bytes.shape[1] != VERIFY_WIDTH or slot_len.shape != (
+                slot_bytes.shape[0],):
+            raise ValueError(f"slot_bytes must be [NS, {VERIFY_WIDTH}] and slot_len [NS]")
+        self.max_group, self.slot_bytes, self.slot_len = max_group, slot_bytes, slot_len
+        self.device = device
+        self.struct = VerifyCorpusC(
+            *(tab[key].data_ptr() for key in VERIFY_TABLE_KEYS), slot_bytes.data_ptr(),
+            slot_len.data_ptr(), gmax, emax, int(max_group), n_tables)
+
+
 def match_verify(
-    views: list, qs, col_starts, col: torch.Tensor, kc: int, tab: dict,
+    views, qs, col_starts, col: torch.Tensor, kc: int, tab: dict,
     max_group: int, slot_bytes: torch.Tensor, slot_len: torch.Tensor,
     plane_width: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Phase B's gather-verify of the candidates ``col[:, :kc]`` →
     (value bool [B, plane_width], uncertain bool [B, plane_width]) slot
     planes. ``tab`` holds the stacked tables (int32 tensors, the uint32
-    ones as their bits)."""
+    ones as their bits), or is the corpus's :class:`VerifyCorpus`;
+    ``views`` as :func:`match_phase_a` takes them. On the card the two
+    planes are one zeroed [2, B, plane_width] tensor (one fill)."""
     _record("match_verify", (views, qs, col_starts, col, kc, tab, max_group,
                              slot_bytes, slot_len, plane_width))
     device = col.device
@@ -439,27 +571,28 @@ def match_verify(
 
         return verify_plain(views, qs, col_starts, col, kc, tab, max_group,
                             slot_bytes, slot_len, plane_width)
-    desc = _tables(views, qs, col_starts, device)
+    tabs = match_tables(views, qs, col_starts)
+    corpus = tab if (isinstance(tab, VerifyCorpus) and tab.max_group == max_group
+                     and tab.slot_bytes is slot_bytes and tab.slot_len is slot_len) else (
+        VerifyCorpus(tab, max_group, slot_bytes, slot_len))
     _need(col, torch.int32, "col", device)
-    rows = views[0].data.shape[0]
+    if tabs.device != device or corpus.device != device:
+        raise ValueError(f"tables on {tabs.device} / {corpus.device}, col on {device}")
+    rows = tabs.rows
     if col.dim() != 2 or col.shape[0] != rows or not 0 <= kc <= col.shape[1]:
         raise ValueError(f"col {tuple(col.shape)} cannot give {kc} columns")
-    for key in VERIFY_TABLE_KEYS:
-        _need(tab[key], torch.int32, key, device)
-    gmax, emax = tab["group_h1"].shape[1], tab["entry_h2"].shape[1]
-    _need(slot_bytes, torch.uint8, "slot_bytes", device)
-    _need(slot_len, torch.int32, "slot_len", device)
-    value = torch.zeros((rows, plane_width), dtype=torch.bool, device=device)
-    unc = torch.zeros((rows, plane_width), dtype=torch.bool, device=device)
+    if corpus.struct.n_tables != len(tabs):
+        raise ValueError(f"{len(tabs)} tables for a corpus of {corpus.struct.n_tables}")
+    planes = torch.zeros((2, rows, plane_width), dtype=torch.bool, device=device)
+    value, unc = planes[0], planes[1]
     if rows == 0 or kc == 0:
         return value, unc
     lib = load_library("match")
     with torch.cuda.device(device):
         rc = lib.match_verify(
-            rows, len(views), *map(_host, desc), _ptr(col), col.shape[1], kc,
-            *(_ptr(tab[key]) for key in VERIFY_TABLE_KEYS), gmax, emax,
-            max_group, _ptr(slot_bytes), _ptr(slot_len), _ptr(value), _ptr(unc),
-            plane_width, _stream(col),
+            ctypes.byref(tabs.struct), ctypes.byref(corpus.struct), rows, _ptr(col),
+            col.shape[1], kc, _ptr(value), _ptr(unc), plane_width, _sm_count(device.index),
+            _stream(col),
         )
     _raise_on(rc, "match_verify")
     LAUNCHES["match_verify"] += 1
@@ -603,10 +736,9 @@ def verdict_struct(layout) -> VerdictLayoutC:
         if csr[key].shape != (n,):
             raise ValueError(f"{key} must be [{n}], got {tuple(csr[key].shape)}")
     n_conj = csr["scalar_src"].shape[1]
-    n_status = csr["m_status"].shape[1]
-    if n_conj > 32 or n_status > 32:  # the kernel loads them a lane each
-        raise ValueError(f"{n_conj} scalar conjuncts / {n_status} status values a matcher, "
-                         "the kernel takes at most 32")
+    n_status = csr["m_status"].shape[1]  # any width: the kernel takes them 32 a pass
+    if n_conj > 32:  # the kernel loads them a lane each; the compiler caps them at 6
+        raise ValueError(f"{n_conj} scalar conjuncts a matcher, the kernel takes at most 32")
     for key, shape in (("scalar_src", (nm, n_conj)), ("scalar_cmp", (nm, n_conj)),
                        ("scalar_mask", (nm, n_conj)), ("m_status", (nm, n_status)),
                        ("m_size", (nm, n_status)), ("m_md5", (nm, 4)),

@@ -280,7 +280,7 @@ def verify_plain(
     col = col[:, :kc]
     B, K = col.shape
     T = len(views)
-    if K == 0:
+    if K == 0 or B == 0:
         empty = torch.zeros((B, plane_width), dtype=torch.bool, device=dev)
         return empty, empty.clone()
     cache = _ViewCache()
@@ -908,6 +908,9 @@ class DeviceDB:
             arrays = to_device({k: v for k, v in arrays_np.items() if k != "verdict"},
                                self.device)
             arrays["verdict"] = VerdictLayout(self.db, self.device)
+            # the verify's corpus half and its kernel struct, made once
+            arrays["verify"] = kernels.VerifyCorpus(arrays["tab"], meta.max_group,
+                                                    arrays["slot_bytes"], arrays["slot_len"])
             arrays["word_tab"] = to_device(_word_table(), self.device)
             self._meta, self._arrays = meta, arrays
         return self._meta, self._arrays
@@ -946,12 +949,14 @@ class DeviceDB:
         t1 = time.perf_counter()
         lc = {"budget": budget, "upload_s": t1 - t0}
         if T:
-            views = table_views(meta, s, ln)
-            cs = col_starts_of(meta, s)
-            K = max(1, min(budget, int(cs[-1])))
+            # the batch's tables and their kernel struct, made once for
+            # both launches
+            tabs = kernels.MatchTables(table_views(meta, s, ln), meta.table_q,
+                                       col_starts_of(meta, s))
+            K = max(1, min(budget, int(tabs.col_starts[-1])))
             with record_function("match.phase_a"):
                 col, n_surv = kernels.match_phase_a(
-                    views, meta.table_q, cs, arrays["tab"]["bloom"], budget, K
+                    tabs, tabs.qs, tabs.col_starts, arrays["tab"]["bloom"], budget, K
                 )
                 overflow = n_surv > K
                 nmax = torch.clamp(n_surv, max=K).max()
@@ -964,7 +969,7 @@ class DeviceDB:
             kc = fpc.survivor_bucket(n_live, budget)
             with record_function("match.verify"):
                 value, unc = kernels.match_verify(
-                    views, meta.table_q, cs, col, kc, arrays["tab"], meta.max_group,
+                    tabs, tabs.qs, tabs.col_starts, col, kc, arrays["verify"], meta.max_group,
                     arrays["slot_bytes"], arrays["slot_len"], plane_width,
                 )
             lc.update(survivor_max=n_live, verify_k=kc, phase_a_s=t2 - t1,

@@ -15,7 +15,7 @@ import pytest
 import torch
 import yaml
 
-from chip_smoke import realistic_rows, synthetic_corpus
+from chip_smoke import realistic_rows, synthetic_corpus, wide_matcher_docs, wide_matcher_rows
 from swarm_tpu.config import Config
 from swarm_tpu.fingerprints import model as j_model
 from swarm_tpu.fingerprints import nuclei as j_nuclei
@@ -96,6 +96,22 @@ def test_engine_matches_jax_and_oracle():
                 if res.extractions:
                     ext[t.id] = res.extractions
         assert (got[i].template_ids, got[i].extractions) == (ids, ext), i
+
+
+def test_engine_matches_jax_on_matchers_of_more_than_32_values():
+    """A status matcher of 40 codes (AND a word) and a size matcher of 40
+    sizes: the port's engine on the CPU gives the JAX engine's template
+    ids, the rows whose code or size lies past the first 32 included."""
+    docs = wide_matcher_docs()
+    dicts = wide_matcher_rows()
+    want = JaxEngine([j_nuclei.parse_template(d) for d in docs], mesh=None,
+                     pipeline="off").match([j_model.Response(**d) for d in dicts])
+    got = MatchEngine([t_nuclei.parse_template(d) for d in docs], device="cpu").match(
+        [t_model.Response(**d) for d in dicts])
+    assert [r.template_ids for r in got] == [r.template_ids for r in want]
+    assert [r.template_ids for r in got][:4] == [["many-status", "many-size"]] * 3 + [
+        ["many-size"]]
+    assert got[6].template_ids == ["many-size"] and got[7].template_ids == []
 
 
 def test_engine_defaults_to_cuda():

@@ -426,9 +426,23 @@ def test_wrappers_check_their_inputs():
                            torch.zeros(2, dtype=torch.int32), False)
     bloom = torch.zeros((1, t_hashing.BLOOM_WORDS), dtype=torch.int32)
     with pytest.raises(ValueError):
-        kernels._tables([v], [9], [0, 8], torch.device("cpu"))
+        kernels.MatchTables([v], [9], [0, 8])
     with pytest.raises(ValueError):
-        kernels._tables([v], [4, 4], [0, 8], torch.device("cpu"))
+        kernels.MatchTables([v], [4, 4], [0, 8])
+    with pytest.raises(ValueError):  # column starts that are not the widths
+        kernels.MatchTables([v], [4], [0, 9])
+    with pytest.raises(ValueError):
+        kernels.MatchTables([v] * (kernels.MATCH_MAX_TABLES + 1), [4] * 65, list(range(0, 528, 8)))
+    tab = {k: torch.zeros((1, 4), dtype=torch.int32) for k in kernels.VERIFY_TABLE_KEYS}
+    tab["n_groups"] = torch.zeros(1, dtype=torch.int32)
+    slot_bytes = torch.zeros((3, kernels.VERIFY_WIDTH), dtype=torch.uint8)
+    corpus = kernels.VerifyCorpus(tab, 8, slot_bytes, torch.zeros(3, dtype=torch.int32))
+    assert (corpus.struct.gmax, corpus.struct.emax, corpus.struct.n_tables) == (4, 4, 1)
+    with pytest.raises(TypeError):
+        kernels.VerifyCorpus(dict(tab, entry_h2=tab["entry_h2"].long()), 8, slot_bytes,
+                             torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        kernels.VerifyCorpus(tab, 8, slot_bytes, torch.zeros(2, dtype=torch.int32))
     with pytest.raises(ValueError):
         kernels._views([v] * (kernels.MATCH_MAX_TABLES + 1), torch.device("cpu"),
                        kernels.MATCH_MAX_TABLES)

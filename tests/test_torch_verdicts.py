@@ -34,7 +34,8 @@ import torch
 
 import swarm_tpu.fingerprints.compile as j_compile
 import swarm_tpu.fingerprints.nuclei as j_nuclei
-from chip_smoke import realistic_rows, synthetic_corpus
+from chip_smoke import (WIDE_SIZES, WIDE_STATUS, realistic_rows, synthetic_corpus,
+                        wide_matcher_docs, wide_matcher_rows)
 from swarm_tpu.ops import match as jm
 from swarm_tpu.ops.md5 import md5_words as j_md5_words
 from swarm_tpu_torch.fingerprints import compile as t_compile
@@ -399,6 +400,20 @@ def _reduce_words(off, idx, owner: int, n: int, base: int, v, u):
             orr(~gv & ~gu, 0))
 
 
+#: the values of a status or size matcher a pass of the kernel's warp
+VALUE_PASS = 32
+
+
+def any_value(values: np.ndarray, got: np.ndarray) -> np.ndarray:
+    """Each row's ``got`` equal to one of a matcher's ``values``, as the
+    kernel's any_value takes them: :data:`VALUE_PASS` values a pass (lane
+    s loads value p + s), each row's hits OR-ed over the passes."""
+    ok = np.zeros(got.shape[0], dtype=bool)
+    for p in range(0, len(values), VALUE_PASS):
+        ok |= (got[:, None] == values[None, p:p + VALUE_PASS]).any(1)
+    return ok
+
+
 def walk_chunks(lay: dict, value, unc, lengths: dict, status, digest=None, rx=None) -> tuple:
     """The verdict lowering as csrc/verdicts.cu computes it: the slot
     planes (and the overlay) packed into row-sliced words, then chunk by
@@ -455,10 +470,9 @@ def walk_chunks(lay: dict, value, unc, lengths: dict, status, digest=None, rx=No
                     scalar_ok = scalar_ok & _words(conj)
             status_ok = size_ok = zeros
             if fl & bit["is_status"]:
-                status_ok = _words((status[:, None] == lay["m_status"][m][None]).any(1))
+                status_ok = _words(any_value(lay["m_status"][m], status))
             if fl & bit["is_size"]:
-                sel = srcs[:, lay["m_size_src"][m]]
-                size_ok = _words((sel[:, None] == lay["m_size"][m][None]).any(1))
+                size_ok = _words(any_value(lay["m_size"][m], srcs[:, lay["m_size_src"][m]]))
             md5_ok = ones
             if fl & bit["m_md5_check"]:
                 if digest is not None:
@@ -555,6 +569,49 @@ def test_word_chunk_walk_equals_port_and_jax(corpora, verdict_inputs, corpus, ro
     for i, (a, b) in enumerate(zip(full, want)):
         assert np.array_equal(a.numpy(), b), f"plane {i}"
     assert walked[5].any() or rows == 1  # uncertain matchers
+
+
+@pytest.fixture(scope="module")
+def wide():
+    """The corpus of more than 32 status and size values a matcher
+    (``chip_smoke.wide_matcher_docs``) in both packages, and the recorded
+    verdict call of its rows' DeviceDB batch on the CPU."""
+    docs = wide_matcher_docs()
+    c = Corpus([j_nuclei.parse_template(d) for d in docs],
+               [t_nuclei.parse_template(d) for d in docs], wide_matcher_rows())
+    batch = encode_batch([Response(**d) for d in c.dicts], max_body=4096, max_header=1024,
+                         build_all=False, width_multiple=512)
+    dev = tm.DeviceDB(c.t_db, device="cpu")
+    with kernels.record_calls() as calls:
+        dev.match(batch.streams, batch.lengths, batch.status)
+    (args,) = [a for n, a in calls if n == "match_verdicts"]
+    return c, args
+
+
+def test_wide_status_and_size_matchers_equal_port_and_jax(wide):
+    """A status and a size matcher of 40 values: the layout is 40 wide,
+    and the word-chunk walk (values 32 a pass), the port's plain verdicts
+    and the JAX ``eval_verdicts`` agree; the rows whose value lies past
+    the first 32 fire."""
+    c, (layout, value, unc, ln, st, dg, overlay) = wide
+    lay = tm.verdict_layout_np(c.t_db)
+    assert lay["m_status"].shape[1] == lay["m_size"].shape[1] == len(WIDE_STATUS) > VALUE_PASS
+    assert kernels.verdict_struct(layout).n_status == len(WIDE_STATUS)
+    walked = walk_chunks(lay, value.numpy(), unc.numpy(), {k: v.numpy() for k, v in ln.items()},
+                         st.numpy(), _np(dg), None if overlay is None else tuple(map(_np, overlay)))
+    port = kernels.match_verdicts(layout, value, unc, ln, st, dg, overlay)
+    for i, (a, b) in enumerate(zip(walked, port)):
+        if b is not None:
+            assert np.array_equal(a, b.numpy()), f"plane {i}"
+    full = tm.full_planes(layout.arrays, tuple(torch.from_numpy(p) for p in walked))
+    want = jax_verdicts(c, value, unc, ln, st, dg, overlay)
+    for i, (a, b) in enumerate(zip(full, want)):
+        assert np.array_equal(a.numpy(), b), f"plane {i}"
+    ids = c.t_db.template_ids
+    fired = [[ids[t] for t in np.flatnonzero(row)] for row in walked[0][:, :len(ids)]]
+    assert fired == [["many-status", "many-size"]] * 3 + [["many-size"]] * 2 + [
+        ["many-size"], ["many-size"], [], []]
+    assert WIDE_SIZES[35] == 116 and st.numpy()[2] == WIDE_STATUS[-1]
 
 
 def test_chunks_partition_and_cover_the_corpus(corpora):
@@ -718,6 +775,22 @@ def test_verdicts_kernel_equals_plain_on_card(corpora, corpus, planes, digest, r
         args = (args[0], args[1].cuda(), args[2].cuda(), *args[3:])
     got = kernels.match_verdicts(*args)
     for a, b in zip(got, tm.verdicts_plain(*args)):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_verdicts_kernel_on_wide_matchers_equals_plain_on_card(wide):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    c, _args = wide
+    batch = encode_batch([Response(**d) for d in c.dicts], max_body=4096, max_header=1024,
+                         build_all=False, width_multiple=512)
+    dev = tm.DeviceDB(c.t_db, device="cuda")
+    with kernels.record_calls() as calls:
+        dev.match(batch.streams, batch.lengths, batch.status)
+    (args,) = [a for n, a in calls if n == "match_verdicts"]
+    assert args[0].csr["m_status"].shape[1] > VALUE_PASS
+    for a, b in zip(kernels.match_verdicts(*args), tm.verdicts_plain(*args)):
         assert (a is None and b is None) or torch.equal(a, b)
 
 

@@ -12,10 +12,13 @@ prints one JSON line per phase:
    kernel and the verdict kernel (``nvcc``, sm_90a, one library a source:
    ``cluster.cu``, ``match.cu``, ``md5.cu``, ``verdicts.cu``), the
    tensor-core rate probe
-   (``ops/csrc/mma_rate.cu``, its own library) and the native scan
-   library (``make``) from the checkout's sources, all in parallel; the
-   seconds are set-up. Prints each kernel's registers and shared memory
-   (``ptxas -v``) and fails if ptxas reports a spill.
+   (``ops/csrc/mma_rate.cu``, its own library) and the three host
+   libraries (``make``: the scan library, libfastpack — the engine's
+   dedup, memo, pack and walk passes, against the interpreter's
+   ``Python.h`` — and the crex regex VM) from the checkout's sources,
+   all in parallel; the seconds are set-up. Prints each kernel's
+   registers and shared memory (``ptxas -v``) and fails if ptxas
+   reports a spill.
 3. ``mma``     — the probe's ``mma.sync`` rates: 1-bit m16n8k256
    .and.popc (the kernels' product; it prices each kernel's bound, as
    the data sheet gives no 1-bit rate), .xor.popc, and int8 m16n8k32.
@@ -69,11 +72,15 @@ prints one JSON line per phase:
    verify that fails at its last byte).
 10. ``match``  — ``MatchEngine`` as the worker builds it: its first
    batch as in 9, then ``MatchEngine.match`` of 2,048 rows, warm, called
-   for a 2-second window: rows/s over the window (and, apart, the
-   median call's rate, which leaves a GC pause out), ms by stage and by
-   call, GC collections, unique rows and confirms per batch; a sample
-   of rows against the oracle.
-11. ``match_trace`` — one such call under ``torch.profiler``.
+   for a 2-second window with the engine's content memos cleared before
+   each call (fresh content: the verdict memo would otherwise serve every
+   row of a repeated call and the device would run nothing): rows/s over
+   the window (and, apart, the median call's rate, which leaves a GC
+   pause out), ms by stage (the host walk's sub-phases among them) and
+   by call, GC collections, in-batch unique rows, the miss uniques the
+   device ran and confirms per batch; then the same window without
+   clearing (memo-warm rows/s); a sample of rows against the oracle.
+11. ``match_trace`` — one fresh call under ``torch.profiler``.
 12. ``fingerprint_worker`` — the main path of the match: the stand-in
    server hands out one ``fingerprint`` job of 2,048 JSONL rows over the
    synthetic corpus, and the port's worker runs it on ``cuda``. It must
@@ -112,6 +119,7 @@ import socket
 import struct
 import subprocess
 import sys
+import sysconfig
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -747,7 +755,7 @@ def phase_device() -> str:
 
 def phase_build() -> ctypes.CDLL:
     """Build everything; → the rate probe's library."""
-    from swarm_tpu_torch.native import scanio
+    from swarm_tpu_torch.native import crex, scanio
     from swarm_tpu_torch.ops import kernels
 
     probe_path = kernels.BUILD_DIR / "libswarm_mma_rate.so"
@@ -755,17 +763,28 @@ def phase_build() -> ctypes.CDLL:
     # every kernel even where an earlier run left the libraries
     for _sources, lib_path in kernels.LIBRARIES.values():
         lib_path.unlink(missing_ok=True)
+    host_libs = {"scanio": scanio._LIB_PATH, "fastpack": scanio._FASTPACK_PATH,
+                 "crex": crex._LIB_PATH}
+    for lib_path in host_libs.values():
+        lib_path.unlink(missing_ok=True)
+    python_h = Path(sysconfig.get_paths()["include"]) / "Python.h"
     t0 = time.perf_counter()
-    # one nvcc per source, all started together
-    with ThreadPoolExecutor(len(kernels.LIBRARIES) + 2) as pool:
+    # one nvcc per source, all started together, beside the host builds
+    with ThreadPoolExecutor(len(kernels.LIBRARIES) + 4) as pool:
         jobs = [pool.submit(kernels.load_library, name) for name in kernels.LIBRARIES]
         jobs.append(pool.submit(kernels.compile_library, (MMA_PROBE,), probe_path))
-        jobs.append(pool.submit(scanio.ensure_lib))
+        jobs += [pool.submit(scanio.ensure_lib), pool.submit(scanio.ensure_fastpack),
+                 pool.submit(crex.ensure_crex)]
         for job in jobs:
             job.result()
     ptxas = [k for name in kernels.LIBRARIES
              for k in kernels.ptxas_report(kernels.build_logs.get(name, ""))]
-    emit({"phase": "build", "setup_seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    emit({"phase": "build", "setup_seconds": time.perf_counter() - t0,
+          "fastpack": scanio._fastpack is not None, "crex": crex._lib is not None,
+          "python_h": str(python_h) if python_h.exists() else None,
+          "host_libraries": {k: str(v.relative_to(REPO)) for k, v in host_libs.items()
+                             if v.exists()},
+          "ptxas": ptxas})
     built = {k["kernel"].split("<")[0] for k in ptxas}
     for want in ("cluster_counts_kernel", "cluster_parent_kernel", "match_phase_a_probe_kernel",
                  "match_phase_a_rank_kernel", "match_verify_kernel", "match_regex_scan_kernel", "match_md5_kernel",
@@ -1783,13 +1802,17 @@ def phase_match_kernels(templates, plants, db) -> dict:
 
 def phase_match(templates, plants, db, smi: str) -> tuple:
     """``MatchEngine`` as the worker builds it (its default batch_rows,
-    max_body and max_header): its first batch's ``DeviceDB.match`` on the
-    card against the plain versions (:func:`match_case`); then
-    ``MatchEngine.match`` of 2,048 rows, warm, over a window of
-    ``MATCH_WINDOW_S`` seconds: rows/s, host seconds by
-    stage and of the host work outside the stages (dedup, result
-    assembly, the rest), unique rows and confirms per batch; and a
-    64-row sample against the oracle."""
+    max_body, max_header and walk pool): its first batch's
+    ``DeviceDB.match`` on the card against the plain versions
+    (:func:`match_case`); then ``MatchEngine.match`` of 2,048 rows, warm,
+    over a window of ``MATCH_WINDOW_S`` seconds of calls, the content
+    memos cleared before each call (fresh content: the verdict memo would
+    serve a repeated call's every row): rows/s, host seconds by stage
+    (the host walk's sub-phases among them) and of the host work outside
+    the stages (result assembly, the rest), in-batch unique rows, the
+    miss uniques the device ran and confirms per batch; the same window
+    without clearing (memo-warm rows/s); and a 64-row sample of a fresh
+    call against the oracle."""
     import torch
 
     from swarm_tpu_torch.ops import cpu_ref
@@ -1798,49 +1821,88 @@ def phase_match(templates, plants, db, smi: str) -> tuple:
     eng = MatchEngine(templates, db=db, device="cuda")
     rows = port_rows(realistic_rows(JOB_ROWS, plants=plants))
     first = rows[: eng.batch_rows]
-    uniq, _back = _dedup_rows(first)
+    uniq, _back, _keys = _dedup_rows(first)
     first_batch = match_case(eng.device, eng.encode([first[u] for u in uniq]))
+    in_batch_unique = [len(_dedup_rows(rows[s : s + eng.batch_rows])[0])
+                       for s in range(0, len(rows), eng.batch_rows)]
 
-    eng.match(rows)  # warm
-    torch.cuda.synchronize()
-    st0 = dict(eng.stats.__dict__)
+    # each device batch's stage seconds, read where the batch is collected
+    # (a memo-served batch reaches no device)
     stage = {k: 0.0 for k in ("upload_s", "phase_a_s", "scalar_read_s", "phase_b_s", "collect_s")}
-    # calls for MATCH_WINDOW_S seconds, so that the rate takes in the
-    # pauses of Python's cyclic GC as a long-running worker pays them;
-    # each call's wall ms, and the collections in the window by
-    # generation (a full, generation-2 collection walks every object the
-    # corpus holds)
-    per_call = []
-    gc0 = [g["collections"] for g in gc.get_stats()]
-    t0 = time.perf_counter()
-    while len(per_call) < 3 or time.perf_counter() - t0 < MATCH_WINDOW_S:
-        tc = time.perf_counter()
-        results = eng.match(rows)
-        per_call.append((time.perf_counter() - tc) * 1e3)
+    device_batches = [0]
+    collect = eng.device.collect
+
+    def collect_and_count(out):
+        planes = collect(out)
+        device_batches[0] += 1
         for k in stage:
             stage[k] += eng.device.last_compact.get(k, 0.0)
-    seconds = time.perf_counter() - t0
+        return planes
+
+    eng.device.collect = collect_and_count
+
+    def window(fresh: bool) -> dict:
+        """Calls for MATCH_WINDOW_S seconds of calls, so that the rate
+        takes in the pauses of Python's cyclic GC as a long-running
+        worker pays them; each call's wall ms, and the collections in
+        the window by generation (a full, generation-2 collection walks
+        every object the corpus holds). Clearing the memos is outside
+        the calls' time."""
+        eng.clear_content_memos()
+        eng.match(rows)  # warm
+        torch.cuda.synchronize()
+        st0 = dict(eng.stats.__dict__)
+        stage0 = dict(stage)
+        batches0 = device_batches[0]
+        per_call = []
+        gc0 = [g["collections"] for g in gc.get_stats()]
+        while len(per_call) < 3 or sum(per_call) < MATCH_WINDOW_S * 1e3:
+            if fresh:
+                eng.clear_content_memos()
+            tc = time.perf_counter()
+            results = eng.match(rows)
+            per_call.append((time.perf_counter() - tc) * 1e3)
+        st = {k: v - st0[k] for k, v in eng.stats.__dict__.items()}
+        return {
+            "results": results, "per_call": per_call, "st": st,
+            "stage": {k: stage[k] - stage0[k] for k in stage},
+            "device_batches": device_batches[0] - batches0,
+            "gc": [g["collections"] - n for g, n in zip(gc.get_stats(), gc0)],
+        }
+
+    fresh = window(True)
+    warm = window(False)
+    per_call, st = fresh["per_call"], fresh["st"]
     reps = len(per_call)
-    gc_runs = [g["collections"] - n for g, n in zip(gc.get_stats(), gc0)]
-    st = {k: v - st0[k] for k, v in eng.stats.__dict__.items()}
+    seconds = sum(per_call) / 1e3
     batches = st["batches"]
-    # last_compact holds each call's last batch: a batch of each call
+    # host seconds a batch: the memo lookup and encode, the device's
+    # stages (over the batches that reached it), the walk and assembly
     ms = {"encode": st["encode_seconds"] / batches * 1e3}
-    ms.update({k[:-2]: v / reps * 1e3 for k, v in stage.items()})
-    ms["host_resolution"] = st["host_seconds"] / batches * 1e3
-    # MatchEngine.match's host work outside those stages, on one batch:
-    # the content dedup, and the per-row assembly of the results
+    ms.update({k[:-2]: v / batches * 1e3 for k, v in fresh["stage"].items()})
+    ms["host_resolution"] = st["host_confirm_seconds"] / batches * 1e3
+    # the host walk's sub-phases, parts of host_resolution
+    walk_ms = {k: st[f"{k}_seconds"] / batches * 1e3 for k in ("unc", "ext", "insert", "fixup")}
+    # MatchEngine.match's host work outside those stages, on one fresh
+    # batch: the per-row assembly of the results; and, for comparison
+    # with earlier runs, the content dedup alone (a part of the memo
+    # lookup, inside encode, since the memo landed)
     first_rows = rows[: eng.batch_rows]
     t0 = time.perf_counter()
     _dedup_rows(first_rows)
-    outside = {"dedup": (time.perf_counter() - t0) * 1e3}
+    dedup_ms = (time.perf_counter() - t0) * 1e3
+    eng.clear_content_memos()
     packed = eng.match_packed(first_rows)
     t0 = time.perf_counter()
     eng.rowmatches_from_packed(packed, len(first_rows))
-    outside["assemble"] = (time.perf_counter() - t0) * 1e3
-    outside["rest"] = seconds / batches * 1e3 - sum(ms.values()) - sum(outside.values())
+    outside = {"assemble": (time.perf_counter() - t0) * 1e3}
+    outside["rest"] = seconds / batches * 1e3 - sum(ms.values()) - outside["assemble"]
+    outside["dedup"] = dedup_ms
+    ms.update(walk_ms)
 
-    # a sample against the oracle: every corpus template on 64 rows
+    # a sample of a fresh call against the oracle: every corpus template
+    # on 64 rows
+    results = fresh["results"]
     sample = list(range(0, JOB_ROWS, 64))[:48] + [i for i, r in enumerate(results)
                                                   if r.template_ids][:16]
     for i in sample:
@@ -1853,18 +1915,32 @@ def phase_match(templates, plants, db, smi: str) -> tuple:
                     want_ext[tpl.id] = res.extractions
         if results[i].template_ids != want_ids or results[i].extractions != want_ext:
             raise AssertionError(f"row {i} differs from the oracle")
+    if [(r.template_ids, r.extractions) for r in warm["results"]] != [
+            (r.template_ids, r.extractions) for r in results]:
+        raise AssertionError("memo-served results differ from fresh ones")
+    if not fresh["device_batches"] or warm["device_batches"]:
+        raise AssertionError(f"device batches: fresh {fresh['device_batches']}, "
+                             f"memo-warm {warm['device_batches']}")
+    warm_calls = warm["per_call"]
     emit({
         "phase": "match", "planes_identical_to_plain": True, "first_batch": first_batch,
         "rows": JOB_ROWS, "batch_rows": eng.batch_rows, "max_body": eng.max_body,
-        "max_header": eng.max_header, "reps": reps,
+        "max_header": eng.max_header, "walk_threads": eng.walk_threads, "fastpack": True,
+        "reps": reps,
         "rows_per_s": reps * JOB_ROWS / seconds,
         # the median call's rate: leaves out a GC pause, so not the headline
         "rows_per_s_median_call": JOB_ROWS / float(np.median(per_call)) * 1e3,
+        "rows_per_s_memo_warm": len(warm_calls) * JOB_ROWS / sum(warm_calls) * 1e3,
+        "reps_memo_warm": len(warm_calls), "gc_collections_memo_warm": warm["gc"],
         "batches_per_call": batches / reps,
+        "device_batches_per_call": fresh["device_batches"] / reps,
         "ms_per_batch": seconds / batches * 1e3, "ms_by_stage": ms,
-        "ms_outside_stages": outside, "ms_per_call": per_call, "gc_collections": gc_runs,
-        "unique_rows_per_batch": st["unique_rows"] / batches,
+        "ms_outside_stages": outside, "ms_per_call": per_call, "gc_collections": fresh["gc"],
+        "unique_rows_per_batch": sum(in_batch_unique) / len(in_batch_unique),
+        "device_rows_per_batch": st["unique_rows"] / batches,
+        "memo_rows_per_batch": st["memo_slots"] / batches,
         "confirms_per_batch": st["host_confirm_pairs"] / batches,
+        "walk_batched_pairs_per_batch": st["walk_batched_pairs"] / batches,
         "overflow_rows_per_batch": st["overflow_rows"] / batches,
         "last_compact": eng.device.last_compact,
         "hits": sum(len(r.template_ids) for r in results),
@@ -1882,16 +1958,20 @@ MATCH_SPANS = (
 
 
 def phase_match_trace(eng, rows) -> None:
-    """One warm ``MatchEngine.match`` batch under ``torch.profiler``: the
-    host time and the card's idle time of each step, the card's busy
-    time, and the kernels it ran (the five match kernels by name, the
-    torch ops summed)."""
+    """One warm ``MatchEngine.match`` call under ``torch.profiler``, its
+    content memos cleared first (fresh content): the host time and the
+    card's idle time of each step, the card's busy time, and the kernels
+    it ran (the five match kernels by name, the torch ops summed)."""
     import torch
 
+    eng.clear_content_memos()
     torch.cuda.synchronize()
     out = profile_call(lambda: eng.match(rows), "match_batch", MATCH_SPANS)
     kernels_ms = out.pop("kernels_ms")
     ours = {k: v for k, v in kernels_ms.items() if k.startswith(MATCH_KERNELS)}
+    missing = [k for k in MATCH_KERNELS if not any(n.startswith(k) for n in ours)]
+    if missing:
+        raise AssertionError(f"trace: no launch of {missing}")
     rest = sorted(((v, k) for k, v in kernels_ms.items() if k not in ours), reverse=True)
     emit({
         "phase": "match_trace", "rows": len(rows), "match_kernels_ms": ours,
@@ -1952,6 +2032,8 @@ def phase_fingerprint_worker(templates, plants, db) -> dict:
             # the same module on the CPU (plain versions), first 256 rows
             cpu = JobProcessor(cfg, device="cpu")
             cpu.engines[corpus_dir] = MatchEngine(templates, db=db, device="cpu")
+            # nothing known: every row of the twin's job is walked
+            cpu.engines[corpus_dir].clear_content_memos()
             head = b"".join(blob.splitlines(keepends=True)[:256])
             twin = cpu._execute_tpu(cpu.registry.load("fingerprint"), head)
         finally:

@@ -1,8 +1,9 @@
 """Response rows → fixed-shape uint8 batches.
 
-The port's copy of ``swarm_tpu/ops/encoding.py``, numpy path only: the
-port has no native encoder yet, and its output is byte-equal to the
-JAX package's ``encode_batch`` on the same rows.
+The port's copy of ``swarm_tpu/ops/encoding.py``. Rows are measured and
+packed by two native passes (``native/scanio.py``'s ``rows_meta`` and
+``rows_pack``, libfastpack), and the output is byte-equal to the JAX
+package's ``encode_batch`` on the same rows.
 
 The strategy: pad each part stream (body / header / all) to a
 per-batch width, bucket widths to bound padding waste, and flag rows
@@ -92,18 +93,81 @@ def round_up(n: int, multiple: int) -> int:
     return ((n + multiple - 1) // multiple) * multiple
 
 
+class _RotatingPool:
+    """Recycled encode buffers for the engine's pipelined feed.
+
+    Zero-allocating a fresh (B, W) matrix per batch was ~40% of the
+    encode cost (page faults on first touch); the native pack writes
+    every byte of every row (payload + zero tail), so dirty buffers are
+    safe to hand back. The rotation depth outlives the pipeline
+    window with margin: the scheduler's accounting holds at most
+    queue_depth (2) + in-flight device batches (3) + the offloaded
+    walk (1) + the encode in progress (1) = 7 encoded batches alive at
+    once (sched/scheduler.py), so the earliest reuse at i+depth (8)
+    can never alias an in-flight transfer. That accounting is PER
+    ENGINE: the pool is module-global, and the margin only covers one
+    engine's pipeline at a time — the worker satisfies this by running
+    one scheduler pass to completion per chunk (an engine's batches
+    drain before another engine dispatches); concurrent same-shape
+    pipelining from two engines is outside the reuse contract.
+
+    ONLY the engine's hot path opts in (``encode_batch(...,
+    reuse_buffers=True)``): a recycled batch's arrays are OVERWRITTEN
+    ``depth`` same-shape encodes later, so callers that retain batches
+    must use the default allocating path.
+    """
+
+    #: retained-bytes ceiling: production batch shapes vary (last
+    #: partial chunk, alive-subset recursion, active-scan waves), so
+    #: unbounded per-key caching would grow worker RSS forever. LRU
+    #: keys are dropped past the cap — dropping only releases the
+    #: POOL's references; in-flight batches keep their arrays alive
+    #: through their own refs.
+    MAX_BYTES = 256 * 1024 * 1024
+
+    def __init__(self, depth: int = 8):
+        self._depth = depth
+        # key -> [bufs, next_idx]; dict order = LRU
+        self._slots: dict = {}  # guarded-by: _lock (reads)
+        self._bytes = 0  # guarded-by: _lock (reads)
+        import threading
+
+        self._lock = threading.Lock()
+
+    def get(self, n: int, w: int, role: str) -> np.ndarray:
+        # keyed per stream ROLE: one encode draws several same-width
+        # buffers (wb == wh == wa is common at small widths), and a
+        # shared rotation would hand batch i+1 a buffer batch i is
+        # still feeding to the device
+        key = (n, w, role)
+        with self._lock:
+            slot = self._slots.pop(key, None)
+            if slot is None:
+                slot = [
+                    [np.empty((n, w), dtype=np.uint8) for _ in range(self._depth)],
+                    0,
+                ]
+                self._bytes += n * w * self._depth
+            self._slots[key] = slot  # re-insert: most-recently-used last
+            while self._bytes > self.MAX_BYTES and len(self._slots) > 1:
+                old_key, old_slot = next(iter(self._slots.items()))
+                if old_key == key:
+                    break  # never evict the slot we are handing out
+                del self._slots[old_key]
+                self._bytes -= (
+                    old_key[0] * old_key[1] * len(old_slot[0])
+                )
+            bufs, i = slot
+            slot[1] = (i + 1) % self._depth
+            return bufs[i]
+
+
+_POOL = _RotatingPool()
+
+
 def _width_for(lens: np.ndarray, cap: int, multiple: int = 128) -> int:
     longest = int(lens.max()) if lens.size else 0
     return max(multiple, min(cap, round_up(max(longest, 1), multiple)))
-
-
-def _pack(blobs: list, width: int) -> np.ndarray:
-    out = np.zeros((len(blobs), width), dtype=np.uint8)
-    for i, blob in enumerate(blobs):
-        if blob:
-            c = blob[:width]
-            out[i, : len(c)] = np.frombuffer(c, dtype=np.uint8)
-    return out
 
 
 def encode_batch(
@@ -111,6 +175,7 @@ def encode_batch(
     max_body: int = 4096,
     max_header: int = 1024,
     pad_rows_to: Optional[int] = None,
+    reuse_buffers: bool = False,
     build_all: bool = True,
     width_multiple: int = 128,
 ) -> ResponseBatch:
@@ -118,6 +183,13 @@ def encode_batch(
 
     ``pad_rows_to`` pads the batch dimension (with empty rows) so the
     match path sees a small set of batch shapes.
+
+    TWO C passes straight over the Response objects — one metadata pass
+    (lengths/status/concat/OOB flags), one packing pass that writes
+    every byte of every row (payload + zero tail), so the matrices may
+    come from the recycled buffer pool instead of a fresh zero-fill
+    (``reuse_buffers``; see _RotatingPool for the aliasing contract —
+    engine hot path only).
 
     Part semantics MUST stay in lockstep with model.Response.part():
     "body" is the banner when one is set; "all" is header + CRLF + body
@@ -135,15 +207,15 @@ def encode_batch(
         rows = rows + [Response()] * (pad_rows_to - n_real)
     n = len(rows)
 
-    bodies = [r.body if r.banner is None else r.banner for r in rows]
-    headers = [r.header for r in rows]
-    blens = np.fromiter((len(b) for b in bodies), dtype=np.int64, count=n)
-    hlens = np.fromiter((len(h) for h in headers), dtype=np.int64, count=n)
-    status = np.fromiter((r.status for r in rows), dtype=np.int32, count=n)
-    concat = (
-        np.fromiter((r.banner is None for r in rows), dtype=np.bool_, count=n)
-        & (hlens > 0)
-    ).astype(np.uint8)
+    from swarm_tpu_torch.native import scanio as _nat
+
+    blens = np.empty(n, dtype=np.int64)
+    hlens = np.empty(n, dtype=np.int64)
+    status = np.empty(n, dtype=np.int32)
+    concat = np.empty(n, dtype=np.uint8)
+    bptr = np.empty(n, dtype=np.uintp)
+    hptr = np.empty(n, dtype=np.uintp)
+    has_oob = _nat.rows_meta(rows, blens, hlens, status, concat, bptr, hptr)
     alens = np.where(concat.astype(bool), hlens + 2 + blens, blens)
     wb = _width_for(blens, max_body, width_multiple)
     wh = _width_for(hlens, max_header, width_multiple)
@@ -152,20 +224,24 @@ def encode_batch(
         if build_all
         else 1
     )
-    body_arr = _pack(bodies, wb)
-    header_arr = _pack(headers, wh)
-    if build_all:
-        all_arr = _pack(
-            [headers[i] + b"\r\n" + bodies[i] if concat[i] else bodies[i]
-             for i in range(n)],
-            wa,
-        )
+    if reuse_buffers:
+        body_arr = _POOL.get(n, wb, "body")
+        header_arr = _POOL.get(n, wh, "header")
+        all_arr = _POOL.get(n, wa, "all") if build_all else None
     else:
+        body_arr = np.empty((n, wb), dtype=np.uint8)
+        header_arr = np.empty((n, wh), dtype=np.uint8)
+        all_arr = np.empty((n, wa), dtype=np.uint8) if build_all else None
+    if all_arr is None:
         all_arr = np.zeros((n, 1), dtype=np.uint8)
+    _nat.rows_pack(
+        n, bptr, blens, hptr, hlens, concat, wb, body_arr,
+        wh, header_arr, wa if build_all else 0, all_arr,
+    )
 
     # OOB streams: bulk scans never carry interactions, so the common
     # case is two width-1 zero placeholders
-    if not any(r.oob_protocols or r.oob_requests for r in rows):
+    if not has_oob:
         wp = wr = 1
         plens = rlens = np.zeros((n,), dtype=np.int64)
         oobp_arr = np.zeros((n, 1), dtype=np.uint8)
@@ -180,8 +256,10 @@ def encode_batch(
         rlens = np.fromiter((len(q) for q in oobrs), dtype=np.int64, count=n)
         wp = _width_for(plens, 128)
         wr = _width_for(rlens, max_body)
-        oobp_arr = _pack(oobps, wp)
-        oobr_arr = _pack(oobrs, wr)
+        oobp_arr = np.zeros((n, wp), dtype=np.uint8)
+        oobr_arr = np.zeros((n, wr), dtype=np.uint8)
+        _nat.pack_list(oobps, wp, oobp_arr, lens=plens)
+        _nat.pack_list(oobrs, wr, oobr_arr, lens=rlens)
 
     streams = {
         "body": body_arr,

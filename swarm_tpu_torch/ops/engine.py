@@ -1,51 +1,66 @@
 """MatchEngine: the exact template-fingerprint engine of the port.
 
-The port of ``swarm_tpu/ops/engine.py``'s direct path (one device, no
-scheduler): template corpus → CompiledDB (once) → responses in batches
-→ :class:`~swarm_tpu_torch.ops.match.DeviceDB` on the card → exact
-resolution on the host with the CPU oracle (``ops/cpu_ref.py``). The
-result is identical to running the oracle on every (row, template)
-pair, and to the JAX engine's.
+The port of ``swarm_tpu/ops/engine.py`` as it runs with its native
+libraries on one device, with no scheduler (``mesh=None``,
+``pipeline="off"``): template corpus → CompiledDB (once), responses →
+padded batches → :class:`~swarm_tpu_torch.ops.match.DeviceDB` on the
+card → sparse host confirmation with the exact CPU oracle. The result
+is bit-identical to running the oracle on every (row, template) pair,
+and to the JAX engine's: template ids, extractions and host confirms
+per row.
 
 Per batch of up to ``batch_rows`` rows:
 
-- dead rows (no response observed) match nothing and never reach the
-  device;
-- rows are deduplicated by content, and the unique rows are encoded
-  padded to a 256-row bucket (``build_all=False``, widths a multiple of
-  512) and matched on the device;
-- the host keeps the certain bits (``t_value & ~t_unc``), decides each
-  uncertain (row, template) pair with ``cpu_ref.match_template``, and
-  redoes a row in full when it overflowed the candidate budget or was
-  truncated;
-- templates that read beyond the response content (host, port,
-  duration, ip) are decided per member row, not per content;
-- extractions come from the oracle for every matched template that has
-  extractors, and the host-always tail runs on every row.
+- one native lookup pass (``native/scanio.py`` ``VerdictMemo``, a
+  content-keyed LRU in libfastpack) serves every row whose content the
+  engine has resolved before straight into the batch's verdict plane,
+  writes zero verdicts for dead rows, and deduplicates the misses by
+  content; only the miss uniques are encoded (two native passes) and
+  matched on the device;
+- the host walk touches only the uncertain *matchers* that fired: an
+  op still undecided after its certain matchers has a neutral certain
+  part, so its exact value is the combination of its uncertain
+  matchers alone. The batch's pending (row, matcher) pairs are first
+  decided by grouped native passes that release the GIL — the word
+  confirm of libfastpack and the crex regex VM (``native/crex.py``) —
+  sharded over the walk pool, content-deduplicated and memoized across
+  batches;
+- extractions run per distinct (pattern, group) as one batched crex
+  dispatch over every pending content, behind exact literal and
+  DFA-existence gates (``ops/fastre.py``);
+- rows that overflowed the candidate budget or were truncated are
+  redone in full; templates that read beyond the response content
+  (host, port, duration, ip) are decided per member row, not per
+  content; the host-always tail runs on every live row;
+- the walked content goes into the verdict memo, which lives as long as
+  the engine. :meth:`MatchEngine.clear_content_memos` drops it (and the
+  extraction and confirm caches): a measurement of the device path
+  clears them before each call, or known content never reaches it.
 
-Not ported yet (ROADMAP.md): the sparse matcher-level walk and native
-regex, the verdict memo and the shared result tier, the scheduler, the
-breaker, ``dbcache``.
+Not ported (ROADMAP.md): the scheduler and the begin/finish split, the
+breaker and degraded mode (a device fault raises), the shared result
+tier, AOT and corpus refresh, the sharded backend, the telemetry
+exporters (the memo's hits and misses are counts on
+:class:`EngineStats`), workflows.
 """
 
 from __future__ import annotations
 
+import binascii
 import dataclasses
 import re
 import time
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence
 
 import numpy as np
-import torch
 from torch.profiler import record_function
 
 from swarm_tpu_torch.fingerprints.compile import CompiledDB, compile_corpus
 from swarm_tpu_torch.fingerprints.model import Response, Template
-from swarm_tpu_torch.ops import cpu_ref
-from swarm_tpu_torch.ops.encoding import encode_batch, round_up
-from swarm_tpu_torch.ops.match import DeviceDB
-
-_ROWDEP_VAR_RE = re.compile(r"\b(host|hostname|port|duration|ip)\b")
+from swarm_tpu_torch.native.scanio import ext_resolve, plane_bits, rows_dedup
+from swarm_tpu_torch.ops import cpu_ref, fastre
+from swarm_tpu_torch.ops.encoding import _RotatingPool, encode_batch, round_up
+from swarm_tpu_torch.ops.match import DeviceDB, Device
 
 
 @dataclasses.dataclass
@@ -54,8 +69,10 @@ class RowMatches:
 
     template_ids: list
     extractions: dict  # template_id -> list[str]
-    # (row, template) pairs the host decided with the oracle; under
-    # content dedup they count once, on the content's first row
+    # uncertain pairs the host re-checked. Under content dedup a
+    # confirm happens once per DISTINCT content and is attributed to
+    # the group's representative row — duplicate members report 0
+    # (the work genuinely wasn't repeated for them).
     confirmed_on_host: int = 0
 
 
@@ -64,28 +81,74 @@ class PackedMatches:
     """Exact verdicts for one batch in wire form.
 
     ``bits[b, t >> 3] & (0x80 >> (t & 7))`` is template ``t``'s verdict
-    for row ``b`` (np.packbits MSB-first); ``template_ids`` maps the
-    column index to ids. ``extractions`` is sparse: ``(row,
-    template_id) -> list[str]``; ``host_always_matches`` lists the
-    (row, template_id) hits of the host-only tail."""
+    for row ``b`` (np.packbits MSB-first convention); ``template_ids``
+    maps the column index to ids. ``extractions`` is sparse:
+    ``(row, template_id) -> list[str]``. ``host_always_matches`` lists
+    (row, template_id) hits from the host-only tail, if any.
+    """
 
     bits: np.ndarray  # uint8 [B, ceil(NT/8)]
     template_ids: list
     extractions: dict
     host_always_matches: list
+    # row -> host confirmations spent on it. Confirms happen once per
+    # DISTINCT content (dedup) and land on the representative row.
     confirms_per_row: dict
+    # Buffer lifetime: ``MatchEngine.match_packed`` draws ``bits`` from a
+    # per-shape rotating pool (``ops/encoding._RotatingPool``): the plane
+    # is overwritten 8 same-shape batches later, so a caller that keeps
+    # results longer copies them.
 
 
 @dataclasses.dataclass
 class EngineStats:
     rows: int = 0
     batches: int = 0
+    # miss uniques the device matched (memo-served and duplicate rows
+    # never reach it)
     unique_rows: int = 0
+    # the verdict memo's lookup, row-granular: rows served, rows missed
+    memo_hits: int = 0
+    memo_misses: int = 0
+    # the memo lookup and the encode of the miss uniques
     encode_seconds: float = 0.0
     device_seconds: float = 0.0
-    host_seconds: float = 0.0
+    host_confirm_seconds: float = 0.0
     host_confirm_pairs: int = 0
+    host_always_pairs: int = 0
     overflow_rows: int = 0
+    # memo-served ROW count, summed per batch (rows whose verdict came
+    # from the cross-batch memo without device or walk work)
+    memo_slots: int = 0
+    # host-walk sub-phases (all included in host_confirm_seconds):
+    # uncertainty resolution, the extraction pass, memo inserts, and
+    # the member fan-out/fixup assembly
+    unc_seconds: float = 0.0
+    ext_seconds: float = 0.0
+    insert_seconds: float = 0.0
+    fixup_seconds: float = 0.0
+    # ext-phase sub-splits (all included in ext_seconds): the native
+    # hit-enumeration C pass, undecided-op host confirms, and the
+    # extraction proper (batched crex + oracle fallbacks)
+    ext_enum_seconds: float = 0.0
+    ext_resolve_seconds: float = 0.0
+    ext_extract_seconds: float = 0.0
+    # batched-confirm walk: (row, matcher)/(row, op) pairs whose verdict
+    # was precomputed by the row-parallel native passes, the dispatch
+    # rounds that ran, the plan+dispatch wall (included in
+    # host_confirm_seconds via unc/ext), and the worker pool width (0 =
+    # batching inline or disabled)
+    walk_batched_pairs: int = 0
+    walk_batch_rounds: int = 0
+    walk_precompute_seconds: float = 0.0
+    walk_pool_threads: int = 0
+
+
+def _bit(packed: np.ndarray, b: int, i: int) -> bool:
+    return bool((packed[b, i >> 3] >> (7 - (i & 7))) & 1)
+
+
+_ROWDEP_VAR_RE = re.compile(r"\b(host|hostname|port|duration|ip)\b")
 
 
 def _is_row_dependent(t: Template) -> bool:
@@ -104,31 +167,25 @@ def _is_row_dependent(t: Template) -> bool:
 
 
 def _content_key(r: Response) -> tuple:
-    """Everything the device and the content-side host work read."""
+    """The cross-batch verdict-memo key: everything the device and the
+    content-side host walk read. host/port/duration are deliberately
+    NOT in it (see MatchEngine._rowdep_t)."""
     return (
         r.banner, r.body, r.header, r.status,
         r.oob_protocols, r.oob_requests, r.oob_ips,
     )
 
 
-def _dedup_rows(rows: Sequence[Response]):
-    """(uniq_indices, back): ``back[i]`` is row i's unique slot."""
-    key_of: dict = {}
-    uniq = []
-    back = np.empty(len(rows), dtype=np.int64)
-    for i, r in enumerate(rows):
-        j = key_of.setdefault(_content_key(r), len(uniq))
-        if j == len(uniq):
-            uniq.append(i)
-        back[i] = j
-    return uniq, back
+def _dedup_rows(rows: list):
+    """(uniq_indices, back, keys) — rows keyed by full response CONTENT,
+    in one native pass (``rows_dedup``, exact compare).
 
-
-def _set_bits(row: np.ndarray, limit: int) -> list:
-    """Indices < limit of the set bits of one packed (MSB-first) row."""
-    if limit <= 0:
-        return []
-    return np.flatnonzero(np.unpackbits(row, count=limit)).tolist()
+    ``back[i]`` is the unique-slot index of row i; ``keys[s]`` is slot
+    s's content key (built per unique slot only)."""
+    uniq_arr, back = rows_dedup(rows)
+    uniq = uniq_arr.tolist()
+    keys = [_content_key(rows[i]) for i in uniq]
+    return uniq, back, keys
 
 
 class MatchEngine:
@@ -139,7 +196,8 @@ class MatchEngine:
         max_header: int = 1024,
         batch_rows: int = 1024,
         db: Optional[CompiledDB] = None,
-        device: Optional[Union[str, torch.device]] = None,
+        walk_threads: Optional[int] = None,  # None → SWARM_WALK_THREADS
+        device: Device = None,
     ):
         self.templates = list(templates)
         self.db = db if db is not None else compile_corpus(self.templates)
@@ -148,199 +206,1840 @@ class MatchEngine:
         self.max_header = max_header
         self.batch_rows = batch_rows
         self.stats = EngineStats()
+        # row-parallel batched confirm walk: explicit arg >
+        # SWARM_WALK_THREADS > SWARM_EXT_THREADS (compat) > spare cores.
+        # 0 = serial reference walk; 1 = batched native passes, inline;
+        # >=2 adds the worker pool.
+        self._walk_threads_arg = walk_threads
+        self._bind_db()
+        # content-keyed extraction memo (cross-batch): scan responses
+        # repeat heavily (default pages are byte-identical fleet-wide)
+        # and tech templates with version extractors fire on most rows,
+        # so re-running the same regex/kval over the same bytes per row
+        # dominated the host walk. Keyed per EXTRACTOR on exactly the
+        # content it reads; bounded FIFO (keys hold the part bytes).
+        self._ext_cache: dict = {}
+        # cross-batch confirm memo for part-keyed matcher types
+        # (word/regex/binary/size) — same bounding as _ext_cache
+        self._confirm_cache: dict = {}
+        # C resident verdict cache (native/scanio.VerdictMemo): content
+        # key -> (packed verdict row, extraction entries, deferred
+        # row-dependent template ids); its lookup pass serves known
+        # rows straight into the batch's bits plane with no per-row
+        # Python work. Entries are only stored for fully-resolved
+        # (non-truncated, non-overflow) content. Created on first encode.
+        self._vmemo = None
+        # recycled verdict planes for reuse_buffers encodes, keyed PER
+        # SHAPE (see _encode_native)
+        self._bits_pool = _RotatingPool(depth=8)
+
+    def _bind_db(self) -> None:
+        """Derive every db-indexed lookup table the walk and the
+        sparse-confirmation paths read (provenance maps, extractor
+        plans, CSR op->matcher tables). Called from __init__ and again
+        by :meth:`refresh_corpus` after a corpus-delta swap — the
+        tables are pure functions of ``self.db``."""
         db = self.db
-        self._rowdep = frozenset(
-            i for i, t in enumerate(db.templates) if _is_row_dependent(t)
+        # device matcher/op id → source objects for sparse confirmation.
+        # m == -1 is a synthesized extraction prefilter (extractor-only
+        # op, compile.lower_extraction_prefilter): no source matcher —
+        # its op is always prefiltered, so confirmation goes through
+        # _confirm_operation, never the per-matcher path
+        self._m_obj = [
+            db.templates[t].operations[o].matchers[m] if m >= 0 else None
+            for t, o, m in db.m_src
+        ] if db.templates else []
+        # per-pattern extraction-prefilter provenance (m == -1 rows):
+        # matcher id -> (extractor_local, pattern_idx), (-1, -1) for
+        # real matchers and the fire-always degrade
+        ext_src = getattr(db, "m_ext_src", None)
+        self._m_ext_src_py = (
+            [(int(a), int(b)) for a, b in ext_src]
+            if ext_src is not None
+            else [(-1, -1)] * len(self._m_obj)
         )
+        # matcher id -> owning op id (per-pattern confirm needs the op
+        # object; built once from the op->matchers table)
+        self._m_op_id = [0] * len(self._m_obj)
+        for op_id_, ids_ in enumerate(db.op_matchers):
+            for m_ in ids_:
+                self._m_op_id[int(m_)] = op_id_
+        # ops lowered as per-pattern extraction prefilters: op id ->
+        # tuple of (extractor_local, pattern_idx) aligned with the op's
+        # matcher ids — the walk turns the device pm-uncertainty bits
+        # into the extraction pass's live-pattern hints
+        self._op_ext_pats = {}
+        for op_id_, ids_ in enumerate(db.op_matchers):
+            pats = [self._m_ext_src_py[int(m_)] for m_ in ids_]
+            if pats and all(p[0] >= 0 for p in pats):
+                self._op_ext_pats[op_id_] = tuple(pats)
+        # templates whose EVERY op is a per-pattern extraction
+        # prefilter: their verdict IS "any extraction non-empty", so
+        # the walk defers their uncertain bits to the batched
+        # extraction pass (one native dispatch per distinct pattern)
+        # instead of paying a per-(row, pattern) confirm round trip
+        self._pseudo_t = frozenset(
+            t_idx for t_idx, t_op_ids in enumerate(db.t_ops)
+            if len(t_op_ids)
+            and all(int(op) in self._op_ext_pats for op in t_op_ids)
+        )
+        self._op_obj = [
+            db.templates[t].operations[o] for t, o in db.op_src
+        ] if db.templates else []
+        # all-regex extractor ops: precomputed (id(ex), ex, part) plan
+        # — _extract_pending's unified inline loop rides it for both
+        # cache hits AND misses (per-hit analyze() lookups and the
+        # segs/fills bookkeeping cost more than the actual literal
+        # gates at walk rates). Pattern infos resolve lazily on an
+        # op's FIRST fired hit (_op_plan_infos): analyzing every
+        # pattern of every extractor op up front would tax engine
+        # construction for ops a scan never fires.
+        self._op_ext_plan = {}
+        self._op_ext_infos: dict = {}  # op_id -> per-ex infos tuples
+        for op_id_, op_ in enumerate(self._op_obj):
+            if op_.extractors and all(
+                ex.type == "regex" for ex in op_.extractors
+            ):
+                self._op_ext_plan[op_id_] = tuple(
+                    (id(ex), ex, ex.part) for ex in op_.extractors
+                )
+        # templates with extractors need a host pass on *hits* even when
+        # the verdict itself was device-certain, so extraction output
+        # stays bit-identical to the oracle
         self._has_extractors = [
             any(op.extractors for op in t.operations) for t in db.templates
         ]
+        self._ext_t_idx = [
+            i for i, has in enumerate(self._has_extractors) if has
+        ]
+        self._ext_cols = np.asarray(self._ext_t_idx, dtype=np.int64)
+        self._ext_masks = (
+            0x80 >> (self._ext_cols & 7)
+        ).astype(np.uint8) if len(self._ext_cols) else np.zeros(0, np.uint8)
+        # packed byte mask of extractor-template bits: the ext pass
+        # ANDs it against the verdict plane (contiguous, one pass)
+        # instead of a [B, n_ext] fancy-gather per batch
+        self._ext_byte_mask = np.zeros(
+            (db.num_templates + 7) // 8, dtype=np.uint8
+        )
+        for t_idx in self._ext_t_idx:
+            self._ext_byte_mask[t_idx >> 3] |= 0x80 >> (t_idx & 7)
+        # vectorized per-op matcher-id tables: resolving a giant op
+        # (fingerprinthub: 2,897 matchers) must not walk bits in Python
+        self._op_m_arr = [
+            np.asarray(ids, dtype=np.int64) for ids in db.op_matchers
+        ]
+        # pre-shifted byte/bit index twins (the uncertain-op gather
+        # runs per (row, op) — recomputing ids>>3 / 7-(ids&7) there
+        # allocated three temporaries per pair)
+        self._op_m_bytes = [ids >> 3 for ids in self._op_m_arr]
+        self._op_m_shift = [
+            (7 - (ids & 7)).astype(np.uint8) for ids in self._op_m_arr
+        ]
+        # CSR twin of op_matchers for the batched walk's vectorized
+        # candidate expansion (one fancy index over the whole batch's
+        # candidate ops instead of a per-op gather)
+        self._op_m_indptr = np.zeros(
+            len(self._op_m_arr) + 1, dtype=np.int64
+        )
+        for i, ids in enumerate(self._op_m_arr):
+            self._op_m_indptr[i + 1] = self._op_m_indptr[i] + len(ids)
+        self._op_m_flat = (
+            np.concatenate(self._op_m_arr)
+            if self._op_m_arr
+            else np.zeros(0, dtype=np.int64)
+        ).astype(np.int64, copy=False)
+        self._op_m_counts = np.diff(self._op_m_indptr)
+        # python-native twins of the per-template op tables: the walk's
+        # inner loops hash (row, op) keys and index bit planes with
+        # these, and numpy int scalars make every such op ~3x slower
+        self._t_ops_py = [
+            tuple(int(o) for o in ops) for ops in db.t_ops
+        ]
+        self._op_prefilter_py = [bool(x) for x in db.op_prefilter]
+        self._op_cond_and_py = [bool(x) for x in db.op_cond_and]
+        # ROW-dependent templates: verdicts/extractions that read
+        # beyond the response content (host/port/duration dsl vars,
+        # part "host") — e.g. the takeover family's
+        # !contains(host, "tumblr.com") gates. Content-identical rows
+        # from different hosts can disagree on exactly these templates,
+        # so the content-dedup fast path resolves them per member row
+        # (everything else resolves once per distinct content).
+        # Conservative detection: false positives only cost speed.
+        self._rowdep_t = frozenset(
+            i for i, t in enumerate(db.templates) if _is_row_dependent(t)
+        )
+        # extractor templates that are ALSO row-dependent (their
+        # values may read host): the per-batch certain-set scan walks
+        # only these columns, not all extractor templates
+        self._rowdep_ext_t = [
+            t_idx for t_idx in self._ext_t_idx if t_idx in self._rowdep_t
+        ]
+        # CSR twin of t_ops + rowdep byte mask for the C extraction
+        # driver (native/fastpack.cpp sw_ext_resolve)
+        self._t_ops_indptr = np.zeros(db.num_templates + 1, dtype=np.int64)
+        for i, ops in enumerate(self._t_ops_py):
+            self._t_ops_indptr[i + 1] = self._t_ops_indptr[i] + len(ops)
+        self._t_ops_flat = np.asarray(
+            [o for ops in self._t_ops_py for o in ops], dtype=np.int64
+        )
+        self._rowdep_mask = np.zeros(db.num_templates, dtype=np.uint8)
+        for i in self._rowdep_t:
+            self._rowdep_mask[i] = 1
+
+    _EXT_CACHE_MAX = 16384
+
+    @classmethod
+    def _cache_put(cls, cache: dict, key, val) -> None:
+        """Bounded FIFO insert shared by the cross-batch content memos:
+        past the cap, drop the oldest half (dict preserves order).
+        Thread-tolerant under the GIL for the walk pool's fallback
+        tasks: each dict op is atomic, the key snapshot tolerates
+        concurrent inserts, and eviction uses pop (two racing evictors
+        must not KeyError on a key the other already dropped). Values
+        for one key are always identical (pure content functions), so
+        a double insert is benign."""
+        if len(cache) >= cls._EXT_CACHE_MAX:
+            for k in list(cache)[: cls._EXT_CACHE_MAX // 2]:
+                cache.pop(k, None)
+        cache[key] = val
+
+    def _extract_op(self, op, row: Response) -> list:
+        """cpu_ref._extract with per-extractor content memoization."""
+        out: list = []
+        cache = self._ext_cache
+        for ex in op.extractors:
+            if ex.type in ("regex", "json", "xpath"):
+                key = (id(ex), row.part(ex.part))
+            elif ex.type == "kval":
+                key = (id(ex), row.part("header"), row.oob_ips)
+            else:
+                out.extend(cpu_ref.extract_one(ex, row))
+                continue
+            vals = cache.get(key)
+            if vals is None:
+                if ex.type == "regex":
+                    vals = self._accel_extract_regex(ex, key[1])
+                else:
+                    vals = cpu_ref.extract_one(ex, row)
+                self._cache_put(cache, key, vals)
+            out.extend(vals)
+        return out
+
+    @property
+    def walk_threads(self) -> int:
+        """Effective walk worker count: constructor arg >
+        ``SWARM_WALK_THREADS`` > ``SWARM_EXT_THREADS`` (compat) >
+        spare cores capped at 4. 0 disables the batched walk entirely
+        (the serial reference path); 1 runs the batched native passes
+        inline; >=2 row-shards them across the worker pool."""
+        n = self._walk_threads_arg
+        if n is None:
+            import os as _os
+
+            env = _os.environ.get("SWARM_WALK_THREADS") or _os.environ.get(
+                "SWARM_EXT_THREADS"
+            )
+            n = int(env) if env else min(
+                4, max(1, (_os.cpu_count() or 1) - 1)
+            )
+        return max(0, int(n))
+
+    def configure_walk(self, threads: Optional[int]) -> None:
+        """Re-point the walk pool at runtime (bench A/B, tests): shuts
+        any existing pool down, then re-decides lazily on next use.
+        ``None`` restores env-derived sizing."""
+        pool = getattr(self, "_walk_pool_obj", None)
+        if pool:
+            pool.shutdown(wait=True)
+        self._walk_pool_obj = None
+        self._walk_threads_arg = threads
+        self.stats.walk_pool_threads = 0
+
+    def _walk_pool(self):
+        """Shared row-sharded worker pool for the walk's GIL-released
+        native batches — confirm passes AND extraction finditer
+        batches (what used to be the extraction-only ``_ext_pool``).
+        Sized by :attr:`walk_threads`; None when threading is off
+        (batched passes then run inline on the walk thread)."""
+        pool = getattr(self, "_walk_pool_obj", None)
+        if pool is not None:
+            return pool or None
+        workers = self.walk_threads
+        if workers <= 1:
+            self._walk_pool_obj = ()  # sentinel: decided, disabled
+            return None
+        from concurrent.futures import ThreadPoolExecutor
+
+        self._walk_pool_obj = ThreadPoolExecutor(
+            max_workers=workers, thread_name_prefix="swarm-walk"
+        )
+        self.stats.walk_pool_threads = workers
+        return self._walk_pool_obj
+
+    def _resolve_regex_ex(
+        self, ex, ex_local, key, hint, infos,
+        cache, fills, tasks, ncrex, _fastre,
+    ) -> tuple:
+        """Resolve one regex extractor against one content part:
+        ``("v", vals)`` when decided inline (and memoized), ``("k",
+        key)`` when a batched finditer task was registered in
+        ``fills``/``tasks``. Gate order is cheapest-proof-first and
+        every gate is a necessary-condition proof (skipping a pattern
+        is exact): device pm-bit hint → required-literal CNF
+        (the device bit only proves ONE group's gram presence; the
+        other mandatory groups, e.g. the '@' an email must contain,
+        are a few bytes.find) → lazy-DFA existence (a proven-absent
+        pattern runs no finditer at all; a missing match costs the
+        backtracker/re its worst case — 2-19 ms for leading-repeat
+        shapes vs ~6 µs here)."""
+        part = key[1]
+        if hint is not None:
+            live = hint.get(ex_local, [])
+            if live:
+                lowered = part.lower()
+                live = [
+                    p
+                    for p in live
+                    if not _fastre.literals_absent(infos[p], lowered)
+                ]
+        else:
+            lowered = part.lower()
+            live = []
+            for p_idx, info in enumerate(infos):
+                if info.ok and (info.literals or info.cnf) and (
+                    _fastre.literals_absent(info, lowered)
+                ):
+                    continue
+                live.append(p_idx)
+        if live:
+            kept = []
+            for p_idx in live:
+                nfa = infos[p_idx].nfa
+                if nfa is not None and ncrex.exists(nfa, part) is False:
+                    continue
+                kept.append(p_idx)
+            live = kept
+        if not live:
+            self._cache_put(cache, key, [])
+            return ("v", [])
+        if not isinstance(ex.group, int) or not all(
+            infos[p].ok and ncrex.usable(infos[p].cprog) for p in live
+        ):
+            vals = self._accel_extract_regex(ex, part)
+            self._cache_put(cache, key, vals)
+            return ("v", vals)
+        fills[key] = {"ex": ex, "part": part, "live": live, "by_pat": {}}
+        for p_idx in live:
+            t = tasks.setdefault(
+                (ex.regex[p_idx], ex.group),
+                {"cp": infos[p_idx].cprog, "items": [], "parts": []},
+            )
+            t["items"].append((key, p_idx))
+            t["parts"].append(part)
+        return ("k", key)
+
+    def _extract_pending(
+        self, pending: list, nrows: list, hints: Optional[dict] = None
+    ) -> dict:
+        """(b, t_idx) -> ordered extraction values for the native
+        walk's resolved hit list.
+
+        ``hints``: optional {(b, op_id): {ex_local: [p_idx, ...]}}
+        of LIVE patterns for per-pattern extraction-prefilter ops
+        (from the device pm-uncertainty bits): non-live patterns are
+        exact no-matches and are skipped with no host work at all —
+        every structure here is sized by the live count, never the
+        op's full pattern population (credentials-disclosure: 689).
+
+        Semantics are exactly ``_extract_op`` applied in hit order —
+        same content-keyed memo, same extractor/pattern ordering, same
+        oracle fallbacks — but every crex-able regex extraction runs as
+        ONE batched native dispatch per distinct (pattern, group) over
+        all pending contents (native/crex.cpp sw_crex_finditer_batch):
+        at fresh-content walk rates the per-call dispatch overhead was
+        the dominant extraction cost."""
+        out: dict = {}
+        if not pending:
+            return out
+        from swarm_tpu_torch.native import crex as ncrex
+        from swarm_tpu_torch.ops import fastre as _fastre
+
+        cache = self._ext_cache
+        segs: dict = {}   # (b, t_idx) -> [("v", vals) | ("k", key)]
+        fills: dict = {}  # key -> {"ex", "part", "by_pat"}
+        tasks: dict = {}  # (pattern, group) -> {"cp", "items", "parts"}
+        # Unified inline loop. All-regex ops (the population, incl.
+        # every per-pattern-prefilter pseudo op) resolve each extractor
+        # in place with precomputed PatternInfos — cache hit, literal/
+        # CNF gate, DFA existence, [] short-circuit — and only rows
+        # that create a batch task (or share a key with one) touch the
+        # segs/fills bookkeeping. Mixed/non-regex ops keep the general
+        # per-extractor walk. A (b, t) whose hits span both modes keeps
+        # extraction order by replaying its inline values into the seg
+        # list at transition time.
+        plan_map = self._op_ext_plan
+        cache_put = self._cache_put
+        fast_acc: dict = {}  # (b, t_idx) -> [vals, ...] in hit order
+
+        def to_seg(bt) -> list:
+            seg = segs.get(bt)
+            if seg is None:
+                prior = fast_acc.pop(bt, None)
+                seg = segs[bt] = (
+                    [("v", v) for v in prior] if prior else []
+                )
+            return seg
+
+        for b, t_idx, op_id in pending:
+            bt = (b, t_idx)
+            row = nrows[b]
+            plan = plan_map.get(op_id)
+            hint = hints.get((b, op_id)) if hints else None
+            if plan is None:
+                # mixed/non-regex extractors: general per-ex walk
+                seg = to_seg(bt)
+                for ex_local, ex in enumerate(
+                    self._op_obj[op_id].extractors
+                ):
+                    if ex.type in ("regex", "json", "xpath"):
+                        key = (id(ex), row.part(ex.part))
+                    elif ex.type == "kval":
+                        key = (id(ex), row.part("header"), row.oob_ips)
+                    else:
+                        seg.append(("v", cpu_ref.extract_one(ex, row)))
+                        continue
+                    vals = cache.get(key)
+                    if vals is not None:
+                        seg.append(("v", vals))
+                        continue
+                    if key in fills:
+                        seg.append(("k", key))
+                        continue
+                    if ex.type != "regex":
+                        vals = cpu_ref.extract_one(ex, row)
+                        cache_put(cache, key, vals)
+                        seg.append(("v", vals))
+                        continue
+                    # regex inside a mixed op: same inline resolution,
+                    # infos from the shared analyze cache
+                    infos = tuple(
+                        _fastre.analyze(p) for p in ex.regex
+                    )
+                    entry = self._resolve_regex_ex(
+                        ex, ex_local, key, hint, infos,
+                        cache, fills, tasks, ncrex, _fastre,
+                    )
+                    seg.append(entry)
+                continue
+            # all-regex plan: inline resolution, no seg unless a task
+            entries = None   # created only when a "k" entry appears
+            chunks = None
+            infos_op = self._op_ext_infos.get(op_id)
+            if infos_op is None:
+                infos_op = self._op_ext_infos[op_id] = tuple(
+                    tuple(_fastre.analyze(p) for p in e.regex)
+                    for _i, e, _pn in plan
+                )
+            for ex_local, (id_ex, ex, part_name) in enumerate(plan):
+                infos = infos_op[ex_local]
+                part = row.part(part_name)
+                key = (id_ex, part)
+                vals = cache.get(key)
+                if vals is None and key not in fills:
+                    entry = self._resolve_regex_ex(
+                        ex, ex_local, key, hint, infos,
+                        cache, fills, tasks, ncrex, _fastre,
+                    )
+                    if entry[0] == "v":
+                        vals = entry[1]
+                    # else: falls through to the "k" handling below
+                elif vals is None:
+                    entry = ("k", key)
+                if vals is not None:
+                    if entries is not None:
+                        entries.append(("v", vals))
+                    elif vals:
+                        if chunks is None:
+                            chunks = []
+                        chunks.append(vals)
+                    continue
+                # task-backed key: this (b, t) needs seg ordering
+                if entries is None:
+                    entries = [("v", c) for c in chunks] if chunks else []
+                    chunks = None
+                entries.append(entry)
+            if entries is not None:
+                to_seg(bt).extend(entries)
+            elif chunks:
+                acc = fast_acc.get(bt)
+                if acc is None and bt in segs:
+                    segs[bt].extend(("v", c) for c in chunks)
+                else:
+                    if acc is None:
+                        fast_acc[bt] = acc = []
+                    acc.extend(chunks)
+
+        done: dict = {}
+        if fills:
+            failed: set = set()
+            task_list = list(tasks.items())
+            # the batch C calls release the GIL: on hosts with spare
+            # cores the per-pattern scans run concurrently (disjoint
+            # outputs, no shared mutable state inside the call)
+            pool = self._walk_pool()
+            if pool is not None and len(task_list) > 1:
+                results = list(pool.map(
+                    lambda kv: ncrex.finditer_spans_batch(
+                        kv[1]["cp"], kv[1]["parts"], kv[0][1]
+                    ),
+                    task_list,
+                ))
+            else:
+                results = [
+                    ncrex.finditer_spans_batch(t["cp"], t["parts"], group)
+                    for (_pat, group), t in task_list
+                ]
+            for (_key, t), res in zip(task_list, results):
+                for (key, p_idx), spans in zip(t["items"], res):
+                    if spans is None:
+                        failed.add(key)  # per-item native budget hit
+                        continue
+                    f = fills[key]
+                    text = f.get("text")
+                    if text is None:
+                        text = f["text"] = f["part"].decode("latin-1")
+                    f["by_pat"][p_idx] = [
+                        None if s < 0 else text[s:e] for s, e in spans
+                    ]
+            for key, f in fills.items():
+                if key in failed:
+                    # any pattern short of native resources: the whole
+                    # extractor re-runs on the exact per-call path
+                    vals = self._accel_extract_regex(f["ex"], f["part"])
+                else:
+                    by_pat = f["by_pat"]
+                    vals = [v for p in f["live"] for v in by_pat[p]]
+                self._cache_put(cache, key, vals)
+                done[key] = vals
+
+        for bt, seg in segs.items():
+            vals = []
+            for kind, v in seg:
+                vals.extend(v if kind == "v" else done[v])
+            out[bt] = vals
+        for bt, chunks in fast_acc.items():
+            # fresh list: cached value lists must never be aliased into
+            # per-batch results (downstream consumers own `vals`)
+            vals = []
+            for c in chunks:
+                vals.extend(c)
+            out[bt] = vals
+        return out
+
+    @staticmethod
+    def _accel_extract_regex(ex, part: bytes) -> list:
+        """Candidate-anchored regex extraction — byte-identical to
+        cpu_ref.extract_one for type=regex (fuzz-pinned by
+        tests/test_fastre.py); patterns the accelerator can't take
+        fall back to the oracle's finditer loop per pattern.
+
+        Per-pattern literal gate: a pattern whose necessary literals
+        are all absent CANNOT match — skipping it is exact and turns a
+        fired multi-hundred-pattern extractor (credentials-disclosure:
+        689 regexes) into a few bytes.find calls plus the one or two
+        patterns whose literal actually occurred."""
+        from swarm_tpu_torch.native import crex as _ncrex
+
+        out: list = []
+        text = None
+        lowered = None
+        for pattern in ex.regex:
+            info = fastre.analyze(pattern)
+            if info.ok and (info.literals or info.cnf):
+                if lowered is None:
+                    lowered = part.lower()
+                if fastre.literals_absent(info, lowered):
+                    continue
+            # linear-time existence pre-gate (same proof as the
+            # batched path): no match => no values, skip the finditer
+            if info.nfa is not None and _ncrex.exists(
+                info.nfa, part
+            ) is False:
+                continue
+            if text is None:
+                text = part.decode("latin-1")
+            vals = fastre.finditer_values(pattern, part, text, ex.group)
+            if vals is not None:
+                out.extend(vals)
+                continue
+            # fallback mirrors cpu_ref.extract_one exactly
+            try:
+                for m in cpu_ref._compile_cached(pattern).finditer(text):
+                    try:
+                        out.append(m.group(ex.group))
+                    except IndexError:
+                        out.append(m.group(0))
+            except re.error:
+                continue
+        return out
+
+    def _confirm_ext_pattern(self, m_id: int, row: Response) -> bool:
+        """Exact verdict of ONE synthesized extraction-prefilter
+        matcher: does this extraction pattern match the row's part
+        (any match ⇒ the extractor extracts ⇒ the op matches — group
+        participation doesn't matter for the bool). Content-keyed
+        cache shared with the matcher confirms."""
+        op = self._op_obj[self._m_op_id[m_id]]
+        ex_local, p_idx = self._m_ext_src_py[m_id]
+        if ex_local < 0:  # fire-always degrade: whole-op confirm
+            return self._confirm_operation(op, row)
+        ex = op.extractors[ex_local]
+        pattern = ex.regex[p_idx]
+        part = row.part(ex.part)
+        key = ("pe", m_id, part)
+        cache = self._confirm_cache
+        v = cache.get(key)
+        if v is None:
+            info = fastre.analyze(pattern)
+            if not info.ok:
+                v = False  # invalid under re: extract_one yields nothing
+            else:
+                text = part.decode("latin-1")
+                sv = fastre.search_bool(pattern, part, text)
+                if sv is None:
+                    sv = info.rex.search(text) is not None
+                v = bool(sv)
+            self._cache_put(cache, key, v)
+        return v
+
+    def _confirm_operation(self, op, row: Response) -> bool:
+        """Exactly ``cpu_ref.match_operation(op, row)[0]`` with the
+        part-keyed confirm cache and regex prefilter applied per
+        matcher — the superset-lowered ops route here, where the slow
+        literal-less regexes (waf-detect's cloudfront backtracker)
+        otherwise re-scan every confirm."""
+        if not op.matchers:
+            # extractor-only operation: matches iff any extractor
+            # extracts (nuclei semantics; cpu_ref.match_operation's
+            # empty-verdicts branch is the oracle twin). _extract_op's
+            # content-keyed memo makes the later extraction pass a
+            # cache hit on the same values.
+            return bool(op.extractors) and bool(self._extract_op(op, row))
+        verdicts = []
+        cache = self._confirm_cache
+        for matcher in op.matchers:
+            if matcher.type in ("word", "regex", "binary", "size"):
+                # 'op'-namespaced: the walk's confirm_matcher keys this
+                # same dict by small-int matcher index — unnamespaced,
+                # correctness would rest on id() never colliding with it
+                part = row.part(matcher.part)
+                key = ("op", id(matcher), part)
+                v = cache.get(key)
+                if v is None:
+                    raw = (
+                        self._regex_matcher_raw(matcher, part)
+                        if matcher.type == "regex"
+                        else None
+                    )
+                    if raw is not None:
+                        v = (not raw) if matcher.negative else raw
+                    else:
+                        mv = cpu_ref.match_matcher(matcher, row)
+                        v = bool(mv) if mv is not None else False
+                    self._cache_put(cache, key, v)
+            else:
+                mv = cpu_ref.match_matcher(matcher, row)
+                v = bool(mv) if mv is not None else False
+            verdicts.append(v)
+        if not verdicts:
+            return False
+        if op.matchers_condition == "and":
+            return all(verdicts)
+        return any(verdicts)
+
+    def _redo_template(self, template, row: Response):
+        """``(matched, extractions)`` — exactly the fields the redo
+        pass reads from ``cpu_ref.match_template``, evaluated through
+        the prefiltered+cached op/extract paths (identical semantics:
+        _confirm_operation ≡ match_operation[0], _extract_op ≡ the
+        oracle's extractor loop with content memoization)."""
+        if not row.alive:
+            return False, []
+        matched = False
+        extractions: list = []
+        for op in template.operations:
+            if self._confirm_operation(op, row):
+                matched = True
+                extractions.extend(self._extract_op(op, row))
+        return matched, extractions
+
+    def _confirm_matcher_serial(self, m_id: int, row: Response) -> bool:
+        """Exact verdict of ONE device matcher for one row — the
+        serial reference confirm (content-keyed cache + per-pattern
+        proofs). The batched walk's precomputed planes must agree with
+        this bit for bit (tests/test_walk_parallel.py); pairs the
+        native passes can't answer re-run here."""
+        matcher = self._m_obj[m_id]
+        if matcher is None:
+            # synthesized extraction prefilter: per-pattern verdict
+            return self._confirm_ext_pattern(m_id, row)
+        if matcher.type not in ("word", "regex", "binary", "size"):
+            # dsl/status/kval read beyond matcher.part — not cacheable
+            mv = cpu_ref.match_matcher(matcher, row)
+            return bool(mv) if mv is not None else False
+        part = row.part(matcher.part)
+        key = ("m", m_id, part)
+        cache = self._confirm_cache
+        v = cache.get(key)
+        if v is None:
+            # exact per-pattern evaluation with literal/candidate
+            # proofs: most confirms are q-gram collisions whose slow
+            # regex (waf-detect's ~2 ms backtrackers) certainly can't
+            # match — those are decided at bytes.find speed; unproven
+            # patterns get a real re.search. Negation mirrors
+            # cpu_ref.match_matcher.
+            raw = (
+                self._regex_matcher_raw(matcher, part)
+                if matcher.type == "regex"
+                else None
+            )
+            if raw is not None:
+                v = (not raw) if matcher.negative else raw
+            else:
+                mv = cpu_ref.match_matcher(matcher, row)
+                v = bool(mv) if mv is not None else False
+            self._cache_put(cache, key, v)
+        return v
+
+    def _regex_matcher_raw(self, matcher, part: bytes):
+        """The EXACT raw (pre-negation) verdict of a regex matcher over
+        ``part`` — each pattern decided by the cheapest sound means:
+        required-literal absence (bytes.find), candidate-anchored
+        search (ops/fastre.py), or a real ``re.search`` when neither
+        proof applies — with short-circuit under the matcher condition.
+        Returns None when any pattern fails to compile (the oracle's
+        unsupported semantics; caller must fall back)."""
+        if not matcher.regex:
+            return None
+        infos = [fastre.analyze(p) for p in matcher.regex]
+        if not all(i.ok for i in infos):
+            return None
+        lowered = None
+        text = None
+        want_all = matcher.condition == "and"
+        for p, info in zip(matcher.regex, infos):
+            if info.literals or info.cnf:
+                if lowered is None:
+                    lowered = part.lower()
+                if fastre.literals_absent(info, lowered):
+                    if want_all:
+                        return False
+                    continue
+            if text is None:
+                text = part.decode("latin-1")
+            v = fastre.search_bool(p, part, text)
+            if v is None:
+                v = info.rex.search(text) is not None
+            if v and not want_all:
+                return True
+            if not v and want_all:
+                return False
+        return want_all
+
+    # ------------------------------------------------------------------
 
     # ------------------------------------------------------------------
     def match(self, responses: Sequence[Response]) -> list[RowMatches]:
-        """Per-row exact match sets: template ids ascending by template
-        index, then the host-always tail; extractions by template id.
-        Dead rows (no response observed) match nothing and are dropped
-        before batching, so they never reach the device."""
-        alive = [i for i, r in enumerate(responses) if r.alive]
-        out = [RowMatches(template_ids=[], extractions={}) for _ in responses]
-        live = [responses[i] for i in alive]
-        done = 0
-        for s in range(0, len(live), self.batch_rows):
-            rows = live[s : s + self.batch_rows]
+        """Per-row exact match sets, batch by batch through
+        :meth:`match_packed`: template ids ascending by template index,
+        then the host-always tail; extractions by template id. Dead rows
+        (no response observed) match nothing and are dropped before
+        batching, so they never reach the device."""
+        alive = [r for r in responses if r.alive]
+        if len(alive) < len(responses):
+            live_out = iter(self.match(alive))
+            return [
+                next(live_out)
+                if r.alive
+                else RowMatches(template_ids=[], extractions={})
+                for r in responses
+            ]
+        out: list[RowMatches] = []
+        for s in range(0, len(responses), self.batch_rows):
+            rows = responses[s : s + self.batch_rows]
             packed = self.match_packed(rows)
-            for j, rm in enumerate(self.rowmatches_from_packed(packed, len(rows))):
-                out[alive[done + j]] = rm
-            done += len(rows)
-        self.stats.rows += len(responses) - len(live)
+            out.extend(self.rowmatches_from_packed(packed, len(rows)))
         return out
 
     def rowmatches_from_packed(self, packed: PackedMatches, n: int) -> list:
-        """Per-row assembly of one PackedMatches: template ids ascending
-        by template index, then the host-always tail."""
+        """Per-row RowMatches assembly from one PackedMatches: template
+        ids ascending by template index, then the host-always tail.
+
+        The verdict-plane scan runs as ONE native pass over the whole
+        batch (``plane_bits``) — a per-row np.unpackbits costs more
+        than the typical row's entire hit set. Sparse side-tables are
+        grouped by row ONCE (per-row scans of the whole extraction dict
+        would be quadratic in batches where extractor templates fire
+        on most rows)."""
         NT = self.db.num_templates
-        names = self.db.template_ids
+        conf = packed.confirms_per_row
         extr_by_row: dict = {}
         for (rb, tid), ext in packed.extractions.items():
             extr_by_row.setdefault(rb, {})[tid] = ext
         always_by_row: dict = {}
         for rb, tid in packed.host_always_matches:
             always_by_row.setdefault(rb, []).append(tid)
+        tid_names = self.db.template_ids
+        tids_by_row: dict = {}
+        if n:
+            rs, ts = plane_bits(np.ascontiguousarray(packed.bits[:n]), NT)
+            for r, t in zip(rs.tolist(), ts.tolist()):
+                tids_by_row.setdefault(r, []).append(tid_names[t])
         out = []
         for b in range(n):
-            tids = [names[t] for t in _set_bits(packed.bits[b], NT)]
+            tids = tids_by_row.get(b, [])
             tids.extend(always_by_row.get(b, ()))
-            out.append(RowMatches(
-                template_ids=tids,
-                extractions=extr_by_row.get(b, {}),
-                confirmed_on_host=packed.confirms_per_row.get(b, 0),
-            ))
+            out.append(
+                RowMatches(
+                    template_ids=tids,
+                    extractions=extr_by_row.get(b, {}),
+                    confirmed_on_host=conf.get(b, 0),
+                )
+            )
         return out
 
+    # ------------------------------------------------------------------
     def encode(self, rows: Sequence[Response]):
-        """Unique rows → the device batch, padded to a 256-row bucket."""
-        return encode_batch(
-            rows,
+        """Distinct-content rows → the device batch, padded to a 256-row
+        bucket (no memo, no dedup: what :meth:`_encode_unique` gives the
+        device)."""
+        return self._encode_unique(list(rows), reuse_buffers=False)[0]
+
+    def _encode_native(self, rows: list, reuse_buffers: bool):
+        """Encode rows for the device, CONTENT-DEDUPLICATED two ways:
+        within the batch (fleet scans see the same default pages on
+        most hosts) and ACROSS batches via the verdict memo — content
+        the engine has fully resolved before never rides the device
+        again. ONE native pass serves every known row's
+        packed verdict straight into the batch plane (and collects
+        their extras), in-batch-dedups the misses, and only the miss
+        uniques are encoded for the device.
+
+        Returns ``("native", batch, matcher, bits, state, miss_uniq,
+        served, n_rows)``: ``bits`` holds the served rows' verdicts (and
+        zero for dead rows), ``state``/``miss_uniq`` are the lookup's
+        (see ``VerdictMemo.lookup``), ``served`` the served rows'
+        extractions and row-dependent deferrals, and ``batch`` (None
+        when every row was served) the encoded miss uniques. With
+        ``reuse_buffers=True`` the STORAGE of ``bits`` is drawn from the
+        per-shape rotating pool and is overwritten 8 same-shape encodes
+        later; the ``PackedMatches.bits`` a match assembles from it
+        aliases this plane, so a caller that keeps results across more
+        batches than that must ``.copy()`` them."""
+        nbits = max((self.db.num_templates + 7) >> 3, 1)
+        self._ensure_vmemo(nbits)
+        if reuse_buffers:
+            # A fresh ~1 MB np.empty per batch lands on mmap'd pages
+            # whose first-touch faults cost more than the lookup pass
+            # itself — draw from the per-shape rotating pool instead
+            # (keyed per shape: the partial final chunk rotates its own
+            # ring).
+            bits = self._bits_pool.get(len(rows), nbits, "vbits")
+        else:
+            bits = np.empty((len(rows), nbits), dtype=np.uint8)
+        state, miss_uniq, extr_known, deferred_known = (
+            self._vmemo.lookup(rows, bits)
+        )
+        # memo accounting, row-granular
+        self.stats.memo_hits += int((state == -1).sum())
+        self.stats.memo_misses += int((state >= 0).sum())
+        served = (extr_known, deferred_known)
+        if not miss_uniq:
+            return (
+                "native", None, None, bits, state, miss_uniq, served,
+                len(rows),
+            )
+        nrows = [rows[i] for i in miss_uniq]
+        batch, matcher = self._encode_unique(nrows, reuse_buffers)
+        return (
+            "native", batch, matcher, bits, state, miss_uniq, served,
+            len(rows),
+        )
+
+    def _encode_unique(self, nrows: list, reuse_buffers: bool):
+        """Encode the distinct-content rows for the device, padded to a
+        256-row bucket (a bounded set of batch shapes)."""
+        batch = encode_batch(
+            nrows,
             max_body=self.max_body,
             max_header=self.max_header,
-            pad_rows_to=round_up(max(len(rows), 1), 256),
+            pad_rows_to=round_up(max(len(nrows), 1), 256),
+            reuse_buffers=reuse_buffers,
+            # the "all" stream synthesizes on device (half the encode
+            # bytes and H2D traffic stay on the host); coarse width
+            # buckets bound the set of batch shapes
             build_all=False,
             width_multiple=512,
         )
+        return batch, self.device
 
-    def match_packed(self, all_rows: Sequence[Response]) -> PackedMatches:
-        """Exact verdict bitsets for up to ``batch_rows`` responses."""
-        db = self.db
-        nbytes = max((db.num_templates + 7) >> 3, 1)
-        alive = [i for i, r in enumerate(all_rows) if r.alive]
-        if len(alive) < len(all_rows):
-            # dead rows match nothing by contract
-            bits = np.zeros((len(all_rows), nbytes), dtype=np.uint8)
-            self.stats.rows += len(all_rows) - len(alive)
-            if not alive:
-                return PackedMatches(bits, db.template_ids, {}, [], {})
-            live = self.match_packed([all_rows[i] for i in alive])
-            bits[alive] = live.bits
-            return PackedMatches(
-                bits=bits,
-                template_ids=db.template_ids,
-                extractions={(alive[rb], tid): v for (rb, tid), v in live.extractions.items()},
-                host_always_matches=[(alive[rb], tid) for rb, tid in live.host_always_matches],
-                confirms_per_row={alive[rb]: c for rb, c in live.confirms_per_row.items()},
+    def _gather_confirm_candidates(
+        self, pt_value, pt_unc, pop_value, pop_unc, pm_unc, skip
+    ):
+        """Every (row, matcher) / prefiltered (row, op) pair the walk's
+        serial loops COULD resolve, gathered from the device planes in
+        one pass. Overapproximates the extraction pass's undecided ops
+        via ``(pt_value | pt_unc) & ext_mask`` (the post-resolution
+        extractor plane is a subset: value bits only appear there if
+        they were set before the walk or uncertain) — extra pairs cost
+        speculative native scans, never accounting, because
+        ``host_confirm_pairs`` counts resolve_op calls, which this
+        never changes. Returns ``(by_matcher {m_id: [b, ...]},
+        op_pairs [(b, op_id), ...])``."""
+        from swarm_tpu_torch.native.scanio import ext_resolve, plane_bits
+
+        NT = self.db.num_templates
+        rowdep = self._rowdep_t
+        pseudo_t = self._pseudo_t
+        seen_ops: set = set()
+        op_cands: list = []  # (b, op_id) in need of a verdict
+        # uncertain-template pairs: genuinely sparse, Python loop is fine
+        ub, ut = plane_bits(np.ascontiguousarray(pt_unc), NT)
+        for b, t_idx in zip(ub.tolist(), ut.tolist()):
+            if b in skip or t_idx in rowdep or t_idx in pseudo_t:
+                continue
+            for op_id in self._t_ops_py[t_idx]:
+                if not _bit(pop_unc, b, op_id):
+                    continue
+                key = (b, op_id)
+                if key not in seen_ops:
+                    seen_ops.add(key)
+                    op_cands.append(key)
+        # extractor-plane hits can be DENSE (tech templates fire on
+        # most fleet rows): reuse the extraction pass's C driver over
+        # the overapproximated plane and keep only its undecided
+        # (state 2) ops — Python never touches the certain hits
+        if len(self._ext_cols):
+            emask = self._ext_byte_mask
+            masked = (
+                pt_value[:, : len(emask)] | pt_unc[:, : len(emask)]
+            ) & emask[None, :]
+            skip_rows = np.zeros(len(pt_value), dtype=np.uint8)
+            for rb in skip:
+                skip_rows[rb] = 1
+            bs, ts, opsv, sts = ext_resolve(
+                masked, NT, self._rowdep_mask, skip_rows,
+                self._t_ops_indptr, self._t_ops_flat,
+                np.ascontiguousarray(pop_value),
+                np.ascontiguousarray(pop_unc),
             )
-        rows = list(all_rows)
-        uniq, back = _dedup_rows(rows)
-        nrows = [rows[u] for u in uniq]
-        U = len(nrows)
-        self.stats.rows += len(rows)
-        self.stats.batches += 1
-        self.stats.unique_rows += U
+            und = sts == 2
+            for b, t_idx, op_id in zip(
+                bs[und].tolist(), ts[und].tolist(), opsv[und].tolist()
+            ):
+                if t_idx in pseudo_t:
+                    continue  # decided by the extraction pass, never
+                    # resolve_op'd — no confirms behind them
+                key = (b, op_id)
+                if key not in seen_ops:
+                    seen_ops.add(key)
+                    op_cands.append(key)
+        by_matcher: dict = {}
+        op_pairs: list = []
+        mm_bs: list = []
+        mm_ops: list = []
+        for b, op_id in op_cands:
+            if self._op_prefilter_py[op_id]:
+                op_pairs.append((b, op_id))
+            else:
+                mm_bs.append(b)
+                mm_ops.append(op_id)
+        if mm_ops:
+            # vectorized op → uncertain-matcher expansion: ONE fancy
+            # index over the unpacked pm plane for the whole batch's
+            # candidate ops (a per-op numpy gather costs ~8 us each —
+            # thousands of pairs on the reference corpus)
+            NM = len(self._m_obj)
+            ops_arr = np.asarray(mm_ops, dtype=np.int64)
+            bs_arr = np.asarray(mm_bs, dtype=np.int64)
+            # unpack ONLY the candidate rows' pm bits: the full [B, NM]
+            # plane is multi-MB at production batch sizes while the
+            # candidate set is typically a handful of rows
+            rows_u, row_local = np.unique(bs_arr, return_inverse=True)
+            pm_bits = np.unpackbits(
+                np.ascontiguousarray(pm_unc[rows_u]), axis=1, count=NM
+            )
+            counts = self._op_m_counts[ops_arr]
+            total = int(counts.sum())
+            if total:
+                b_all = np.repeat(bs_arr, counts)
+                # flat matcher ids of each candidate op, concatenated:
+                # global position − local slice start + CSR offset
+                idx = (
+                    np.arange(total, dtype=np.int64)
+                    - np.repeat(np.cumsum(counts) - counts, counts)
+                    + np.repeat(self._op_m_indptr[ops_arr], counts)
+                )
+                m_all = self._op_m_flat[idx]
+                sel = pm_bits[
+                    np.repeat(row_local, counts), m_all
+                ].astype(bool)
+                for b, m in zip(
+                    b_all[sel].tolist(), m_all[sel].tolist()
+                ):
+                    by_matcher.setdefault(m, []).append(b)
+        return by_matcher, op_pairs
 
+    #: distinct parts per pooled native shard — small enough that a
+    #: 4-worker pool sees work from one big matcher group, large
+    #: enough that per-task dispatch stays negligible
+    _WALK_SHARD = 256
+    #: below this many pending pairs the batch machinery costs more
+    #: than the serial loops it would feed — skip it (results are
+    #: identical either way; only where verdicts come from changes)
+    _WALK_MIN_PAIRS = 16
+
+    def _precompute_confirms(
+        self, nrows, pt_value, pt_unc, pop_value, pop_unc, pm_unc, skip
+    ):
+        """Row-parallel batched confirm (docs/HOST_WALK.md).
+
+        Plan phase (this thread): gather the batch's pending pairs,
+        group them BY MATCHER, short-circuit pairs the cross-batch
+        ``_confirm_cache`` already holds, and content-dedup the rest
+        per matcher (distinct part bytes, not rows, are the unit of
+        work — repeated internet content confirms once). Dispatch
+        phase: each (matcher, part-shard) group resolves in one
+        GIL-released native pass — ``sw_confirm_needles_batch`` for
+        word/binary, crex DFA/NFA ``exists_batch`` per regex pattern —
+        sharded across the walk pool; pairs the native passes can't
+        answer exactly (unsupported patterns, dsl/status/kval, stale
+        .so) re-run on the serial reference path inside pooled
+        fallback tasks, so every verdict is bit-identical to
+        ``_confirm_matcher_serial``. Merge phase (this thread): fold
+        each task's private verdicts and cache inserts back into the
+        shared ``_confirm_cache`` (per-thread shards merged at batch
+        end — worker tasks never mutate the shared dict mid-flight).
+
+        Returns ``({(b, m_id): bool}, {(b, op_id): bool})``.
+        """
+        t0 = time.perf_counter()
+        by_matcher, op_pairs = self._gather_confirm_candidates(
+            pt_value, pt_unc, pop_value, pop_unc, pm_unc, skip
+        )
+        pre_m: dict = {}
+        pre_op: dict = {}
+        n_pending = sum(map(len, by_matcher.values())) + len(op_pairs)
+        if n_pending < self._WALK_MIN_PAIRS:
+            # near-empty batch: the serial loops resolve a handful of
+            # pairs faster than the group/dispatch/merge machinery
+            # costs — the stats time below still records the plan
+            self.stats.walk_precompute_seconds += (
+                time.perf_counter() - t0
+            )
+            return pre_m, pre_op
+        from swarm_tpu_torch.native import crex as ncrex
+        from swarm_tpu_torch.native.scanio import confirm_needles_batch
+
+        cache = self._confirm_cache
+        parts_of: dict = {}  # (b, part_name) -> bytes
+
+        def row_part(b: int, name) -> bytes:
+            key = (b, name)
+            p = parts_of.get(key)
+            if p is None:
+                p = parts_of[key] = nrows[b].part(name)
+            return p
+
+        tasks: list = []      # zero-arg callables -> (verdicts, inserts)
+        fallback: list = []   # (b, m_id) pairs for the serial reference
+
+        def needle_task(m_id, matcher, part_rows, needles, ci, cond_and):
+            neg = bool(matcher.negative)
+
+            def run():
+                parts = [p for p, _bs in part_rows]
+                raw = confirm_needles_batch(parts, needles, ci, cond_and)
+                verdicts: dict = {}
+                inserts: list = []
+                native = 0
+                for (p, bs_), rv in zip(part_rows, raw.tolist()):
+                    v = (not rv) if neg else bool(rv)
+                    inserts.append((("m", m_id, p), v))
+                    for b in bs_:
+                        verdicts[(b, m_id)] = v
+                        native += 1
+                return verdicts, inserts, native
+
+            return run
+
+        def regex_task(m_id, matcher, part_rows, infos):
+            neg = bool(matcher.negative)
+            want_all = matcher.condition == "and"
+
+            def run():
+                verdicts: dict = {}
+                inserts: list = []
+                # pattern waterfall over still-undecided distinct
+                # parts: exact per-pattern existence short-circuits
+                # under the matcher condition exactly like
+                # _regex_matcher_raw's loop (evaluation order is the
+                # pattern order either way, so the combine is
+                # identical); any non-exact item falls back whole.
+                pending = list(part_rows)
+                decided: list = []  # (part, bs, raw)
+                bad: list = []
+                for info in infos:
+                    if not pending:
+                        break
+                    res = ncrex.exists_batch(
+                        info.nfa, [p for p, _bs in pending]
+                    )
+                    if res is None:
+                        bad.extend(pending)
+                        pending = []
+                        break
+                    nxt: list = []
+                    for (p, bs_), rv in zip(pending, res.tolist()):
+                        if rv < 0:
+                            bad.append((p, bs_))
+                        elif want_all and not rv:
+                            decided.append((p, bs_, False))
+                        elif not want_all and rv:
+                            decided.append((p, bs_, True))
+                        else:
+                            nxt.append((p, bs_))
+                    pending = nxt
+                # patterns exhausted without a short-circuit: the
+                # combine's identity value (all -> True, any -> False)
+                decided.extend((p, bs_, want_all) for p, bs_ in pending)
+                native = 0
+                for p, bs_, raw in decided:
+                    v = (not raw) if neg else raw
+                    inserts.append((("m", m_id, p), v))
+                    for b in bs_:
+                        verdicts[(b, m_id)] = v
+                        native += 1
+                for p, bs_ in bad:
+                    for b in bs_:
+                        verdicts[(b, m_id)] = (
+                            self._confirm_matcher_serial(m_id, nrows[b])
+                        )
+                return verdicts, inserts, native
+
+            return run
+
+        def ext_pattern_task(m_id, pattern, part_rows, info):
+            def run():
+                verdicts: dict = {}
+                inserts: list = []
+                native = 0
+                res = (
+                    ncrex.exists_batch(info.nfa, [p for p, _b in part_rows])
+                    if info.ok
+                    else None
+                )
+                for idx, (p, bs_) in enumerate(part_rows):
+                    is_native = False
+                    if not info.ok:
+                        v = False  # invalid under re: extracts nothing
+                    elif res is not None and res[idx] >= 0:
+                        v = bool(res[idx])
+                        is_native = True
+                    else:
+                        text = p.decode("latin-1")
+                        sv = fastre.search_bool(pattern, p, text)
+                        if sv is None:
+                            sv = info.rex.search(text) is not None
+                        v = bool(sv)
+                    inserts.append((("pe", m_id, p), v))
+                    for b in bs_:
+                        verdicts[(b, m_id)] = v
+                        if is_native:
+                            native += 1
+                return verdicts, inserts, native
+
+            return run
+
+        def shard(part_rows: list) -> list:
+            n = self._WALK_SHARD
+            return [
+                part_rows[i : i + n] for i in range(0, len(part_rows), n)
+            ] or [[]]
+
+        def dedup_misses(m_id, bs, part_name, cache_tag) -> list:
+            """Cache-serve what the cross-batch memo holds; group the
+            remaining misses by DISTINCT part bytes →
+            [(part, [b, ...]), ...]."""
+            by_part: dict = {}
+            for b in bs:
+                p = row_part(b, part_name)
+                v = cache.get((cache_tag, m_id, p))
+                if v is not None:
+                    pre_m[(b, m_id)] = v
+                else:
+                    by_part.setdefault(p, []).append(b)
+            return list(by_part.items())
+
+        for m_id, bs in by_matcher.items():
+            matcher = self._m_obj[m_id]
+            if matcher is None:
+                op = self._op_obj[self._m_op_id[m_id]]
+                ex_local, p_idx = self._m_ext_src_py[m_id]
+                if ex_local < 0:  # fire-always degrade: whole-op path
+                    fallback.extend((b, m_id) for b in bs)
+                    continue
+                ex = op.extractors[ex_local]
+                pattern = ex.regex[p_idx]
+                part_rows = dedup_misses(m_id, bs, ex.part, "pe")
+                info = fastre.analyze(pattern)
+                # one task per matcher, not per shard: the pattern's
+                # lazy-DFA context serializes on its mutex, so sharding
+                # ONE pattern across threads only buys lock ping-pong —
+                # distinct matchers still run concurrently
+                if part_rows:
+                    tasks.append(
+                        ext_pattern_task(m_id, pattern, part_rows, info)
+                    )
+                continue
+            mtype = matcher.type
+            if mtype in ("word", "binary"):
+                if mtype == "word":
+                    ci = bool(matcher.case_insensitive)
+                    needles = [
+                        w.encode("utf-8", "surrogateescape")
+                        for w in matcher.words
+                    ]
+                    if ci:
+                        needles = [nd.lower() for nd in needles]
+                else:
+                    ci = False
+                    try:
+                        needles = [
+                            binascii.unhexlify(re.sub(r"\s", "", hx))
+                            for hx in matcher.binary
+                        ]
+                    except (binascii.Error, ValueError):
+                        # oracle's unsupported path (verdict False):
+                        # keep it on the serial reference
+                        fallback.extend((b, m_id) for b in bs)
+                        continue
+                if not needles:
+                    # empty needle list is False before the combine
+                    # (cpu_ref), then negation applies
+                    v = bool(matcher.negative)
+                    for b in bs:
+                        pre_m[(b, m_id)] = v
+                    continue
+                part_rows = dedup_misses(m_id, bs, matcher.part, "m")
+                cond_and = matcher.condition == "and"
+                for sh in shard(part_rows):
+                    if sh:
+                        tasks.append(
+                            needle_task(m_id, matcher, sh, needles, ci,
+                                        cond_and)
+                        )
+            elif mtype == "regex":
+                infos = [fastre.analyze(p) for p in matcher.regex]
+                if not matcher.regex or not all(i.ok for i in infos):
+                    # raw would be None (no patterns / a pattern the
+                    # oracle can't compile): serial reference keeps
+                    # the oracle-fallback semantics exact
+                    fallback.extend((b, m_id) for b in bs)
+                    continue
+                part_rows = dedup_misses(m_id, bs, matcher.part, "m")
+                # per-matcher task (no shards): see the DFA-mutex note
+                # on the ext-prefilter branch above
+                if part_rows:
+                    tasks.append(regex_task(m_id, matcher, part_rows, infos))
+            elif mtype == "size":
+                sizes = matcher.size
+                neg = bool(matcher.negative)
+                want_all = matcher.condition == "and"
+                for b in bs:
+                    p = row_part(b, matcher.part)
+                    key = ("m", m_id, p)
+                    v = cache.get(key)
+                    if v is None:
+                        if not sizes:
+                            raw = False
+                        elif want_all:
+                            raw = all(len(p) == s for s in sizes)
+                        else:
+                            raw = any(len(p) == s for s in sizes)
+                        v = (not raw) if neg else raw
+                        self._cache_put(cache, key, v)
+                    pre_m[(b, m_id)] = v
+            else:
+                # dsl/status/kval read beyond the part — serial pairs
+                fallback.extend((b, m_id) for b in bs)
+
+        if fallback:
+            def fallback_task(pairs):
+                def run():
+                    return (
+                        {
+                            (b, m): self._confirm_matcher_serial(
+                                m, nrows[b]
+                            )
+                            for b, m in pairs
+                        },
+                        (),
+                        0,
+                    )
+
+                return run
+
+            tasks.append(fallback_task(fallback))
+        if op_pairs:
+            def op_task(pairs):
+                def run():
+                    return (
+                        {
+                            ("op", b, o): self._confirm_operation(
+                                self._op_obj[o], nrows[b]
+                            )
+                            for b, o in pairs
+                        },
+                        (),
+                        0,
+                    )
+
+                return run
+
+            tasks.append(op_task(op_pairs))
+
+        pool = self._walk_pool() if tasks else None
+        if pool is not None and len(tasks) > 1:
+            results = list(pool.map(lambda f: f(), tasks))
+        else:
+            results = [f() for f in tasks]
+        native_pairs = 0
+        for verdicts, inserts, native in results:
+            native_pairs += native
+            for key, v in verdicts.items():
+                if len(key) == 3:  # ("op", b, op_id) from op_task
+                    pre_op[(key[1], key[2])] = v
+                else:
+                    pre_m[key] = v
+            for ck, v in inserts:
+                self._cache_put(cache, ck, v)
+        # ONLY pairs the grouped native passes actually decided — not
+        # cache-served, plan-inline (size/empty-needle), or serial-
+        # fallback pairs — so the gauge attributes real native load
+        self.stats.walk_batched_pairs += native_pairs
+        if tasks:
+            self.stats.walk_batch_rounds += 1
+        self.stats.walk_precompute_seconds += time.perf_counter() - t0
+        return pre_m, pre_op
+
+    def _walk_plane(self, nrows, batch, matcher):
+        """Device dispatch + sparse host resolution over DISTINCT new
+        response contents (the unique content plane).
+
+        Returns ``(pt_value, uextractions, deferred, redo_pos,
+        confirms)``: the final content-side verdict bits ``[B, nb]``
+        (row-dependent undecided bits cleared and listed in
+        ``deferred`` as ``(pos, t_idx)`` for per-member resolution),
+        content-side extractions ``{(pos, tid): vals}``, the positions
+        that needed a whole-row oracle redo (truncation/overflow —
+        never memoized), and per-position host-confirm counts."""
+        t0 = time.perf_counter()
+        pt_value, pt_unc, pop_value, pop_unc, pm_unc, overflow, _wf = matcher.match(
+            batch.streams, batch.lengths, batch.status
+        )
+        self.stats.device_seconds += time.perf_counter() - t0
+        with record_function("engine.resolve"):
+            return self._walk_unique(
+                nrows, batch, pt_value, pt_unc, pop_value, pop_unc, pm_unc, overflow
+            )
+
+    def _walk_unique(self, nrows, batch, pt_value, pt_unc, pop_value, pop_unc, pm_unc,
+                     overflow):
+        """The host half of :meth:`_walk_plane`, over the device's planes
+        of the unique rows (bucket padding sliced off here)."""
+        NT = self.db.num_templates
+        db = self.db
+        B = len(nrows)
+        # np.array(order="C"): ALWAYS a writable copy (the row-redo
+        # pass writes rowbits back) AND row-major for the native passes
+        pt_value = np.array(pt_value[:B], order="C")
+        pt_unc = pt_unc[:B]
+        pop_value = pop_value[:B]
+        pop_unc = pop_unc[:B]
+        pm_unc = pm_unc[:B]
+        overflow = overflow[:B]
+        # rows needing whole-row reconfirmation (candidate overflow or
+        # stream truncation made word bits unsound for the row)
+        row_redo = overflow | batch.truncated[:B]
+        self.stats.overflow_rows += int(row_redo.sum())
+
+        t1 = time.perf_counter()
+        confirms: dict = {}
+        op_cache: dict = {}  # (b, op_id) -> exact bool
+        # precomputed verdict planes from the row-parallel batched
+        # confirm (docs/HOST_WALK.md): filled after the redo pass below,
+        # consulted first by confirm_matcher/resolve_op. The resolution
+        # structure (loops, short-circuits, counting) is untouched —
+        # only where a pair's verdict COMES FROM changes, so verdicts
+        # and host_confirm_pairs stay bit-identical to the serial walk.
+        pre_m: dict = {}   # (b, m_id) -> exact bool
+        pre_op: dict = {}  # (b, op_id) -> exact bool (prefiltered ops)
+
+        def confirm_matcher(b: int, m_id: int, row: Response) -> bool:
+            v = pre_m.get((b, m_id))
+            if v is not None:
+                return v
+            return self._confirm_matcher_serial(m_id, row)
+
+        op_prefilter = self._op_prefilter_py
+        op_cond_and = self._op_cond_and_py
+
+        def resolve_op(b: int, op_id: int, row: Response) -> bool:
+            key = (b, op_id)
+            v = op_cache.get(key)
+            if v is not None:
+                return v
+            if not _bit(pop_unc, b, op_id):
+                v = _bit(pop_value, b, op_id)
+            elif op_prefilter[op_id]:
+                # superset-lowered op: per-matcher bits are weakened, so
+                # fired rows re-run the whole op (prefiltered + cached
+                # per matcher — semantics identical to the oracle's
+                # match_operation); the batched walk may have resolved
+                # it already
+                v = pre_op.get(key)
+                if v is None:
+                    v = self._confirm_operation(self._op_obj[op_id], row)
+                confirms[b] = confirms.get(b, 0) + 1
+                self.stats.host_confirm_pairs += 1
+            else:
+                # undecided ⇒ certain matchers are neutral; combine the
+                # uncertain ones' exact values under the op condition
+                ids = self._op_m_arr[op_id]
+                bits = (
+                    pm_unc[b, self._op_m_bytes[op_id]]
+                    >> self._op_m_shift[op_id]
+                ) & 1
+                vals = [
+                    confirm_matcher(b, int(m_id), row)
+                    for m_id in ids[bits.astype(bool)]
+                ]
+                confirms[b] = confirms.get(b, 0) + len(vals)
+                self.stats.host_confirm_pairs += len(vals)
+                v = all(vals) if op_cond_and[op_id] else any(vals)
+            op_cache[key] = v
+            return v
+
+        rowdep = self._rowdep_t
+        # (unique slot, t_idx) pairs whose verdict must be decided per
+        # MEMBER row (row-dependent template went device-undecided)
+        deferred: list = []
+
+        # --- full-row redo (rare): the oracle end to end, extractions
+        # included (the extraction pass below skips these rows).
+        # Content-independent templates run once on the representative;
+        # row-dependent ones run per member in the fixup pass below ---
+        redo_rows = np.flatnonzero(row_redo)
+        uredo_extractions: dict = {}  # (new-subset pos, tid) -> values
+        for b in redo_rows.tolist():
+            row = nrows[b]
+            rowbits = np.zeros((pt_value.shape[1],), dtype=np.uint8)
+            for t_idx, template in enumerate(db.templates):
+                if t_idx in rowdep:
+                    deferred.append((b, t_idx))
+                    continue
+                res_matched, res_ext = self._redo_template(template, row)
+                confirms[b] = confirms.get(b, 0) + 1
+                self.stats.host_confirm_pairs += 1
+                if res_matched:
+                    rowbits[t_idx >> 3] |= 0x80 >> (t_idx & 7)
+                    if res_ext:
+                        uredo_extractions[(b, template.id)] = res_ext
+            pt_value[b] = rowbits
+
+        # --- sparse uncertainty resolution (unique plane) ---
+        t_unc = time.perf_counter()
+        # row-parallel batched confirm (docs/HOST_WALK.md): resolve the
+        # whole batch's pending (row, matcher) pairs with grouped
+        # GIL-released native passes BEFORE the serial-structured loops
+        # below consume them. walk_threads=0 keeps the reference walk.
+        if not row_redo.all() and self.walk_threads > 0:
+            pre_m, pre_op = self._precompute_confirms(
+                nrows, pt_value, pt_unc, pop_value, pop_unc, pm_unc,
+                set(redo_rows.tolist()),
+            )
+        # (b, t_idx) pairs whose verdict is decided by the extraction
+        # pass below (pseudo-ext templates on the native path)
+        pseudo_pending: list = []
+        if not row_redo.all():
+            skip = set(redo_rows.tolist())
+            ub, ut = plane_bits(np.ascontiguousarray(pt_unc), NT)
+            pairs = zip(ub.tolist(), ut.tolist())
+            pseudo_t = self._pseudo_t
+            for b, t_idx in pairs:
+                if b in skip:
+                    continue
+                byte_i = t_idx >> 3
+                mask = 0x80 >> (t_idx & 7)
+                if t_idx in pseudo_t and t_idx not in rowdep:
+                    # verdict == extraction non-emptiness: decided by
+                    # the batched extraction pass (bit set there on
+                    # extraction); per-pair confirm calls cost ~10x
+                    # the batched native scan at walk rates
+                    pseudo_pending.append((b, t_idx))
+                    pt_value[b, byte_i] &= 0xFF ^ mask
+                    continue
+                row = nrows[b]
+                if t_idx in rowdep:
+                    # undecided row-dependent template: content-
+                    # identical rows can disagree here — decide per
+                    # member below; clear the broadcast bit
+                    deferred.append((b, t_idx))
+                    pt_value[b, byte_i] &= 0xFF ^ mask
+                    continue
+                # undecided ⇒ no certain-true op; OR over the
+                # uncertain ops' exact values decides the template
+                hit = False
+                for op_id in self._t_ops_py[t_idx]:
+                    if _bit(pop_unc, b, op_id) and resolve_op(
+                        b, op_id, row
+                    ):
+                        hit = True
+                        break
+                if hit:
+                    pt_value[b, byte_i] |= mask
+                else:
+                    pt_value[b, byte_i] &= 0xFF ^ mask
+
+        # --- extraction pass (unique plane): only extractor templates,
+        # only hit rows (one vectorized gather over all extractor
+        # columns at once — a Python loop over ~600 extractor templates
+        # costs more than the actual extractions). Row-dependent
+        # templates are handled in the member fixup pass ---
+        t_ext = time.perf_counter()
+        self.stats.unc_seconds += t_ext - t_unc
+        uextractions: dict = dict(uredo_extractions)
+        redo_set = set(redo_rows.tolist())
+        if len(self._ext_cols):
+            emask = self._ext_byte_mask
+            masked = pt_value[:, : len(emask)] & emask[None, :]
+            tids = db.template_ids
+            # one C pass enumerates the extractor-plane hits AND
+            # resolves op certainty against the packed planes —
+            # Python touches only ops that are certainly-true
+            # (extract) or undecided (resolve_op), in the same
+            # (b-major, t, op) order the Python loop used
+            skip_rows = np.zeros(len(nrows), dtype=np.uint8)
+            for rb in redo_set:
+                skip_rows[rb] = 1
+            bs, ts, opsv, sts = ext_resolve(
+                masked, NT, self._rowdep_mask, skip_rows,
+                self._t_ops_indptr, self._t_ops_flat,
+                np.ascontiguousarray(pop_value),
+                np.ascontiguousarray(pop_unc),
+            )
+            t_sub = time.perf_counter()
+            self.stats.ext_enum_seconds += t_sub - t_ext
+            # certainty resolution stays in (b-major, t, op) order;
+            # the regex extractions themselves then run BATCHED —
+            # one native dispatch per distinct pattern over every
+            # pending content (per-call overhead dominated the
+            # fresh-content walk at per-hit rates)
+            pending: list = []
+            for b, t_idx, op_id, st in zip(
+                bs.tolist(), ts.tolist(), opsv.tolist(), sts.tolist()
+            ):
+                if st == 2 and not resolve_op(b, op_id, nrows[b]):
+                    continue
+                pending.append((b, t_idx, op_id))
+            # deferred pseudo-ext verdicts ride the same batch:
+            # each uncertain op with >= 1 live pattern joins the
+            # pending list; its (b, t) verdict bit is set below
+            # iff the batched extraction produced values
+            pseudo_set = set()
+            for b, t_idx in pseudo_pending:
+                pseudo_set.add((b, t_idx))
+                for op_id in self._t_ops_py[t_idx]:
+                    if _bit(pop_unc, b, op_id):
+                        pending.append((b, t_idx, op_id))
+            if pseudo_pending:
+                self.stats.host_confirm_pairs += len(pseudo_pending)
+                for b, _t in pseudo_pending:
+                    confirms[b] = confirms.get(b, 0) + 1
+            # live-pattern hints for per-pattern extraction
+            # prefilters: the device pm-uncertainty bits already
+            # say WHICH patterns' literals occurred — the
+            # extraction pass then skips every other pattern with
+            # no host scanning at all (certain-false bits are an
+            # exact no-match proof)
+            # hints are {ex_local: [p_idx, ...]} with only LIVE
+            # patterns (flatnonzero is ascending and matcher order
+            # is (ex_local, p_idx)-ascending, so lists stay in
+            # pattern order) — consumers never touch the op's full
+            # pattern population. The pm-plane gather batches per
+            # op across all its pending rows: one 2D fancy-index
+            # instead of a per-(row, op) 689-element gather.
+            hints: dict = {}
+            by_op: dict = {}
+            for b, _t_idx, op_id in pending:
+                if op_id in self._op_ext_pats:
+                    by_op.setdefault(op_id, set()).add(b)
+            for op_id, bset in by_op.items():
+                rows_ = sorted(bset)
+                bits2 = (
+                    pm_unc[np.ix_(rows_, self._op_m_bytes[op_id])]
+                    >> self._op_m_shift[op_id][None, :]
+                ) & 1
+                pats = self._op_ext_pats[op_id]
+                for b in rows_:
+                    hints[(b, op_id)] = {}
+                # one nonzero over the whole (rows × matchers)
+                # plane instead of a per-row flatnonzero
+                ris, ks = np.nonzero(bits2)
+                for ri, k in zip(ris.tolist(), ks.tolist()):
+                    el, pi = pats[k]
+                    hints[(rows_[ri], op_id)].setdefault(
+                        el, []
+                    ).append(pi)
+            t_sub2 = time.perf_counter()
+            self.stats.ext_resolve_seconds += t_sub2 - t_sub
+            for (b, t_idx), vals in self._extract_pending(
+                pending, nrows, hints
+            ).items():
+                if vals:
+                    uextractions[(b, tids[t_idx])] = vals
+                    if (b, t_idx) in pseudo_set:
+                        # fused verdict: extraction fired
+                        pt_value[b, t_idx >> 3] |= 0x80 >> (t_idx & 7)
+            self.stats.ext_extract_seconds += (
+                time.perf_counter() - t_sub2
+            )
+
+        self.stats.ext_seconds += time.perf_counter() - t_ext
+        self.stats.host_confirm_seconds += time.perf_counter() - t1
+        return (
+            pt_value,
+            uextractions,
+            deferred,
+            set(redo_rows.tolist()),
+            confirms,
+        )
+
+    # ------------------------------------------------------------------
+    def match_packed(self, all_rows: Sequence[Response]) -> PackedMatches:
+        """Exact verdict bitsets for up to ``batch_rows`` responses.
+
+        The wire format: one device dispatch for the miss uniques,
+        vectorized verdict assembly, host work proportional to the
+        number of *uncertain fired matchers* — not to rows × templates.
+        Dead rows are served as zero verdicts by the native lookup."""
         t0 = time.perf_counter()
         with record_function("engine.encode"):
-            batch = self.encode(nrows)
-        t1 = time.perf_counter()
-        planes = self.device.match(batch.streams, batch.lengths, batch.status)
-        t2 = time.perf_counter()
+            enc = self._encode_native(list(all_rows), reuse_buffers=True)
+        self.stats.encode_seconds += time.perf_counter() - t0
+        return self._match_packed_native(all_rows, enc)
+
+    def _match_packed_native(self, rows, enc) -> PackedMatches:
+        """Assembly for the C-memo encode path (:meth:`_encode_native`).
+
+        Known rows arrived with their packed verdicts already fanned
+        into ``bits`` by the native lookup; only miss uniques walk."""
+        _tag, batch, matcher, bits, state, miss_uniq, served, n_src = enc
+        if n_src != len(rows):
+            raise ValueError(
+                f"pre-encoded batch is for {n_src} rows, "
+                f"match_packed got {len(rows)}"
+            )
+        self.stats.rows += len(rows)
+        self.stats.batches += 1
+        nrows = [rows[i] for i in miss_uniq]
+        walked = None
+        if batch is not None:
+            self.stats.unique_rows += len(nrows)
+            walked = self._walk_plane(nrows, batch, matcher)
         with record_function("engine.resolve"):
-            packed = self._resolve(rows, nrows, uniq, back, planes, batch.truncated)
-        t3 = time.perf_counter()
-        self.stats.encode_seconds += t1 - t0
-        self.stats.device_seconds += t2 - t1
-        self.stats.host_seconds += t3 - t2
-        return packed
+            return self._assemble_native(rows, nrows, bits, state, miss_uniq, served, walked)
 
-    def _resolve(self, rows, nrows, uniq, back, planes, truncated) -> PackedMatches:
-        """The device's planes of the unique rows → exact verdicts of
-        every row, with the oracle deciding what the device did not."""
+    def _assemble_native(self, rows, nrows, bits, state, miss_uniq, served, walked):
+        """The batch's exact verdicts from the memo-served rows and the
+        walked miss uniques (``walked`` is :meth:`_walk_plane`'s result,
+        None when every row was served): member fan-out, memo inserts,
+        the per-row fixups and the host-always tail."""
         db = self.db
-        NT = db.num_templates
-        U = len(nrows)
-        pt_value, pt_unc, _opv, _opu, _mu, overflow, _wf = planes
-        # certain bits stand; the host decides the rest
-        ubits = np.array(pt_value[:U] & ~pt_unc[:U], order="C")
-        redo = overflow[:U] | truncated[:U]
-        self.stats.overflow_rows += int(redo.sum())
-        confirms = np.zeros(U, dtype=np.int64)
-        deferred: list = []  # (slot, t_idx): decided per member row
-        memo: dict = {}  # (slot, t_idx) -> oracle result
-
-        def oracle(u: int, t_idx: int):
-            res = memo.get((u, t_idx))
-            if res is None:
-                res = memo[(u, t_idx)] = cpu_ref.match_template(
-                    db.templates[t_idx], nrows[u]
-                )
-                confirms[u] += 1
-            return res
-
-        for u in range(U):
-            # an overflowed or truncated row is redone in full
-            todo = range(NT) if redo[u] else _set_bits(pt_unc[u], NT)
-            for t_idx in todo:
-                byte_i, mask = t_idx >> 3, 0x80 >> (t_idx & 7)
-                if t_idx in self._rowdep:
-                    deferred.append((u, t_idx))
-                    ubits[u, byte_i] &= 0xFF ^ mask
-                elif oracle(u, t_idx).matched:
-                    ubits[u, byte_i] |= mask
-                else:
-                    ubits[u, byte_i] &= 0xFF ^ mask
-        # extractions of the content-decided hits
-        uext: dict = {}
-        for u in range(U):
-            for t_idx in _set_bits(ubits[u], NT):
-                if self._has_extractors[t_idx] and t_idx not in self._rowdep:
-                    res = oracle(u, t_idx)
-                    if res.extractions:
-                        uext[(u, t_idx)] = res.extractions
-
-        # broadcast the unique plane to the member rows
-        bits = ubits[back] if rows else ubits[:0]
-        members: dict = {}
-        for i, u in enumerate(back.tolist()):
-            members.setdefault(u, []).append(i)
-        names = db.template_ids
         extractions: dict = {}
-        for (u, t_idx), vals in uext.items():
-            for i in members[u]:
-                extractions[(i, names[t_idx])] = vals
-        conf = {uniq[u]: int(c) for u, c in enumerate(confirms) if c}
+        conf_full: dict = {}
+        deferred_rows: list = []  # (row_i, t_idx) — decide per row
+        if walked is not None:
+            B = len(nrows)
+            pt_value, uext, deferred, redo_pos, confirms = walked
+            t1 = time.perf_counter()
+            self.stats.memo_slots += int((state == -1).sum())
+            # broadcast walked bits to their member rows
+            miss_rows = np.flatnonzero(state >= 0)
+            bits[miss_rows] = pt_value[state[miss_rows]]
+            ext_by_pos: dict = {}
+            for (b, tid), vals in uext.items():
+                ext_by_pos.setdefault(int(b), []).append((tid, vals))
+            def_by_pos: dict = {}
+            for b, t_idx in deferred:
+                def_by_pos.setdefault(int(b), []).append(t_idx)
+            # memo inserts for fully-resolved content (deep-frozen
+            # extras — callers receive thawed list copies, so a
+            # caller's in-place edit can never rewrite the cache;
+            # truncated/overflow positions are never stored). One
+            # native call inserts the whole walked plane.
+            t_ins = time.perf_counter()
+            skip = np.zeros(B, dtype=np.uint8)
+            for pos in redo_pos:
+                skip[pos] = 1
+            extras_list: list = [None] * B
+            for pos in ext_by_pos.keys() | def_by_pos.keys():
+                ment = tuple(
+                    (tid, tuple(vals))
+                    for tid, vals in ext_by_pos.get(pos, ())
+                )
+                mdef = tuple(def_by_pos.get(pos, ()))
+                if ment or mdef:
+                    extras_list[pos] = (ment, mdef)
+            self._vmemo.insert_batch(nrows, pt_value[:B], skip, extras_list)
+            ins_dt = time.perf_counter() - t_ins
+            self.stats.insert_seconds += ins_dt
+            # member fan-out over miss rows. Fresh-content batches
+            # (every row a unique miss) skip the argsort grouping —
+            # slot s's only member is miss_uniq[s].
+            if len(miss_uniq) == len(rows):
+                def members_of(pos: int) -> tuple:
+                    return (miss_uniq[pos],)
+            else:
+                order = np.argsort(state, kind="stable")
+                sorted_state = state[order]
 
-        # row-dependent templates: decided per member row; a certain hit
-        # of one with extractors takes its values per member too
-        for u, t_idx in deferred:
-            for i in members[u]:
-                res = cpu_ref.match_template(db.templates[t_idx], rows[i])
-                conf[i] = conf.get(i, 0) + 1
-                if res.matched:
-                    bits[i, t_idx >> 3] |= 0x80 >> (t_idx & 7)
-                    if res.extractions:
-                        extractions[(i, names[t_idx])] = res.extractions
-        for t_idx in sorted(self._rowdep):
-            if not self._has_extractors[t_idx]:
-                continue
+                def members_of(pos: int) -> list:
+                    lo = np.searchsorted(sorted_state, pos)
+                    hi = np.searchsorted(sorted_state, pos + 1)
+                    return order[lo:hi].tolist()
+
+            for (pos, tid), vals in uext.items():
+                for i in members_of(int(pos)):
+                    extractions[(i, tid)] = vals
+            for pos, tids in def_by_pos.items():
+                for i in members_of(pos):
+                    for t_idx in tids:
+                        deferred_rows.append((i, t_idx))
+            conf_full = {
+                miss_uniq[pos]: n for pos, n in confirms.items()
+            }
+        else:
+            ins_dt = 0.0
+            t1 = time.perf_counter()
+            self.stats.memo_slots += int((state == -1).sum())
+        # extras served by the memo arrive ALREADY applied by the C
+        # lookup: a (row, tid) -> thawed-list dict plus the
+        # row-dependent deferral pairs. At steady state (no walked
+        # extractions yet) the C-built dict is adopted wholesale.
+        extr_known, deferred_known = served
+        if extractions:
+            extractions.update(extr_known)
+        else:
+            extractions = extr_known
+        deferred_rows.extend(deferred_known)
+        # certain-set row-dependent templates with extractors: at this
+        # point the bits plane is content-certain (deferred bits are
+        # cleared), so a set bit broadcasts exactly — but extraction
+        # values may read the row's host → oracle per hit row. Runs
+        # BEFORE the deferred fixups so fixup-set bits don't re-run.
+        for t_idx in self._rowdep_ext_t:
             byte_i, mask = t_idx >> 3, 0x80 >> (t_idx & 7)
-            for u in np.flatnonzero(ubits[:, byte_i] & mask).tolist():
-                for i in members[u]:
-                    res = cpu_ref.match_template(db.templates[t_idx], rows[i])
-                    if res.matched and res.extractions:
-                        extractions[(i, names[t_idx])] = res.extractions
-
-        # the host-always tail runs exactly, per actual row
-        host_always: list = []
-        for i, row in enumerate(rows):
-            for template in db.host_always:
-                res = cpu_ref.match_template(template, row)
-                if res.matched:
-                    host_always.append((i, template.id))
-                    if res.extractions:
-                        extractions[(i, template.id)] = res.extractions
-        self.stats.host_confirm_pairs += int(sum(conf.values()))
-        return PackedMatches(
-            bits=np.ascontiguousarray(bits),
-            template_ids=names,
-            extractions=extractions,
-            host_always_matches=host_always,
-            confirms_per_row=conf,
+            template = db.templates[t_idx]
+            for i in np.flatnonzero(bits[:, byte_i] & mask):
+                res = cpu_ref.match_template(template, rows[int(i)])
+                if res.matched and res.extractions:
+                    extractions[(int(i), template.id)] = res.extractions
+        # row-dependent deferrals (takeover family's host gates,
+        # duration checks): decided per actual row via the oracle
+        for i, t_idx in deferred_rows:
+            template = db.templates[t_idx]
+            mask = 0x80 >> (t_idx & 7)
+            byte_i = t_idx >> 3
+            res = cpu_ref.match_template(template, rows[i])
+            conf_full[i] = conf_full.get(i, 0) + 1
+            self.stats.host_confirm_pairs += 1
+            if res.matched:
+                bits[i, byte_i] |= mask
+                if res.extractions:
+                    extractions[(i, template.id)] = res.extractions
+            else:
+                bits[i, byte_i] &= 0xFF ^ mask
+        host_always_matches = self._host_always_tail(
+            rows, extractions, dead_state=state
         )
+        now = time.perf_counter()
+        # the insert window sits inside t1..now but is attributed to
+        # insert_seconds — exclude it so the sub-phases sum to the
+        # host_confirm total instead of double-counting
+        self.stats.fixup_seconds += now - t1 - ins_dt
+        self.stats.host_confirm_seconds += now - t1
+        return PackedMatches(
+            bits=bits,
+            template_ids=db.template_ids,
+            extractions=extractions,
+            host_always_matches=host_always_matches,
+            confirms_per_row=conf_full,
+        )
+
+    def _host_always_tail(
+        self, rows, extractions: dict, dead_state=None
+    ) -> list:
+        """Host-always tail: templates the compiler couldn't lower run
+        exactly, per actual row (they may read host). Mutates
+        ``extractions`` in place; returns the (row, template_id) hit
+        list. ``dead_state`` is the memo lookup's state vector — rows
+        marked dead (-2) match nothing by contract and are skipped.
+        """
+        host_always_matches: list = []
+        db = self.db
+        if db.host_always:
+            for i, row in enumerate(rows):
+                if dead_state is not None and dead_state[i] == -2:
+                    continue
+                for template in db.host_always:
+                    res = cpu_ref.match_template(template, row)
+                    self.stats.host_always_pairs += 1
+                    if res.matched:
+                        host_always_matches.append((i, template.id))
+                        if res.extractions:
+                            extractions[(i, template.id)] = res.extractions
+        return host_always_matches
+
+    # ------------------------------------------------------------------
+    def _ensure_vmemo(self, nbits: int):
+        """The C resident verdict cache, created on first need."""
+        if self._vmemo is None:
+            from swarm_tpu_torch.native.scanio import VerdictMemo
+
+            self._vmemo = VerdictMemo(self._EXT_CACHE_MAX, nbits)
+        return self._vmemo
+
+    def memo_contains(self, row: Response) -> bool:
+        """Whether the cross-batch verdict memo holds this row's
+        content."""
+        return self._vmemo is not None and self._vmemo.contains(row)
+
+    def memo_known_mask(self, rows: list) -> np.ndarray:
+        """uint8 residency mask over ``rows`` (no LRU side effects) in
+        ONE native pass; a dead row is never known (it resolves to zero
+        verdicts, never a memo entry)."""
+        if self._vmemo is None:
+            return np.zeros(len(rows), dtype=np.uint8)
+        return self._vmemo.contains_batch(rows)
+
+    def clear_content_memos(self) -> None:
+        """Drop every cross-batch content memo: the verdict memo and the
+        extraction and confirm caches. Whoever times the device path
+        calls this before each call; production never needs it."""
+        self._ext_cache.clear()
+        self._confirm_cache.clear()
+        if self._vmemo is not None:
+            self._vmemo.clear()

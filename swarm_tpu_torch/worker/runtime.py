@@ -261,7 +261,11 @@ class JobProcessor:
         return ("\n".join(lines) + "\n").encode() if lines else b""
 
     def engine_for(self, templates_dir: str) -> MatchEngine:
-        """The MatchEngine of a corpus, compiled at first use."""
+        """The MatchEngine of a corpus, compiled at first use and kept
+        for the worker's lifetime, as the JAX worker keeps its own: its
+        verdict memo and content caches serve later jobs' known content,
+        and its walk pool is sized as the reference sizes it
+        (``SWARM_WALK_THREADS``, else the spare cores up to 4)."""
         engine = self.engines.get(templates_dir)
         if engine is None:
             templates, _errors = load_corpus(templates_dir)

@@ -161,9 +161,9 @@ COPIES = [
                             "_adopt_equal_leaves", "build_device_layout_delta")),
     # numpy half only; the torch window hashes replace the jnp ones
     (j_hashing, t_hashing, ("window_hashes_jnp", "bloom_probe_jnp")),
-    # numpy path only: no native encoder, no recycled buffer pool
-    (j_encoding, t_encoding, ("encode_batch", "ResponseBatch", "_RotatingPool",
-                              "_native_encoder_available")),
+    # the native passes only, with no Python fallback; no sharded
+    # placement map on the batch
+    (j_encoding, t_encoding, ("encode_batch", "ResponseBatch", "_native_encoder_available")),
 ]
 
 

@@ -100,10 +100,34 @@ prints one JSON line per phase:
    ``match_verify`` and ``match_regex_scan`` also the card time of the
    same call with no live work (every row empty, every candidate or
    pair dead): the launch and the walk apart from the work.
+14. ``service`` — service detection at the production DB's full width:
+   ``ServiceClassifier`` over ``swarm_tpu/data/service-probes-large.txt``
+   (487 probes, 12,331 signatures, read as data) on ``cuda``, built cold
+   and warm (the port's compile cache), what the kernels see of the
+   lowered corpus beside their limits, its first batch against the plain
+   versions, ``classify`` of 2,048 banner rows (the 1,386 recall banners,
+   then bench.py's shapes) over a 2-second window with every memo
+   cleared before each call (banners/s, ms a batch by stage), one traced
+   call, every recall banner's service, product and version against the
+   recall file, a sample of template ids against the oracle, and the
+   kernels on one fresh call's calls, exact and timed.
+15. ``service_worker`` — a ``servicescan`` job over that DB through the
+   port's worker on ``cuda`` against local banner listeners of the
+   recall set's protocols: the nmap-style report byte-identical to the
+   same job with ``device="cpu"``.
+16. ``tpu_forms_worker`` — ``tpu`` jobs over the synthetic corpus plus
+   workflows that gate on it: ``targets`` input against local HTTP
+   listeners, ``nuclei`` output, JSONL output, each byte-identical to its
+   ``device="cpu"`` twin, workflow lines in each, the verdict kernel's
+   m_value written and rows carrying gate planes; the corpus compile's
+   cold and warm build through the compile cache.
 
-Then the ``{"kernels": [...]}`` summary (all seven kernels), the ``nvidia-smi`` line, and as
-the last line ``{"ok": true, "device": {...}}``. Any failed check raises
-and the script exits non-zero without that line.
+Each phase's compile cache (``SWARM_DB_CACHE_DIR``) lies in a temporary
+directory of the run. Then the ``{"kernels": [...]}`` summary (all
+seven kernels; each match kernel also with its launches and times on
+the service corpus), the ``nvidia-smi`` line, and as the last line
+``{"ok": true, "device": {...}}``. Any failed check raises and the
+script exits non-zero without that line.
 """
 
 from __future__ import annotations
@@ -114,6 +138,7 @@ import gc
 import hashlib
 import http.server
 import json
+import os
 import re
 import socket
 import struct
@@ -729,6 +754,213 @@ class StubServer:
         self._httpd.shutdown()
         self._httpd.server_close()
         self._thread.join(timeout=5)
+
+
+class BannerFleet:
+    """Local TCP listeners, one a reply: a listener that greets sends
+    its reply as soon as a connection opens (a banner service: ssh,
+    smtp, ftp); the others answer a client's first bytes with it (an
+    HTTP server, a service that answers only its probe) and send nothing
+    to a client that sends nothing. ``targets`` lists them as
+    ``127.0.0.1:<port>`` lines, in order."""
+
+    def __init__(self, replies: list):
+        self._stop = threading.Event()
+        self._socks: list[socket.socket] = []
+        self._threads: list[threading.Thread] = []
+        self.targets = [self._listen(reply, greets) for reply, greets in replies]
+
+    def _listen(self, reply: bytes, greets: bool) -> str:
+        sock = socket.socket()
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        sock.bind(("127.0.0.1", 0))
+        sock.listen(128)
+        sock.settimeout(0.1)
+        t = threading.Thread(target=self._serve, args=(sock, reply, greets), daemon=True)
+        t.start()
+        self._socks.append(sock)
+        self._threads.append(t)
+        return f"127.0.0.1:{sock.getsockname()[1]}"
+
+    def _serve(self, sock: socket.socket, reply: bytes, greets: bool) -> None:
+        while not self._stop.is_set():
+            try:
+                conn, _ = sock.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            with conn:
+                try:
+                    conn.settimeout(10.0)
+                    if greets or conn.recv(4096):
+                        conn.sendall(reply)
+                except OSError:
+                    pass
+
+    def close(self) -> None:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=5)
+        for s in self._socks:
+            s.close()
+
+    def __enter__(self) -> "BannerFleet":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def http_reply(row: dict) -> bytes:
+    """A response row (``realistic_rows``) as the bytes an HTTP server
+    sends: its header block, a blank line, its body."""
+    return row["header"] + b"\r\n\r\n" + row["body"]
+
+
+#: service banners of the worker phases, from the recall file: for each
+#: (service, probe) kind, up to this many banners
+SERVICE_KINDS_EACH = 2
+
+
+def service_fleet_replies(recall: list, limit: int = 40) -> list:
+    """Banners of several protocols from the recall set, a few of each
+    (service, probe) pair in file order, of the two probes a scan sends
+    a port no probe names: banners that answer the NULL probe (a
+    service that greets) and replies to GetRequest, the payload probe
+    of the second round (sent only when asked). → [(banner, greets)]."""
+    seen: dict = {}
+    out = []
+    for r in recall:
+        key = (r["service"], r["probe"])
+        if r["probe"] not in ("NULL", "GetRequest") or seen.get(key, 0) >= SERVICE_KINDS_EACH:
+            continue
+        seen[key] = seen.get(key, 0) + 1
+        out.append((base64.b64decode(r["banner"]), r["probe"] == "NULL"))
+        if len(out) == limit:
+            break
+    return out
+
+
+#: the bench.py service shapes (``bench_service_classifier``): banners
+#: and the ports they come from
+BENCH_SERVICE_BANNERS = (
+    b"HTTP/1.1 200 OK\r\nServer: nginx/1.18.0\r\n\r\n<html>",
+    b"SSH-2.0-OpenSSH_8.9p1 Ubuntu-3ubuntu0.1\r\n",
+    b"220 mail.example.com ESMTP Postfix (Ubuntu)\r\n",
+    b"HTTP/1.1 404 Not Found\r\nServer: Apache/2.4.41\r\n\r\n",
+    b"+OK Dovecot ready.\r\n",
+    b"220 (vsFTPd 3.0.3)\r\n",
+    b"MySQL\x00\x00\x00\x0a8.0.31",
+    b"", b"\x00\x00\x00\x00", b"HTTP/1.0 400 Bad Request\r\n\r\n",
+)
+BENCH_SERVICE_PORTS = (80, 22, 25, 443, 110, 21, 3306, 8080)
+
+
+def service_rows(classifier, recall: list, n: int) -> tuple:
+    """``n`` banner rows for ``classifier``: each recall entry's banner on
+    a port its probe covers (2121 for a probe that names none), sent by
+    that probe; then bench.py's service shapes, sent by no probe in
+    particular. → (rows, sent probes)."""
+    from swarm_tpu_torch.fingerprints.model import Response
+
+    rows, sent = [], []
+    for i, r in enumerate(recall[:n]):
+        probe = classifier.probe_by_name.get(r["probe"])
+        port = probe.ports[0][0] if probe is not None and probe.ports else 2121
+        rows.append(Response(host=f"198.51.100.{i % 254}", port=port,
+                             banner=base64.b64decode(r["banner"])))
+        sent.append(r["probe"])
+    for i in range(len(rows), n):
+        rows.append(Response(host=f"203.0.113.{i % 254}",
+                             port=BENCH_SERVICE_PORTS[i % len(BENCH_SERVICE_PORTS)],
+                             banner=BENCH_SERVICE_BANNERS[i % len(BENCH_SERVICE_BANNERS)]))
+        sent.append(None)
+    return rows, sent
+
+
+#: workflows the ``tpu_forms_worker`` corpus adds to the synthetic one
+WORKFLOWS = 4
+
+
+def _wf_corpus_picks(plants: list) -> list:
+    """Corpus templates the workflows gate on: ones that fire from body
+    and header fragments on a 200 (no whole-page md5, no other
+    status), 3 a workflow."""
+    ok = [i for i, p in enumerate(plants) if not p["whole_body"] and p["status"] in (None, 200)]
+    return [ok[3 * k: 3 * k + 3] for k in range(WORKFLOWS)]
+
+
+def workflow_docs(docs: list, plants: list) -> list:
+    """Templates that, added to ``synthetic_corpus`` (``docs``,
+    ``plants``), gate on its templates: for each workflow k a tech
+    template ``wf-tech-k`` with two named matchers (a body word, a
+    header regex), a tagged subtemplate ``wf-sub-k``, and the workflow
+    ``wf-synth-k``: the body gate selects a corpus template by path, the
+    header gate the tagged subtemplate, and a second step has a corpus
+    template trigger a corpus template. Each goes in ``<id>.yaml``."""
+    out = []
+    for k, (a, b, c) in enumerate(_wf_corpus_picks(plants)):
+        out.append({
+            "id": f"wf-tech-{k}",
+            "info": {"name": f"WfSynth{k} detection", "severity": "info", "tags": "tech,wftech"},
+            "http": [{"method": "GET", "path": ["{{BaseURL}}"], "matchers-condition": "or",
+                      "matchers": [
+                          {"type": "word", "part": "body", "name": f"wf-cms-{k}",
+                           "words": [f"powered by WfSynth{k} engine"]},
+                          {"type": "regex", "part": "header", "name": f"wf-hdr-{k}",
+                           "regex": [rf"X-WfSynth{k}: [0-9]+\.[0-9]+"]},
+                      ]}],
+        })
+        out.append({
+            "id": f"wf-sub-{k}",
+            "info": {"name": f"WfSynth{k} debug build", "severity": "medium", "tags": f"wfsub{k}"},
+            "http": [{"method": "GET", "path": ["{{BaseURL}}"], "matchers": [
+                {"type": "word", "part": "body", "words": [f"wfsynth-debug-{k}"]}]}],
+        })
+        out.append({
+            "id": f"wf-synth-{k}",
+            "info": {"name": f"WfSynth{k} chain", "author": "swarm"},
+            "workflows": [
+                {"template": f"wf-tech-{k}.yaml", "matchers": [
+                    {"name": f"wf-cms-{k}",
+                     "subtemplates": [{"template": f"{docs[a]['id']}.yaml"}]},
+                    {"name": f"wf-hdr-{k}", "subtemplates": [{"tags": f"wfsub{k}"}]},
+                ]},
+                {"template": f"{docs[b]['id']}.yaml",
+                 "subtemplates": [{"template": f"{docs[c]['id']}.yaml"}]},
+            ],
+        })
+    return out
+
+
+def workflow_rows(n: int, plants: list, seed: int = 13) -> list[dict]:
+    """``realistic_rows`` with the workflows' triggers planted: by row,
+    the body gate with its corpus subtemplate, the header gate with the
+    tagged subtemplate, the corpus trigger with its subtemplate, a body
+    gate whose subtemplate is absent, or nothing more."""
+    rows = realistic_rows(n, seed=seed, plants=plants)
+    picks = _wf_corpus_picks(plants)
+    for i, r in enumerate(rows):
+        k, shape = i % WORKFLOWS, (i // WORKFLOWS) % 5
+        a, b, c = picks[k]
+        body, hdr = [], []
+        if shape == 0:
+            body += [f"powered by WfSynth{k} engine", *plants[a]["body"]]
+            hdr += plants[a]["header"]
+        elif shape == 1:
+            hdr.append(f"X-WfSynth{k}: {i % 9}.{i % 7}")
+            body.append(f"wfsynth-debug-{k}")
+        elif shape == 2:
+            body += plants[b]["body"] + plants[c]["body"]
+            hdr += plants[b]["header"] + plants[c]["header"]
+        elif shape == 3:
+            body.append(f"powered by WfSynth{k} engine")
+        if body or hdr:
+            r["status"] = 200
+            r["body"] = (" ".join(body).encode() + b" " + r["body"])[:3800]
+            r["header"] = r["header"] + b"".join(b"\r\n" + h.encode() for h in hdr)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2093,21 +2325,34 @@ def phase_match_timing(calls: list, smi: str) -> dict:
     """Each match kernel on the exact calls the ``fingerprint`` job made
     (``kernels.record_calls`` around the worker run: its batches as the
     worker's engine deduplicated and encoded them): exact against its
-    plain version, then its ms per call (CUDA events around the
-    wrapper's calls, and on the card alone, :func:`card_ms`) beside its
-    plain version's, and its bound from each call's data, all averaged
-    over the job's calls; for the regex scan also its card time with no
-    live pair, for the verdict lowering each of its two launches' card
-    time (:func:`verdict_split_ms`)."""
+    plain version, then timed (:func:`kernel_timing`)."""
+    max_err = check_calls(calls)
+    clock_hz = sm_clock_hz()
+    timing = kernel_timing(calls, MATCH_KERNELS, clock_hz)
+    emit({"phase": "match_timing", "exact": True, "timing": timing, "sm_clock_hz": clock_hz,
+          "card": smi})
+    return timing, max_err
+
+
+def kernel_timing(calls: list, names: tuple, clock_hz: float,
+                  split_verdicts: bool = True) -> dict:
+    """Each kernel of ``names`` on its recorded ``calls``: ms per call
+    (CUDA events around the wrapper's calls, and on the card alone,
+    :func:`card_ms`) beside its plain version's, and its bound from
+    each call's data, all averaged over the calls; for the regex scan
+    also its card time with no live pair, for phase A and the verify
+    with no live work, and with ``split_verdicts`` for the verdict
+    lowering each of its two launches' card time
+    (:func:`verdict_split_ms`, a profiler trace a call). → {name:
+    timing}."""
+    split = split_verdicts and "match_verdicts" in names
     import torch
 
     from swarm_tpu_torch.ops import kernels
 
-    max_err = check_calls(calls)
     plain = plain_versions()
-    clock_hz = sm_clock_hz()
     timing = {}
-    for name in MATCH_KERNELS:
+    for name in names:
         per = []
         for call_name, args in calls:
             if call_name != name:
@@ -2131,7 +2376,7 @@ def phase_match_timing(calls: list, smi: str) -> dict:
                 "ms": cuda_ms(lambda a=args: getattr(kernels, name)(*a), 10),
                 "card_ms": card_ms(lambda a=args: getattr(kernels, name)(*a), 10, clock_hz),
                 "plain_ms": cuda_ms(lambda a=args: plain[name](*a), 2),
-                **(verdict_split_ms(args) if name == "match_verdicts" else {}),
+                **(verdict_split_ms(args) if split and name == "match_verdicts" else {}),
                 "bytes": nbytes, "operations": ops,
                 "bytes_ms": t_bytes, "operations_ms": t_ops,
             })
@@ -2147,9 +2392,9 @@ def phase_match_timing(calls: list, smi: str) -> dict:
                 per[-1]["no_live_work_card_ms"] = card_ms(
                     lambda a=idle_call(name, args): getattr(kernels, name)(*a), 10, clock_hz)
         if not per:
-            raise AssertionError(f"the job made no call of {name}")
+            raise AssertionError(f"no recorded call of {name}")
         keys = ("ms", "card_ms", "plain_ms", "bytes_ms", "operations_ms",
-                *(("pack_card_ms", "eval_card_ms") if name == "match_verdicts" else ()),
+                *(("pack_card_ms", "eval_card_ms") if split and name == "match_verdicts" else ()),
                 *(("no_live_work_card_ms",) if "no_live_work_card_ms" in per[0] else ()),
                 *(("no_live_pair_card_ms",) if "no_live_pair_card_ms" in per[0] else ()))
         mean = {k: sum(p[k] for p in per) / len(per) for k in keys}
@@ -2161,13 +2406,404 @@ def phase_match_timing(calls: list, smi: str) -> dict:
         }
         if "latency_ms" in per[0]:
             timing[name]["latency_bound_ms"] = sum(p["latency_ms"] for p in per) / len(per)
-    emit({"phase": "match_timing", "exact": True, "timing": timing, "sm_clock_hz": clock_hz,
-          "card": smi})
-    return timing, max_err
+    return timing
+
+
+#: the directory under which each phase's corpus-compile cache lives
+#: (``SWARM_DB_CACHE_DIR``), made empty by :func:`main`
+DB_CACHE_ROOT: Path | None = None
+
+
+def use_db_cache(name: str) -> Path:
+    """Point the compile cache (``dbcache``) at the run's directory
+    ``name``, empty the first time → its path."""
+    path = DB_CACHE_ROOT / name
+    os.environ["SWARM_DB_CACHE_DIR"] = str(path)
+    return path
+
+
+#: the production-scale service DB and its recall set, read as data
+SERVICE_DB = REPO / "swarm_tpu" / "data" / "service-probes-large.txt"
+SERVICE_RECALL = REPO / "swarm_tpu" / "data" / "service-probes-large.recall.json"
+#: the host steps of a service batch: the match's, less md5 (the DB has
+#: no md5 check, so the step never runs)
+SERVICE_SPANS = tuple(s for s in MATCH_SPANS if s != "match.md5")
+#: the match kernels a service batch launches (no md5 check in the DB)
+SERVICE_KERNELS = ("match_phase_a", "match_verify", "match_regex_scan", "match_verdicts")
+#: recall rows and engine rows of the oracle sample
+SERVICE_ORACLE_ROWS = 16
+
+
+def service_shape(clf) -> dict:
+    """What the match kernels see of the lowered service DB, beside the
+    limits of ``ops/kernels.py`` and ``csrc``; raises where it exceeds
+    one (a fault of the port, to repair in the kernel or its layout)."""
+    from swarm_tpu_torch.fingerprints import compile as fpc
+    from swarm_tpu_torch.ops import kernels
+
+    db = clf.engine.db
+    meta, arrays = clf.engine.device._ensure_layout()
+    layout = arrays["verdict"]
+    shape = {
+        "probes": len(clf.probes), "signatures": len(clf._matches),
+        "device_templates": db.num_templates, "matchers": layout.nm, "word_slots": db.num_slots,
+        "tables": len(meta.table_stream), "table_q": [int(q) for q in meta.table_q],
+        "table_streams": list(meta.table_stream), "max_group": int(meta.max_group),
+        "tiny_slots": int(db.stats["tiny_slots"]), "md5_checks": int(db.m_md5_check.sum()),
+        "host_tail": len(db.host_always),
+        "regex_variants": len(fpc.rx_variants(db)), "device_regex_matchers": len(db.rx_m_ids),
+        "regex_sequences": int(db.rx_seq_matcher.shape[0]),
+        "regex_lanes": int(arrays["rx"]["bytemap"].shape[2]), "r_closure": int(db.rx_max_skip_run),
+        "regex_always_sequences": int(arrays["rx"]["seq_always"].sum()),
+        "verdict_chunks": layout.n_chunks, "verdict_chunk_smem": layout.chunk_smem,
+        "conjuncts_per_matcher": int(layout.csr["scalar_mask"].shape[1]),
+        "workflow_gates": layout.has_gates,
+    }
+    limits = {"tables": kernels.MATCH_MAX_TABLES, "regex_variants": kernels.MATCH_MAX_VARIANTS,
+              "regex_lanes": 3, "verdict_chunk_smem": kernels.MAX_SHARED_BYTES,
+              "conjuncts_per_matcher": 32}
+    over = {k: (shape[k], v) for k, v in limits.items() if shape[k] > v}
+    if not all(1 <= q <= 8 for q in shape["table_q"]):
+        over["table_q"] = (shape["table_q"], "1..8")
+    if over:
+        raise AssertionError(f"the service corpus exceeds kernel limits: {over}")
+    shape["limits"] = limits
+    return shape
+
+
+def phase_service(smi: str) -> tuple:
+    """Service detection at the production DB's full width on the card:
+    ``ServiceClassifier`` over ``service-probes-large.txt`` (487 probes,
+    12,331 signatures), its engine as the worker builds it. Built cold
+    (an empty compile cache) and again warm (served by ``dbcache``);
+    what the kernels see of the corpus (:func:`service_shape`); its
+    first batch against the plain versions (:func:`match_case`); then
+    ``classify`` of 2,048 banner rows (:func:`service_rows`: the 1,386
+    recall banners, then bench.py's shapes) over a
+    ``MATCH_WINDOW_S``-second window of calls, every memo cleared before
+    each call (fresh content): banners/s, ms a batch by stage, device
+    rows and confirms a batch; one fresh call under ``torch.profiler``;
+    every recall banner's service, product and version against the
+    recall file; the engine's template ids against the oracle on a
+    sample; and the kernels on one fresh call's recorded calls, counted
+    from zero, exact against their plain versions and timed
+    (:func:`kernel_timing`). → (timing, launches, largest difference)."""
+    import torch
+
+    from swarm_tpu_torch.ops import cpu_ref, kernels
+    from swarm_tpu_torch.ops.engine import _dedup_rows
+    from swarm_tpu_torch.ops.service import ServiceClassifier
+
+    cache = use_db_cache("service")
+    t0 = time.perf_counter()
+    cold = ServiceClassifier(db_path=str(SERVICE_DB), device="cuda")
+    cold_s = time.perf_counter() - t0
+    del cold
+    t0 = time.perf_counter()
+    clf = ServiceClassifier(db_path=str(SERVICE_DB), device="cuda")
+    warm_s = time.perf_counter() - t0
+    entries = [p.name for p in cache.glob("*.pkl")]
+    if len(entries) != 1 or not entries[0].startswith("swarm_tpu_torch-svcdb-"):
+        raise AssertionError(f"service compile cache entries {entries}")
+    shape = service_shape(clf)
+    eng = clf.engine
+    recall = json.loads(SERVICE_RECALL.read_text())
+    rows, sent = service_rows(clf, recall, JOB_ROWS)
+
+    def fresh_classify():
+        clf._classify_memo.clear()
+        eng.clear_content_memos()
+        return clf.classify(rows, sent)
+
+    first = rows[: eng.batch_rows]
+    uniq, _back, _keys = _dedup_rows(first)
+    first_batch = match_case(eng.device, eng.encode([first[u] for u in uniq]))
+
+    stage = {k: 0.0 for k in ("upload_s", "phase_a_s", "scalar_read_s", "phase_b_s", "collect_s")}
+    collect = eng.device.collect
+
+    def collect_and_count(out):
+        planes = collect(out)
+        for k in stage:
+            stage[k] += eng.device.last_compact.get(k, 0.0)
+        return planes
+
+    eng.device.collect = collect_and_count
+    match_s = [0.0]
+    engine_match = eng.match
+
+    def timed_match(batch):
+        tm = time.perf_counter()
+        try:
+            return engine_match(batch)
+        finally:
+            match_s[0] += time.perf_counter() - tm
+
+    eng.match = timed_match
+    fresh_classify()  # warm
+    torch.cuda.synchronize()
+    st0 = dict(eng.stats.__dict__)
+    stage0, match0 = dict(stage), match_s[0]
+    per_call = []
+    gc0 = [g["collections"] for g in gc.get_stats()]
+    while len(per_call) < 3 or sum(per_call) < MATCH_WINDOW_S * 1e3:
+        clf._classify_memo.clear()
+        eng.clear_content_memos()
+        tc = time.perf_counter()
+        infos = clf.classify(rows, sent)
+        per_call.append((time.perf_counter() - tc) * 1e3)
+    gc_counts = [g["collections"] - n for g, n in zip(gc.get_stats(), gc0)]
+    st = {k: v - st0[k] for k, v in eng.stats.__dict__.items()}
+    eng.match = engine_match
+    eng.device.collect = collect
+    reps, seconds, batches = len(per_call), sum(per_call) / 1e3, st["batches"]
+    ms = {"encode": st["encode_seconds"] / batches * 1e3}
+    ms.update({k[:-2]: (stage[k] - stage0[k]) / batches * 1e3 for k in stage})
+    ms["host_resolution"] = st["host_confirm_seconds"] / batches * 1e3
+    ms.update({k: st[f"{k}_seconds"] / batches * 1e3 for k in ("unc", "ext", "insert", "fixup")})
+    engine_ms = (match_s[0] - match0) / batches * 1e3
+    outside = {"engine_rest": engine_ms - sum(v for k, v in ms.items()
+                                              if k not in ("unc", "ext", "insert", "fixup")),
+               # the classifier's own host work: the regex veto of each
+               # row's candidates in probe order and the version fields
+               "classify_walk": seconds / batches * 1e3 - engine_ms}
+
+    trace = profile_call(fresh_classify, "service_call", SERVICE_SPANS)
+    trace_kernels = trace.pop("kernels_ms")
+    ours = {k: v for k, v in trace_kernels.items() if k.startswith(MATCH_KERNELS)}
+
+    # every recall banner against the recall file (test_service_detect's rule)
+    for i, r in enumerate(recall):
+        got = (infos[i].service, infos[i].product, infos[i].version)
+        if got != (r["service"], r["product"], r["version"]):
+            raise AssertionError(f"recall row {i}: {infos[i].line()} is not {r}")
+    # the engine's template ids against the oracle
+    step = len(recall) // (SERVICE_ORACLE_ROWS // 2)
+    sample = list(range(0, len(recall), step))[: SERVICE_ORACLE_ROWS // 2]
+    sample += list(range(len(recall), JOB_ROWS))[: SERVICE_ORACLE_ROWS // 2]
+    eng.clear_content_memos()
+    got = eng.match([rows[i] for i in sample])
+    for i, res in zip(sample, got):
+        want = [t.id for t in eng.templates if cpu_ref.match_template(t, rows[i]).matched]
+        if res.template_ids != want:
+            raise AssertionError(f"service row {i}: template ids differ from the oracle")
+
+    # the main path's launches, counted from zero over one fresh call
+    kernels.reset_launches()
+    with kernels.record_calls() as calls:
+        fresh_classify()
+    launches = dict(kernels.LAUNCHES)
+    missing = [k for k in SERVICE_KERNELS if launches[k] < 1]
+    if missing or launches["match_md5"]:
+        raise AssertionError(f"service launches {launches}")
+    max_err = check_calls(calls)
+    clock_hz = sm_clock_hz()
+    # no per-launch split of the verdict lowering here: each split is a
+    # profiler trace, and a process that has taken many of them now and
+    # then gets traces with no device events
+    timing = kernel_timing(calls, SERVICE_KERNELS, clock_hz, split_verdicts=False)
+    emit({
+        "phase": "service", "db": str(SERVICE_DB.relative_to(REPO)),
+        "cold_build_s": cold_s, "warm_build_s": warm_s, "shape": shape,
+        "first_batch": first_batch, "rows": JOB_ROWS, "recall_rows": len(recall),
+        "batch_rows": eng.batch_rows, "max_body": eng.max_body, "reps": reps,
+        "banners_per_s": reps * JOB_ROWS / seconds,
+        "banners_per_s_median_call": JOB_ROWS / float(np.median(per_call)) * 1e3,
+        "ms_per_call": per_call, "gc_collections": gc_counts,
+        "batches_per_call": batches / reps, "ms_per_batch": seconds / batches * 1e3,
+        "ms_by_stage": ms, "ms_outside_stages": outside,
+        "device_rows_per_batch": st["unique_rows"] / batches,
+        "confirms_per_batch": st["host_confirm_pairs"] / batches,
+        "walk_batched_pairs_per_batch": st["walk_batched_pairs"] / batches,
+        "overflow_rows_per_batch": st["overflow_rows"] / batches,
+        "trace": {**trace, "match_kernels_ms": ours}, "recall_identical": len(recall),
+        "oracle_sample_rows": len(sample), "launches": launches, "exact": True,
+        "timing": timing, "sm_clock_hz": clock_hz, "card": smi,
+    })
+    return timing, launches, max_err
+
+
+def worker_job(proc, module: str, blob: bytes) -> tuple:
+    """One job of ``module`` over ``blob`` through ``proc`` (its client
+    pointed at a fresh stand-in server) → (statuses, output, seconds)."""
+    from swarm_tpu_torch.worker.runtime import ServerClient
+
+    stub = StubServer(blob, module=module)
+    try:
+        proc.client = ServerClient(stub.url, API_KEY)
+        t0 = time.perf_counter()
+        proc.process_jobs()
+        seconds = time.perf_counter() - t0
+    finally:
+        stub.close()
+    want = ["starting", "downloading", "executing", "uploading", "complete"]
+    if stub.statuses != want:
+        raise AssertionError(f"{module} job statuses {stub.statuses}")
+    return stub.output, seconds
+
+
+def phase_service_worker(smi: str) -> dict:
+    """A ``servicescan`` job (the module's own settings, the production
+    DB as its ``probes_db``) through the port's worker on the card
+    against local banner listeners of the recall set's protocols: the
+    nmap-style report must be byte-identical to the same job run with
+    ``device="cpu"``, and the service kernels launched."""
+    import tempfile
+
+    from swarm_tpu_torch.ops import kernels
+    from swarm_tpu_torch.worker.runtime import JobProcessor, WorkerConfig
+
+    use_db_cache("service")  # the service phase's: the worker's build is warm
+    recall = json.loads(SERVICE_RECALL.read_text())
+    replies = service_fleet_replies(recall, limit=40) + [
+        (b"HTTP/1.1 200 OK\r\nServer: nginx/1.18.0\r\n\r\n<html>", False),
+        (b"SSH-2.0-OpenSSH_8.9p1 Ubuntu-3ubuntu0.1\r\n", True),
+    ]
+    spec = json.loads((REPO / "modules" / "servicescan.json").read_text())
+    spec["probes_db"] = str(SERVICE_DB)
+    spec["probe"] = {**spec["probe"], "resolvers": ["127.0.0.1"], "read_timeout_ms": 1000}
+    with BannerFleet(replies) as fleet, tempfile.TemporaryDirectory() as modules:
+        (Path(modules) / "servicescan.json").write_text(json.dumps(spec))
+        blob = ("\n".join(fleet.targets + ["127.0.0.1:1"]) + "\n").encode()
+        cfg = WorkerConfig(api_key=API_KEY, worker_id="chip-smoke", modules_dir=modules,
+                           max_jobs=1, poll_interval_idle_s=0.05, poll_interval_busy_s=0.0)
+        proc = JobProcessor(cfg, device="cuda")
+        kernels.reset_launches()
+        output, seconds = worker_job(proc, "servicescan", blob)
+        launches = dict(kernels.LAUNCHES)
+        del proc
+        cpu = JobProcessor(cfg, device="cpu")
+        twin = cpu._execute_service(cpu.registry.load("servicescan"), blob)
+    if output != twin:
+        raise AssertionError("servicescan: cuda output differs from the CPU run")
+    text = output.decode()
+    lines = text.splitlines()
+    open_ports = sum(" open " in ln for ln in lines)
+    named = sum(" open " in ln and " unknown" not in ln for ln in lines)
+    if open_ports != len(replies) or named < len(replies) // 2:
+        raise AssertionError(f"servicescan: {open_ports} open ports, {named} named, "
+                             f"for {len(replies)} listeners")
+    missing = [k for k in SERVICE_KERNELS if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"servicescan job: no launch of {missing}")
+    emit({"phase": "service_worker", "status": "complete", "targets": len(fleet.targets) + 1,
+          "open_ports": open_ports, "named_services": named,
+          "seconds": seconds, "launches": launches, "cpu_twin_identical": True,
+          "report_bytes": len(output), "card": smi})
+    return launches
+
+
+#: rows of the tpu_forms_worker jsonl jobs and targets of its targets job
+FORMS_ROWS, FORMS_TARGETS = 256, 64
+
+
+def phase_tpu_forms_worker(smi: str) -> dict:
+    """The ``tpu`` job's other forms through the port's worker on the
+    card, over ``synthetic_corpus(0)`` plus workflows that gate on it
+    (:func:`workflow_docs`): (a) ``targets`` input against local HTTP
+    listeners, JSONL output; (b) ``jsonl`` input, ``nuclei`` output;
+    (c) ``jsonl`` input, JSONL output; every job's rows trigger the
+    workflows (:func:`workflow_rows`), so each writes workflow lines.
+    Each output must be byte-identical to its ``device="cpu"`` twin;
+    the verdict kernel writes m_value (the layout has gates) and rows
+    carry non-empty gate planes; the jobs' kernel calls equal their
+    plain versions. The corpus compile goes through ``dbcache``: the
+    build the first job makes (cold) and a second process's (warm) are
+    timed."""
+    import tempfile
+
+    import yaml
+
+    from swarm_tpu_torch.ops import kernels
+    from swarm_tpu_torch.worker.runtime import JobProcessor, WorkerConfig
+
+    use_db_cache("forms")
+    docs, plants = synthetic_corpus(0)
+    wf_docs = workflow_docs(docs, plants)
+    rows = workflow_rows(FORMS_ROWS, plants)
+    targets_rows = workflow_rows(FORMS_TARGETS, plants, seed=17)
+    with tempfile.TemporaryDirectory() as tmp, \
+            BannerFleet([(http_reply(r), False) for r in targets_rows]) as fleet:
+        corpus, modules = Path(tmp) / "corpus", Path(tmp) / "modules"
+        corpus.mkdir()
+        modules.mkdir()
+        for doc in docs + wf_docs:
+            (corpus / f"{doc['id']}.yaml").write_text(yaml.safe_dump(doc))
+        probe = {"type": "http", "resolvers": ["127.0.0.1"], "read_timeout_ms": 2000}
+        specs = {
+            "fp_targets": {"backend": "tpu", "templates": str(corpus), "input_format": "targets",
+                           "probe": probe, "wave_targets": 32},
+            "fp_nuclei": {"backend": "tpu", "templates": str(corpus), "output_format": "nuclei"},
+            "fp_jsonl": {"backend": "tpu", "templates": str(corpus)},
+        }
+        for name, spec in specs.items():
+            (modules / f"{name}.json").write_text(json.dumps(spec))
+        # the jsonl job's rows are other content: the memo would serve
+        # the nuclei job's rows without the card
+        blobs = {"fp_targets": ("\n".join(fleet.targets) + "\n").encode(),
+                 "fp_nuclei": jsonl_rows(rows),
+                 "fp_jsonl": jsonl_rows(workflow_rows(FORMS_ROWS, plants, seed=19))}
+        cfg = WorkerConfig(api_key=API_KEY, worker_id="chip-smoke", modules_dir=str(modules),
+                           max_jobs=1, poll_interval_idle_s=0.05, poll_interval_busy_s=0.0)
+        proc = JobProcessor(cfg, device="cuda")
+        t0 = time.perf_counter()
+        eng = proc.engine_for(str(corpus))  # the build the first job makes
+        first_build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        JobProcessor(cfg, device="cuda").engine_for(str(corpus))
+        second_build_s = time.perf_counter() - t0
+        outputs, seconds = {}, {}
+        kernels.reset_launches()
+        with kernels.record_calls() as calls:
+            for name, blob in blobs.items():
+                outputs[name], seconds[name] = worker_job(proc, name, blob)
+        launches = dict(kernels.LAUNCHES)
+        layout = eng.device._ensure_layout()[1]["verdict"]
+        eng.clear_content_memos()
+        planes = [r.wf for r in eng.match(port_rows(rows))]
+        cpu = JobProcessor(cfg, device="cpu")
+        twins = {name: cpu._execute_tpu(cpu.registry.load(name), blob)
+                 for name, blob in blobs.items()}
+    max_err = check_calls(calls)
+    for name in blobs:
+        if outputs[name] != twins[name]:
+            raise AssertionError(f"{name}: cuda output differs from the CPU run")
+    wf_lines = {
+        "fp_targets": outputs["fp_targets"].decode().count('"workflow": '),
+        "fp_jsonl": outputs["fp_jsonl"].decode().count('"workflow": '),
+        "fp_nuclei": outputs["fp_nuclei"].decode().count("] [workflow] "),
+    }
+    if min(wf_lines.values()) < 1:
+        raise AssertionError(f"workflow lines {wf_lines}")
+    nonempty = sum(p is not None and any(np.asarray(x).any() for x in p) for p in planes)
+    if not layout.has_gates or not nonempty:
+        raise AssertionError(f"gates {layout.has_gates}, rows with gate planes {nonempty}")
+    missing = [k for k in MATCH_KERNELS if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"tpu forms jobs: no launch of {missing}")
+    emit({"phase": "tpu_forms_worker", "templates": len(docs) + len(wf_docs),
+          "workflows": sum("workflows" in d for d in wf_docs),
+          "first_build_s": first_build_s, "second_build_s": second_build_s,
+          "jobs": {name: {"lines": len(outputs[name].splitlines()), "seconds": seconds[name],
+                          "workflow_lines": wf_lines[name]} for name in blobs},
+          "cpu_twins_identical": True, "m_value_written": layout.has_gates,
+          "rows_with_gate_planes": nonempty, "rows": len(rows), "launches": launches,
+          "max_abs_err": max_err, "card": smi})
+    return launches
 
 
 def main() -> int:
+    import tempfile
+
+    global DB_CACHE_ROOT
     smi = phase_device()
+    with tempfile.TemporaryDirectory(prefix="swarm-db-cache-") as cache_root:
+        DB_CACHE_ROOT = Path(cache_root)
+        use_db_cache("match")
+        return run_phases(smi)
+
+
+def run_phases(smi: str) -> int:
     import torch
 
     probe = phase_build()
@@ -2188,6 +2824,9 @@ def main() -> int:
     launches, calls = phase_fingerprint_worker(templates, plants, db)
     timing, job_err = phase_match_timing(calls, smi)
     del calls
+    svc_timing, svc_launches, svc_err = phase_service(smi)
+    phase_service_worker(smi)
+    phase_tpu_forms_worker(smi)
     replaces = {
         "match_phase_a": "swarm_tpu/ops/match.py:1350",
         "match_verify": "swarm_tpu/ops/match.py:1465",
@@ -2203,7 +2842,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": sources.get(name, "swarm_tpu_torch/ops/csrc/match.cu"),
             "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": max(max_err[name], job_err[name]),
+            "max_abs_err": max(max_err[name], job_err[name], svc_err.get(name, 0.0)),
             "ms": t["ms"], "card_ms": t["card_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "job_rows": JOB_ROWS,
@@ -2219,6 +2858,12 @@ def main() -> int:
         for key in ("no_live_work_card_ms", "no_live_pair_card_ms"):
             if key in t:
                 summary[name][key] = t[key]
+        # the same kernel on the service corpus (phase_service's fresh
+        # call of 2,048 banners): the DB has no md5 check
+        sv = svc_timing.get(name)
+        summary[name]["service"] = {"launches": svc_launches[name], **(
+            {k: sv[k] for k in ("ms", "card_ms", "plain_ms", "bound_ms", "bound_by")}
+            if sv else {"note": "the service DB has no md5 check: not launched"})}
     print(json.dumps({"kernels": list(summary.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

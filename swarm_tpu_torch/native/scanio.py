@@ -1,8 +1,9 @@
 """ctypes bindings of the native scan I/O engine (``native/scanio.cpp``)
 and of the engine's Python-aware batch passes (``native/fastpack.cpp``).
 
-libscanio: the two calls the jarm path needs, ``swarm_tcp_scan``
-(epoll-driven batch connect + payload + banner grab, plaintext) and
+libscanio: the probe front-end's calls, ``swarm_tcp_scan_tls``
+(epoll-driven batch connect + payload + banner grab, each target
+plaintext or TLS-wrapped with its SNI), ``swarm_tls_available`` and
 ``swarm_dns_resolve`` (bulk UDP A-record resolution). Its CDLL calls
 release the GIL.
 
@@ -88,13 +89,16 @@ def ensure_lib() -> ctypes.CDLL:
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
         i32 = ctypes.c_int32
-        lib.swarm_tcp_scan.argtypes = [
+        lib.swarm_tcp_scan_tls.argtypes = [
             u32p, u16p, i32,              # ips, ports, n
             u8p, i64p, i32p, i32p,        # payload blob/off/len, pay_idx
+            i8p, u8p, i32p, i32p,         # tls_mask, sni blob/off/len
             i32, i32, i32, i32,           # conc, connect_to, read_to, cap
             u8p, i32p, i8p, i32p,         # banners, blens, status, rtt
         ]
-        lib.swarm_tcp_scan.restype = i32
+        lib.swarm_tcp_scan_tls.restype = i32
+        lib.swarm_tls_available.argtypes = []
+        lib.swarm_tls_available.restype = i32
         lib.swarm_dns_resolve.argtypes = [
             u8p, i32p, i32p, i32,         # names, off, len, n
             u32p, i32, i32,               # resolvers, nres, port
@@ -134,6 +138,7 @@ def ensure_fastpack() -> ctypes.PyDLL:
         vp = ctypes.c_void_p
         sigs = {
             "sw_pack_list": ([obj, i32, u8p, i64p], ctypes.c_int),
+            "sw_concat3_list": ([obj, obj, u8p, i32, u8p], ctypes.c_int),
             "sw_rows_meta": ([obj, i64p, i64p, i32p, u8p, upp, upp], ctypes.c_int),
             "sw_rows_pack": ([i64, upp, i64p, upp, i64p, u8p,
                               i32, u8p, i32, u8p, i32, u8p], ctypes.c_int),
@@ -237,6 +242,21 @@ def rows_alive(rows: list) -> "tuple[int, np.ndarray]":
     if n < 0:
         raise TypeError("rows must be Response objects")
     return int(n), mask
+
+
+def concat3_list(
+    headers: list, bodies: list, concat: np.ndarray, width: int,
+    out: np.ndarray,
+) -> None:
+    """Assemble the 'all' stream (header + CRLF + body, or body alone
+    when ``concat[i]`` is 0) straight from the bytes lists."""
+    if (
+        ensure_fastpack().sw_concat3_list(
+            headers, bodies, concat, np.int32(width), out
+        )
+        != 0
+    ):
+        raise TypeError("headers/bodies must be matching lists of bytes")
 
 
 def _check_extras(extras) -> None:
@@ -434,6 +454,10 @@ class ScanResult:
     def banner(self, i: int) -> bytes:
         return self.banners[i, : self.banner_len[i]].tobytes()
 
+    @property
+    def open_mask(self) -> np.ndarray:
+        return self.status == STATUS_OPEN
+
 
 def parse_ipv4(hosts: Sequence[str]) -> np.ndarray:
     """Dotted-quad strings → uint32 network-order array."""
@@ -447,20 +471,31 @@ def format_ipv4(addrs: np.ndarray) -> list[str]:
     return [socket.inet_ntoa(struct.pack("=I", int(a))) for a in addrs]
 
 
+def tls_available() -> bool:
+    """Whether libssl could be loaded (TLS-wrapped probing works)."""
+    return bool(ensure_lib().swarm_tls_available())
+
+
 def tcp_scan(
     ips: np.ndarray | Sequence[str],
     ports: np.ndarray | Sequence[int],
     payloads: Optional[Sequence[Optional[bytes]]] = None,
     *,
+    tls: Optional[Sequence[bool]] = None,
+    sni: Optional[Sequence[Optional[str]]] = None,
     max_concurrency: int = 512,
     connect_timeout_ms: int = 1500,
     read_timeout_ms: int = 2000,
     banner_cap: int = 4096,
 ) -> ScanResult:
-    """Batch TCP connect scan + banner/payload probe, plaintext.
+    """Batch TCP connect scan + banner/payload probe.
 
-    ``payloads[i]`` (optional) is written right after connect; None
-    listens silently.
+    ``payloads[i]`` (optional) is written right after connect — an HTTP
+    request for httpx-style probing, a protocol nudge for banner
+    grabbing, or None to listen silently (nmap-style banner wait).
+    ``tls[i]`` wraps target i in TLS first (payload sent and banner read
+    through the encrypted channel); ``sni[i]`` sets its SNI hostname.
+    Targets where the handshake fails report STATUS_TLS_FAILED.
     """
     lib = ensure_lib()
     if len(ips) and isinstance(ips[0], str):
@@ -495,14 +530,41 @@ def tcp_scan(
     pay_off = np.asarray(offsets or [0], dtype=np.int64)
     pay_len = np.asarray(lens or [0], dtype=np.int32)
 
+    # TLS mask + SNI name blob
+    tls_mask = np.zeros(n, dtype=np.int8)
+    if tls is not None:
+        tls_mask[: len(tls)] = [1 if t else 0 for t in tls]
+    sni_parts: list[bytes] = []
+    sni_off = np.zeros(n, dtype=np.int32)
+    sni_len = np.zeros(n, dtype=np.int32)
+    stotal = 0
+    if sni is not None:
+        for i, name in enumerate(sni):
+            if not name:
+                continue
+            try:
+                enc = (
+                    name.encode("idna")
+                    if any(ord(c) > 127 for c in name)
+                    else name.encode("ascii")
+                )
+            except UnicodeError:
+                continue  # unencodable label → probe without SNI
+            sni_off[i] = stotal
+            sni_len[i] = len(enc)
+            sni_parts.append(enc)
+            stotal += len(enc)
+    sni_blob = np.frombuffer(b"".join(sni_parts) or b"\0", dtype=np.uint8).copy()
+
     banners = np.zeros((n, banner_cap), dtype=np.uint8)
     blens = np.zeros(n, dtype=np.int32)
     status = np.zeros(n, dtype=np.int8)
     rtt = np.zeros(n, dtype=np.int32)
     if n:
-        rc = lib.swarm_tcp_scan(
+        rc = lib.swarm_tcp_scan_tls(
             ips, ports_a, n,
             blob, pay_off, pay_len, pay_idx,
+            tls_mask, sni_blob, sni_off, sni_len,
             max_concurrency, connect_timeout_ms, read_timeout_ms, banner_cap,
             banners, blens, status, rtt,
         )

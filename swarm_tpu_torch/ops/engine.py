@@ -74,6 +74,12 @@ class RowMatches:
     # the group's representative row — duplicate members report 0
     # (the work genuinely wasn't repeated for them).
     confirmed_on_host: int = 0
+    # workflow gate planes for this row: packed (cond_v, cond_u,
+    # emit_v, emit_u) uint8 rows from the device gate-apply stage, or
+    # None when the row was memo-served, redone, or the corpus lowered
+    # no workflow terms — the runner then resolves every condition on
+    # the host (exact either way).
+    wf: Optional[tuple] = None
 
 
 @dataclasses.dataclass
@@ -94,6 +100,11 @@ class PackedMatches:
     # row -> host confirmations spent on it. Confirms happen once per
     # DISTINCT content (dedup) and land on the representative row.
     confirms_per_row: dict
+    # workflow gate planes: {"cond_v", "cond_u", "emit_v", "emit_u"}
+    # packed uint8 [B, ...] + "valid" bool [B] (False for memo-served /
+    # redone rows — their planes are stale or absent); None when the
+    # corpus lowered no workflow terms
+    wf: Optional[dict] = None
     # Buffer lifetime: ``MatchEngine.match_packed`` draws ``bits`` from a
     # per-shape rotating pool (``ops/encoding._RotatingPool``): the plane
     # is overwritten 8 same-shape batches later, so a caller that keeps
@@ -996,15 +1007,25 @@ class MatchEngine:
             rs, ts = plane_bits(np.ascontiguousarray(packed.bits[:n]), NT)
             for r, t in zip(rs.tolist(), ts.tolist()):
                 tids_by_row.setdefault(r, []).append(tid_names[t])
+        wf = packed.wf
         out = []
         for b in range(n):
             tids = tids_by_row.get(b, [])
             tids.extend(always_by_row.get(b, ()))
+            row_wf = None
+            if wf is not None and bool(wf["valid"][b]):
+                row_wf = (
+                    wf["cond_v"][b],
+                    wf["cond_u"][b],
+                    wf["emit_v"][b],
+                    wf["emit_u"][b],
+                )
             out.append(
                 RowMatches(
                     template_ids=tids,
                     extractions=extr_by_row.get(b, {}),
                     confirmed_on_host=conf.get(b, 0),
+                    wf=row_wf,
                 )
             )
         return out
@@ -1539,21 +1560,28 @@ class MatchEngine:
         response contents (the unique content plane).
 
         Returns ``(pt_value, uextractions, deferred, redo_pos,
-        confirms)``: the final content-side verdict bits ``[B, nb]``
-        (row-dependent undecided bits cleared and listed in
+        confirms, wf_planes)``: the final content-side verdict bits
+        ``[B, nb]`` (row-dependent undecided bits cleared and listed in
         ``deferred`` as ``(pos, t_idx)`` for per-member resolution),
         content-side extractions ``{(pos, tid): vals}``, the positions
         that needed a whole-row oracle redo (truncation/overflow —
-        never memoized), and per-position host-confirm counts."""
+        never memoized), per-position host-confirm counts, and the
+        workflow gate planes of the B rows (None without gates)."""
         t0 = time.perf_counter()
-        pt_value, pt_unc, pop_value, pop_unc, pm_unc, overflow, _wf = matcher.match(
+        pt_value, pt_unc, pop_value, pop_unc, pm_unc, overflow, wf_planes = matcher.match(
             batch.streams, batch.lengths, batch.status
         )
+        if wf_planes is not None:
+            # packed cond/emit value+uncertainty bits, sliced to the
+            # walked rows; the caller invalidates redo rows (their
+            # planes were computed from unsound word bits)
+            B = len(nrows)
+            wf_planes = tuple(np.ascontiguousarray(p[:B]) for p in wf_planes)
         self.stats.device_seconds += time.perf_counter() - t0
         with record_function("engine.resolve"):
             return self._walk_unique(
                 nrows, batch, pt_value, pt_unc, pop_value, pop_unc, pm_unc, overflow
-            )
+            ) + (wf_planes,)
 
     def _walk_unique(self, nrows, batch, pt_value, pt_unc, pop_value, pop_unc, pm_unc,
                      overflow):
@@ -1871,14 +1899,37 @@ class MatchEngine:
         extractions: dict = {}
         conf_full: dict = {}
         deferred_rows: list = []  # (row_i, t_idx) — decide per row
+        wf_rows: Optional[dict] = None
         if walked is not None:
             B = len(nrows)
-            pt_value, uext, deferred, redo_pos, confirms = walked
+            pt_value, uext, deferred, redo_pos, confirms, wf_slots = walked
             t1 = time.perf_counter()
             self.stats.memo_slots += int((state == -1).sum())
             # broadcast walked bits to their member rows
             miss_rows = np.flatnonzero(state >= 0)
             bits[miss_rows] = pt_value[state[miss_rows]]
+            if wf_slots is not None:
+                # workflow gate planes for walked rows; memo-served
+                # rows stay valid=False (host-resolved by the runner)
+                cv, cu, ev, eu = wf_slots
+                R = len(rows)
+                sl = state[miss_rows]
+                wf_rows = {
+                    "cond_v": np.zeros((R, cv.shape[1]), dtype=np.uint8),
+                    "cond_u": np.zeros((R, cu.shape[1]), dtype=np.uint8),
+                    "emit_v": np.zeros((R, ev.shape[1]), dtype=np.uint8),
+                    "emit_u": np.zeros((R, eu.shape[1]), dtype=np.uint8),
+                }
+                wf_rows["cond_v"][miss_rows] = cv[sl]
+                wf_rows["cond_u"][miss_rows] = cu[sl]
+                wf_rows["emit_v"][miss_rows] = ev[sl]
+                wf_rows["emit_u"][miss_rows] = eu[sl]
+                slot_ok = np.ones((B,), dtype=bool)
+                for pos in redo_pos:
+                    slot_ok[pos] = False
+                valid = np.zeros((R,), dtype=bool)
+                valid[miss_rows] = slot_ok[sl]
+                wf_rows["valid"] = valid
             ext_by_pos: dict = {}
             for (b, tid), vals in uext.items():
                 ext_by_pos.setdefault(int(b), []).append((tid, vals))
@@ -1987,6 +2038,7 @@ class MatchEngine:
             extractions=extractions,
             host_always_matches=host_always_matches,
             confirms_per_row=conf_full,
+            wf=wf_rows,
         )
 
     def _host_always_tail(

@@ -8,13 +8,26 @@ A module file names its ``backend`` and the backend's settings, e.g.::
     {"backend": "tpu", "templates": "${SWARM_TEMPLATES_DIR}",
      "input_format": "jsonl"}
 
-The port runs the ``jarm`` backend and the ``tpu`` backend's ``jsonl``
-input with JSONL output (the template-fingerprint match). The worker
-fails a job of any other backend or form with a message that names
-what is not ported.
+The port runs four backends:
+
+- ``jarm``: TLS fingerprints and their clusters (``cluster_radius``);
+- ``tpu``: the template match, ``input_format`` ``jsonl`` or
+  ``targets`` (probed with ``probe``, ``wave_targets`` a wave),
+  ``output_format`` ``matches_jsonl`` (the default) or ``nuclei``, a
+  corpus with or without workflow templates;
+- ``probe``: ``probe`` then ``output_format`` ``httprobe`` or
+  ``httpx_json`` (``probe.type`` ``dns`` for the dnsx list);
+- ``service``: ``probe``, ``probes_db`` (an nmap-service-probes file;
+  default the system DB, else the bundled one) and ``output_format``
+  ``nmap`` (else one line per open port).
+
+The worker fails a job of any other backend (``active``, ``file``,
+``ssl``, a command) with a message that names what is not ported.
 
 ``jsonl`` rows: each input line is a JSON response row ``{host, port,
 status, body?, header?, banner?}`` (``*_b64`` variants base64).
+``targets`` lines: ``host``, ``host:port``, ``ip[:port]`` or
+``scheme://host[:port][/path]``.
 """
 
 from __future__ import annotations

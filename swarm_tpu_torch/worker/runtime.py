@@ -1,31 +1,42 @@
-"""Worker poll loop of the port — the jarm and template-match paths of
-``swarm_tpu/worker/runtime.py``.
+"""Worker poll loop of the port — the ``jarm``, ``tpu``, ``probe`` and
+``service`` paths of ``swarm_tpu/worker/runtime.py``.
 
 Same observable protocol as the JAX worker: poll ``/get-job``, walk the job
 through ``starting → downloading → executing → uploading → complete`` (or
 ``cmd failed`` / ``upload failed - unknown``) via ``/update-job``, with 0.8 s
 between jobs and 10 s when idle, and stop after ``max_jobs`` attempts when
-that is set. Two backends run on ``device`` (the card unless the CPU is
+that is set. Four backends run on ``device`` (the card unless the CPU is
 asked for), their output byte-identical to the JAX worker's:
 
 - ``jarm`` probes each target with the ten JARM ClientHellos and clusters
   the fingerprints with the density-peaks kernels;
-- ``tpu`` (the ``fingerprint`` module) matches JSONL response rows against
-  the module's template corpus with the port's ``MatchEngine``, one engine
-  per templates directory, and writes one JSONL hit line per row.
+- ``tpu`` (``fingerprint`` and other template modules) matches response
+  rows against the module's template corpus with the port's
+  ``MatchEngine``, one engine per templates directory, its corpus served
+  by the compile cache (``fingerprints/dbcache.py``). Rows come as
+  ``jsonl`` input or are probed from ``targets`` in double-buffered
+  waves (``worker/streaming.py``); output is one JSONL hit line per row
+  or nuclei's ``[id] [protocol] [severity] url`` lines, followed by the
+  lines of any workflow a row's hits trigger (``ops/workflows.py``);
+- ``probe`` (``dnsx``, ``httpx``, ``http2``, ``httprobe``, ``web``)
+  probes the targets with the native front-end, no matching;
+- ``service`` (``servicescan``) probes banners with payloads from an
+  nmap-service-probes DB and classifies them with the port's
+  ``ServiceClassifier`` (the card prefilters every signature).
 
-A job of any other backend ends ``cmd failed`` ("backend not ported"), and
-so does a ``tpu`` job in a form the port does not run yet (``targets``
-input, ``nuclei`` output, a corpus with workflow templates, the pipelined
-scheduler), with a message that names it.
+A job of any other backend (``active``, ``file``, ``ssl``, a command)
+ends ``cmd failed`` ("backend not ported"), and so does a ``tpu`` job
+with ``pipeline: on`` (the batch scheduler), with a message that names it.
 
-Not ported yet (ROADMAP.md): lease heartbeats, the output spool, graceful
-drain, the retrying transport, tracing and telemetry.
+Not ported yet (ROADMAP.md): the scheduler, lease heartbeats, the output
+spool, graceful drain, the retrying transport, tracing and telemetry,
+the result cache, the executable cache and multi-host engines.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import time
 from typing import Optional, Union
@@ -34,11 +45,15 @@ import requests
 import torch
 
 from swarm_tpu_torch.datamodel import SCAN_ID_RE, JobStatus
+from swarm_tpu_torch.fingerprints.dbcache import load_or_compile
 from swarm_tpu_torch.ops import cluster as cl
-from swarm_tpu_torch.utils.device import resolve_device
-from swarm_tpu_torch.worker.executor import ProbeExecutor
-from swarm_tpu_torch.fingerprints.nuclei import load_corpus
 from swarm_tpu_torch.ops.engine import MatchEngine
+from swarm_tpu_torch.ops.service import ServiceClassifier
+from swarm_tpu_torch.ops.workflows import WorkflowRunner
+from swarm_tpu_torch.utils.device import resolve_device
+from swarm_tpu_torch.worker import formats
+from swarm_tpu_torch.worker.executor import ProbeExecutor
+from swarm_tpu_torch.worker.streaming import stream_match
 from swarm_tpu_torch.worker.modules import (
     ModuleRegistry,
     ModuleSpec,
@@ -134,7 +149,10 @@ class JobProcessor:
         self.client = client or ServerClient(cfg.server_url, cfg.api_key)
         self.registry = registry or ModuleRegistry(cfg.modules_dir)
         self.jobs_done = 0
-        #: MatchEngine per templates directory
+        #: what a job builds once and the worker keeps: the MatchEngine
+        #: per templates directory, its WorkflowRunner under
+        #: ``wfrunner::<dir>``, the ServiceClassifier under
+        #: ``svc::<probes_db>``
         self.engines: dict = {}
 
     def process_jobs(self) -> None:
@@ -193,7 +211,12 @@ class JobProcessor:
             print(f"module load failed: {e}")
             update(JobStatus.CMD_FAILED)
             return
-        execute = {"jarm": self._execute_jarm, "tpu": self._execute_tpu}.get(module.backend)
+        execute = {
+            "jarm": self._execute_jarm,
+            "tpu": self._execute_tpu,
+            "probe": self._execute_probe,
+            "service": self._execute_service,
+        }.get(module.backend)
         if execute is None:
             print(f"module {module.name}: backend {module.backend!r} not ported")
             update(JobStatus.CMD_FAILED, message="backend not ported")
@@ -261,39 +284,131 @@ class JobProcessor:
         return ("\n".join(lines) + "\n").encode() if lines else b""
 
     def engine_for(self, templates_dir: str) -> MatchEngine:
-        """The MatchEngine of a corpus, compiled at first use and kept
-        for the worker's lifetime, as the JAX worker keeps its own: its
+        """The MatchEngine of a corpus, built at first use and kept for
+        the worker's lifetime, as the JAX worker keeps its own: its
         verdict memo and content caches serve later jobs' known content,
         and its walk pool is sized as the reference sizes it
-        (``SWARM_WALK_THREADS``, else the spare cores up to 4)."""
+        (``SWARM_WALK_THREADS``, else the spare cores up to 4). The
+        corpus compile comes from the disk cache when the corpus and
+        the port's compiler are unchanged (``dbcache.load_or_compile``)."""
         engine = self.engines.get(templates_dir)
         if engine is None:
-            templates, _errors = load_corpus(templates_dir)
-            engine = MatchEngine(templates, device=self.device)
+            templates, db = load_or_compile(templates_dir)
+            engine = MatchEngine(templates, db=db, device=self.device)
             self.engines[templates_dir] = engine
         return engine
 
     def _execute_tpu(self, module: ModuleSpec, data: bytes) -> bytes:
-        """Template match of JSONL response rows: rows → MatchEngine →
-        one JSONL hit line per row."""
-        if module.input_format != "jsonl":
-            raise NotPorted(f"tpu input_format {module.input_format!r} not ported")
-        if module.output_format == "nuclei":
-            raise NotPorted("tpu output_format 'nuclei' not ported")
+        """Device-batch path: chunk rows → MatchEngine → JSONL hits (or
+        nuclei lines), then the workflow lines.
+
+        ``input_format: targets`` first runs the native probe front-end
+        (resolve + connect + banner/HTTP fetch) to build the rows,
+        probing wave i+1 while wave i matches."""
         if str(self.cfg.pipeline).lower() in ("on", "1", "true"):
             raise NotPorted("pipeline 'on' (the batch scheduler) not ported")
         if not module.templates_dir:
             raise ValueError(f"tpu module {module.name} missing 'templates'")
         engine = self.engine_for(module.templates_dir)
+        text = data.decode("utf-8", "surrogateescape")
+        if module.input_format == "targets":
+            rows, results, _stats = stream_match(
+                engine,
+                text.splitlines(),
+                probe_spec=module.probe,
+                wave_targets=int(module.raw.get("wave_targets", 1024)),
+            )
+        else:
+            rows = []
+            for line in text.splitlines():
+                row = parse_response_line(line)
+                if row is not None:
+                    rows.append(row)
+            results = engine.match(rows)
+        # workflow gating over the already-matched rows (ops/workflows):
+        # one wf line per row where a trigger gated matching subtemplates
+        wf_lines: list[str] = []
         if any(t.protocol == "workflow" for t in engine.templates):
-            raise NotPorted("workflow templates not ported")
-        rows = []
-        for line in data.decode("utf-8", "surrogateescape").splitlines():
-            row = parse_response_line(line)
-            if row is not None:
-                rows.append(row)
-        results = engine.match(rows)
-        lines = [format_match_line(row, m) for row, m in zip(rows, results)]
+            wkey = f"wfrunner::{module.templates_dir}"
+            runner = self.engines.get(wkey)
+            if runner is None:
+                runner = WorkflowRunner(engine.templates, engine=engine)
+                self.engines[wkey] = runner
+            jsonl = module.output_format != "nuclei"
+            for row, rm in zip(rows, results):
+                if not rm.template_ids:
+                    continue  # nothing matched: no workflow can trigger
+                per = runner.evaluate_hits(
+                    set(rm.template_ids), lambda _tid, _r=row: [_r]
+                )
+                for wid, sub_ids in sorted(per.items()):
+                    if jsonl:  # keep the jsonl contract machine-readable
+                        wf_lines.append(
+                            json.dumps(
+                                {
+                                    "workflow": wid,
+                                    "host": row.host,
+                                    "port": row.port,
+                                    "matches": sub_ids,
+                                },
+                                sort_keys=True,
+                            )
+                        )
+                    else:
+                        wf_lines.append(
+                            f"[{wid}] [workflow] {row.host}:{row.port} "
+                            f"[{','.join(sub_ids)}]"
+                        )
+        if module.output_format == "nuclei":
+            sev, proto = formats.severity_index(engine.templates)
+            out = formats.format_nuclei(rows, results, sev, proto)
+            if wf_lines:
+                out = out + "\n".join(wf_lines) + "\n"
+            return out.encode()
+        out_lines = [format_match_line(row, m) for row, m in zip(rows, results)]
+        out_lines += wf_lines
+        return ("\n".join(out_lines) + "\n").encode() if out_lines else b""
+
+    def _execute_probe(self, module: ModuleSpec, data: bytes) -> bytes:
+        """Native-I/O-only path (dnsx/httprobe/httpx/web module parity):
+        probe the targets with the native front-end and emit the
+        module's output format — no template matching involved."""
+        lines = data.decode("utf-8", "surrogateescape").splitlines()
+        executor = ProbeExecutor(module.probe)
+        if module.probe.get("type") == "dns":
+            resolutions = executor.resolve(lines)
+            return formats.format_dnsx(
+                resolutions, with_a=bool(module.probe.get("with_a"))
+            ).encode()
+        rows = executor.run(lines)
+        if module.output_format == "httprobe":
+            return formats.format_httprobe(rows).encode()
+        if module.output_format == "httpx_json":
+            return formats.format_httpx_json(rows).encode()
+        raise ValueError(
+            f"module {module.name}: unknown output_format {module.output_format!r}"
+        )
+
+    def _execute_service(self, module: ModuleSpec, data: bytes) -> bytes:
+        """Service/version detection (the nmap -sV replacement): native
+        banner probing with payloads from the probes DB, the match
+        prefilter on ``self.device``, host version extraction. The
+        classifier is built once per probes DB and kept for the
+        worker's lifetime."""
+        key = f"svc::{module.raw.get('probes_db') or ''}"
+        classifier = self.engines.get(key)
+        if classifier is None:
+            classifier = ServiceClassifier(
+                db_path=module.raw.get("probes_db"), device=self.device
+            )
+            self.engines[key] = classifier
+        rows, sent = ProbeExecutor(module.probe).run_service(
+            data.decode("utf-8", "surrogateescape").splitlines(), classifier
+        )
+        infos = classifier.classify(rows, sent)
+        if module.output_format == "nmap":
+            return formats.format_nmap_report(infos).encode()
+        lines = [info.line() for info in infos if info.open]
         return ("\n".join(lines) + "\n").encode() if lines else b""
 
 
@@ -304,7 +419,9 @@ class NotPorted(Exception):
 def main(argv: Optional[list[str]] = None) -> None:
     import argparse
 
-    parser = argparse.ArgumentParser(description="swarm_tpu_torch worker (jarm, fingerprint)")
+    parser = argparse.ArgumentParser(
+        description="swarm_tpu_torch worker (jarm, tpu, probe, service backends)"
+    )
     parser.add_argument("--server-url", default=None)
     parser.add_argument("--api-key", default=None)
     parser.add_argument("--worker-id", default=None)

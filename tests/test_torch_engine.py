@@ -4,7 +4,8 @@
 and extractions (and the CPU oracle's) row for row, dead rows and
 duplicated content included; a ``fingerprint`` job through the port's
 ``JobProcessor(device="cpu")`` must give the JAX worker's bytes, and a
-job in a form the port does not run yet must end ``cmd failed``.
+job with ``pipeline: on`` (the scheduler, not ported) must end ``cmd
+failed``.
 """
 
 import base64
@@ -156,8 +157,9 @@ def jax_execute_tpu(templates_dir, blob: bytes) -> bytes:
     return proc._execute_tpu(JaxModuleRegistry(REPO / "modules").load("fingerprint"), blob)
 
 
-def test_fingerprint_job_identical(corpus_dir, monkeypatch):
+def test_fingerprint_job_identical(corpus_dir, monkeypatch, tmp_path):
     monkeypatch.setenv("SWARM_TEMPLATES_DIR", str(corpus_dir))
+    monkeypatch.setenv("SWARM_DB_CACHE_DIR", str(tmp_path / "dbcache"))
     blob = jsonl(rows_of(corpus_docs()))
     job = {"job_id": "fp_1_0", "scan_id": "fp_1", "chunk_index": 0, "module": "fingerprint"}
     client = RecordingClient(job, blob)
@@ -173,28 +175,47 @@ def test_fingerprint_job_identical(corpus_dir, monkeypatch):
 
 @pytest.mark.parametrize("form", ["workflow_corpus", "targets", "nuclei", "pipeline"])
 def test_unported_fingerprint_forms_fail(tmp_path, monkeypatch, form):
+    """The forms of a ``fingerprint`` job the port once refused: with
+    ``pipeline: on`` (the scheduler, not ported) the job still ends ``cmd
+    failed`` naming it; a corpus with workflow templates, ``targets``
+    input and ``nuclei`` output now run, byte-identical to the JAX
+    worker."""
+    from test_torch_worker import jax_processor
+
     corpus = tmp_path / "corpus"
     shutil.copytree(DATA / "http", corpus / "http")
     modules = tmp_path / "modules"
     modules.mkdir()
     spec = json.loads((REPO / "modules" / "fingerprint.json").read_text())
+    blob = jsonl([{"host": "a", "port": 80, "status": 200,
+                   "body": b"site powered by AcmeCMS, demo-build 3.11"}])
     if form == "workflow_corpus":
         shutil.copytree(DATA / "workflows", corpus / "workflows")
     elif form == "targets":
-        spec["input_format"] = "targets"
+        # a refused loopback port; names resolve on localhost only
+        spec.update(input_format="targets", probe={"resolvers": ["127.0.0.1"]})
+        blob = b"127.0.0.1:1\n"
     elif form == "nuclei":
         spec["output_format"] = "nuclei"
     (modules / "fingerprint.json").write_text(json.dumps(spec))
     monkeypatch.setenv("SWARM_TEMPLATES_DIR", str(corpus))
+    monkeypatch.setenv("SWARM_DB_CACHE_DIR", str(tmp_path / "dbcache"))
     job = {"job_id": "fp_1_0", "scan_id": "fp_1", "chunk_index": 0, "module": "fingerprint"}
-    client = RecordingClient(job, jsonl([{"host": "a", "port": 80, "status": 200}]))
+    client = RecordingClient(job, blob)
     cfg = WorkerConfig(modules_dir=str(modules), max_jobs=1, poll_interval_busy_s=0,
                        pipeline="on" if form == "pipeline" else "off")
     JobProcessor(cfg, client=client, registry=ModuleRegistry(modules), device="cpu").process_jobs()
+    if form == "pipeline":
+        assert [u["status"] for u in client.updates] == [
+            "starting", "downloading", "executing", "cmd failed"]
+        assert "not ported" in client.updates[-1]["message"]
+        assert client.output is None
+        return
     assert [u["status"] for u in client.updates] == [
-        "starting", "downloading", "executing", "cmd failed"]
-    assert "not ported" in client.updates[-1]["message"]
-    assert client.output is None
+        "starting", "downloading", "executing", "uploading", "complete"]
+    jax = jax_processor(modules, tmp_path)
+    assert client.output == jax._execute_tpu(jax.registry.load("fingerprint"), blob)
+    assert client.output
 
 
 def test_missing_corpus_fails_job(monkeypatch):

@@ -44,6 +44,11 @@ def test_module_list_covers_the_slice():
         "swarm_tpu_torch.worker.modules",
         # the engine's host side: the crex regex VM and its front
         "swarm_tpu_torch.native.crex", "swarm_tpu_torch.ops.crexc", "swarm_tpu_torch.ops.fastre",
+        # the tpu job's other forms and the probe and service backends
+        "swarm_tpu_torch.fingerprints.dbcache", "swarm_tpu_torch.fingerprints.nmap_probes",
+        "swarm_tpu_torch.ops.service", "swarm_tpu_torch.ops.workflows",
+        "swarm_tpu_torch.worker.executor", "swarm_tpu_torch.worker.formats",
+        "swarm_tpu_torch.worker.streaming",
     } <= names
 
 
@@ -53,11 +58,18 @@ def _entry_points():
     from swarm_tpu_torch.fingerprints.nuclei import load_corpus
     from swarm_tpu_torch.ops.cluster import density_cluster
     from swarm_tpu_torch.ops.engine import MatchEngine
+    from swarm_tpu_torch.fingerprints.nmap_probes import load_probes
     from swarm_tpu_torch.ops.match import DeviceDB
+    from swarm_tpu_torch.ops.service import ServiceClassifier
+    from swarm_tpu_torch.ops.workflows import WorkflowRunner
     from swarm_tpu_torch.worker.runtime import JobProcessor, WorkerConfig
 
     templates, _ = load_corpus(REPO / "tests" / "data" / "templates" / "http")
+    with_workflow, _ = load_corpus(REPO / "tests" / "data" / "templates")
+    probes, _ = load_probes(REPO / "swarm_tpu_torch" / "data" / "service-probes.txt")
     return {
+        "ServiceClassifier": lambda device: ServiceClassifier(probes=probes, device=device),
+        "WorkflowRunner": lambda device: WorkflowRunner(with_workflow, device=device),
         "MatchEngine": lambda device: MatchEngine(templates, device=device),
         "DeviceDB": lambda device: DeviceDB(compile_corpus(templates), device=device),
         "JobProcessor": lambda device: JobProcessor(WorkerConfig(), device=device),
@@ -67,7 +79,8 @@ def _entry_points():
 
 
 @pytest.mark.parametrize(
-    "name", ["MatchEngine", "DeviceDB", "JobProcessor", "density_cluster"])
+    "name", ["MatchEngine", "DeviceDB", "JobProcessor", "density_cluster",
+             "ServiceClassifier", "WorkflowRunner"])
 def test_entry_points_run_on_cuda_unless_asked(name):
     build = _entry_points()[name]
     build("cpu")  # the CPU when asked for

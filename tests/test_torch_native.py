@@ -371,3 +371,36 @@ def test_crex_covers_the_hand_cases():
     """Most hand cases compile, so the comparison above is not vacuous."""
     assert sum(t_crexc.compile_crex(p) is not None for p, _t, _g in HAND) >= 40
     assert sum(t_crexc.compile_crex_nfa(p) is not None for p, _t, _g in HAND) >= 30
+
+
+def test_probe_front_end_bindings_equal():
+    """The scan library's probe front-end as both packages bind it: the
+    TLS-capable batch scan against loopback listeners (a greeting, a
+    reply to the payload, a refused port), ``tls_available``, the
+    ``open_mask``, and libfastpack's ``concat3_list``."""
+    from chip_smoke import BannerFleet
+
+    assert t_scanio.tls_available() == j_scanio.tls_available()
+    with BannerFleet([(b"SSH-2.0-x\r\n", True), (b"HTTP/1.1 200 OK\r\n\r\nhi", False)]) as fleet:
+        targets = fleet.targets + ["127.0.0.1:1"]
+        ips = ["127.0.0.1"] * len(targets)
+        ports = np.asarray([int(t.rsplit(":", 1)[1]) for t in targets], dtype=np.uint16)
+        payloads = [None, b"GET / HTTP/1.0\r\n\r\n", b"x"]
+        got = t_scanio.tcp_scan(ips, ports, payloads, read_timeout_ms=1000, banner_cap=64)
+        want = j_scanio.tcp_scan(ips, ports, payloads, read_timeout_ms=1000, banner_cap=64)
+    assert got.status.tolist() == want.status.tolist()
+    assert got.open_mask.tolist() == want.open_mask.tolist() == [True, True, False]
+    assert [got.banner(i) for i in range(3)] == [want.banner(i) for i in range(3)]
+    assert got.banner(0) == b"SSH-2.0-x\r\n" and got.banner(1).endswith(b"hi")
+    rng = random.Random(5)
+    heads = [bytes(rng.randrange(256) for _ in range(rng.randrange(0, 40))) for _ in range(9)]
+    bodies = [bytes(rng.randrange(256) for _ in range(rng.randrange(0, 90))) for _ in range(9)]
+    concat = np.asarray([rng.randrange(2) for _ in range(9)], dtype=np.uint8)
+    for width in (1, 64, 200):
+        a = np.zeros((9, width), dtype=np.uint8)
+        b = np.zeros((9, width), dtype=np.uint8)
+        t_scanio.concat3_list(heads, bodies, concat, width, a)
+        j_scanio.concat3_list(heads, bodies, concat, width, b)
+        assert np.array_equal(a, b)
+    with pytest.raises(TypeError):
+        t_scanio.concat3_list(heads, ["not bytes"] * 9, concat, 8, a)

@@ -201,3 +201,284 @@ def test_config_from_env(monkeypatch):
     assert (cfg.server_url, cfg.max_jobs, cfg.worker_id, cfg.api_key) == (
         "http://h:1", 3, "w9", "CHANGE_THIS",
     )
+
+
+# ---------------------------------------------------------------------------
+# The tpu job's other forms, the probe and service backends: each job
+# through the port's JobProcessor on the CPU, byte-identical to the JAX
+# worker's on the same inputs
+
+
+def jax_processor(modules_dir: Path, tmp_path: Path):
+    from swarm_tpu.config import Config as JaxConfig
+
+    cfg = JaxConfig(modules_dir=str(modules_dir))
+    return JaxJobProcessor(cfg, client=object(), registry=JaxModuleRegistry(str(modules_dir)),
+                           work_dir=str(tmp_path / "jax-worker"))
+
+
+def run_both(modules_dir: Path, tmp_path: Path, module: str, blob: bytes) -> tuple:
+    """One job of ``module`` through the port's worker (``process_jobs``
+    on the CPU) and the JAX worker's execute step → (port, JAX) output
+    bytes and the port's processor."""
+    job = {"job_id": "m_1_0", "scan_id": "m_1", "chunk_index": 0, "module": module}
+    client = RecordingClient(job, blob)
+    cfg = WorkerConfig(modules_dir=str(modules_dir), max_jobs=1, poll_interval_busy_s=0)
+    proc = JobProcessor(cfg, client=client, registry=ModuleRegistry(modules_dir), device="cpu")
+    proc.process_jobs()
+    assert [u["status"] for u in client.updates] == [
+        "starting", "downloading", "executing", "uploading", "complete"], client.updates
+    jax = jax_processor(modules_dir, tmp_path)
+    backend = jax.registry.load(module).backend
+    execute = {"tpu": jax._execute_tpu, "probe": jax._execute_probe,
+               "service": jax._execute_service}[backend]
+    return client.output, execute(jax.registry.load(module), blob), proc
+
+
+@pytest.fixture(scope="module")
+def wf_corpus(tmp_path_factory):
+    """The synthetic corpus at 150 templates plus the workflows that gate
+    on it (``chip_smoke.workflow_docs``), as YAML files, and rows that
+    trigger them."""
+    import yaml
+
+    from chip_smoke import synthetic_corpus, workflow_docs, workflow_rows
+
+    docs, plants = synthetic_corpus(0, 150)
+    root = tmp_path_factory.mktemp("wfcorpus")
+    for doc in docs + workflow_docs(docs, plants):
+        (root / f"{doc['id']}.yaml").write_text(yaml.safe_dump(doc))
+    return root, workflow_rows(120, plants)
+
+
+def write_modules(tmp_path: Path, specs: dict) -> Path:
+    modules = tmp_path / "modules"
+    modules.mkdir(exist_ok=True)
+    for name, spec in specs.items():
+        (modules / f"{name}.json").write_text(json.dumps(spec))
+    return modules
+
+
+@pytest.mark.parametrize("output_format", ["matches_jsonl", "nuclei"])
+def test_tpu_workflow_jobs_identical(wf_corpus, tmp_path, monkeypatch, output_format):
+    from chip_smoke import jsonl_rows
+
+    root, rows = wf_corpus
+    monkeypatch.setenv("SWARM_DB_CACHE_DIR", str(tmp_path / "dbcache"))
+    modules = write_modules(tmp_path, {"fp": {
+        "backend": "tpu", "templates": str(root), "output_format": output_format}})
+    port, jax, proc = run_both(modules, tmp_path, "fp", jsonl_rows(rows))
+    assert port == jax
+    text = port.decode()
+    if output_format == "nuclei":
+        assert "[workflow]" in text and "[wf-sub-" in text
+    else:
+        wf = [json.loads(ln) for ln in text.splitlines() if '"workflow"' in ln]
+        assert {w["workflow"] for w in wf} == {f"wf-synth-{k}" for k in range(4)}
+    assert set(proc.engines) == {str(root), f"wfrunner::{root}"}
+    # the engine carries the gate planes the compile lowered
+    engine = proc.engines[str(root)]
+    assert engine.db.wf is not None and engine.db.wf.num_terms
+
+
+def test_tpu_nuclei_job_identical(tmp_path, monkeypatch):
+    from chip_smoke import jsonl_rows, realistic_rows, synthetic_corpus
+    import yaml
+
+    docs, plants = synthetic_corpus(1, 120)
+    root = tmp_path / "corpus"
+    root.mkdir()
+    for doc in docs:
+        (root / f"{doc['id']}.yaml").write_text(yaml.safe_dump(doc))
+    monkeypatch.setenv("SWARM_DB_CACHE_DIR", str(tmp_path / "dbcache"))
+    modules = write_modules(tmp_path, {"fpn": {
+        "backend": "tpu", "templates": str(root), "output_format": "nuclei"}})
+    rows = realistic_rows(160, seed=3, plants=plants)
+    port, jax, _proc = run_both(modules, tmp_path, "fpn", jsonl_rows(rows))
+    assert port == jax
+    lines = port.decode().splitlines()
+    assert lines and all(ln.startswith("[synth-") and "] [http] [info] http" in ln for ln in lines)
+
+
+@pytest.fixture(scope="module")
+def http_fleet():
+    """HTTP listeners answering the realistic mix, planted with the
+    synthetic corpus's fragments."""
+    from chip_smoke import BannerFleet, http_reply, realistic_rows, synthetic_corpus
+
+    _docs, plants = synthetic_corpus(1, 120)
+    rows = realistic_rows(24, seed=9, plants=plants)
+    with BannerFleet([(http_reply(r), False) for r in rows]) as fleet:
+        yield fleet
+
+
+def test_tpu_targets_job_identical(http_fleet, tmp_path, monkeypatch):
+    from chip_smoke import synthetic_corpus
+    import yaml
+
+    docs, _plants = synthetic_corpus(1, 120)
+    root = tmp_path / "corpus"
+    root.mkdir()
+    for doc in docs:
+        (root / f"{doc['id']}.yaml").write_text(yaml.safe_dump(doc))
+    monkeypatch.setenv("SWARM_DB_CACHE_DIR", str(tmp_path / "dbcache"))
+    probe = {"type": "http", "resolvers": ["127.0.0.1"], "read_timeout_ms": 2000}
+    modules = write_modules(tmp_path, {"fpt": {
+        "backend": "tpu", "templates": str(root), "input_format": "targets",
+        "wave_targets": 16, "probe": probe}})
+    targets = http_fleet.targets + ["127.0.0.1:1", "not a target:x:99999", "# comment"]
+    port, jax, _proc = run_both(modules, tmp_path, "fpt", ("\n".join(targets) + "\n").encode())
+    assert port == jax
+    lines = [json.loads(ln) for ln in port.decode().splitlines()]
+    assert len(lines) == len(http_fleet.targets) + 2
+    assert any(ln["matches"] for ln in lines)
+    assert sum(ln.get("unreachable", False) for ln in lines) == 2
+
+
+@pytest.mark.parametrize("module", ["httpx", "httprobe", "dnsx"])
+def test_probe_jobs_identical(http_fleet, tmp_path, module):
+    spec = json.loads((REPO / "modules" / f"{module}.json").read_text())
+    # local resolvers only: the targets are IP literals
+    spec["probe"] = {**spec["probe"], "resolvers": ["127.0.0.1"], "read_timeout_ms": 2000}
+    modules = write_modules(tmp_path, {module: spec})
+    targets = http_fleet.targets + ["127.0.0.1:1", "127.0.0.2"]
+    port, jax, _proc = run_both(modules, tmp_path, module, ("\n".join(targets) + "\n").encode())
+    assert port == jax
+    lines = port.decode().splitlines()
+    if module == "dnsx":  # names resolved, each once; IP literals pass through
+        assert lines == ["127.0.0.1", "127.0.0.2"]
+    else:
+        assert len(lines) == len(http_fleet.targets)
+
+
+@pytest.fixture(scope="module")
+def service_fleet():
+    """Banner listeners of the recall set's protocols (NULL-probe banners
+    greet, the others answer the client's bytes) and one HTTP server
+    that only answers a request."""
+    from chip_smoke import BannerFleet, service_fleet_replies
+
+    recall = json.loads((REPO / "swarm_tpu" / "data" /
+                         "service-probes-large.recall.json").read_text())
+    replies = service_fleet_replies(recall, limit=12) + [
+        (b"SSH-2.0-OpenSSH_9.6\r\n", True),
+        (b"220 (vsFTPd 3.0.3)\r\n", True),
+        (b"HTTP/1.1 200 OK\r\nServer: nginx/1.18.0\r\n\r\n<html>", False),
+    ]
+    with BannerFleet(replies) as fleet:
+        yield fleet
+
+
+def test_servicescan_job_identical(service_fleet, tmp_path, monkeypatch):
+    monkeypatch.setenv("SWARM_DB_CACHE_DIR", str(tmp_path / "dbcache"))
+    spec = json.loads((REPO / "modules" / "servicescan.json").read_text())
+    spec["probe"] = {**spec["probe"], "resolvers": ["127.0.0.1"], "read_timeout_ms": 700}
+    spec["probes_db"] = str(REPO / "swarm_tpu_torch" / "data" / "service-probes.txt")
+    modules = write_modules(tmp_path, {"servicescan": spec})
+    targets = service_fleet.targets + ["127.0.0.1:1"]
+    port, jax, proc = run_both(modules, tmp_path, "servicescan",
+                               ("\n".join(targets) + "\n").encode())
+    assert port == jax
+    text = port.decode()
+    assert text.startswith("Nmap scan report for 127.0.0.1\nPORT      STATE SERVICE")
+    assert "open  ssh            OpenSSH 9.6" in text and "vsftpd 3.0.3" in text
+    assert "open  http" in text  # answered the second-round payload probe
+    assert list(proc.engines) == [f"svc::{spec['probes_db']}"]
+
+
+def test_servicescan_lines_output_identical(service_fleet, tmp_path, monkeypatch):
+    monkeypatch.setenv("SWARM_DB_CACHE_DIR", str(tmp_path / "dbcache"))
+    spec = json.loads((REPO / "modules" / "servicescan.json").read_text())
+    spec.pop("output_format")
+    spec["probe"] = {**spec["probe"], "resolvers": ["127.0.0.1"], "read_timeout_ms": 700}
+    modules = write_modules(tmp_path, {"svc": spec})
+    port, jax, _proc = run_both(modules, tmp_path, "svc",
+                                ("\n".join(service_fleet.targets[-3:]) + "\n").encode())
+    assert port == jax
+    assert port.decode().splitlines()[0].startswith("127.0.0.1:")
+
+
+def test_probe_executor_equal(http_fleet, service_fleet):
+    from swarm_tpu.ops.service import ServiceClassifier as JaxClassifier
+    from swarm_tpu.worker import executor as j_executor
+    from swarm_tpu_torch.ops.service import ServiceClassifier
+    from swarm_tpu_torch.worker import executor as t_executor
+
+    spec = {"resolvers": ["127.0.0.1"], "read_timeout_ms": 700, "ports": [80, 8080]}
+    lines = http_fleet.targets[:6] + ["127.0.0.2", "http://127.0.0.1:1/x", "bad:99999"]
+    t_rows = t_executor.ProbeExecutor(spec).run(lines)
+    j_rows = j_executor.ProbeExecutor(spec).run(lines)
+    assert [dataclasses.asdict(r) for r in t_rows] == [dataclasses.asdict(r) for r in j_rows]
+    assert t_executor.ProbeExecutor(spec).resolve(lines) == j_executor.ProbeExecutor(
+        spec).resolve(lines)
+    db = str(REPO / "swarm_tpu_torch" / "data" / "service-probes.txt")
+    t_clf = ServiceClassifier(db_path=db, device="cpu")
+    j_clf = JaxClassifier(db_path=db)
+    svc_lines = service_fleet.targets[:5] + ["127.0.0.1:1"]
+    t_rows, t_sent = t_executor.ProbeExecutor(spec).run_service(svc_lines, t_clf)
+    j_rows, j_sent = j_executor.ProbeExecutor(spec).run_service(svc_lines, j_clf)
+    assert t_sent == j_sent
+    assert [dataclasses.asdict(r) for r in t_rows] == [dataclasses.asdict(r) for r in j_rows]
+    assert t_executor.top_ports() == j_executor.top_ports()
+    assert t_executor.top_ports(7) == j_executor.top_ports(7)
+    for raw in (b"HTTP/1.1 301 Moved\r\nA: b\r\n\r\nbody", b"HTTP/1.0 200 OK\n\nx", b"SSH-2.0-x",
+                b""):
+        assert t_executor.parse_http_response(raw) == j_executor.parse_http_response(raw)
+    for scheme, port in (("https", 80), ("http", 443), ("", 8443), ("", 80)):
+        assert t_executor.use_tls(scheme, port) == j_executor.use_tls(scheme, port)
+
+
+def test_formats_identical():
+    """Every formatter of ``worker/formats.py``, byte for byte."""
+    from swarm_tpu.fingerprints.model import Response as JResponse
+    from swarm_tpu.ops.service import ServiceInfo as JInfo
+    from swarm_tpu.worker import formats as j_formats
+    from swarm_tpu_torch.fingerprints.model import Response as TResponse
+    from swarm_tpu_torch.fingerprints.nuclei import load_corpus as t_load
+    from swarm_tpu_torch.ops.engine import RowMatches
+    from swarm_tpu_torch.ops.service import ServiceInfo as TInfo
+    from swarm_tpu_torch.worker import formats as t_formats
+    from swarm_tpu.fingerprints import load_corpus as j_load
+    from test_match_parity import DATA
+
+    fields = [
+        dict(host="a.test", port=443, status=200, body=b"<TITLE x=1>\n Hi \xe2\x98\x83</title>",
+             header=b"HTTP/1.1 200 OK\r\nServer:  nginx/1.2 \r\nX: y"),
+        dict(host="b.test", port=8080, status=0, body=b"SSH-2.0-x", header=b""),
+        dict(host="c.test", port=80, status=404, body=b"", header=b"server: caddy"),
+        dict(host="d.test", port=8443, alive=False),
+        dict(host="e.test", port=0, status=301, tls=False),
+        dict(host="f.test", port=9443, status=200, tls=True, body=b"<title></title>"),
+    ]
+    t_rows = [TResponse(**f) for f in fields]
+    j_rows = [JResponse(**f) for f in fields]
+    assert t_formats.format_httprobe(t_rows) == j_formats.format_httprobe(j_rows)
+    assert t_formats.format_httpx_json(t_rows) == j_formats.format_httpx_json(j_rows)
+    assert [t_formats.url_of(r) for r in t_rows] == [j_formats.url_of(r) for r in j_rows]
+    res = [("a", ["1.2.3.4", "5.6.7.8"]), ("b", []), ("10.0.0.1", ["10.0.0.1"])]
+    for with_a in (False, True):
+        assert t_formats.format_dnsx(res, with_a) == j_formats.format_dnsx(res, with_a)
+    assert t_formats.format_dnsx([]) == j_formats.format_dnsx([]) == ""
+    t_templates, _ = t_load(DATA)
+    j_templates, _ = j_load(DATA)
+    assert t_formats.severity_index(t_templates) == j_formats.severity_index(j_templates)
+    sev, proto = t_formats.severity_index(t_templates)
+    ids = sorted(sev)
+    results = [RowMatches(template_ids=ids[i % len(ids):][:2], extractions={})
+               for i in range(len(fields))]
+    assert t_formats.format_nuclei(t_rows, results, sev, proto) == j_formats.format_nuclei(
+        j_rows, results, *j_formats.severity_index(j_templates))
+    infos = [
+        dict(host="h1", port=22, open=True, service="ssh", product="OpenSSH", version="9.6",
+             info="protocol 2.0"),
+        dict(host="h1", port=21, open=True, service="ftp", soft=True),
+        dict(host="h2", port=80, open=True, product="nginx"),
+        dict(host="h2", port=81, open=False, service="http"),
+        dict(host="h3", port=9, open=False),
+        dict(host="h1", port=8080, open=True, service="http", version="1.1", info="x"),
+    ]
+    t_infos = [TInfo(**i) for i in infos]
+    j_infos = [JInfo(**i) for i in infos]
+    assert t_formats.format_nmap_report(t_infos) == j_formats.format_nmap_report(j_infos)
+    assert [i.line() for i in t_infos] == [i.line() for i in j_infos]
+    assert t_formats.format_nmap_report([]) == ""

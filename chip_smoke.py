@@ -80,14 +80,33 @@ prints one JSON line per phase:
    by call, GC collections, in-batch unique rows, the miss uniques the
    device ran and confirms per batch; then the same window without
    clearing (memo-warm rows/s); a sample of rows against the oracle.
-11. ``match_trace`` — one fresh call under ``torch.profiler``.
-12. ``fingerprint_worker`` — the main path of the match: the stand-in
+   ``match`` encodes each call's next batch on a helper thread while the
+   current one is matched.
+11. ``match_trace`` — one fresh call under ``torch.profiler`` (the host
+   steps of the calling thread; the helper thread's encode is not
+   traced), and the CUDA runtime calls that block the host, by step.
+12. ``sched`` — the continuous-batching scheduler (``pipeline="on"``)
+   over a stream of 16,384 ``realistic_rows`` (16 chunks of 1,024) on the
+   match corpus, the engines as the worker builds them: its results
+   equal to the direct path's (template ids, extractions, gate planes)
+   for ``inflight`` 1, 2, 4 × ``walk_offload`` on, off × ``prefetch``
+   thread, inline, and memo-warm; rows/s of the stream with the pipeline
+   off and on in turns (off, on, on, off; 2-second windows, every memo
+   cleared before each call, the median call beside each) and the
+   ``SchedStats`` of the on arm, which must reach an in-flight depth of
+   2 with offloaded walks; one traced call of each arm (card busy and
+   idle, the five kernels' launches, the host steps and syncs); and a
+   ``fingerprint`` job of 4,096 rows with ``pipeline: on`` through the
+   port's worker on ``cuda``, byte-identical to the job with the
+   pipeline off and to the pipelined job on the CPU, its perf fields
+   carrying ``pipeline`` and ``sched``.
+13. ``fingerprint_worker`` — the main path of the match: the stand-in
    server hands out one ``fingerprint`` job of 2,048 JSONL rows over the
    synthetic corpus, and the port's worker runs it on ``cuda``. It must
    end ``complete`` with one line per row, the first 256 byte-identical
    to the same module on the CPU and a sample to the oracle, and all
    five match kernels launched. The job's kernel calls are recorded.
-13. ``match_timing`` — each match kernel on the job's recorded calls:
+14. ``match_timing`` — each match kernel on the job's recorded calls:
    exact against its plain version, ms per call through the wrapper
    (host work included; the kernels line's ``ms``) and on the card
    alone (``card_ms``: the calls queued behind a spin kernel) beside its
@@ -100,7 +119,7 @@ prints one JSON line per phase:
    ``match_verify`` and ``match_regex_scan`` also the card time of the
    same call with no live work (every row empty, every candidate or
    pair dead): the launch and the walk apart from the work.
-14. ``service`` — service detection at the production DB's full width:
+15. ``service`` — service detection at the production DB's full width:
    ``ServiceClassifier`` over ``swarm_tpu/data/service-probes-large.txt``
    (487 probes, 12,331 signatures, read as data) on ``cuda``, built cold
    and warm (the port's compile cache), what the kernels see of the
@@ -111,11 +130,11 @@ prints one JSON line per phase:
    call, every recall banner's service, product and version against the
    recall file, a sample of template ids against the oracle, and the
    kernels on one fresh call's calls, exact and timed.
-15. ``service_worker`` — a ``servicescan`` job over that DB through the
+16. ``service_worker`` — a ``servicescan`` job over that DB through the
    port's worker on ``cuda`` against local banner listeners of the
    recall set's protocols: the nmap-style report byte-identical to the
    same job with ``device="cpu"``.
-16. ``tpu_forms_worker`` — ``tpu`` jobs over the synthetic corpus plus
+17. ``tpu_forms_worker`` — ``tpu`` jobs over the synthetic corpus plus
    workflows that gate on it: ``targets`` input against local HTTP
    listeners, ``nuclei`` output, JSONL output, each byte-identical to its
    ``device="cpu"`` twin, workflow lines in each, the verdict kernel's
@@ -124,8 +143,9 @@ prints one JSON line per phase:
 
 Each phase's compile cache (``SWARM_DB_CACHE_DIR``) lies in a temporary
 directory of the run. Then the ``{"kernels": [...]}`` summary (all
-seven kernels; each match kernel also with its launches and times on
-the service corpus), the ``nvidia-smi`` line, and as the last line
+seven kernels; each match kernel also with its launches on the sched
+phase's traced pipelined call, and its launches and times on the
+service corpus), the ``nvidia-smi`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
 script exits non-zero without that line.
 """
@@ -701,6 +721,8 @@ class StubServer:
         }
         self.targets = blob
         self.statuses: list[str] = []
+        #: the perf fields of the job's completing update
+        self.perf: dict | None = None
         self.output: bytes | None = None
         self._handed = False
         stub = self
@@ -738,7 +760,9 @@ class StubServer:
                     return
                 body = self.rfile.read(int(self.headers.get("Content-Length") or 0))
                 if self.path == f"/update-job/{scan}_0":
-                    stub.statuses.append(json.loads(body)["status"])
+                    update = json.loads(body)
+                    stub.statuses.append(update["status"])
+                    stub.perf = update.get("perf", stub.perf)
                     return self._reply(200, b"{}")
                 if self.path == f"/put-output-chunk/{scan}/0":
                     stub.output = body
@@ -1304,12 +1328,21 @@ def verdict_split_ms(args: tuple, reps: int = 10) -> dict:
             "eval_card_ms": got["match_verdicts_kernel"] / reps}
 
 
-def profile_call(run, name: str, span_names: tuple) -> dict:
+#: CUDA runtime calls that can block the host (a synchronous copy, a
+#: wait on a stream, an event or the device)
+SYNC_APIS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+             "cudaMemcpy", "cudaMemcpyAsync")
+
+
+def profile_call(run, name: str, span_names: tuple, optional: tuple = ()) -> dict:
     """One call of ``run`` under ``torch.profiler`` in a span ``name``:
     the call's span on the host, each kernel's and each copy's span on
-    the card, the share of the call in which the card ran nothing, and
-    the host steps (``record_function`` spans ``span_names``) with the
-    card's idle time within each."""
+    the card, the share of the call in which the card ran nothing, the
+    host steps (``record_function`` spans ``span_names``, and those of
+    ``optional`` that the trace holds: the profiler records the calling
+    thread's spans only, not a helper thread's) with the card's idle
+    time within each, and the CUDA runtime calls of ``SYNC_APIS`` by
+    the innermost host step around them."""
     import tempfile
 
     import torch
@@ -1344,14 +1377,25 @@ def profile_call(run, name: str, span_names: tuple) -> dict:
     copies_ms = sum(float(e["dur"]) for e in device if e["cat"] != "kernel") / 1e3
     span_ms = (t1 - t0) / 1e3
     host_spans = {}
+    steps = []
     for e in events:
-        if e.get("cat") != "user_annotation" or e.get("name") not in span_names:
+        if e.get("cat") != "user_annotation" or e.get("name") not in span_names + optional:
             continue
         s0, s1 = float(e["ts"]), float(e["ts"]) + float(e["dur"])
         busy = _union_us([(max(s0, a), min(s1, b)) for a, b in spans if min(s1, b) > max(s0, a)])
         acc = host_spans.setdefault(e["name"], {"ms": 0.0, "card_idle_ms": 0.0})
         acc["ms"] += (s1 - s0) / 1e3
         acc["card_idle_ms"] += (s1 - s0 - busy) / 1e3
+        steps.append((s0, s1, e.get("tid"), e["name"]))
+    host_syncs: dict = {}
+    for e in events:
+        if e.get("cat") != "cuda_runtime" or e.get("name") not in SYNC_APIS:
+            continue
+        ts = float(e["ts"])
+        around = [st for st in steps if st[2] == e.get("tid") and st[0] <= ts < st[1]]
+        where = min(around, key=lambda st: st[1] - st[0])[3] if around else "outside the steps"
+        counts = host_syncs.setdefault(where, {})
+        counts[e["name"]] = counts.get(e["name"], 0) + 1
     missing = [s for s in span_names if s not in host_spans]
     if missing:
         raise AssertionError(f"trace: no host span for {missing}")
@@ -1362,7 +1406,7 @@ def profile_call(run, name: str, span_names: tuple) -> dict:
         "kernels_ms": kernels_ms, "copies_ms": copies_ms,
         "device_busy_ms": busy_us / 1e3,
         "idle_share": (idle_ms / span_ms) if device else None,
-        "host_spans": host_spans,
+        "host_spans": host_spans, "host_syncs": host_syncs,
         "idle_outside_spans_ms": idle_ms - sum(v["card_idle_ms"] for v in host_spans.values()),
     }
 
@@ -2183,10 +2227,13 @@ def phase_match(templates, plants, db, smi: str) -> tuple:
 
 #: the host steps of one MatchEngine batch (record_function spans)
 MATCH_SPANS = (
-    "engine.encode", "match.upload", "match.phase_a", "match.scalar_read", "match.verify",
+    "match.upload", "match.phase_a", "match.scalar_read", "match.verify",
     "match.tiny_slots", "match.md5", "match.regex", "match.verdicts", "match.collect",
     "engine.resolve",
 )
+#: the encode: on ``match``'s helper thread when a call has more than one
+#: batch, where the profiler does not see it
+ENCODE_SPAN = ("engine.encode",)
 
 
 def phase_match_trace(eng, rows) -> None:
@@ -2198,7 +2245,7 @@ def phase_match_trace(eng, rows) -> None:
 
     eng.clear_content_memos()
     torch.cuda.synchronize()
-    out = profile_call(lambda: eng.match(rows), "match_batch", MATCH_SPANS)
+    out = profile_call(lambda: eng.match(rows), "match_batch", MATCH_SPANS, ENCODE_SPAN)
     kernels_ms = out.pop("kernels_ms")
     ours = {k: v for k, v in kernels_ms.items() if k.startswith(MATCH_KERNELS)}
     missing = [k for k in MATCH_KERNELS if not any(n.startswith(k) for n in ours)]
@@ -2211,6 +2258,228 @@ def phase_match_trace(eng, rows) -> None:
             (k[:80], v) for v, k in rest[:6]),
         **out,
     })
+
+
+#: the scheduler phase's stream: chunks of the worker's batch_rows (1,024)
+SCHED_CHUNKS = 16
+#: rows of its pipelined ``fingerprint`` job
+SCHED_JOB_ROWS = 4096
+#: host steps of a pipelined call on the calling thread in every mode:
+#: the submission, and DeviceDB.dispatch inside it
+SCHED_SPANS = ("sched.submit", "match.upload", "match.phase_a", "match.scalar_read",
+               "match.verify", "match.tiny_slots", "match.md5", "match.regex",
+               "match.verdicts")
+#: ... and those on the calling thread only when the stage runs inline
+#: (the prefetch thread's plan and encode, the walk worker's collect,
+#: resolve and finish)
+SCHED_OPTIONAL = ("sched.plan", "sched.encode", "sched.wait", "sched.finish",
+                  "engine.encode", "engine.resolve", "match.collect")
+
+
+def _results_view(results) -> list:
+    """Every row's template ids, extractions and workflow gate planes."""
+    return [(r.template_ids, r.extractions,
+             None if r.wf is None else tuple(bytes(np.asarray(p)) for p in r.wf))
+            for r in results]
+
+
+def traced_match(eng, rows, name: str, spans: tuple, optional: tuple) -> dict:
+    """One fresh ``eng.match(rows)`` under ``torch.profiler`` with the
+    match kernels' launch counts from zero (:func:`profile_call`; up to
+    three traces, as a trace now and then holds no device event)."""
+    import torch
+
+    from swarm_tpu_torch.ops import kernels
+
+    for _ in range(3):
+        eng.clear_content_memos()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = profile_call(lambda: eng.match(rows), name, spans, optional)
+        launches = {k: kernels.LAUNCHES[k] for k in MATCH_KERNELS}
+        if out["device_events"]:
+            break
+    kernels_ms = out.pop("kernels_ms")
+    missing = [k for k in MATCH_KERNELS if not launches[k]
+               or not any(n.startswith(k) for n in kernels_ms)]
+    if missing:
+        raise AssertionError(f"{name}: no launch of {missing}")
+    return {**out, "launches": launches,
+            "match_kernels_ms": {k: v for k, v in kernels_ms.items()
+                                 if k.startswith(MATCH_KERNELS)}}
+
+
+def phase_sched(templates, plants, db, smi: str) -> dict:
+    """The continuous-batching scheduler (``pipeline="on"``) on the card,
+    over a stream of ``SCHED_CHUNKS`` chunks of 1,024 ``realistic_rows``
+    and the match corpus, the engines as the worker builds them:
+
+    - exactness: ``MatchEngine(pipeline="on").match`` of the stream equal
+      to ``pipeline="off"``'s (every row's template ids, extractions and
+      gate planes), for ``inflight`` 1, 2, 4 × ``walk_offload`` on, off ×
+      ``prefetch`` thread, inline, the memos cleared before each; then
+      memo-warm (default settings); in-flight depth ≥ 2 reached wherever
+      ``inflight`` > 1, offloaded walks wherever the offload is on;
+    - rows/s of the stream, pipeline off against on in turns (off, on,
+      on, off), each a ``MATCH_WINDOW_S`` window of calls with every memo
+      cleared before each call, the median call beside it; the on arm's
+      ``SchedStats`` (default settings, as a worker runs them), which
+      must show an in-flight depth ≥ 2 and offloaded walks; each arm's
+      host seconds a call by stage;
+    - one traced call of each arm: card busy and idle share, the launches
+      of the five match kernels (from zero), the ``sched.*`` /
+      ``engine.*`` / ``match.*`` steps on the calling thread, the host
+      syncs by step;
+    - a ``fingerprint`` job of ``SCHED_JOB_ROWS`` JSONL rows through the
+      port's worker on ``cuda`` with ``pipeline: on``: byte-identical to
+      the same job with ``pipeline: off`` on the card and to the
+      pipelined job with ``device="cpu"``, its perf fields carrying
+      ``pipeline: on`` and the ``sched`` snapshot, all five match
+      kernels launched (counted from zero over the job).
+
+    → the five kernels' launches on the pipelined traced call."""
+    import yaml
+
+    from swarm_tpu_torch.ops import kernels
+    from swarm_tpu_torch.ops.engine import MatchEngine
+    from swarm_tpu_torch.sched import SchedStats, SchedulerConfig
+    from swarm_tpu_torch.worker.runtime import JobProcessor, WorkerConfig
+
+    off = MatchEngine(templates, db=db, device="cuda", pipeline="off")
+    on = MatchEngine(templates, db=db, device="cuda", pipeline="on")
+    rows = port_rows(realistic_rows(SCHED_CHUNKS * off.batch_rows, seed=17, plants=plants))
+    off.clear_content_memos()
+    want = _results_view(off.match(rows))
+    sched = on.scheduler()
+    exact = []
+    for inflight in (1, 2, 4):
+        for walk_offload in ("on", "off"):
+            for prefetch in ("thread", "inline"):
+                sched.config = SchedulerConfig(inflight=inflight, walk_offload=walk_offload,
+                                               prefetch=prefetch)
+                sched.stats = SchedStats()
+                on.clear_content_memos()
+                t0 = time.perf_counter()
+                got = on.match(rows)
+                seconds = time.perf_counter() - t0
+                case = {"inflight": inflight, "walk_offload": walk_offload,
+                        "prefetch": prefetch, "seconds": seconds, **sched.stats.snapshot()}
+                if _results_view(got) != want:
+                    raise AssertionError(f"pipelined results differ from the direct path: {case}")
+                if (inflight > 1 and case["max_inflight"] < 2) or (
+                        (case["offloaded_walks"] > 0) != (walk_offload == "on")):
+                    raise AssertionError(f"the in-flight window did not engage: {case}")
+                exact.append(case)
+    sched.config = SchedulerConfig()  # the defaults, as a worker runs them
+    if _results_view(on.match(rows)) != want:  # memo-warm
+        raise AssertionError("memo-warm pipelined results differ from the direct path")
+
+    # rows/s, the arms in turns
+    sched.stats = SchedStats()
+    per_call = {"off": [], "on": []}
+    st: dict = {"off": {}, "on": {}}
+    for arm in ("off", "on", "on", "off"):
+        eng = on if arm == "on" else off
+        st0 = dict(eng.stats.__dict__)
+        window = []
+        while len(window) < 3 or sum(window) < MATCH_WINDOW_S * 1e3:
+            eng.clear_content_memos()
+            t0 = time.perf_counter()
+            eng.match(rows)
+            window.append((time.perf_counter() - t0) * 1e3)
+        per_call[arm] += window
+        for k, v in eng.stats.__dict__.items():
+            st[arm][k] = st[arm].get(k, 0) + v - st0[k]
+    snap = sched.stats.snapshot()
+    if snap["max_inflight"] < 2 or not snap["offloaded_walks"]:
+        raise AssertionError(f"the in-flight window did not engage on the card: {snap}")
+    arms = {}
+    for arm, calls in per_call.items():
+        n_calls = len(calls)
+        arms[arm] = {
+            "calls": n_calls, "rows_per_s": n_calls * len(rows) / sum(calls) * 1e3,
+            "rows_per_s_median_call": len(rows) / float(np.median(calls)) * 1e3,
+            "ms_per_call": calls,
+            # host seconds a call by stage (encode and the walk overlap
+            # the device on the pipelined arm: they need not sum to a call)
+            "ms_by_stage_per_call": {k: st[arm][f"{k}_seconds"] / n_calls * 1e3 for k in (
+                "encode", "device", "phase_a", "phase_b", "host_confirm")},
+            "device_rows_per_call": st[arm]["unique_rows"] / n_calls,
+            "batches_per_call": st[arm]["batches"] / n_calls,
+        }
+
+    traces = {"off": traced_match(off, rows, "sched_off_call", MATCH_SPANS, ENCODE_SPAN),
+              "on": traced_match(on, rows, "sched_on_call", SCHED_SPANS, SCHED_OPTIONAL)}
+
+    # the pipelined fingerprint job: the card's with the pipeline off
+    # and the CPU's pipelined job as its twins
+    dicts = realistic_rows(SCHED_JOB_ROWS, seed=23, plants=plants)
+    blob = jsonl_rows(dicts)
+    use_db_cache("sched")
+    corpus = DB_CACHE_ROOT / "sched_corpus"
+    corpus.mkdir()
+    docs, _ = synthetic_corpus(0)
+    for doc in docs:
+        (corpus / f"{doc['id']}.yaml").write_text(yaml.safe_dump(doc))
+    saved = os.environ.get("SWARM_TEMPLATES_DIR")
+    os.environ["SWARM_TEMPLATES_DIR"] = str(corpus)
+    outputs, perf, seconds = {}, {}, {}
+    try:
+        for mode, device in (("on", "cuda"), ("off", "cuda"), ("on", "cpu")):
+            key = f"{mode}_{device}"
+            stub = StubServer(blob, module="fingerprint")
+            try:
+                cfg = WorkerConfig(server_url=stub.url, api_key=API_KEY, worker_id="chip-smoke",
+                                   modules_dir=str(REPO / "modules"), max_jobs=1,
+                                   poll_interval_idle_s=0.05, poll_interval_busy_s=0.0,
+                                   pipeline=mode)
+                proc = JobProcessor(cfg, device=device)
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                proc.process_jobs()
+                seconds[key] = time.perf_counter() - t0
+                if key == "on_cuda":
+                    job_launches = {k: kernels.LAUNCHES[k] for k in MATCH_KERNELS}
+            finally:
+                stub.close()
+            if stub.statuses != ["starting", "downloading", "executing", "uploading", "complete"]:
+                raise AssertionError(f"pipelined fingerprint job ({key}) statuses {stub.statuses}")
+            outputs[key], perf[key] = stub.output, stub.perf
+    finally:
+        if saved is None:
+            os.environ.pop("SWARM_TEMPLATES_DIR", None)
+        else:
+            os.environ["SWARM_TEMPLATES_DIR"] = saved
+    if outputs["on_cuda"] != outputs["off_cuda"]:
+        raise AssertionError("pipelined job output differs from the pipeline-off job on the card")
+    if outputs["on_cuda"] != outputs["on_cpu"]:
+        raise AssertionError("pipelined job output differs from its CPU twin")
+    if len(outputs["on_cuda"].splitlines()) != len(dicts):
+        raise AssertionError("pipelined job: not one line a row")
+    job_perf = perf["on_cuda"]
+    if job_perf.get("pipeline") != "on" or "sched" not in job_perf or perf["off_cuda"].get(
+            "pipeline") != "off":
+        raise AssertionError(f"pipelined job perf fields {job_perf}")
+    missing = [k for k in MATCH_KERNELS if job_launches[k] < 1]
+    if missing:
+        raise AssertionError(f"pipelined fingerprint job: no launch of {missing}")
+
+    emit({
+        "phase": "sched", "rows": len(rows), "chunks": SCHED_CHUNKS,
+        "batch_rows": off.batch_rows, "max_body": off.max_body, "max_header": off.max_header,
+        "walk_threads": off.walk_threads, "cpu_count": os.cpu_count(),
+        "identical_to_direct": [
+            {k: c[k] for k in ("inflight", "walk_offload", "prefetch", "seconds", "batches",
+                               "max_inflight", "offloaded_walks", "fill_ratio")} for c in exact],
+        "memo_warm_identical": True, "arms": arms, "sched_stats": snap,
+        "traces": traces,
+        "job": {"rows": len(dicts), "seconds": seconds, "launches": job_launches,
+                "identical_to_pipeline_off": True, "identical_to_cpu_twin": True,
+                "perf": {k: job_perf[k] for k in ("pipeline", "sched", "inflight_saturation")
+                         if k in job_perf}},
+        "card": smi,
+    })
+    return traces["on"]["launches"]
 
 
 def phase_fingerprint_worker(templates, plants, db) -> dict:
@@ -2568,7 +2837,7 @@ def phase_service(smi: str) -> tuple:
                # row's candidates in probe order and the version fields
                "classify_walk": seconds / batches * 1e3 - engine_ms}
 
-    trace = profile_call(fresh_classify, "service_call", SERVICE_SPANS)
+    trace = profile_call(fresh_classify, "service_call", SERVICE_SPANS, ENCODE_SPAN)
     trace_kernels = trace.pop("kernels_ms")
     ours = {k: v for k, v in trace_kernels.items() if k.startswith(MATCH_KERNELS)}
 
@@ -2821,6 +3090,7 @@ def run_phases(smi: str) -> int:
     eng, rows = phase_match(templates, plants, db, smi)
     phase_match_trace(eng, rows)
     del eng
+    sched_launches = phase_sched(templates, plants, db, smi)
     launches, calls = phase_fingerprint_worker(templates, plants, db)
     timing, job_err = phase_match_timing(calls, smi)
     del calls
@@ -2860,6 +3130,9 @@ def run_phases(smi: str) -> int:
                 summary[name][key] = t[key]
         # the same kernel on the service corpus (phase_service's fresh
         # call of 2,048 banners): the DB has no md5 check
+        # the same kernel's launches on one traced pipelined call of the
+        # sched phase's stream
+        summary[name]["sched"] = {"launches": sched_launches[name]}
         sv = svc_timing.get(name)
         summary[name]["service"] = {"launches": svc_launches[name], **(
             {k: sv[k] for k in ("ms", "card_ms", "plain_ms", "bound_ms", "bound_by")}

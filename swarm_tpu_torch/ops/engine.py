@@ -1,13 +1,25 @@
 """MatchEngine: the exact template-fingerprint engine of the port.
 
 The port of ``swarm_tpu/ops/engine.py`` as it runs with its native
-libraries on one device, with no scheduler (``mesh=None``,
-``pipeline="off"``): template corpus → CompiledDB (once), responses →
-padded batches → :class:`~swarm_tpu_torch.ops.match.DeviceDB` on the
-card → sparse host confirmation with the exact CPU oracle. The result
-is bit-identical to running the oracle on every (row, template) pair,
-and to the JAX engine's: template ids, extractions and host confirms
-per row.
+libraries on one device (``mesh=None``): template corpus → CompiledDB
+(once), responses → padded batches →
+:class:`~swarm_tpu_torch.ops.match.DeviceDB` on the card → sparse host
+confirmation with the exact CPU oracle. The result is bit-identical to
+running the oracle on every (row, template) pair, and to the JAX
+engine's: template ids, extractions and host confirms per row.
+
+Two ways to feed it, with the same results:
+
+- direct (``pipeline="off"``, the default): :meth:`MatchEngine.match`
+  runs batches of ``batch_rows`` in turn, the next batch's encode on
+  one helper thread while the current one is matched;
+- pipelined (``pipeline="on"``, or ``SWARM_PIPELINE=on``): multi-row
+  calls go through the continuous-batching scheduler
+  (``swarm_tpu_torch/sched``), which drives the split submission
+  surface — :meth:`MatchEngine.encode_packed`,
+  :meth:`MatchEngine.begin_packed` (launch without waiting) and
+  :meth:`MatchEngine.finish_packed` (wait for that batch, walk it) —
+  with up to four batches in flight.
 
 Per batch of up to ``batch_rows`` rows:
 
@@ -37,18 +49,19 @@ Per batch of up to ``batch_rows`` rows:
   extraction and confirm caches): a measurement of the device path
   clears them before each call, or known content never reaches it.
 
-Not ported (ROADMAP.md): the scheduler and the begin/finish split, the
-breaker and degraded mode (a device fault raises), the shared result
-tier, AOT and corpus refresh, the sharded backend, the telemetry
-exporters (the memo's hits and misses are counts on
-:class:`EngineStats`), workflows.
+Not ported (ROADMAP.md): the breaker and degraded mode (a device
+fault raises, on either path), the shared result tier, AOT and corpus
+refresh, the sharded backend, the telemetry exporters (the memo's hits
+and misses are counts on :class:`EngineStats`).
 """
 
 from __future__ import annotations
 
 import binascii
 import dataclasses
+import os
 import re
+import threading
 import time
 from typing import Optional, Sequence
 
@@ -124,6 +137,11 @@ class EngineStats:
     # the memo lookup and the encode of the miss uniques
     encode_seconds: float = 0.0
     device_seconds: float = 0.0
+    # the launches' part of device_seconds, split at each dispatch's
+    # survivor read: phase A up to and including the 4-byte read,
+    # phase B after it (the rest of device_seconds is the collects' wait)
+    phase_a_seconds: float = 0.0
+    phase_b_seconds: float = 0.0
     host_confirm_seconds: float = 0.0
     host_confirm_pairs: int = 0
     host_always_pairs: int = 0
@@ -208,6 +226,7 @@ class MatchEngine:
         batch_rows: int = 1024,
         db: Optional[CompiledDB] = None,
         walk_threads: Optional[int] = None,  # None → SWARM_WALK_THREADS
+        pipeline: Optional[str] = None,  # "on" | "off" | None → SWARM_PIPELINE
         device: Device = None,
     ):
         self.templates = list(templates)
@@ -217,6 +236,21 @@ class MatchEngine:
         self.max_header = max_header
         self.batch_rows = batch_rows
         self.stats = EngineStats()
+        # continuous-batching scheduler flag (swarm_tpu_torch/sched):
+        # "on" routes multi-row :meth:`match` calls through the
+        # prefetch/bucket/backpressure pipeline; None defers to
+        # SWARM_PIPELINE (default off)
+        if pipeline is None:
+            pipeline = os.environ.get("SWARM_PIPELINE", "off")
+        self.pipeline = (
+            "on" if str(pipeline).lower() in ("on", "1", "true") else "off"
+        )
+        self._sched = None  # lazy BatchScheduler
+        # guards the stats fields BOTH the submit thread (begin_packed)
+        # and the scheduler's walk worker (finish_packed → _walk_plane),
+        # or the encode thread and the matching thread, update —
+        # unsynchronized float += across threads loses updates
+        self._stats_lock = threading.Lock()  # guards: stats.device_seconds, phase_*_seconds, encode_seconds, memo_hits, memo_misses
         # row-parallel batched confirm walk: explicit arg >
         # SWARM_WALK_THREADS > SWARM_EXT_THREADS (compat) > spare cores.
         # 0 = serial reference walk; 1 = batched native passes, inline;
@@ -959,14 +993,30 @@ class MatchEngine:
         return want_all
 
     # ------------------------------------------------------------------
+    def scheduler(self):
+        """This engine's continuous-batching scheduler (lazily built;
+        exists regardless of the ``pipeline`` flag so callers can drive
+        it explicitly for A/B runs)."""
+        if self._sched is None:
+            from swarm_tpu_torch.sched import BatchScheduler
 
-    # ------------------------------------------------------------------
+            self._sched = BatchScheduler(self)
+        return self._sched
+
     def match(self, responses: Sequence[Response]) -> list[RowMatches]:
-        """Per-row exact match sets, batch by batch through
-        :meth:`match_packed`: template ids ascending by template index,
-        then the host-always tail; extractions by template id. Dead rows
-        (no response observed) match nothing and are dropped before
-        batching, so they never reach the device."""
+        """Per-row exact match sets: template ids ascending by template
+        index, then the host-always tail; extractions by template id.
+
+        With ``pipeline="on"`` multi-row calls route through the
+        continuous-batching scheduler (memo-known rows short-circuit out
+        of device batches, fresh rows are re-binned into padding
+        buckets, encode/dispatch/walk overlap). Otherwise batch by batch
+        through :meth:`match_packed`, the next batch's encode on a
+        helper thread; dead rows (no response observed) match nothing
+        and are dropped before batching, so they never reach the
+        device. Results are bit-identical either way."""
+        if self.pipeline == "on" and len(responses) > 1:
+            return self.scheduler().match_rows(responses)
         alive = [r for r in responses if r.alive]
         if len(alive) < len(responses):
             live_out = iter(self.match(alive))
@@ -977,9 +1027,12 @@ class MatchEngine:
                 for r in responses
             ]
         out: list[RowMatches] = []
-        for s in range(0, len(responses), self.batch_rows):
-            rows = responses[s : s + self.batch_rows]
-            packed = self.match_packed(rows)
+        chunks = [
+            responses[s : s + self.batch_rows]
+            for s in range(0, len(responses), self.batch_rows)
+        ]
+        for rows, pre in self._iter_encoded(chunks):
+            packed = self.match_packed(rows, pre=pre)
             out.extend(self.rowmatches_from_packed(packed, len(rows)))
         return out
 
@@ -1031,6 +1084,46 @@ class MatchEngine:
         return out
 
     # ------------------------------------------------------------------
+    def _iter_encoded(self, chunks):
+        """Yield (rows, pre_encoded) with the NEXT chunk's host encode
+        overlapping the current chunk's device dispatch + confirmation
+        (the device wait and the native walk passes release the GIL, so
+        one helper thread recovers the encode). The helper thread only
+        encodes — numpy and libfastpack, no torch call."""
+        if len(chunks) <= 1:
+            for c in chunks:
+                yield c, None
+            return
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            fut = pool.submit(self.encode_packed, chunks[0], True)
+            for i, c in enumerate(chunks):
+                pre = fut.result()
+                if i + 1 < len(chunks):
+                    fut = pool.submit(self.encode_packed, chunks[i + 1], True)
+                yield c, pre
+
+    def encode_packed(self, rows: Sequence[Response], reuse_buffers: bool = False):
+        """Public pre-encode for pipelined feeding (:meth:`_encode_native`'s
+        tuple): callers may encode batch i+1 on another thread while the
+        device matches batch i and pass the result to
+        :meth:`match_packed` or :meth:`begin_packed` via ``pre``.
+
+        ``reuse_buffers=True`` draws the stream matrices and the verdict
+        plane from the recycled pools (faster, no zero-fill) — but a
+        pooled batch's arrays are OVERWRITTEN 8 same-shape encodes later
+        (encoding._RotatingPool), so only enable it when each encoded
+        batch is matched before that (the scheduler's budget holds at
+        most 7 alive). The default allocates fresh arrays and is safe
+        to hold indefinitely."""
+        t0 = time.perf_counter()
+        with record_function("engine.encode"):
+            enc = self._encode_native(list(rows), reuse_buffers)
+        with self._stats_lock:
+            self.stats.encode_seconds += time.perf_counter() - t0
+        return enc
+
     def encode(self, rows: Sequence[Response]):
         """Distinct-content rows → the device batch, padded to a 256-row
         bucket (no memo, no dedup: what :meth:`_encode_unique` gives the
@@ -1073,8 +1166,10 @@ class MatchEngine:
             self._vmemo.lookup(rows, bits)
         )
         # memo accounting, row-granular
-        self.stats.memo_hits += int((state == -1).sum())
-        self.stats.memo_misses += int((state >= 0).sum())
+        hits, misses = int((state == -1).sum()), int((state >= 0).sum())
+        with self._stats_lock:
+            self.stats.memo_hits += hits
+            self.stats.memo_misses += misses
         served = (extr_known, deferred_known)
         if not miss_uniq:
             return (
@@ -1555,9 +1650,30 @@ class MatchEngine:
         self.stats.walk_precompute_seconds += time.perf_counter() - t0
         return pre_m, pre_op
 
-    def _walk_plane(self, nrows, batch, matcher):
+    def _launch(self, batch, matcher):
+        """``DeviceDB.dispatch`` of an encoded batch → its in-flight
+        ``Dispatch``; the launch's host seconds go to device_seconds,
+        split into phase A (up to and including the survivor read) and
+        phase B from the dispatch's own ``compact`` dict."""
+        t0 = time.perf_counter()
+        pending = matcher.dispatch(batch.streams, batch.lengths, batch.status)
+        lc = pending.compact
+        with self._stats_lock:
+            dt = time.perf_counter() - t0
+            pa = min(lc.get("phase_a_s", 0.0) + lc.get("scalar_read_s", 0.0), dt)
+            self.stats.device_seconds += dt
+            self.stats.phase_a_seconds += pa
+            self.stats.phase_b_seconds += dt - pa
+        return pending
+
+    def _walk_plane(self, nrows, batch, matcher, pending=None):
         """Device dispatch + sparse host resolution over DISTINCT new
         response contents (the unique content plane).
+
+        ``pending`` is an already-launched dispatch from
+        :meth:`begin_packed`: the walk then only pays the wait for that
+        batch's read, and its kernels ran while the caller walked a
+        previous batch.
 
         Returns ``(pt_value, uextractions, deferred, redo_pos,
         confirms, wf_planes)``: the final content-side verdict bits
@@ -1567,9 +1683,11 @@ class MatchEngine:
         that needed a whole-row oracle redo (truncation/overflow —
         never memoized), per-position host-confirm counts, and the
         workflow gate planes of the B rows (None without gates)."""
+        if pending is None:
+            pending = self._launch(batch, matcher)
         t0 = time.perf_counter()
-        pt_value, pt_unc, pop_value, pop_unc, pm_unc, overflow, wf_planes = matcher.match(
-            batch.streams, batch.lengths, batch.status
+        pt_value, pt_unc, pop_value, pop_unc, pm_unc, overflow, wf_planes = matcher.collect(
+            pending
         )
         if wf_planes is not None:
             # packed cond/emit value+uncertainty bits, sliced to the
@@ -1577,7 +1695,8 @@ class MatchEngine:
             # planes were computed from unsound word bits)
             B = len(nrows)
             wf_planes = tuple(np.ascontiguousarray(p[:B]) for p in wf_planes)
-        self.stats.device_seconds += time.perf_counter() - t0
+        with self._stats_lock:
+            self.stats.device_seconds += time.perf_counter() - t0
         with record_function("engine.resolve"):
             return self._walk_unique(
                 nrows, batch, pt_value, pt_unc, pop_value, pop_unc, pm_unc, overflow
@@ -1856,24 +1975,49 @@ class MatchEngine:
         )
 
     # ------------------------------------------------------------------
-    def match_packed(self, all_rows: Sequence[Response]) -> PackedMatches:
+    def begin_packed(self, all_rows: Sequence[Response], pre=None):
+        """Start a batch WITHOUT waiting for the device: encode (or
+        adopt ``pre``, an :meth:`encode_packed` result for the same
+        rows), upload the miss uniques and launch their kernels, and
+        queue the read of the output. Returns an opaque in-flight handle
+        for :meth:`finish_packed`.
+
+        This is the continuous-batching scheduler's submission surface:
+        with bounded in-flight handles the card crunches batch i+1 while
+        the host walks batch i. A device fault raises here."""
+        if pre is None:
+            pre = self.encode_packed(all_rows, reuse_buffers=True)
+        batch, matcher = pre[1], pre[2]
+        pending = None if batch is None else self._launch(batch, matcher)
+        return (all_rows, pre, pending)
+
+    def finish_packed(self, handle) -> PackedMatches:
+        """Complete a :meth:`begin_packed` batch: wait for its own read,
+        run the sparse host walk, assemble exact verdicts —
+        bit-identical to :meth:`match_packed` on the same rows. A device
+        fault raises here."""
+        rows, pre, pending = handle
+        return self._match_packed_native(rows, pre, pending=pending)
+
+    def match_packed(self, all_rows: Sequence[Response], pre=None) -> PackedMatches:
         """Exact verdict bitsets for up to ``batch_rows`` responses.
 
         The wire format: one device dispatch for the miss uniques,
         vectorized verdict assembly, host work proportional to the
         number of *uncertain fired matchers* — not to rows × templates.
-        Dead rows are served as zero verdicts by the native lookup."""
-        t0 = time.perf_counter()
-        with record_function("engine.encode"):
-            enc = self._encode_native(list(all_rows), reuse_buffers=True)
-        self.stats.encode_seconds += time.perf_counter() - t0
-        return self._match_packed_native(all_rows, enc)
+        Dead rows are served as zero verdicts by the native lookup.
+        ``pre`` is an optional :meth:`encode_packed` result for the SAME
+        rows (pipelined feeding)."""
+        if pre is None:
+            pre = self.encode_packed(all_rows, reuse_buffers=True)
+        return self._match_packed_native(all_rows, pre)
 
-    def _match_packed_native(self, rows, enc) -> PackedMatches:
+    def _match_packed_native(self, rows, enc, pending=None) -> PackedMatches:
         """Assembly for the C-memo encode path (:meth:`_encode_native`).
 
         Known rows arrived with their packed verdicts already fanned
-        into ``bits`` by the native lookup; only miss uniques walk."""
+        into ``bits`` by the native lookup; only miss uniques walk
+        (``pending``: their dispatch, already launched)."""
         _tag, batch, matcher, bits, state, miss_uniq, served, n_src = enc
         if n_src != len(rows):
             raise ValueError(
@@ -1886,7 +2030,7 @@ class MatchEngine:
         walked = None
         if batch is not None:
             self.stats.unique_rows += len(nrows)
-            walked = self._walk_plane(nrows, batch, matcher)
+            walked = self._walk_plane(nrows, batch, matcher, pending=pending)
         with record_function("engine.resolve"):
             return self._assemble_native(rows, nrows, bits, state, miss_uniq, served, walked)
 

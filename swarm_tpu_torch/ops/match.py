@@ -19,7 +19,10 @@ path. Per batch, on the card unless the CPU is asked for:
    CSR layout of :class:`VerdictLayout`; the workflow gates stay torch
    ops), packed into ONE fused byte buffer.
 3. **Collect**: one host read of that buffer, sliced back into the
-   planes by :func:`split_fused`.
+   planes by :func:`split_fused`. The read is queued at the end of the
+   dispatch (a copy into pinned host memory behind a CUDA event), so
+   several dispatches can be in flight and each collect waits for its
+   own batch only.
 
 The guarantee is the JAX package's: a (row, template) pair whose
 uncertain bit is clear has the exact oracle verdict; uncertain pairs
@@ -35,6 +38,7 @@ from the corpus goes through :func:`_clamped`.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Optional, Union
 
@@ -882,17 +886,35 @@ def verdicts_plain(
 Device = Optional[Union[str, torch.device]]
 
 
+@dataclasses.dataclass
+class Dispatch:
+    """One batch launched by :meth:`DeviceDB.dispatch`, not yet
+    collected. On the card ``host`` is pinned host memory that the
+    fused output is being copied into, and ``done`` the CUDA event
+    recorded after that copy on the dispatch's stream; on the CPU
+    ``host`` already holds the output and ``done`` is None.
+    ``compact`` is this batch's survivor_max / verify_k / budget and the
+    host seconds of each stage — carried with the batch, so that with
+    several dispatches in flight each collect fills in its own."""
+
+    host: torch.Tensor
+    done: Optional["torch.cuda.Event"]
+    compact: dict
+
+
 class DeviceDB:
     """A CompiledDB uploaded once to the device, and the split-phase,
     survivor-compacted match over it.
 
     :meth:`dispatch` uploads a batch, runs phase A, reads back ONE
     scalar (the batch's largest survivor count within the budget),
-    picks phase B's width on the survivor ladder, and launches phase B;
-    :meth:`collect` makes the one read of the fused output. Those are
-    the only two host syncs of a batch. ``last_compact`` records the
-    batch's survivor_max / verify_k / budget and the host seconds at
-    each stage boundary."""
+    picks phase B's width on the survivor ladder, launches phase B and
+    queues the fused output's copy to pinned host memory behind an
+    event; :meth:`collect` waits on that event and splits the buffer.
+    Those are the only two host syncs of a batch after its upload (the
+    upload is a synchronous copy from the encoder's recycled buffers).
+    ``last_compact`` is the ``compact`` dict of the batch collected
+    last."""
 
     def __init__(self, db: "fpc.CompiledDB", candidate_k: int = 128, device: Device = None):
         self.db = db
@@ -930,11 +952,13 @@ class DeviceDB:
         st = torch.from_numpy(np.ascontiguousarray(status, dtype=np.int32)).to(dev)
         return ensure_all_stream(s, ln), ln, st
 
-    def dispatch(self, streams: dict, lengths: dict, status) -> torch.Tensor:
-        """Stage the host batch (numpy), run both phases, and return the
-        fused output tensor, still on the device. Each step runs in a
-        ``record_function`` span (``match.<step>``) that a profiler
-        trace reads."""
+    def dispatch(self, streams: dict, lengths: dict, status) -> Dispatch:
+        """Stage the host batch (numpy), run both phases, and queue the
+        fused output's read → the in-flight :class:`Dispatch`. Each step
+        runs in a ``record_function`` span (``match.<step>``) that a
+        profiler trace reads. Every launch and the read go to the
+        calling thread's current stream on this DeviceDB's device, the
+        stream whose event the Dispatch carries."""
         from swarm_tpu_torch.ops.regexdev import regex_verify
 
         db = self.db
@@ -996,16 +1020,29 @@ class DeviceDB:
             layout = arrays["verdict"]
             planes = kernels.match_verdicts(layout, value, unc, ln, st, digest, rx)
             out = fuse_planes(full_planes(layout.arrays, planes), overflow)
+            if out.is_cuda:
+                # the read, queued: a copy into pinned host memory on
+                # this stream, then an event that fires when it lands
+                host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+            else:
+                host, done = out, None
         lc["phase_b_s"] = time.perf_counter() - t3
-        self.last_compact = lc
-        return out
+        return Dispatch(host, done, lc)
 
-    def collect(self, out: torch.Tensor):
-        """The one host read of the fused output → :func:`split_fused`."""
+    def collect(self, pending: Dispatch):
+        """Wait for this dispatch's own read, then split its buffer →
+        :func:`split_fused`. Safe on any thread: the wait is on the
+        dispatch's event, not on the stream or the device."""
         t0 = time.perf_counter()
         with record_function("match.collect"):
-            buf = out.cpu().numpy()
-        self.last_compact["collect_s"] = time.perf_counter() - t0
+            if pending.done is not None:
+                pending.done.synchronize()
+            buf = pending.host.numpy()
+        pending.compact["collect_s"] = time.perf_counter() - t0
+        self.last_compact = pending.compact
         return split_fused(self.db, buf)
 
     def match(self, streams: dict, lengths: dict, status):

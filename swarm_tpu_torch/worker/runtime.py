@@ -17,7 +17,12 @@ asked for), their output byte-identical to the JAX worker's:
   ``jsonl`` input or are probed from ``targets`` in double-buffered
   waves (``worker/streaming.py``); output is one JSONL hit line per row
   or nuclei's ``[id] [protocol] [severity] url`` lines, followed by the
-  lines of any workflow a row's hits trigger (``ops/workflows.py``);
+  lines of any workflow a row's hits trigger (``ops/workflows.py``).
+  With ``pipeline: on`` (``SWARM_PIPELINE``) the engine runs the
+  continuous-batching scheduler (``sched/``): ``jsonl`` lines decode on
+  its prefetch thread, chunk by chunk, and results come back in chunk
+  order; the job's perf fields carry ``pipeline``, the scheduler's
+  ``sched`` snapshot and ``inflight_saturation``;
 - ``probe`` (``dnsx``, ``httpx``, ``http2``, ``httprobe``, ``web``)
   probes the targets with the native front-end, no matching;
 - ``service`` (``servicescan``) probes banners with payloads from an
@@ -25,12 +30,11 @@ asked for), their output byte-identical to the JAX worker's:
   ``ServiceClassifier`` (the card prefilters every signature).
 
 A job of any other backend (``active``, ``file``, ``ssl``, a command)
-ends ``cmd failed`` ("backend not ported"), and so does a ``tpu`` job
-with ``pipeline: on`` (the batch scheduler), with a message that names it.
+ends ``cmd failed`` ("backend not ported").
 
-Not ported yet (ROADMAP.md): the scheduler, lease heartbeats, the output
-spool, graceful drain, the retrying transport, tracing and telemetry,
-the result cache, the executable cache and multi-host engines.
+Not ported yet (ROADMAP.md): lease heartbeats, the output spool,
+graceful drain, the retrying transport, tracing and telemetry, the
+result cache, the executable cache and multi-host engines.
 """
 
 from __future__ import annotations
@@ -71,7 +75,13 @@ class WorkerConfig:
     max_jobs: int = 0  # 0 = unlimited
     poll_interval_idle_s: float = 10.0
     poll_interval_busy_s: float = 0.8
-    pipeline: str = "off"  # the JAX worker's continuous-batching flag
+    pipeline: str = "off"  # the continuous-batching flag of tpu engines
+    #: an interactive row older than this forces an early partial-bucket
+    #: flush in the scheduler's planner (only interactive rows consult it)
+    qos_deadline_ms: float = 50.0
+    #: max-age flush for every bucket class; 0 = off (a partial bucket
+    #: waits for end of stream)
+    sched_max_age_ms: float = 0.0
 
     #: environment names read by :meth:`from_env`, as the JAX worker's
     #: config reads them (``SWARM_<FIELD>``, then the reference aliases)
@@ -82,6 +92,8 @@ class WorkerConfig:
         "modules_dir": ("SWARM_MODULES_DIR",),
         "max_jobs": ("SWARM_MAX_JOBS",),
         "pipeline": ("SWARM_PIPELINE",),
+        "qos_deadline_ms": ("SWARM_QOS_DEADLINE_MS",),
+        "sched_max_age_ms": ("SWARM_SCHED_MAX_AGE_MS",),
     }
 
     @classmethod
@@ -96,6 +108,9 @@ class WorkerConfig:
         values.update({k: v for k, v in overrides.items() if v is not None})
         if "max_jobs" in values:
             values["max_jobs"] = int(values["max_jobs"])
+        for field in ("qos_deadline_ms", "sched_max_age_ms"):
+            if field in values:
+                values[field] = float(values[field])
         return cls(**values)
 
 
@@ -154,6 +169,9 @@ class JobProcessor:
         #: ``wfrunner::<dir>``, the ServiceClassifier under
         #: ``svc::<probes_db>``
         self.engines: dict = {}
+        #: the MatchEngine the current job ran on, if any (its scheduler
+        #: state rides the job's perf fields)
+        self._job_engine: Optional[MatchEngine] = None
 
     def process_jobs(self) -> None:
         """The poll loop; returns after ``cfg.max_jobs`` attempts when set."""
@@ -222,12 +240,9 @@ class JobProcessor:
             update(JobStatus.CMD_FAILED, message="backend not ported")
             return
         t0 = time.perf_counter()
+        self._job_engine = None
         try:
             output = execute(module, data)
-        except NotPorted as e:
-            print(f"module {module.name}: {e}")
-            update(JobStatus.CMD_FAILED, message=str(e))
-            return
         except Exception as e:  # one bad chunk must not stop the worker
             print(f"execution failed: {type(e).__name__}: {e}")
             update(JobStatus.CMD_FAILED)
@@ -251,7 +266,28 @@ class JobProcessor:
             "input_bytes": len(data),
             "output_bytes": len(output),
         }
+        if self._job_engine is not None:
+            perf.update(self._sched_perf(self._job_engine))
         update(JobStatus.COMPLETE, perf=perf)
+
+    @staticmethod
+    def _sched_perf(engine: MatchEngine) -> dict:
+        """The engine's scheduler mode and feed health, as the JAX
+        worker reports them on a job: ``pipeline``; once the scheduler
+        has run, its cumulative ``sched`` snapshot and
+        ``inflight_saturation``, the share of its wall time the submit
+        thread waited on the prefetch stage."""
+        out: dict = {"pipeline": engine.pipeline}
+        sched = engine._sched
+        if sched is not None:
+            snap = sched.stats.snapshot()
+            out["sched"] = snap
+            wall = snap["wall_seconds"]
+            if wall > 0:
+                out["inflight_saturation"] = round(
+                    min(1.0, snap["stall_seconds"] / wall), 4
+                )
+        return out
 
     def _execute_jarm(self, module: ModuleSpec, data: bytes) -> bytes:
         """Active TLS fingerprinting (JARM + JA3S) with density-peaks
@@ -294,7 +330,9 @@ class JobProcessor:
         engine = self.engines.get(templates_dir)
         if engine is None:
             templates, db = load_or_compile(templates_dir)
-            engine = MatchEngine(templates, db=db, device=self.device)
+            engine = MatchEngine(
+                templates, db=db, device=self.device, pipeline=self.cfg.pipeline
+            )
             self.engines[templates_dir] = engine
         return engine
 
@@ -304,12 +342,13 @@ class JobProcessor:
 
         ``input_format: targets`` first runs the native probe front-end
         (resolve + connect + banner/HTTP fetch) to build the rows,
-        probing wave i+1 while wave i matches."""
-        if str(self.cfg.pipeline).lower() in ("on", "1", "true"):
-            raise NotPorted("pipeline 'on' (the batch scheduler) not ported")
+        probing wave i+1 while wave i matches. With the engine's
+        pipeline on, ``jsonl`` lines decode on the scheduler's prefetch
+        thread, a chunk of ``batch_rows`` lines at a time."""
         if not module.templates_dir:
             raise ValueError(f"tpu module {module.name} missing 'templates'")
         engine = self.engine_for(module.templates_dir)
+        self._job_engine = engine
         text = data.decode("utf-8", "surrogateescape")
         if module.input_format == "targets":
             rows, results, _stats = stream_match(
@@ -318,6 +357,40 @@ class JobProcessor:
                 probe_spec=module.probe,
                 wave_targets=int(module.raw.get("wave_targets", 1024)),
             )
+        elif engine.pipeline == "on":
+            # continuous-batching path: line decode runs on the
+            # scheduler's prefetch stage — chunk i+1 parses while chunk
+            # i's batch rides the card — and rows are re-binned into
+            # padding buckets with memo short-circuiting. Results are
+            # bit-identical to the direct path.
+            lines = text.splitlines()
+            step = engine.batch_rows
+            payloads = [
+                (ci, lines[s : s + step])
+                for ci, s in enumerate(range(0, len(lines), step))
+            ] or [(0, [])]
+            rows_by_chunk: dict = {}
+
+            def decode(payload):
+                ci, chunk_lines = payload
+                out = []
+                for line in chunk_lines:
+                    row = parse_response_line(line)
+                    if row is not None:
+                        out.append(row)
+                rows_by_chunk[ci] = out
+                return out
+
+            rows = []
+            results = []
+            sched = engine.scheduler()
+            # the operator's deadline knobs reach the planner here (the
+            # scheduler is engine-lazy; the engine never sees the cfg)
+            sched.config.qos_deadline_ms = self.cfg.qos_deadline_ms
+            sched.config.max_age_ms = self.cfg.sched_max_age_ms
+            for ci, res in enumerate(sched.run(payloads, decode=decode)):
+                rows.extend(rows_by_chunk.pop(ci))
+                results.extend(res)
         else:
             rows = []
             for line in text.splitlines():
@@ -410,10 +483,6 @@ class JobProcessor:
             return formats.format_nmap_report(infos).encode()
         lines = [info.line() for info in infos if info.open]
         return ("\n".join(lines) + "\n").encode() if lines else b""
-
-
-class NotPorted(Exception):
-    """A job asks for a form of its backend the port does not run yet."""
 
 
 def main(argv: Optional[list[str]] = None) -> None:

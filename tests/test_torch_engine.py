@@ -3,9 +3,8 @@
 ``MatchEngine.match`` on the CPU must give the JAX engine's template ids
 and extractions (and the CPU oracle's) row for row, dead rows and
 duplicated content included; a ``fingerprint`` job through the port's
-``JobProcessor(device="cpu")`` must give the JAX worker's bytes, and a
-job with ``pipeline: on`` (the scheduler, not ported) must end ``cmd
-failed``.
+``JobProcessor(device="cpu")`` must give the JAX worker's bytes, with
+the scheduler (``pipeline: on``) as without it.
 """
 
 import base64
@@ -175,11 +174,11 @@ def test_fingerprint_job_identical(corpus_dir, monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("form", ["workflow_corpus", "targets", "nuclei", "pipeline"])
 def test_unported_fingerprint_forms_fail(tmp_path, monkeypatch, form):
-    """The forms of a ``fingerprint`` job the port once refused: with
-    ``pipeline: on`` (the scheduler, not ported) the job still ends ``cmd
-    failed`` naming it; a corpus with workflow templates, ``targets``
-    input and ``nuclei`` output now run, byte-identical to the JAX
-    worker."""
+    """The forms of a ``fingerprint`` job the port once refused: a
+    corpus with workflow templates, ``targets`` input, ``nuclei`` output
+    and ``pipeline: on`` (the scheduler) now run, byte-identical to the
+    JAX worker's same job."""
+    from swarm_tpu.config import Config as JaxConfig
     from test_torch_worker import jax_processor
 
     corpus = tmp_path / "corpus"
@@ -205,15 +204,16 @@ def test_unported_fingerprint_forms_fail(tmp_path, monkeypatch, form):
     cfg = WorkerConfig(modules_dir=str(modules), max_jobs=1, poll_interval_busy_s=0,
                        pipeline="on" if form == "pipeline" else "off")
     JobProcessor(cfg, client=client, registry=ModuleRegistry(modules), device="cpu").process_jobs()
-    if form == "pipeline":
-        assert [u["status"] for u in client.updates] == [
-            "starting", "downloading", "executing", "cmd failed"]
-        assert "not ported" in client.updates[-1]["message"]
-        assert client.output is None
-        return
     assert [u["status"] for u in client.updates] == [
         "starting", "downloading", "executing", "uploading", "complete"]
-    jax = jax_processor(modules, tmp_path)
+    if form == "pipeline":
+        jax = JaxJobProcessor(JaxConfig(modules_dir=str(modules), pipeline="on"),
+                              client=object(), registry=JaxModuleRegistry(str(modules)),
+                              work_dir=str(tmp_path / "jax-worker"))
+        assert client.updates[-1]["perf"]["pipeline"] == "on"
+        assert client.updates[-1]["perf"]["sched"]["fresh_rows"] == 1
+    else:
+        jax = jax_processor(modules, tmp_path)
     assert client.output == jax._execute_tpu(jax.registry.load("fingerprint"), blob)
     assert client.output
 

@@ -49,6 +49,9 @@ def test_module_list_covers_the_slice():
         "swarm_tpu_torch.ops.service", "swarm_tpu_torch.ops.workflows",
         "swarm_tpu_torch.worker.executor", "swarm_tpu_torch.worker.formats",
         "swarm_tpu_torch.worker.streaming",
+        # the continuous-batching scheduler
+        "swarm_tpu_torch.sched", "swarm_tpu_torch.sched.buckets",
+        "swarm_tpu_torch.sched.scheduler",
     } <= names
 
 
@@ -71,6 +74,8 @@ def _entry_points():
         "ServiceClassifier": lambda device: ServiceClassifier(probes=probes, device=device),
         "WorkflowRunner": lambda device: WorkflowRunner(with_workflow, device=device),
         "MatchEngine": lambda device: MatchEngine(templates, device=device),
+        "BatchScheduler": lambda device: MatchEngine(
+            templates, device=device, pipeline="on").scheduler(),
         "DeviceDB": lambda device: DeviceDB(compile_corpus(templates), device=device),
         "JobProcessor": lambda device: JobProcessor(WorkerConfig(), device=device),
         "density_cluster": lambda device: density_cluster(
@@ -80,7 +85,7 @@ def _entry_points():
 
 @pytest.mark.parametrize(
     "name", ["MatchEngine", "DeviceDB", "JobProcessor", "density_cluster",
-             "ServiceClassifier", "WorkflowRunner"])
+             "ServiceClassifier", "WorkflowRunner", "BatchScheduler"])
 def test_entry_points_run_on_cuda_unless_asked(name):
     build = _entry_points()[name]
     build("cpu")  # the CPU when asked for

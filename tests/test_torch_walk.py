@@ -193,10 +193,14 @@ def test_engine_walk_equals_jax(engines, walk_threads):
 
 
 def test_engine_match_equals_jax(engines):
-    """``match`` (dead rows dropped before batching, batches of BATCH):
-    template ids and extractions equal the JAX engine's, row for row; the
-    port's confirms equal the JAX engine's ``match_packed`` run over the
-    same batches in turn."""
+    """``match`` (dead rows dropped before batching, batches of BATCH,
+    each batch's encode made on a helper thread while the batch before
+    it is matched): template ids and extractions equal the JAX engine's,
+    row for row; the port's confirms equal the JAX engine's
+    ``match_packed`` run over the same batches in turn, each batch
+    encoded before the one before it is matched (its memo lookup sees
+    the content walked up to two batches back, not the batch just
+    before it)."""
     _corpus, jax, port, j_rows, t_rows = engines
     for eng in (jax, port):
         eng.configure_walk(None)
@@ -207,11 +211,14 @@ def test_engine_match_equals_jax(engines):
         (r.template_ids, r.extractions) for r in want]
     jax.clear_content_memos()
     live = [r for r in j_rows if r.alive]
+    batches = [live[s : s + BATCH] for s in range(0, len(live), BATCH)]
     confirms = []
-    for s in range(0, len(live), BATCH):
-        rows = live[s : s + BATCH]
-        confirms += [r.confirmed_on_host
-                     for r in jax.rowmatches_from_packed(jax.match_packed(rows), len(rows))]
+    pre = jax.encode_packed(batches[0], True)
+    for i, rows in enumerate(batches):
+        nxt = jax.encode_packed(batches[i + 1], True) if i + 1 < len(batches) else None
+        confirms += [r.confirmed_on_host for r in jax.rowmatches_from_packed(
+            jax.match_packed(rows, pre=pre), len(rows))]
+        pre = nxt
     it = iter(confirms)
     assert [r.confirmed_on_host for r in got] == [
         next(it) if r.alive else 0 for r in t_rows]

@@ -281,6 +281,59 @@ def test_tpu_workflow_jobs_identical(wf_corpus, tmp_path, monkeypatch, output_fo
     assert engine.db.wf is not None and engine.db.wf.num_terms
 
 
+def test_tpu_pipeline_job_identical(wf_corpus, tmp_path, monkeypatch):
+    """A ``tpu`` job with ``pipeline: on`` (the scheduler; lines decode on
+    its prefetch stage): byte-identical to the JAX worker's pipelined job
+    and to the port's own job with the pipeline off; its perf fields
+    carry the mode and the scheduler's snapshot."""
+    from chip_smoke import jsonl_rows
+    from swarm_tpu.config import Config as JaxConfig
+
+    root, rows = wf_corpus
+    rows = rows[:60]
+    monkeypatch.setenv("SWARM_DB_CACHE_DIR", str(tmp_path / "dbcache"))
+    modules = write_modules(tmp_path, {"fp": {
+        "backend": "tpu", "templates": str(root)}})
+    blob = jsonl_rows(rows)
+    outs, perfs = {}, {}
+    for mode in ("on", "off"):
+        job = {"job_id": "m_1_0", "scan_id": "m_1", "chunk_index": 0, "module": "fp"}
+        client = RecordingClient(job, blob)
+        cfg = WorkerConfig(modules_dir=str(modules), max_jobs=1, poll_interval_busy_s=0,
+                           pipeline=mode)
+        proc = JobProcessor(cfg, client=client, registry=ModuleRegistry(modules), device="cpu")
+        proc.process_jobs()
+        assert client.updates[-1]["status"] == "complete", client.updates
+        assert proc.engines[str(root)].pipeline == mode
+        outs[mode], perfs[mode] = client.output, client.updates[-1]["perf"]
+    # a single-device JAX engine, as tests/test_sched.py's worker case
+    # builds it (the virtual mesh is tests/test_sharding.py's)
+    import swarm_tpu.parallel.mesh as mesh_mod
+
+    monkeypatch.setattr(mesh_mod, "make_mesh", lambda *a, **k: None)
+    jax = JaxJobProcessor(JaxConfig(modules_dir=str(modules), pipeline="on"), client=object(),
+                          registry=JaxModuleRegistry(str(modules)),
+                          work_dir=str(tmp_path / "jax-worker"))
+    want = jax._execute_tpu(jax.registry.load("fp"), blob)
+    assert outs["on"] == want == outs["off"]
+    assert "workflow" in outs["on"].decode()
+    assert perfs["off"]["pipeline"] == "off" and "sched" not in perfs["off"]
+    sched = perfs["on"]["sched"]
+    assert perfs["on"]["pipeline"] == "on" and 0 <= perfs["on"]["inflight_saturation"] <= 1
+    assert sched["chunks"] == 1 and sched["fresh_rows"] + sched["memo_rows"] + sched[
+        "dead_rows"] == len(rows)
+
+
+def test_sched_knobs_from_env(monkeypatch):
+    monkeypatch.setenv("SWARM_PIPELINE", "on")
+    monkeypatch.setenv("SWARM_QOS_DEADLINE_MS", "12.5")
+    monkeypatch.setenv("SWARM_SCHED_MAX_AGE_MS", "250")
+    cfg = WorkerConfig.from_env()
+    assert (cfg.pipeline, cfg.qos_deadline_ms, cfg.sched_max_age_ms) == ("on", 12.5, 250.0)
+    defaults = WorkerConfig()
+    assert (defaults.qos_deadline_ms, defaults.sched_max_age_ms) == (50.0, 0.0)
+
+
 def test_tpu_nuclei_job_identical(tmp_path, monkeypatch):
     from chip_smoke import jsonl_rows, realistic_rows, synthetic_corpus
     import yaml

@@ -988,6 +988,279 @@ def workflow_rows(n: int, plants: list, seed: int = 13) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# The active and file jobs' corpora and listeners
+
+
+#: the reference's recorded request table (swarm_tpu/worker/active.py:9-11):
+#: distinct requests of its corpus, and templates on the bare base URL
+ACTIVE_REQUESTS, ACTIVE_BARE = 3200, 559
+_PATH_TAILS = (
+    "login", "admin/", "api/v1/status", "static/app.js", "config.json", "README.md",
+    "server-status", "version", ".env", "index.php", "manager/html", "debug/vars",
+    "health", "robots.txt", "setup.cgi", "api/swagger.json",
+)
+
+
+def active_corpus(seed: int = 0) -> tuple[list, list]:
+    """``synthetic_corpus(seed)`` with its matchers unchanged and its
+    request paths spread to the reference's recorded request-table
+    shape: ``ACTIVE_BARE`` templates keep the bare ``{{BaseURL}}``, the
+    others request one of ``ACTIVE_REQUESTS - 1`` distinct paths (the
+    first of them a path each, the rest a path some other template
+    requests too). → (docs, plants)."""
+    docs, plants = synthetic_corpus(seed)
+    rng = np.random.default_rng(seed + 1000)
+    order = rng.permutation(len(docs))
+    n_paths = ACTIVE_REQUESTS - 1
+    pool = [f"{{{{BaseURL}}}}/{_name(rng)}-{i:04d}/{_PATH_TAILS[i % len(_PATH_TAILS)]}"
+            for i in range(n_paths)]
+    rest = order[ACTIVE_BARE:]
+    for j, t in enumerate(rest):
+        path = pool[j] if j < n_paths else pool[int(rng.integers(0, n_paths))]
+        docs[int(t)]["http"][0]["path"] = [path]
+    return docs, plants
+
+
+def _planted_reply(plants_of: list, rng) -> bytes:
+    """An HTTP response carrying the fragments of ``plants_of`` (the
+    planted branch of :func:`realistic_rows`)."""
+    status, parts_b, parts_h, whole = 200, [], [], None
+    for pl in plants_of:
+        parts_b += pl["body"]
+        parts_h += pl["header"]
+        status = pl["status"] or status
+        whole = pl["whole_body"] or whole
+    filler = bytes(rng.integers(97, 123, size=int(rng.integers(50, 400)), dtype=np.uint8))
+    body = whole.encode() if whole else (
+        b"<html><body>" + b" ".join(s.encode() for s in parts_b) + b" " + filler
+        + b"</body></html>")
+    hdr = (b"HTTP/1.1 %d X\r\nServer: nginx\r\nContent-Type: text/html\r\n"
+           b"Date: Tue, 29 Jul 2026 12:00:00 GMT" % status)
+    hdr += b"".join(b"\r\n" + s.encode() for s in parts_h)
+    return hdr + b"\r\n\r\n" + body
+
+
+def active_replies(docs: list, plants: list, listeners: int, seed: int = 0):
+    """What listener k of the active job's fleet answers to a request of
+    path p: a ``realistic_rows`` response chosen per (k, p) from the seed,
+    or for one (k, p) in ten the plant of one of p's templates. On the
+    first ``WORKFLOWS`` listeners the workflows of :func:`workflow_docs`
+    trigger: ``/`` carries workflow k's body and header gates and the
+    gated tagged subtemplate, and the paths of its corpus templates
+    their plants. → ``reply(k, method, path) -> bytes``."""
+    pool = [http_reply(r) for r in realistic_rows(512, seed=seed + 5)]
+    owners: dict = {}
+    for i, d in enumerate(docs):
+        if "http" in d:
+            path = d["http"][0]["path"][0].replace("{{BaseURL}}", "") or "/"
+            owners.setdefault(path, []).append(i)
+    forced: dict = {}
+    for k, (a, b, c) in enumerate(_wf_corpus_picks(plants)[:listeners]):
+        gates = {"body": [f"powered by WfSynth{k} engine", f"wfsynth-debug-{k}"],
+                 "header": [f"X-WfSynth{k}: 1.{k}"], "status": 200, "whole_body": None}
+        forced[(k, "/")] = _planted_reply([gates], np.random.default_rng((seed, k)))
+        for t in (a, b, c):
+            path = docs[t]["http"][0]["path"][0].replace("{{BaseURL}}", "") or "/"
+            if path != "/":
+                forced[(k, path)] = _planted_reply(
+                    [plants[t]], np.random.default_rng((seed, k, t)))
+    cache: dict = {}
+
+    def reply(k: int, method: str, path: str) -> bytes:
+        key = (k, path)
+        if key in forced:
+            return forced[key]
+        if key not in cache:
+            h = int.from_bytes(hashlib.md5(f"{seed}:{k}:{path}".encode()).digest()[:8], "little")
+            own = owners.get(path)
+            if own and h % 10 == 0:
+                cache[key] = _planted_reply([plants[own[(h // 10) % len(own)]]],
+                                            np.random.default_rng(h))
+            else:
+                cache[key] = pool[h % len(pool)]
+        return cache[key]
+
+    return reply
+
+
+class PathFleet:
+    """Local HTTP listeners that route by request path: listener k
+    answers the request line ``METHOD path`` with ``reply(k, method,
+    path)`` and closes; a client that sends nothing, or bytes that are
+    not an HTTP request (a TLS ClientHello), is closed unanswered.
+    ``targets`` lists them as ``127.0.0.1:<port>`` lines, in order."""
+
+    def __init__(self, listeners: int, reply):
+        self._stop = threading.Event()
+        self._socks: list[socket.socket] = []
+        self._threads: list[threading.Thread] = []
+        self.reply = reply
+        self.targets = [self._listen(k) for k in range(listeners)]
+
+    def _listen(self, k: int) -> str:
+        sock = socket.socket()
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        sock.bind(("127.0.0.1", 0))
+        sock.listen(1024)
+        sock.settimeout(0.1)
+        t = threading.Thread(target=self._serve, args=(k, sock), daemon=True)
+        t.start()
+        self._socks.append(sock)
+        self._threads.append(t)
+        return f"127.0.0.1:{sock.getsockname()[1]}"
+
+    def _serve(self, k: int, sock: socket.socket) -> None:
+        while not self._stop.is_set():
+            try:
+                conn, _ = sock.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            with conn:
+                try:
+                    conn.settimeout(5.0)
+                    data = b""
+                    while b"\r\n\r\n" not in data and len(data) < 65536:
+                        chunk = conn.recv(4096)
+                        if not chunk or not data and not chunk[:1].isalpha():
+                            data = b""
+                            break
+                        data += chunk
+                    words = data.split(b"\r\n", 1)[0].decode("latin-1").split()
+                    if len(words) >= 2:
+                        conn.sendall(self.reply(k, words[0], words[1]))
+                except OSError:
+                    pass
+
+    def close(self) -> None:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=5)
+        for s in self._socks:
+            s.close()
+
+    def __enter__(self) -> "PathFleet":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+#: the reference's recorded file corpus (swarm_tpu/worker/filescan.py:1-16):
+#: file templates and their matchers (per-entry ``extensions`` gates);
+#: ``FILE_EXTRACTOR_ONLY`` of them carry extractors and no matcher
+FILE_TEMPLATES, FILE_MATCHERS, FILE_EXTRACTOR_ONLY = 76, {"word": 43, "regex": 128}, 10
+FILE_EXTS = ("conf", "js", "env", "yaml", "json", "xml", "php", "txt", "pl", "py")
+
+
+def file_corpus(seed: int = 0) -> tuple[list, list]:
+    """Nuclei ``file`` templates of the reference corpus's recorded shape
+    (as parsed YAML dicts): ``FILE_TEMPLATES`` templates, word and regex
+    matchers in ``FILE_MATCHERS``' counts spread over the matcher
+    templates (some ``and`` with a negative word among them, as the audit
+    templates are), ``FILE_EXTRACTOR_ONLY`` extractor-only templates (secret-style
+    regexes), each with an ``extensions`` gate (``all`` for some). →
+    (docs, plants): a plant is the file extension and the fragments that
+    make the template fire."""
+    rng = np.random.default_rng(seed + 2000)
+    n_match = FILE_TEMPLATES - FILE_EXTRACTOR_ONLY
+    kinds = ["word"] * FILE_MATCHERS["word"] + ["regex"] * FILE_MATCHERS["regex"]
+    kinds = [kinds[int(i)] for i in rng.permutation(len(kinds))]
+    per = [[k] for k in kinds[:n_match]]
+    for k in kinds[n_match:]:
+        per[int(rng.integers(0, n_match))].append(k)
+    docs, plants = [], []
+    for i in range(FILE_TEMPLATES):
+        name = _name(rng)
+        cap, upper = name.capitalize(), name.upper()
+        exts = (["all"] if rng.random() < 0.1 else
+                sorted({FILE_EXTS[int(j)] for j in rng.integers(0, len(FILE_EXTS),
+                                                                int(rng.integers(1, 4)))}))
+        plant = {"ext": exts[0] if exts[0] != "all" else FILE_EXTS[i % len(FILE_EXTS)],
+                 "text": []}
+        op = {"extensions": exts}
+        if i < FILE_EXTRACTOR_ONLY:
+            pat = f"{name}_(?:key|token)=[A-Za-z0-9]{{20}}"
+            op["extractors"] = [{"type": "regex", "regex": [pat]}]
+            plant["text"].append(f"{name}_token={''.join(rng.choice(list('AbC0123xyZ'), 20))}")
+        else:
+            matchers = []
+            kinds_i = per[i - FILE_EXTRACTOR_ONLY]
+            # an audit-style entry: every matcher must hold, and one word
+            # must be absent
+            audit = len(kinds_i) > 1 and "word" in kinds_i and rng.random() < 0.3
+            for w, kind in enumerate(kinds_i):
+                if kind == "word" and audit and w == kinds_i.index("word"):
+                    matchers.append({"type": "word", "words": [f"{name} safe mode"],
+                                     "negative": True})
+                    continue
+                if kind == "word":
+                    word = (f"{cap} hardening {w}", f"{name}.enabled = true", f"<{name}-config>",
+                            f"set {name} unsafe")[int(rng.integers(0, 4))]
+                    matchers.append({"type": "word", "words": [word]})
+                    plant["text"].append(word)
+                    continue
+                shape = int(rng.integers(0, 4))
+                hexes = "".join(rng.choice(list("0123456789abcdef"), 24))
+                if shape == 0:
+                    pat, sample = (f"(?i){name}_(?:api_)?secret\\s*[=:]\\s*[a-f0-9]{{24}}",
+                                   f"{name}_api_secret = {hexes}")
+                elif shape == 1:
+                    pat, sample = (f"-----BEGIN {upper} PRIVATE KEY-----",
+                                   f"-----BEGIN {upper} PRIVATE KEY-----")
+                elif shape == 2:
+                    pat, sample = f"{name}://[a-z0-9.]+:[0-9]{{2,5}}", f"{name}://db.internal:5432"
+                else:
+                    pat, sample = (f"AK{upper[:4]}[0-9A-Z]{{12}}",
+                                   f"AK{upper[:4]}{''.join(rng.choice(list('0123456789ABCDEF'), 12))}")
+                matchers.append({"type": "regex", "regex": [pat]})
+                plant["text"].append(sample)
+            if audit:
+                op["matchers-condition"] = "and"
+            op["matchers"] = matchers
+            if rng.random() < 0.3:
+                op["extractors"] = [{"type": "regex", "regex": [f"{name}://[a-z0-9.]+:[0-9]+"]}]
+        docs.append({"id": f"file-{i:03d}-{name}",
+                     "info": {"name": f"{cap} file check", "severity": "medium"},
+                     "file": [op]})
+        plants.append(plant)
+    return docs, plants
+
+
+def write_file_tree(root: Path, n: int, plants: list, seed: int = 0) -> dict:
+    """``n`` files under ``root`` (64 a directory) over ``FILE_EXTS``,
+    their bytes ``realistic_rows`` bodies; one in eight longer than the
+    engine's 4,096-byte ``max_body`` (the whole-row host redo); one in
+    five planted with the fragments of a ``file_corpus`` template whose
+    plant names the file's extension, past byte 4,096 in half of the
+    long ones. → counts of files, long, planted and planted past 4,096."""
+    rng = np.random.default_rng(seed + 3000)
+    bodies = [r["body"] for r in realistic_rows(256, seed=seed + 7)]
+    counts = {"files": n, "long": 0, "planted": 0, "planted_past_4096": 0}
+    for j in range(n):
+        ext = FILE_EXTS[j % len(FILE_EXTS)]
+        data = bodies[int(rng.integers(0, len(bodies)))]
+        if j % 8 == 3:
+            while len(data) < int(rng.integers(5000, 12000)):
+                data += b"\n" + bodies[int(rng.integers(0, len(bodies)))]
+            counts["long"] += 1
+        cands = [i for i, p in enumerate(plants) if p["ext"] == ext]
+        if j % 5 == 1 and cands:
+            text = " ".join(plants[cands[int(rng.integers(0, len(cands)))]]["text"]).encode()
+            if len(data) > 4096 and j % 2:
+                data = data + b"\n" + text + b"\n"
+                counts["planted_past_4096"] += 1
+            else:
+                data = text + b"\n" + data
+            counts["planted"] += 1
+        path = root / f"d{j // 64:02d}" / f"f{j:04d}.{ext}"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(data)
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Phases
 
 
@@ -2894,7 +3167,8 @@ def phase_service(smi: str) -> tuple:
 
 def worker_job(proc, module: str, blob: bytes) -> tuple:
     """One job of ``module`` over ``blob`` through ``proc`` (its client
-    pointed at a fresh stand-in server) → (statuses, output, seconds)."""
+    pointed at a fresh stand-in server), which must end ``complete`` →
+    (output, seconds, the job's perf fields)."""
     from swarm_tpu_torch.worker.runtime import ServerClient
 
     stub = StubServer(blob, module=module)
@@ -2908,7 +3182,7 @@ def worker_job(proc, module: str, blob: bytes) -> tuple:
     want = ["starting", "downloading", "executing", "uploading", "complete"]
     if stub.statuses != want:
         raise AssertionError(f"{module} job statuses {stub.statuses}")
-    return stub.output, seconds
+    return stub.output, seconds, stub.perf
 
 
 def phase_service_worker(smi: str) -> dict:
@@ -2938,7 +3212,7 @@ def phase_service_worker(smi: str) -> dict:
                            max_jobs=1, poll_interval_idle_s=0.05, poll_interval_busy_s=0.0)
         proc = JobProcessor(cfg, device="cuda")
         kernels.reset_launches()
-        output, seconds = worker_job(proc, "servicescan", blob)
+        output, seconds, _perf = worker_job(proc, "servicescan", blob)
         launches = dict(kernels.LAUNCHES)
         del proc
         cpu = JobProcessor(cfg, device="cpu")
@@ -3025,7 +3299,7 @@ def phase_tpu_forms_worker(smi: str) -> dict:
         kernels.reset_launches()
         with kernels.record_calls() as calls:
             for name, blob in blobs.items():
-                outputs[name], seconds[name] = worker_job(proc, name, blob)
+                outputs[name], seconds[name], _perf = worker_job(proc, name, blob)
         launches = dict(kernels.LAUNCHES)
         layout = eng.device._ensure_layout()[1]["verdict"]
         eng.clear_content_memos()
@@ -3059,6 +3333,463 @@ def phase_tpu_forms_worker(smi: str) -> dict:
           "rows_with_gate_planes": nonempty, "rows": len(rows), "launches": launches,
           "max_abs_err": max_err, "card": smi})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# The active, file and command backends
+
+
+#: the active job's path-routing HTTP listeners (each answers every
+#: request of the plan), and the (listener, path) pairs held to the oracle
+ACTIVE_LISTENERS, ACTIVE_ORACLE_PAIRS = 8, 96
+#: files of the file job
+FILE_JOB_FILES = 2048
+
+
+def make_cert(directory: Path) -> tuple:
+    """A self-signed certificate (CN ``selfie.test``, two DNS names) and
+    its key as PEM files in ``directory``, made with ``cryptography``
+    (the reference tests' certificate). → (cert path, key path)."""
+    import datetime
+
+    from cryptography import x509
+    from cryptography.hazmat.primitives import hashes, serialization
+    from cryptography.hazmat.primitives.asymmetric import rsa
+    from cryptography.x509.oid import NameOID
+
+    key = rsa.generate_private_key(public_exponent=65537, key_size=2048)
+    name = x509.Name([x509.NameAttribute(NameOID.COMMON_NAME, "selfie.test")])
+    now = datetime.datetime.now(datetime.timezone.utc)
+    cert = (x509.CertificateBuilder().subject_name(name).issuer_name(name)
+            .public_key(key.public_key()).serial_number(x509.random_serial_number())
+            .not_valid_before(now - datetime.timedelta(days=1))
+            .not_valid_after(now + datetime.timedelta(days=365))
+            .add_extension(x509.SubjectAlternativeName(
+                [x509.DNSName("selfie.test"), x509.DNSName("alt.test")]), critical=False)
+            .sign(key, hashes.SHA256()))
+    cert_pem, key_pem = directory / "cert.pem", directory / "key.pem"
+    cert_pem.write_bytes(cert.public_bytes(serialization.Encoding.PEM))
+    key_pem.write_bytes(key.private_bytes(serialization.Encoding.PEM,
+                                          serialization.PrivateFormat.TraditionalOpenSSL,
+                                          serialization.NoEncryption()))
+    return cert_pem, key_pem
+
+
+class TlsListener:
+    """A local TLS server that completes handshakes and closes; anything
+    that is not a handshake it drops. ``target`` is its
+    ``127.0.0.1:<port>`` line."""
+
+    def __init__(self, cert_pem: Path, key_pem: Path):
+        import ssl
+
+        self._ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        self._ctx.load_cert_chain(str(cert_pem), str(key_pem))
+        self._sock = socket.socket()
+        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._sock.bind(("127.0.0.1", 0))
+        self._sock.listen(1024)
+        self._sock.settimeout(0.1)
+        self.target = f"127.0.0.1:{self._sock.getsockname()[1]}"
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._serve, daemon=True)
+        self._thread.start()
+
+    def _serve(self) -> None:
+        import ssl
+
+        while not self._stop.is_set():
+            try:
+                conn, _ = self._sock.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            try:
+                conn.settimeout(5.0)
+                self._ctx.wrap_socket(conn, server_side=True).close()
+            except (ssl.SSLError, OSError):
+                conn.close()
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self._sock.close()
+
+
+#: the ssl template the active corpus carries when ``cryptography`` imports
+SSL_DOC = {
+    "id": "chip-ssl-self-signed", "info": {"name": "self-signed", "severity": "low"},
+    "ssl": [{"address": "{{Host}}:{{Port}}",
+             "matchers": [{"type": "dsl", "name": "self-signed",
+                           "dsl": ["common_name == issuer_common_name"]}],
+             "extractors": [
+                 {"type": "json", "name": "common_name", "internal": True,
+                  "json": [".common_name[]"]},
+                 {"type": "json", "name": "issuer_common_name", "internal": True,
+                  "json": [".issuer_common_name[]"]},
+                 {"type": "json", "json": [".tls_version"]}]}],
+}
+
+
+class stage_clock:
+    """Seconds of an active job's stages, by wrapping what the worker
+    and the scanner call: the corpus's engine (``engine_for``: built,
+    or loaded from the compile cache), the scanner's build (the plan),
+    the liveness pre-pass, the waves (``_run_wave``) and within them
+    ``tcp_scan`` (the liveness pass's own excluded) and
+    ``MatchEngine.match`` from ``_attribute`` (its rows and seconds; the
+    gate re-confirm's own match excluded), the workflow pass's gate
+    re-confirm and ``evaluate_hits``, and the ssl pass. ``wave_host_s``
+    is the waves' time outside those two: the requests' bytes, the
+    responses' parse, the attribution."""
+
+    def __enter__(self):
+        from swarm_tpu_torch.ops.engine import MatchEngine
+        from swarm_tpu_torch.ops.workflows import WorkflowRunner
+        from swarm_tpu_torch.worker import active, sslscan
+        from swarm_tpu_torch.worker.runtime import JobProcessor
+
+        self.s = {"engine_s": 0.0, "scanner_build_s": 0.0, "liveness_s": 0.0,
+                  "waves_s": 0.0, "tcp_scan_s": 0.0, "match_s": 0.0, "match_rows": 0,
+                  "workflow_s": 0.0, "ssl_s": 0.0}
+        self._saved = []
+        gate = threading.local()
+
+        def timed(key, fn, on_call=None):
+            def run(*args, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    self.s[key] += time.perf_counter() - t0
+                    if on_call is not None:
+                        on_call(args)
+            return run
+
+        def gate_confirm(fn):
+            def run(*args, **kw):
+                gate.on = True
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    gate.on = False
+            return timed("workflow_s", run)
+
+        def attribute_match(fn):
+            counted = timed("match_s", fn, lambda args: self.s.__setitem__(
+                "match_rows", self.s["match_rows"] + len(args[1])))
+
+            def run(*args, **kw):
+                return (fn if getattr(gate, "on", False) else counted)(*args, **kw)
+            return run
+
+        for owner, name, wrap in (
+            (JobProcessor, "engine_for", lambda fn: timed("engine_s", fn)),
+            (active.ActiveScanner, "__init__", lambda fn: timed("scanner_build_s", fn)),
+            (active.ActiveScanner, "_run_wave", lambda fn: timed("waves_s", fn)),
+            (active.ActiveScanner, "_liveness", lambda fn: timed("liveness_s", fn)),
+            (active.scanio, "tcp_scan", lambda fn: timed("tcp_scan_s", fn)),
+            (MatchEngine, "match", attribute_match),
+            (WorkflowRunner, "resolve_gate_names", gate_confirm),
+            (WorkflowRunner, "evaluate_hits", lambda fn: timed("workflow_s", fn)),
+            (sslscan.SslScanner, "scan", lambda fn: timed("ssl_s", fn)),
+        ):
+            fn = getattr(owner, name)
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, wrap(fn))
+        return self.s
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+        self.s["tcp_scan_s"] -= self.s["liveness_s"]
+        self.s["wave_host_s"] = self.s["waves_s"] - self.s["tcp_scan_s"] - self.s["match_s"]
+
+
+def _lines_of(text: str, target: str) -> list:
+    """The output lines of one ``127.0.0.1:<port>`` target."""
+    pat = re.compile(re.escape(target) + r"(?![0-9])")
+    return [ln for ln in text.splitlines() if not ln.startswith("#") and pat.search(ln)]
+
+
+def phase_active_worker(smi: str) -> dict:
+    """The worker's ``active`` backend (nuclei's execution mode) at the
+    full width of the match corpus: :func:`active_corpus` (3,989
+    templates, about 3,200 distinct requests) plus the 4 workflows of
+    :func:`workflow_docs`, against ``ACTIVE_LISTENERS`` path-routing
+    listeners (:func:`active_replies`), and, when ``cryptography``
+    imports, one TLS listener and an ssl template. One ``nuclei``-shaped
+    job through the stand-in server, pipeline off then on, each on a
+    worker of its own (a fresh engine, nothing known), then once more
+    with the pipeline off under the profiler (the card's busy and idle
+    time over the job). All must end ``complete`` with byte-identical
+    output; the first listener's lines
+    byte-identical to the same job on the CPU over that listener alone;
+    a sample of (listener, path) pairs equal to the oracle on the
+    listener's response; phase A, the verify, the regex scan and the
+    verdict kernels launched; every call the off arm made equal to its
+    plain version. → launches of the off arm."""
+    import tempfile
+
+    from swarm_tpu_torch.fingerprints.nuclei import parse_template
+    from swarm_tpu_torch.fingerprints.model import Response
+    from swarm_tpu_torch.ops import cpu_ref, kernels
+    from swarm_tpu_torch.ops.engine import MatchEngine
+    from swarm_tpu_torch.worker import formats
+    from swarm_tpu_torch.worker.executor import parse_http_response
+    from swarm_tpu_torch.worker.runtime import JobProcessor, WorkerConfig
+
+    use_db_cache("active")
+    docs, plants = active_corpus(0)
+    docs = docs + workflow_docs(docs, plants)
+    try:
+        import cryptography  # noqa: F401
+
+        ssl_case = True
+        docs.append(SSL_DOC)
+    except ImportError:
+        ssl_case = False
+    templates = [parse_template(d) for d in docs]
+    reply = active_replies(docs, plants, ACTIVE_LISTENERS)
+    tls = None
+    with tempfile.TemporaryDirectory() as tmp, PathFleet(ACTIVE_LISTENERS, reply) as fleet:
+        corpus, modules = Path(tmp) / "corpus", Path(tmp) / "modules"
+        corpus.mkdir()
+        modules.mkdir()
+        try:
+            import yaml
+
+            for doc in docs:
+                (corpus / f"{doc['id']}.yaml").write_text(yaml.safe_dump(doc))
+            route = "yaml"
+        except ImportError:
+            route = "engine_cache"
+        spec = json.loads((REPO / "modules" / "nuclei.json").read_text())
+        spec["templates"] = str(corpus)
+        spec["probe"] = {**spec["probe"], "resolvers": ["127.0.0.1"], "read_timeout_ms": 2500}
+        (modules / "nuclei.json").write_text(json.dumps(spec))
+        targets = list(fleet.targets)
+        if ssl_case:
+            tls = TlsListener(*make_cert(Path(tmp)))
+            targets.append(tls.target)
+        blob = ("\n".join(targets) + "\n").encode()
+        outputs, perfs, seconds, stages, eng_stats, launches = {}, {}, {}, {}, {}, {}
+        try:
+            for mode in ("off", "on"):
+                cfg = WorkerConfig(api_key=API_KEY, worker_id="chip-smoke",
+                                   modules_dir=str(modules), max_jobs=1, pipeline=mode,
+                                   poll_interval_idle_s=0.05, poll_interval_busy_s=0.0)
+                proc = JobProcessor(cfg, device="cuda")
+                if route == "engine_cache":
+                    proc.engines[str(corpus)] = MatchEngine(templates, device="cuda",
+                                                            pipeline=mode)
+                kernels.reset_launches()
+                with kernels.record_calls() as calls, stage_clock() as clock:
+                    outputs[mode], seconds[mode], perfs[mode] = worker_job(
+                        proc, "nuclei", blob)
+                launches[mode] = dict(kernels.LAUNCHES)
+                stages[mode] = clock
+                st = proc.engines[str(corpus)].stats
+                eng_stats[mode] = {"batches": st.batches, "device_rows": st.unique_rows,
+                                   "memo_hits": st.memo_hits, "rows": st.rows}
+                if mode == "off":
+                    max_err = check_calls(calls)
+                del calls, proc
+            # a third job, pipeline off, on a fresh worker under the profiler:
+            # the card's busy and idle time over the whole job
+            cfg = WorkerConfig(api_key=API_KEY, worker_id="chip-smoke", modules_dir=str(modules),
+                               max_jobs=1, poll_interval_idle_s=0.05, poll_interval_busy_s=0.0)
+            proc = JobProcessor(cfg, device="cuda")
+            if route == "engine_cache":
+                proc.engines[str(corpus)] = MatchEngine(templates, device="cuda")
+            traced_out = []
+            trace = profile_call(lambda: traced_out.append(worker_job(proc, "nuclei", blob)[0]),
+                                 "active.job", ())
+            del proc
+            # the CPU twin over the first listener alone
+            cfg = WorkerConfig(api_key=API_KEY, worker_id="chip-smoke", modules_dir=str(modules),
+                               max_jobs=1)
+            cpu = JobProcessor(cfg, device="cpu")
+            if route == "engine_cache":
+                cpu.engines[str(corpus)] = MatchEngine(templates, device="cpu")
+            t0 = time.perf_counter()
+            twin = cpu._execute_active(cpu.registry.load("nuclei"),
+                                       (fleet.targets[0] + "\n").encode())
+            twin_s = time.perf_counter() - t0
+        finally:
+            if tls is not None:
+                tls.close()
+
+    if not outputs["off"] == outputs["on"] == traced_out[0]:
+        raise AssertionError("active: pipeline on, off and traced outputs differ")
+    text = outputs["off"].decode()
+    twin_text = twin.decode()
+    mine = _lines_of(text, fleet.targets[0])
+    if mine != [ln for ln in twin_text.splitlines() if not ln.startswith("#")]:
+        raise AssertionError("active: the first listener's lines differ from the CPU run")
+    if [ln for ln in text.splitlines() if ln.startswith("#")] != [
+            ln for ln in twin_text.splitlines() if ln.startswith("#")]:
+        raise AssertionError("active: scope lines differ from the CPU run")
+    # a sample of (listener, path) pairs against the oracle
+    sev, _proto = formats.severity_index(templates)
+    owners: dict = {}
+    for t in templates:
+        if t.protocol == "http":
+            owners.setdefault(docs_path(t), []).append(t)
+    hit_pairs = []
+    for ln in text.splitlines():
+        m = re.match(r"\[[^\]]+\] \[http\] \[[^\]]+\] http://127\.0\.0\.1:(\d+)(\S*)", ln)
+        if m and m.group(2) in owners:
+            hit_pairs.append((fleet.targets.index(f"127.0.0.1:{m.group(1)}"), m.group(2)))
+    rng = np.random.default_rng(3)
+    paths = sorted(owners)
+    sample = set(hit_pairs[:: max(1, len(hit_pairs) // (ACTIVE_ORACLE_PAIRS // 2))])
+    sample |= {(int(rng.integers(0, ACTIVE_LISTENERS)), paths[int(rng.integers(0, len(paths)))])
+               for _ in range(ACTIVE_ORACLE_PAIRS // 2)}
+    for k, path in sorted(sample):
+        port = int(fleet.targets[k].split(":")[1])
+        status, header, body = parse_http_response(reply(k, "GET", path))
+        row = Response(host="127.0.0.1", port=port, status=status, header=header, body=body)
+        url = f"http://127.0.0.1:{port}{path}"
+        want = set()
+        for t in owners[path]:
+            res = cpu_ref.match_template(t, row)
+            if res.matched:
+                extra = " [" + ",".join(res.extractions) + "]" if res.extractions else ""
+                want.add(f"[{t.id}] [http] [{sev.get(t.id, 'info')}] {url}{extra}")
+        got = {ln for ln in text.splitlines()
+               if re.search(re.escape(url) + r"( \[|$)", ln) and "] [http] [" in ln}
+        if got != want:
+            raise AssertionError(f"active: listener {k} path {path}: {sorted(got)} != {sorted(want)}")
+    ssl_lines = [ln for ln in text.splitlines() if "] [ssl] [" in ln]
+    ssl_want = re.escape(f"[chip-ssl-self-signed] [ssl] [low] {tls.target}") + r" \[tls1[23]\]" \
+        if ssl_case else None
+    if ssl_case and (len(ssl_lines) != 1 or not re.fullmatch(ssl_want, ssl_lines[0])):
+        raise AssertionError(f"active: ssl lines {ssl_lines}")
+    wf_lines = sum("] [workflow] [" in ln for ln in text.splitlines())
+    if wf_lines < 1 or perfs["off"]["workflow_hits"] != wf_lines:
+        raise AssertionError(f"active: {wf_lines} workflow lines, perf {perfs['off']}")
+    need = ("match_phase_a", "match_verify", "match_regex_scan", "match_verdicts")
+    missing = [k for k in need if min(launches["off"][k], launches["on"][k]) < 1]
+    if missing:
+        raise AssertionError(f"active job: no launch of {missing}")
+    sched = perfs["on"].get("sched")
+    if perfs["on"].get("pipeline") != "on" or not sched:
+        raise AssertionError(f"active job on: perf {perfs['on']}")
+    emit({
+        "phase": "active_worker", "status": "complete", "route": route,
+        "templates": len(templates), "requests_planned": ACTIVE_REQUESTS,
+        "listeners": ACTIVE_LISTENERS, "ssl_templates_run": ssl_case,
+        "lines": len(text.splitlines()), "workflow_lines": wf_lines, "ssl_lines": len(ssl_lines),
+        "perf_fields": {k: perfs["off"][k] for k in ("targets", "live_targets", "rows_probed",
+                                                      "workflow_hits", "hits")},
+        "seconds": seconds, "stages": stages, "engine": eng_stats,
+        "match_rows_per_s": {m: stages[m]["match_rows"] / stages[m]["match_s"]
+                             for m in stages if stages[m]["match_s"] > 0},
+        "sched": sched, "launches": launches, "max_abs_err": max_err,
+        "trace": {k: trace[k] for k in ("call_ms", "device_busy_ms", "idle_share",
+                                        "kernel_launches", "kernels_ms", "copies_ms")},
+        "cpu_twin_identical_lines": len(mine), "cpu_twin_s": twin_s,
+        "oracle_pairs": len(sample), "card": smi,
+    })
+    return launches["off"]
+
+
+def docs_path(template) -> str:
+    """A planned template's request path (its one GET), as sent."""
+    path = template.operations[0].paths[0].replace("{{BaseURL}}", "")
+    return path or "/"
+
+
+def phase_file_worker(smi: str) -> dict:
+    """The worker's ``file`` backend: :func:`file_corpus` (76 templates of
+    the reference's recorded file-corpus shape) over ``FILE_JOB_FILES``
+    files (:func:`write_file_tree`: some past the engine's 4,096-byte
+    ``max_body``, some planted past byte 4,096) in one ``file`` job with
+    ``scan_root`` set, on the card. Its output must be byte-identical to
+    the same job on the CPU, the match kernels launched, every call
+    equal to its plain version. → launches."""
+    import tempfile
+
+    from swarm_tpu_torch.fingerprints.nuclei import parse_template
+    from swarm_tpu_torch.ops import kernels
+    from swarm_tpu_torch.worker.filescan import FileScanner
+    from swarm_tpu_torch.worker.runtime import JobProcessor, WorkerConfig
+
+    docs, plants = file_corpus(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus, files, modules = Path(tmp) / "corpus", Path(tmp) / "files", Path(tmp) / "modules"
+        corpus.mkdir()
+        modules.mkdir()
+        counts = write_file_tree(files, FILE_JOB_FILES, plants)
+        try:
+            import yaml
+
+            for doc in docs:
+                (corpus / f"{doc['id']}.yaml").write_text(yaml.safe_dump(doc))
+            route = "yaml"
+        except ImportError:
+            route = "scanner_cache"
+        (modules / "files.json").write_text(json.dumps(
+            {"backend": "file", "templates": str(corpus), "scan_root": str(files)}))
+        key = f"file::{corpus}::{files}"
+        blob = f"{files}\n".encode()
+        cfg = WorkerConfig(api_key=API_KEY, worker_id="chip-smoke", modules_dir=str(modules),
+                           max_jobs=1, poll_interval_idle_s=0.05, poll_interval_busy_s=0.0)
+        builds = {}
+        for device in ("cuda", "cpu"):
+            builds[device] = JobProcessor(cfg, device=device)
+            if route == "scanner_cache":
+                builds[device].engines[key] = FileScanner(
+                    [parse_template(d) for d in docs], scan_root=str(files), device=device)
+        proc, cpu = builds["cuda"], builds["cpu"]
+        kernels.reset_launches()
+        with kernels.record_calls() as calls:
+            output, seconds, _perf = worker_job(proc, "files", blob)
+        launches = dict(kernels.LAUNCHES)
+        st = proc.engines[key].engine.stats
+        t0 = time.perf_counter()
+        twin = cpu._execute_file(cpu.registry.load("files"), blob)
+        twin_s = time.perf_counter() - t0
+    max_err = check_calls(calls)
+    if output != twin:
+        raise AssertionError("file: cuda output differs from the CPU run")
+    lines = output.decode().splitlines()
+    if st.overflow_rows != counts["long"] or not lines:
+        raise AssertionError(f"file: {st.overflow_rows} rows redone for {counts['long']} long"
+                             f" files, {len(lines)} lines")
+    missing = [k for k in ("match_phase_a", "match_verify", "match_verdicts")
+               if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"file job: no launch of {missing}")
+    emit({"phase": "file_worker", "status": "complete", "route": route,
+          "templates": len(docs), "files": counts, "files_scanned": st.rows,
+          "lines": len(lines), "device_batches": st.batches, "device_rows": st.unique_rows,
+          "rows_redone_on_host": st.overflow_rows, "seconds": seconds,
+          "cpu_twin_s": twin_s, "launches": launches, "max_abs_err": max_err,
+          "cpu_twin_identical": True, "card": smi})
+    return launches
+
+
+def phase_command_worker() -> None:
+    """The ``echo`` module (a command, no backend) through the worker on
+    the card machine: the output must be the input."""
+    import tempfile
+
+    from swarm_tpu_torch.worker.runtime import JobProcessor, WorkerConfig
+
+    blob = "".join(f"10.0.{i // 250}.{i % 250}:443\n" for i in range(1000)).encode()
+    with tempfile.TemporaryDirectory() as work:
+        cfg = WorkerConfig(api_key=API_KEY, worker_id="chip-smoke",
+                           modules_dir=str(REPO / "modules"), max_jobs=1,
+                           poll_interval_idle_s=0.05, poll_interval_busy_s=0.0)
+        output, seconds, _perf = worker_job(JobProcessor(cfg, device="cuda", work_dir=work),
+                                            "echo", blob)
+    if output != blob:
+        raise AssertionError("echo: output differs from the input")
+    emit({"phase": "command_worker", "status": "complete", "bytes": len(output),
+          "seconds": seconds})
 
 
 def main() -> int:
@@ -3097,6 +3828,9 @@ def run_phases(smi: str) -> int:
     svc_timing, svc_launches, svc_err = phase_service(smi)
     phase_service_worker(smi)
     phase_tpu_forms_worker(smi)
+    active_launches = phase_active_worker(smi)
+    file_launches = phase_file_worker(smi)
+    phase_command_worker()
     replaces = {
         "match_phase_a": "swarm_tpu/ops/match.py:1350",
         "match_verify": "swarm_tpu/ops/match.py:1465",
@@ -3133,6 +3867,9 @@ def run_phases(smi: str) -> int:
         # the same kernel's launches on one traced pipelined call of the
         # sched phase's stream
         summary[name]["sched"] = {"launches": sched_launches[name]}
+        # its launches on the active job (pipeline off) and the file job
+        summary[name]["active"] = {"launches": active_launches[name]}
+        summary[name]["file"] = {"launches": file_launches[name]}
         sv = svc_timing.get(name)
         summary[name]["service"] = {"launches": svc_launches[name], **(
             {k: sv[k] for k in ("ms", "card_ms", "plain_ms", "bound_ms", "bound_by")}

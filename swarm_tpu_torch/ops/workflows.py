@@ -4,7 +4,10 @@
 Semantics mirror the reference corpus's workflow templates (SURVEY.md
 §2.3): a trigger template (by path or tags) gates subtemplates (by tag
 or path), optionally scoped to specific *named matchers* of the trigger;
-subtemplates nest recursively.
+subtemplates nest recursively. Plus nuclei's automatic-scan mode
+(:meth:`WorkflowRunner.auto_scan`): detected technologies (named
+matchers of tech templates) map through ``wappalyzer-mapping.yml`` to
+tags whose templates are then selected.
 
 Two execution paths produce bit-identical per-row results
 (``docs/WORKFLOWS.md`` of the reference):
@@ -24,11 +27,12 @@ Two execution paths produce bit-identical per-row results
 Per-content gating results additionally memoize in a runner L1 when
 EVERY workflow is content-pure (no reachable template reads
 host/port/duration), so a rescan of known trigger content completes
-without any device dispatch. Left out of the port: the shared result
-tier's ``"w"`` family lookups, the workflow counters, the active
-scanner's batched gate re-confirm (``resolve_gate_names``) and nuclei's
-automatic-scan mode (``auto_scan``), which go with the cache layer,
-telemetry and the ``active`` backend.
+without any device dispatch. The ``active`` backend's batched gate
+re-confirm (:meth:`WorkflowRunner.resolve_gate_names`) reads the named
+matchers it needs off the same planes. Left out of the port: the shared
+result tier's ``"w"`` family lookups, which go with the cache layer,
+and the workflow counters (``WORKFLOW_GATE_PLANE_BATCHES`` and the
+rest), which go with telemetry.
 """
 
 from __future__ import annotations
@@ -43,6 +47,8 @@ import numpy as np
 from swarm_tpu_torch.fingerprints.compile import (
     WFC_HIT_DEV,
     WFC_HIT_HOST,
+    WFC_MATCHER,
+    WFC_OP,
 )
 from swarm_tpu_torch.fingerprints.model import Response, Template
 from swarm_tpu_torch.fingerprints.workflows import (
@@ -105,6 +111,7 @@ class WorkflowRunner:
         self,
         templates: Sequence[Template],
         engine=None,
+        wappalyzer: Optional[dict[str, list[str]]] = None,
         device=None,
         **engine_kwargs,
     ):
@@ -121,6 +128,7 @@ class WorkflowRunner:
         self.matchable = [t for t in templates if t.protocol != "workflow"]
         self.index = TemplateIndex(self.matchable)
         self.by_id = {t.id: t for t in self.matchable}
+        self.wappalyzer = {k.lower(): v for k, v in (wappalyzer or {}).items()}
         if engine is None:
             from swarm_tpu_torch.ops.engine import MatchEngine
 
@@ -162,6 +170,20 @@ class WorkflowRunner:
         )
         self._memo_lock = threading.Lock()  # guards: _wf_memo
         self._wf_memo: dict[str, dict] = {}
+        # named-matcher gates the workflows actually query, per
+        # template — the active scanner's batched gate re-confirm
+        # resolves exactly these (anything else is never looked up)
+        self._needed_names: dict[str, set] = self._collect_gate_names()
+        self.gate_template_ids: set = set(self._needed_names)
+        # (template, gate name) → cond rows in the plan whose value
+        # decides it (one per lowered alternative; OR = name fired)
+        self._plane_names: dict[str, dict[str, list[int]]] = {}
+        if plan is not None:
+            for ci in range(plan.num_conds):
+                if int(plan.cond_kind[ci]) in (WFC_OP, WFC_MATCHER):
+                    self._plane_names.setdefault(
+                        plan.cond_template[ci], {}
+                    ).setdefault(plan.cond_name[ci], []).append(ci)
 
     # ------------------------------------------------------------------
     def _wf_template_ids(self, wf: Workflow) -> set:
@@ -192,6 +214,115 @@ class WorkflowRunner:
             for sub in step.subtemplates:
                 walk_ref(sub)
         return ids
+
+    def _collect_gate_names(self) -> dict[str, set]:
+        """template id → the gate names any workflow queries on it."""
+        needed: dict[str, set] = {}
+
+        def note(t: Template, gates) -> None:
+            for g in gates:
+                needed.setdefault(t.id, set()).add(g.name)
+
+        def walk_ref(ref: SubtemplateRef) -> None:
+            if ref.matchers:
+                for t in self.index.resolve(ref):
+                    note(t, ref.matchers)
+                for g in ref.matchers:
+                    for sub in g.subtemplates:
+                        walk_ref(sub)
+            for sub in ref.subtemplates:
+                walk_ref(sub)
+
+        for wf in self.workflows:
+            for step in wf.steps:
+                triggers: list[Template] = []
+                if step.template:
+                    t = self.index.by_path(step.template)
+                    if t:
+                        triggers.append(t)
+                for tag in step.tags:
+                    triggers.extend(self.index.by_tag.get(tag.lower(), []))
+                if step.matchers:
+                    for t in triggers:
+                        note(t, step.matchers)
+                    for g in step.matchers:
+                        for sub in g.subtemplates:
+                            walk_ref(sub)
+                for sub in step.subtemplates:
+                    walk_ref(sub)
+        return needed
+
+    # ------------------------------------------------------------------
+    def resolve_gate_names(
+        self, needs: Sequence[tuple]
+    ) -> list[list[str]]:
+        """Batched named-matcher gate re-confirm for the active
+        scanner: ``[(template_id, row), ...]`` → the fired gate-name
+        list per pair. The distinct rows ride ONE engine batch (the
+        scheduler's QoS lanes / in-flight overlap / memo families all
+        apply under pipeline mode); pairs whose every queried gate
+        lowered to a certain device condition decode straight off the
+        gate planes, the rest fall back to the exact per-row cpu_ref
+        confirm — the same oracle ``_matcher_names`` uses, so the
+        result is bit-identical to the serial path either way."""
+        if not needs:
+            return []
+        rows_u: list = []
+        slot: dict[int, int] = {}
+        for _tid, row in needs:
+            if id(row) not in slot:
+                slot[id(row)] = len(rows_u)
+                rows_u.append(row)
+        results = self.engine.match(rows_u)
+        out: list = []
+        fb: dict = {}
+        for tid, row in needs:
+            s = slot[id(row)]
+            names = self._names_from_planes(tid, results[s])
+            if names is None:
+                key = (s, tid)
+                if key not in fb:
+                    t = self.by_id.get(tid)
+                    fb[key] = (
+                        sorted(
+                            set(
+                                cpu_ref.match_template(t, row).matcher_names
+                            )
+                        )
+                        if t is not None and row is not None
+                        else []
+                    )
+                names = fb[key]
+            out.append(names)
+        return out
+
+    def _names_from_planes(self, tid: str, rm) -> Optional[list]:
+        """Fired gate names of ``tid`` for one row, decoded from its
+        device cond planes — None when any queried gate is unlowered
+        or uncertain (the caller re-confirms the row exactly)."""
+        if not self.device or getattr(rm, "wf", None) is None:
+            return None
+        needed = self._needed_names.get(tid)
+        if not needed:
+            return []
+        lanes = self._plane_names.get(tid, {})
+        if not needed <= set(lanes):
+            return None
+        plan = self.plan
+        cv = np.unpackbits(
+            np.asarray(rm.wf[0], dtype=np.uint8), count=plan.num_conds
+        )
+        cu = np.unpackbits(
+            np.asarray(rm.wf[1], dtype=np.uint8), count=plan.num_conds
+        )
+        fired: list = []
+        for name in needed:
+            cis = lanes[name]
+            if any(cu[ci] for ci in cis):
+                return None
+            if any(cv[ci] for ci in cis):
+                fired.append(name)
+        return sorted(fired)
 
     # ------------------------------------------------------------------
     def run(self, rows: Sequence[Response]) -> list[dict[str, list[str]]]:
@@ -414,3 +545,42 @@ class WorkflowRunner:
             else:
                 matched.add(t.id)
         return matched
+
+    # ------------------------------------------------------------------
+    # nuclei automatic-scan mode: tech detection → wappalyzer tags
+    # ------------------------------------------------------------------
+    def auto_scan(self, rows: Sequence[Response]) -> list[dict]:
+        """Per row: detected technologies (fired named matchers of
+        'tech'-tagged templates), their mapped tags, and the matched
+        template ids those tags select."""
+        results = self.engine.match(rows)
+        tech_templates = self.index.by_tag.get("tech", [])
+        out = []
+        for row, rm in zip(rows, results):
+            hit_ids = set(rm.template_ids)
+            cache: dict[str, list[str]] = {}
+            techs: set[str] = set()
+            for t in tech_templates:
+                if t.id in hit_ids:
+                    techs.update(
+                        n.lower()
+                        for n in self._matcher_names(t, lambda _tid, _r=row: [_r], cache)
+                    )
+            tags: set[str] = set()
+            for tech in techs:
+                tags.update(tag.lower() for tag in self.wappalyzer.get(tech, []))
+                tags.add(tech)  # a tech name is itself a usable tag
+            selected = {
+                t.id
+                for tag in tags
+                for t in self.index.by_tag.get(tag, [])
+                if t.id in hit_ids
+            }
+            out.append(
+                {
+                    "technologies": sorted(techs),
+                    "tags": sorted(tags),
+                    "template_ids": sorted(selected),
+                }
+            )
+        return out

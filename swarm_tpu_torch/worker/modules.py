@@ -8,7 +8,7 @@ A module file names its ``backend`` and the backend's settings, e.g.::
     {"backend": "tpu", "templates": "${SWARM_TEMPLATES_DIR}",
      "input_format": "jsonl"}
 
-The port runs four backends:
+The port runs every backend of the JAX worker:
 
 - ``jarm``: TLS fingerprints and their clusters (``cluster_radius``);
 - ``tpu``: the template match, ``input_format`` ``jsonl`` or
@@ -19,10 +19,18 @@ The port runs four backends:
   ``httpx_json`` (``probe.type`` ``dns`` for the dnsx list);
 - ``service``: ``probe``, ``probes_db`` (an nmap-service-probes file;
   default the system DB, else the bundled one) and ``output_format``
-  ``nmap`` (else one line per open port).
-
-The worker fails a job of any other backend (``active``, ``file``,
-``ssl``, a command) with a message that names what is not ported.
+  ``nmap`` (else one line per open port);
+- ``active``: each template's own requests per ``targets`` line
+  (nuclei's execution mode), ``probe`` (with ``wave_rows``,
+  ``ssl_ports``, ``session_concurrency``, ...) and ``vars`` (operator
+  template variables); a ``probe`` with ``oob`` is refused, as the OOB
+  listener is not ported;
+- ``file``: input lines are local file or directory paths, confined to
+  ``scan_root`` when it is set;
+- ``ssl``: TLS handshakes to ``targets`` lines, ``probe``'s
+  ``concurrency`` and ``connect_timeout_ms``;
+- a module without ``backend`` runs its ``command``, with ``{input}``
+  and ``{output}`` replaced by the chunk's files, through the shell.
 
 ``jsonl`` rows: each input line is a JSON response row ``{host, port,
 status, body?, header?, banner?}`` (``*_b64`` variants base64).
@@ -46,6 +54,7 @@ class ModuleSpec:
         self.name = name
         self.raw = raw
         self.backend = raw.get("backend", "command")
+        self.command_template: Optional[str] = raw.get("command")
         self._templates_raw: Optional[str] = raw.get("templates")
         self.input_format: str = raw.get("input_format", "jsonl")
         self.output_format: str = raw.get("output_format", "matches_jsonl")
@@ -70,6 +79,14 @@ class ModuleSpec:
                 f"module {self.name}: templates directory {d!r} does not exist"
             )
         return d
+
+    def command(self, input_path: str, output_path: str) -> str:
+        """Substitute {input}/{output} (reference worker.py:27-33)."""
+        if not self.command_template:
+            raise ValueError(f"module {self.name} has no command")
+        return self.command_template.replace("{input}", input_path).replace(
+            "{output}", output_path
+        )
 
 
 class ModuleRegistry:

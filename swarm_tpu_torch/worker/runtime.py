@@ -1,12 +1,13 @@
-"""Worker poll loop of the port — the ``jarm``, ``tpu``, ``probe`` and
-``service`` paths of ``swarm_tpu/worker/runtime.py``.
+"""Worker poll loop of the port — the backends of
+``swarm_tpu/worker/runtime.py``.
 
 Same observable protocol as the JAX worker: poll ``/get-job``, walk the job
 through ``starting → downloading → executing → uploading → complete`` (or
 ``cmd failed`` / ``upload failed - unknown``) via ``/update-job``, with 0.8 s
 between jobs and 10 s when idle, and stop after ``max_jobs`` attempts when
-that is set. Four backends run on ``device`` (the card unless the CPU is
-asked for), their output byte-identical to the JAX worker's:
+that is set. Every backend runs on ``device`` (the card unless the CPU
+is asked for) where it has device work, its output byte-identical to the
+JAX worker's:
 
 - ``jarm`` probes each target with the ten JARM ClientHellos and clusters
   the fingerprints with the density-peaks kernels;
@@ -27,10 +28,20 @@ asked for), their output byte-identical to the JAX worker's:
   probes the targets with the native front-end, no matching;
 - ``service`` (``servicescan``) probes banners with payloads from an
   nmap-service-probes DB and classifies them with the port's
-  ``ServiceClassifier`` (the card prefilters every signature).
-
-A job of any other backend (``active``, ``file``, ``ssl``, a command)
-ends ``cmd failed`` ("backend not ported").
+  ``ServiceClassifier`` (the card prefilters every signature);
+- ``active`` (``nuclei``, ``active``) issues each template's own
+  requests per target in waves and matches the responses on the
+  corpus's ``MatchEngine`` (``worker/active.py``), with the DNS,
+  network, session, ssl and workflow passes; chunk 0 also carries the
+  scan's scope lines (``[oob-skipped]``, ``[headless-skipped]``,
+  ``[coverage]``). A probe spec with ``oob``, or a corpus with a
+  headless template the reference would run, ends ``cmd failed``: the
+  OOB listener and headless execution are not ported;
+- ``file`` matches local files against the corpus's ``file`` templates
+  (``worker/filescan.py``), ``ssl`` runs its ``ssl`` templates over TLS
+  handshakes on the host (``worker/sslscan.py``);
+- a module without a backend runs its ``command`` through the shell in
+  the worker's ``work_dir`` and ends ``cmd failed`` on a non-zero exit.
 
 Not ported yet (ROADMAP.md): lease heartbeats, the output spool,
 graceful drain, the retrying transport, tracing and telemetry, the
@@ -42,7 +53,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import subprocess
+import tempfile
 import time
+from pathlib import Path
 from typing import Optional, Union
 
 import requests
@@ -50,12 +64,15 @@ import torch
 
 from swarm_tpu_torch.datamodel import SCAN_ID_RE, JobStatus
 from swarm_tpu_torch.fingerprints.dbcache import load_or_compile
+from swarm_tpu_torch.fingerprints.model import Response
+from swarm_tpu_torch.fingerprints.nuclei import load_corpus
 from swarm_tpu_torch.ops import cluster as cl
 from swarm_tpu_torch.ops.engine import MatchEngine
 from swarm_tpu_torch.ops.service import ServiceClassifier
 from swarm_tpu_torch.ops.workflows import WorkflowRunner
 from swarm_tpu_torch.utils.device import resolve_device
-from swarm_tpu_torch.worker import formats
+from swarm_tpu_torch.worker import filescan, formats, sslscan
+from swarm_tpu_torch.worker.active import ActiveScanner
 from swarm_tpu_torch.worker.executor import ProbeExecutor
 from swarm_tpu_torch.worker.streaming import stream_match
 from swarm_tpu_torch.worker.modules import (
@@ -158,20 +175,29 @@ class JobProcessor:
         client: Optional[ServerClient] = None,
         registry: Optional[ModuleRegistry] = None,
         device: Optional[Union[str, torch.device]] = None,
+        work_dir: Optional[str] = None,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.client = client or ServerClient(cfg.server_url, cfg.api_key)
         self.registry = registry or ModuleRegistry(cfg.modules_dir)
+        #: where a command module's chunk files are written
+        self.work_dir = Path(work_dir or tempfile.mkdtemp(prefix="swarm_worker_"))
+        self.work_dir.mkdir(parents=True, exist_ok=True)
         self.jobs_done = 0
         #: what a job builds once and the worker keeps: the MatchEngine
         #: per templates directory, its WorkflowRunner under
         #: ``wfrunner::<dir>``, the ServiceClassifier under
-        #: ``svc::<probes_db>``
+        #: ``svc::<probes_db>``, the ActiveScanner under
+        #: ``active::<dir>::<probe spec and vars>``, the FileScanner under
+        #: ``file::<dir>::<scan_root>``, the SslScanner under
+        #: ``ssl::<dir>::<probe spec>``
         self.engines: dict = {}
         #: the MatchEngine the current job ran on, if any (its scheduler
         #: state rides the job's perf fields)
         self._job_engine: Optional[MatchEngine] = None
+        #: the current job's scan counters (an active job's), perf fields
+        self._scan_perf_extra: dict = {}
 
     def process_jobs(self) -> None:
         """The poll loop; returns after ``cfg.max_jobs`` attempts when set."""
@@ -234,17 +260,24 @@ class JobProcessor:
             "tpu": self._execute_tpu,
             "probe": self._execute_probe,
             "service": self._execute_service,
+            "file": self._execute_file,
+            "ssl": self._execute_ssl,
         }.get(module.backend)
-        if execute is None:
-            print(f"module {module.name}: backend {module.backend!r} not ported")
-            update(JobStatus.CMD_FAILED, message="backend not ported")
-            return
         t0 = time.perf_counter()
         self._job_engine = None
+        self._scan_perf_extra = {}
         try:
-            output = execute(module, data)
+            if module.backend == "active":
+                output = self._execute_active(module, data, chunk_index=chunk_index)
+            elif execute is None:  # the reference's command fallback
+                output = self._execute_command(module, scan_id, chunk_index, data)
+            else:
+                output = execute(module, data)
         except Exception as e:  # one bad chunk must not stop the worker
             print(f"execution failed: {type(e).__name__}: {e}")
+            update(JobStatus.CMD_FAILED, message=f"{type(e).__name__}: {e}")
+            return
+        if output is None:  # a command that exited non-zero
             update(JobStatus.CMD_FAILED)
             return
         execute_s = time.perf_counter() - t0
@@ -268,6 +301,7 @@ class JobProcessor:
         }
         if self._job_engine is not None:
             perf.update(self._sched_perf(self._job_engine))
+        perf.update(self._scan_perf_extra)
         update(JobStatus.COMPLETE, perf=perf)
 
     @staticmethod
@@ -484,12 +518,158 @@ class JobProcessor:
         lines = [info.line() for info in infos if info.open]
         return ("\n".join(lines) + "\n").encode() if lines else b""
 
+    def _execute_active(
+        self, module: ModuleSpec, data: bytes, chunk_index: int = 0
+    ) -> bytes:
+        """Active template-request scanning (nuclei's execution mode):
+        each template's own requests are issued per target, the
+        responses matched on the corpus's engine (``self.device``), hits
+        attributed per request (``worker/active.py``). The scanner is
+        kept per templates directory, probe spec and template vars."""
+        if not module.templates_dir:
+            raise ValueError(f"active module {module.name} missing 'templates'")
+        engine = self.engine_for(module.templates_dir)
+        self._job_engine = engine
+        # keyed by probe spec + vars too: two modules sharing a
+        # templates dir but differing in ports/timeouts/concurrency or
+        # operator-supplied template vars must not alias
+        user_vars = module.raw.get("vars") or None
+        probe_key = json.dumps([module.probe or {}, user_vars], sort_keys=True)
+        key = f"active::{module.templates_dir}::{probe_key}"
+        scanner = self.engines.get(key)
+        if scanner is None:
+            scanner = ActiveScanner(engine, module.probe, user_vars=user_vars)
+            self.engines[key] = scanner
+        target_lines = data.decode("utf-8", "surrogateescape").splitlines()
+        hits, stats = scanner.run(target_lines)
+        sev, proto = formats.severity_index(engine.templates)
+        lines = []
+        for h in hits:
+            p = proto.get(h.template_id, "http")
+            target = (
+                formats.url_of(Response(host=h.host, port=h.port, tls=h.tls)) + h.path
+                if p == "http"
+                else f"{h.host}:{h.port}"
+            )
+            extra = " [" + ",".join(h.extractions) + "]" if h.extractions else ""
+            lines.append(
+                f"[{h.template_id}] [{p}] [{sev.get(h.template_id, 'info')}] "
+                f"{target}{extra}"
+            )
+        print(
+            f"active scan: {stats['rows_probed']} requests over "
+            f"{stats.get('live_targets', 0)} live targets, {len(lines)} hits"
+        )
+        # the scan counters in the job's perf fields, as the JAX worker
+        # reports them
+        self._scan_perf_extra = {
+            k: stats[k]
+            for k in (
+                "targets", "live_targets", "rows_probed", "session_hits",
+                "workflow_hits",
+            )
+            if k in stats
+        }
+        self._scan_perf_extra["hits"] = len(lines)
+        # scope lines, once per scan (chunk 0 only: a sharded scan's
+        # merged output would repeat them per chunk)
+        if chunk_index == 0:
+            for tid in scanner.oob_limited:
+                lines.append(
+                    f"# [{tid}] [oob-skipped] interactsh-dependent "
+                    "checks not evaluated (no out-of-band interaction "
+                    "server)"
+                )
+            for tid in scanner.plan.skipped.get("protocol-headless", []):
+                lines.append(
+                    f"# [{tid}] [headless-skipped] requires a browser "
+                    "engine; not evaluated"
+                )
+            # one line per remaining skip class (file/ssl run under
+            # their own modules; sessions execute the chain classes)
+            for reason, ids in sorted(stats["skipped_templates"].items()):
+                if reason.startswith("protocol-") or reason == "oob-interactsh":
+                    continue  # surfaced above / handled elsewhere
+                lines.append(f"# [coverage] {reason}: {ids} templates not executed")
+        return ("\n".join(lines) + "\n").encode() if lines else b""
+
+    def _execute_file(self, module: ModuleSpec, data: bytes) -> bytes:
+        """File-template scanning: input lines are file or directory
+        paths, matched against the corpus's ``file`` templates in one
+        batch on ``self.device`` (``worker/filescan.py``)."""
+        if not module.templates_dir:
+            raise ValueError(f"file module {module.name} missing 'templates'")
+        scan_root = module.raw.get("scan_root") or None
+        key = f"file::{module.templates_dir}::{scan_root}"
+        scanner = self.engines.get(key)
+        if scanner is None:
+            templates, _errors = load_corpus(module.templates_dir)
+            scanner = filescan.FileScanner(
+                templates, scan_root=scan_root, device=self.device
+            )
+            self.engines[key] = scanner
+        findings, stats = scanner.scan_paths(
+            data.decode("utf-8", "surrogateescape").splitlines()
+        )
+        print(
+            f"file scan: {stats['files_scanned']} files x "
+            f"{stats['templates']} templates, {stats['hits']} hits"
+        )
+        return filescan.format_findings(findings)
+
+    def _execute_ssl(self, module: ModuleSpec, data: bytes) -> bytes:
+        """ssl-protocol templates: version-pinned handshakes and matchers
+        over the session and certificate document, on the host
+        (``worker/sslscan.py``)."""
+        if not module.templates_dir:
+            raise ValueError(f"ssl module {module.name} missing 'templates'")
+        probe = module.probe or {}
+        key = f"ssl::{module.templates_dir}::{json.dumps(probe, sort_keys=True)}"
+        scanner = self.engines.get(key)
+        if scanner is None:
+            templates, _errors = load_corpus(module.templates_dir)
+            scanner = sslscan.SslScanner(
+                templates,
+                concurrency=int(probe.get("concurrency", 32)),
+                timeout=float(probe.get("connect_timeout_ms", 4000)) / 1000.0,
+            )
+            self.engines[key] = scanner
+        findings, stats = scanner.scan(
+            data.decode("utf-8", "surrogateescape").splitlines()
+        )
+        print(
+            f"ssl scan: {stats['targets']} targets x {stats['templates']} "
+            f"templates, {stats['hits']} hits"
+        )
+        return sslscan.format_findings(findings)
+
+    def _execute_command(
+        self, module: ModuleSpec, scan_id: str, chunk_index: int, data: bytes
+    ) -> Optional[bytes]:
+        """The module's command through the shell over the chunk's input
+        file → its output file (else its stdout); None on a non-zero
+        exit, which fails the job."""
+        job_dir = self.work_dir / scan_id
+        job_dir.mkdir(parents=True, exist_ok=True)
+        input_file = job_dir / f"chunk_{chunk_index}.txt"
+        output_file = job_dir / f"chunk_{chunk_index}.out.txt"
+        input_file.write_bytes(data)
+        command = module.command(str(input_file), str(output_file))
+        proc = subprocess.run(
+            command, shell=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE
+        )
+        if proc.returncode != 0:
+            print(f"Error executing command: {command}")
+            print(proc.stderr.decode("utf-8", "replace"))
+            return None
+        return output_file.read_bytes() if output_file.is_file() else proc.stdout
+
 
 def main(argv: Optional[list[str]] = None) -> None:
     import argparse
 
     parser = argparse.ArgumentParser(
-        description="swarm_tpu_torch worker (jarm, tpu, probe, service backends)"
+        description="swarm_tpu_torch worker"
     )
     parser.add_argument("--server-url", default=None)
     parser.add_argument("--api-key", default=None)

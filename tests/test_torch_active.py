@@ -7,13 +7,18 @@ the scanner (waves, the network, DNS and ssl passes, the workflow pass
 with its batched gate re-confirm) must give equal hits and stats against
 the same local listeners, the port's engine on the CPU. Both modules'
 ``_RANDSTR`` are set to one value, as it appears in planned paths. A
-probe spec with ``oob`` and a corpus with a runnable headless template
-are refused.
+probe spec with ``oob`` runs the interaction listener and a corpus with
+runnable headless templates the browserless executor, as in JAX, here
+against ``chip_smoke``'s OOB fleet; both modules' OOB tokens are drawn
+from one counter.
 """
 
 import dataclasses
+import json
+import socket
 import struct
 import textwrap
+from pathlib import Path
 
 import pytest
 import yaml
@@ -24,6 +29,7 @@ from swarm_tpu.ops.workflows import WorkflowRunner as JaxRunner
 from swarm_tpu.worker import active as j_active
 from swarm_tpu.worker import dnsquery as j_dnsquery
 from swarm_tpu.worker import headless as j_headless
+from swarm_tpu.worker import oob as j_oob
 from swarm_tpu_torch.fingerprints.nuclei import load_corpus as t_load_corpus
 from swarm_tpu_torch.fingerprints.nuclei import parse_template as t_parse
 from swarm_tpu_torch.ops.engine import MatchEngine
@@ -31,6 +37,7 @@ from swarm_tpu_torch.ops.workflows import WorkflowRunner
 from swarm_tpu_torch.worker import active as t_active
 from swarm_tpu_torch.worker import dnsquery as t_dnsquery
 from swarm_tpu_torch.worker import headless as t_headless
+from swarm_tpu_torch.worker import oob as t_oob
 from test_active_scan import (
     CHAIN_TEMPLATE,
     LOGIN_TEMPLATE,
@@ -46,6 +53,7 @@ from test_dns_templates import DNS_TEMPLATE, SERVFAIL_TEMPLATE, dns_server  # no
 from test_match_parity import DATA
 
 RANDSTR = "swarm0123456789abcdef"
+REPO = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(autouse=True)
@@ -459,22 +467,130 @@ def test_resolve_gate_names_equal(device):
 
 
 # ---------------------------------------------------------------------------
-# what is not ported is refused
+# the OOB listener and headless execution
 
 
-def test_oob_spec_refused():
-    _j, t_templates = pair([(ROOT_TEMPLATE, "t/root.yaml")])
-    with pytest.raises(ValueError, match="OOB"):
-        t_active.ActiveScanner(MatchEngine(t_templates, device="cpu"),
-                               {"oob": {"advertise_host": "127.0.0.1"}})
+class CountingTokens:
+    """Stands in for ``secrets`` in an ``oob`` module: ``token_hex``
+    counts, so that two scans mint the same tokens."""
+
+    def __init__(self):
+        self.n = 0
+
+    def token_hex(self, nbytes: int) -> str:
+        self.n += 1
+        return f"{self.n:0{2 * nbytes}x}"
 
 
-def test_runnable_headless_refused():
-    _j, t_templates = pair([(ROOT_TEMPLATE, "t/root.yaml"),
-                            (HEADLESS_RUNNABLE, "headless/run.yaml"),
-                            (HEADLESS_SKIPPED, "headless/skip.yaml")])
-    with pytest.raises(ValueError, match="headless execution is not ported.*demo-headless-nav"):
-        t_active.ActiveScanner(MatchEngine(t_templates, device="cpu"), {})
+@pytest.fixture
+def tokens(monkeypatch):
+    counters = {mod: CountingTokens() for mod in (j_oob, t_oob)}
+    for mod, counter in counters.items():
+        monkeypatch.setattr(mod, "secrets", counter)
+    return counters
+
+
+def free_ports() -> tuple:
+    """A free TCP and a free UDP port on this host."""
+    with socket.socket() as t, socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as u:
+        t.bind(("0.0.0.0", 0))
+        u.bind(("0.0.0.0", 0))
+        return t.getsockname()[1], u.getsockname()[1]
+
+
+def close_shared(mod, http_port: int) -> None:
+    """Close and forget ``mod``'s shared listeners on ``http_port``."""
+    with mod._SHARED_LOCK:
+        keys = [k for k, lst in mod._SHARED.items() if lst.http_port == http_port]
+        listeners = [mod._SHARED.pop(k) for k in keys]
+    for lst in listeners:
+        lst.close()
+
+
+def oob_spec(http_port: int, dns_port: int) -> dict:
+    """``modules/nuclei-oob.json``'s probe spec on fixed listener ports,
+    the chip fleet's domain, local resolvers and a 50 ms poll window."""
+    from chip_smoke import OOB_DOMAIN
+
+    probe = json.loads((REPO / "modules" / "nuclei-oob.json").read_text())["probe"]
+    return {**probe, "resolvers": ["127.0.0.1"], "read_timeout_ms": 2000,
+            "connect_timeout_ms": 1000,
+            "oob": {**probe["oob"], "http_port": http_port, "dns_port": dns_port,
+                    "domain": OOB_DOMAIN, "poll_s": 0.05}}
+
+
+def test_oob_spec_scan_equal(tokens):
+    """``ActiveScanner`` with an ``oob`` spec over 24 of ``chip_smoke``'s OOB
+    templates (both shapes, every variant) and 8 others against two listeners of its
+    OOB fleet, the port's engine on the CPU: hits and stats equal JAX's,
+    each package's listener on the same ports in turn; every OOB
+    template fires on exactly its vulnerable (listener, path) pairs."""
+    from chip_smoke import OobFleet, active_replies, oob_headless_corpus, oob_vulnerable
+
+    docs, plants, oob = oob_headless_corpus(0)
+    oob = dict(sorted(oob.items())[:24])
+    picked = [(d, f"t/{d['id']}.yaml") for d in docs if d["id"] in oob]
+    picked += [(d, f"t/{d['id']}.yaml") for d in docs[:40] if not d["id"].startswith("chip-")][:8]
+    j_templates = [j_parse(d, source_path=p) for d, p in picked]
+    t_templates = [t_parse(d, source_path=p) for d, p in picked]
+    http_port, dns_port = free_ports()
+    spec = oob_spec(http_port, dns_port)
+    out = []
+    with OobFleet(2, active_replies(docs, plants, 2), dns_port, headless=1) as fleet:
+        for mod, scanner_of in (
+                (t_oob, lambda: t_active.ActiveScanner(MatchEngine(t_templates, device="cpu"),
+                                                       spec)),
+                (j_oob, lambda: j_active.ActiveScanner(JaxEngine(j_templates), spec))):
+            scanner = scanner_of()
+            try:
+                assert scanner.oob_limited == [] and len(scanner._oob_reqs) == len(oob)
+                out.append(scanner.run(fleet.targets))
+            finally:
+                close_shared(mod, http_port)
+        callbacks = fleet.callbacks
+    (t_hits, t_stats), (j_hits, j_stats) = out
+    assert hits_view(t_hits) == hits_view(j_hits)
+    assert t_stats == j_stats
+    ports = [int(t.split(":")[1]) for t in fleet.targets]
+    want = {(ports[k], tid) for tid, (name, _shape) in oob.items() for k in range(2)
+            if oob_vulnerable(k, name)}
+    assert {(h.port, h.template_id) for h in t_hits if h.template_id in oob} == want
+    assert callbacks == 2 * len(want)
+    assert t_stats["oob_probes"] == 2 * len(oob)
+    assert t_stats["oob_interactions"] == len(want)
+    extracted = [h.extractions for h in t_hits if h.template_id in oob and h.extractions]
+    assert ["127.0.0.1"] in extracted and any(e[0].startswith("si") for e in extracted)
+
+
+def test_runnable_headless_scan_equal():
+    """A corpus with runnable headless templates (one an idiom) and
+    js-required ones: hits, stats and the ``protocol-headless`` skip
+    list (the scope lines) equal JAX's."""
+    from chip_smoke import HEADLESS_RUN, OobFleet, headless_docs
+
+    docs = [(d, f"headless/{d['id']}.yaml") for d in headless_docs()]
+    docs += [(yaml.safe_load(ROOT_TEMPLATE), "t/root.yaml"),
+             (yaml.safe_load(HEADLESS_SKIPPED), "headless/skip.yaml")]
+    j_templates = [j_parse(d, source_path=p) for d, p in docs]
+    t_templates = [t_parse(d, source_path=p) for d, p in docs]
+    page = b"HTTP/1.1 200 OK\r\nContent-Length: 21\r\n\r\nthe acme-platform app"
+    spec = {"read_timeout_ms": 2000, "connect_timeout_ms": 1000, "resolvers": ["127.0.0.1"]}
+    with OobFleet(2, lambda k, method, path: page, dns_port=0, headless=1) as fleet:
+        j_scan = j_active.ActiveScanner(JaxEngine(j_templates), spec)
+        t_scan = t_active.ActiveScanner(MatchEngine(t_templates, device="cpu"), spec)
+        j_hits, j_stats = j_scan.run(fleet.targets)
+        t_hits, t_stats = t_scan.run(fleet.targets)
+    assert hits_view(t_hits) == hits_view(j_hits)
+    assert t_stats == j_stats
+    assert t_scan.plan.skipped == j_scan.plan.skipped == {
+        "protocol-headless": ["chip-hl-js-required", "demo-headless"]}
+    assert [t.id for t in t_scan.headless_scanner.templates] == [
+        d["id"] for d, _p in docs[:HEADLESS_RUN]]
+    headless_port = int(fleet.targets[1].split(":")[1])
+    assert {h.template_id for h in t_hits if h.port == headless_port} >= {
+        d["id"] for d, _p in docs[:HEADLESS_RUN]}
+    assert t_stats["headless_templates"] == HEADLESS_RUN
+    assert t_stats["headless_hits"] == sum(h.path == "" for h in t_hits)
 
 
 # ---------------------------------------------------------------------------

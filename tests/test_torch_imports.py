@@ -56,6 +56,8 @@ def test_module_list_covers_the_slice():
         "swarm_tpu_torch.worker.active", "swarm_tpu_torch.worker.filescan",
         "swarm_tpu_torch.worker.sslscan", "swarm_tpu_torch.worker.sessions",
         "swarm_tpu_torch.worker.dnsquery", "swarm_tpu_torch.worker.headless",
+        # the OOB interaction listener
+        "swarm_tpu_torch.worker.oob",
     } <= names
 
 

@@ -175,10 +175,9 @@ class RecordingClient:
         return True
 
 
-@pytest.mark.parametrize("module", ["nuclei-oob", "missing"])
+@pytest.mark.parametrize("module", ["missing"])
 def test_unported_backend_fails_job(module, monkeypatch, tmp_path):
-    """What the port cannot run ends ``cmd failed``: the OOB listener
-    (``nuclei-oob``) is not ported, and a module that does not exist."""
+    """A module that does not exist ends ``cmd failed``."""
     from test_match_parity import DATA
 
     monkeypatch.setenv("SWARM_TEMPLATES_DIR", str(DATA))
@@ -191,8 +190,6 @@ def test_unported_backend_fails_job(module, monkeypatch, tmp_path):
     statuses = [u["status"] for u in client.updates]
     assert statuses == ["starting", "downloading", "executing", "cmd failed"]
     assert client.output is None
-    if module == "nuclei-oob":
-        assert "OOB" in client.updates[-1]["message"]
 
 
 def test_command_backend_runs_echo(tmp_path):
@@ -582,6 +579,9 @@ def test_formats_identical():
 # the CPU, byte-identical to the JAX worker's ``_execute_*`` on the chunk
 
 
+from test_torch_active import tokens  # noqa: E402,F401
+
+
 @pytest.fixture
 def same_randstr(monkeypatch):
     from swarm_tpu.worker import active as j_active
@@ -641,6 +641,59 @@ def test_active_job_identical(tmp_path, monkeypatch, same_randstr):
         assert perf["pipeline"] == "off" and perf["workflow_hits"] == 1
     finally:
         srv.shutdown()
+
+
+def test_nuclei_oob_job_identical(tmp_path, monkeypatch, same_randstr, tokens):
+    """A ``nuclei-oob`` job (``modules/nuclei-oob.json``'s probe spec on
+    fixed listener ports, a 50 ms poll window) over ``chip_smoke``'s OOB
+    fleet: SSRF and JNDI templates of both shapes, a token extractor,
+    runnable and js-required headless templates. It ends ``complete``;
+    its lines and perf counters equal the JAX worker's, each package's
+    listener on the same ports in turn."""
+    import yaml
+
+    from chip_smoke import OobFleet, active_replies, headless_docs, oob_headless_corpus
+    from swarm_tpu.worker import oob as j_oob
+    from swarm_tpu_torch.worker import oob as t_oob
+    from test_torch_active import HEADLESS_SKIPPED, close_shared, free_ports, oob_spec
+
+    docs, plants, oob = oob_headless_corpus(0)
+    corpus = tmp_path / "corpus"
+    corpus.mkdir()
+    picks = [d for d in docs if d["id"] in sorted(oob)[:12]] + headless_docs()[:3] + [
+        headless_docs()[-1], yaml.safe_load(HEADLESS_SKIPPED)]
+    for doc in picks:
+        (corpus / f"{doc['id']}.yaml").write_text(yaml.safe_dump(doc))
+    monkeypatch.setenv("SWARM_DB_CACHE_DIR", str(tmp_path / "dbcache"))
+    http_port, dns_port = free_ports()
+    spec = json.loads((REPO / "modules" / "nuclei-oob.json").read_text())
+    modules = write_modules(tmp_path, {"nuclei-oob": {
+        **spec, "templates": str(corpus), "probe": oob_spec(http_port, dns_port)}})
+    with OobFleet(2, active_replies(docs, plants, 2), dns_port, headless=1) as fleet:
+        blob = ("\n".join(fleet.targets) + "\n127.0.0.1:1\n").encode()
+        job = {"job_id": "o_1_0", "scan_id": "o_1", "chunk_index": 0, "module": "nuclei-oob"}
+        client = RecordingClient(job, blob)
+        cfg = WorkerConfig(modules_dir=str(modules), max_jobs=1, poll_interval_busy_s=0)
+        proc = JobProcessor(cfg, client=client, registry=ModuleRegistry(modules), device="cpu")
+        try:
+            proc.process_jobs()
+        finally:
+            close_shared(t_oob, http_port)
+        try:
+            jax_proc = jax_processor(modules, tmp_path)
+            want = jax_proc._execute_active(jax_proc.registry.load("nuclei-oob"), blob)
+        finally:
+            close_shared(j_oob, http_port)
+    assert [u["status"] for u in client.updates] == [
+        "starting", "downloading", "executing", "uploading", "complete"]
+    assert client.output == want
+    text = want.decode()
+    assert "/oob-000/fetch?url=http://{{interactsh-url}}/" in text
+    assert "# [chip-hl-js-required] [headless-skipped]" in text
+    assert "# [demo-headless] [headless-skipped]" in text and "[oob-skipped]" not in text
+    assert "[chip-hl-form-login] [headless] [high]" in text
+    perf = client.updates[-1]["perf"]
+    assert perf["oob_probes"] == 2 * 12 and perf["oob_interactions"] == fleet.callbacks // 2
 
 
 def test_file_job_identical(tmp_path, monkeypatch):

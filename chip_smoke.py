@@ -152,7 +152,20 @@ prints one JSON line per phase:
    :func:`phase_oob_headless_worker`).
 20. ``file_worker``, ``command_worker`` — a ``file`` job and an ``echo``
    job through the worker.
+21. ``resilience_worker`` — the worker's resilience against the
+   stand-in server (see :func:`phase_resilience_worker`): a
+   ``fingerprint`` job whose first two device dispatches fail
+   (``SWARM_FAULT_PLAN=device.dispatch:1-2``) ends ``complete``,
+   byte-identical to the job without faults, its two degraded batches
+   redone on the CPU oracle and its device breaker open, half-open,
+   then closed, the kernel calls after the cooldown exact; a chunk
+   slowed past three heartbeat intervals keeps its lease; an upload
+   outage longer than the retries is spooled and replayed on the next
+   poll, then a drain order ends the worker, which deregisters once.
 
+Every MatchEngine that phases 9–20 build (the phases' own, the
+worker's, a scanner's, a classifier's) must end its phase with no device
+fault and no degraded batch (the ``no_device_faults`` line counts them).
 Each phase's compile cache (``SWARM_DB_CACHE_DIR``) lies in a temporary
 directory of the run. Then the ``{"kernels": [...]}`` summary (all
 seven kernels; each match kernel also with its launches on the sched
@@ -722,10 +735,16 @@ class SyntheticTlsFleet:
 
 class StubServer:
     """Stdlib stand-in for the server's worker routes (``/get-job``,
-    ``/get-input-chunk``, ``/put-output-chunk``, ``/update-job``) that
-    hands out one job of ``module`` over the input ``blob``."""
+    ``/get-input-chunk``, ``/put-output-chunk``, ``/update-job``,
+    ``/renew-lease/<job>``, ``/deregister``) that hands out one job of
+    ``module`` over the input ``blob``. Every ``/get-job`` answer carries
+    ``X-Swarm-Generation: 1``; the ``drain_on_poll``-th (1-based) also
+    carries ``X-Swarm-Drain: preempted``. The first ``put_failures``
+    uploads are answered 503 (an outage). A renewal of the job is
+    accepted until the job is complete."""
 
-    def __init__(self, blob: bytes, module: str = "jarm", api_key: str = API_KEY):
+    def __init__(self, blob: bytes, module: str = "jarm", api_key: str = API_KEY,
+                 drain_on_poll: int = 0, put_failures: int = 0):
         scan = f"{module}_1"
         self.job = {
             "job_id": f"{scan}_0", "scan_id": scan, "chunk_index": 0,
@@ -736,6 +755,13 @@ class StubServer:
         #: the perf fields of the job's completing update
         self.perf: dict | None = None
         self.output: bytes | None = None
+        #: every upload the stub accepted, in order
+        self.uploads: list[bytes] = []
+        self.polls = 0
+        self.renewals = 0
+        self.deregistered: list[str] = []
+        self.put_failures = put_failures
+        self.failed_puts = 0
         self._handed = False
         stub = self
 
@@ -743,8 +769,10 @@ class StubServer:
             def log_message(self, *args):
                 pass
 
-            def _reply(self, code: int, body: bytes = b"") -> None:
+            def _reply(self, code: int, body: bytes = b"", headers=()) -> None:
                 self.send_response(code)
+                for k, v in headers:
+                    self.send_header(k, v)
                 self.send_header("Content-Length", str(len(body)))
                 self.end_headers()
                 self.wfile.write(body)
@@ -759,10 +787,14 @@ class StubServer:
                 if not self._authorized():
                     return
                 if self.path.startswith("/get-job"):
+                    stub.polls += 1
+                    headers = [("X-Swarm-Generation", "1")]
+                    if stub.polls == drain_on_poll:
+                        headers.append(("X-Swarm-Drain", "preempted"))
                     if stub._handed:
-                        return self._reply(204)
+                        return self._reply(204, headers=headers)
                     stub._handed = True
-                    return self._reply(200, json.dumps(stub.job).encode())
+                    return self._reply(200, json.dumps(stub.job).encode(), headers)
                 if self.path == f"/get-input-chunk/{scan}/0":
                     return self._reply(200, stub.targets)
                 self._reply(404)
@@ -777,7 +809,19 @@ class StubServer:
                     stub.perf = update.get("perf", stub.perf)
                     return self._reply(200, b"{}")
                 if self.path == f"/put-output-chunk/{scan}/0":
+                    if stub.failed_puts < stub.put_failures:
+                        stub.failed_puts += 1
+                        return self._reply(503)
                     stub.output = body
+                    stub.uploads.append(body)
+                    return self._reply(200, b"{}")
+                if self.path == f"/renew-lease/{scan}_0":
+                    if "complete" in stub.statuses:
+                        return self._reply(409)
+                    stub.renewals += 1
+                    return self._reply(200, b"{}")
+                if self.path == "/deregister":
+                    stub.deregistered.append(json.loads(body)["worker_id"])
                     return self._reply(200, b"{}")
                 self._reply(404)
 
@@ -4482,6 +4526,276 @@ def phase_command_worker() -> None:
           "seconds": seconds})
 
 
+RESILIENCE_JOB_ROWS = 4096
+#: the degraded job per pipeline mode: its fault plan, the engine's
+#: breaker threshold, cooldown and batch rows, and the device faults
+#: the plan makes. Pipeline off, the first two dispatches fail and open
+#: the breaker; pipeline on, one fails, in batches of 256 rows, since
+#: each degraded batch is seconds of host oracle work and the in-flight
+#: batches that meet the open breaker (or the half-open probe still in
+#: flight) degrade too. Pipeline on, the walk retries a batch whose
+#: dispatch failed once the cooldown is over: the cooldown outlasts the
+#: few in-flight launches before the first walk, and ends within that
+#: walk's oracle redo, so the breaker closes during the job
+RESILIENCE_JOBS = {
+    "off": {"plan": "device.dispatch:1-2", "threshold": 2, "cooldown_s": 0.5,
+            "batch_rows": 1024, "faults": 2},
+    "on": {"plan": "device.dispatch:1", "threshold": 1, "cooldown_s": 1.5,
+           "batch_rows": 256, "faults": 1},
+}
+HEARTBEAT_S = 0.1
+SLOW_CHUNK_S = 0.45
+
+
+class breaker_log:
+    """Every breaker state change made in the block, as (breaker name,
+    new state) in order."""
+
+    def __enter__(self) -> list:
+        from swarm_tpu_torch.resilience.breaker import CircuitBreaker
+
+        self.events: list = []
+        saved = self._saved = CircuitBreaker._transition
+        events = self.events
+
+        def transition(br, state):
+            if state != br._state:
+                events.append((br.name, state))
+            saved(br, state)
+
+        CircuitBreaker._transition = transition
+        return self.events
+
+    def __exit__(self, *exc):
+        from swarm_tpu_torch.resilience.breaker import CircuitBreaker
+
+        CircuitBreaker._transition = self._saved
+
+
+def _in_order(events: list, states: tuple) -> bool:
+    """Whether ``states`` occur in ``events`` in that order (not
+    necessarily adjacent)."""
+    it = iter(state for _name, state in events)
+    return all(any(st == want for st in it) for want in states)
+
+
+def phase_resilience_worker(templates, plants, db, smi: str) -> dict:
+    """The worker's resilience against the stand-in server, three jobs
+    of ``RESILIENCE_JOB_ROWS`` realistic rows on the match corpus:
+
+    (a) a ``fingerprint`` job under ``SWARM_FAULT_PLAN=device.dispatch:1-2``
+        (the first two device dispatches fail before their upload) on an
+        engine whose device breaker opens after 2 faults and cools down
+        for 0.5 s, pipeline off; then pipeline on, under
+        ``device.dispatch:1`` with the breaker opening at the first
+        fault and cooling down for 1.5 s (``RESILIENCE_JOBS``): each job ends ``complete``,
+        byte-identical to the fault-free job with the pipeline off; the
+        plan's faults; the degraded batches redone on the CPU oracle (2
+        with the pipeline off; at least 1 with it on); the breaker
+        open, then half-open, then closed; kernel launches after the
+        cooldown, every call equal to its plain version;
+    (b) a chunk slowed by ``executor.run:1:sleep=`` past three heartbeat
+        intervals (pipeline on): at least three renewals reach the stub,
+        and the heartbeat stops with the job;
+    (c) an upload outage longer than the retries (pipeline off): the
+        output spooled, replayed byte-identical on the next poll; then a
+        drain header: the worker ends ``completed`` or ``idle`` and
+        deregisters once;
+    (d) a kernel wrapper that raises on the card: the error propagates
+        out of ``match``, with no device fault and no degraded batch.
+    """
+    import tempfile
+
+    from swarm_tpu_torch.ops import kernels
+    from swarm_tpu_torch.ops.engine import MatchEngine
+    from swarm_tpu_torch.resilience import clear_plan
+    from swarm_tpu_torch.worker.runtime import JobProcessor, WorkerConfig
+
+    t_phase = time.perf_counter()
+    dicts = realistic_rows(RESILIENCE_JOB_ROWS, seed=29, plants=plants)
+    blob = jsonl_rows(dicts)
+    engines = {mode: MatchEngine(templates, db=db, device="cuda", pipeline=mode,
+                                 batch_rows=spec["batch_rows"],
+                                 device_breaker_threshold=spec["threshold"],
+                                 device_breaker_cooldown_s=spec["cooldown_s"])
+               for mode, spec in RESILIENCE_JOBS.items()}
+    complete = ["starting", "downloading", "executing", "uploading", "complete"]
+    saved = {k: os.environ.get(k) for k in ("SWARM_TEMPLATES_DIR", "SWARM_FAULT_PLAN")}
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as corpus_dir, \
+            tempfile.TemporaryDirectory() as work:
+        os.environ["SWARM_TEMPLATES_DIR"] = corpus_dir
+
+        def job(mode: str, stub, name: str, **cfg_kw) -> tuple:
+            """One run of the worker against ``stub`` → (worker, seconds)."""
+            cfg = WorkerConfig.from_env(
+                server_url=stub.url, api_key=API_KEY, worker_id="chip-smoke",
+                modules_dir=str(REPO / "modules"), poll_interval_idle_s=0.05,
+                poll_interval_busy_s=0.0, pipeline=mode, transport_retries=2,
+                transport_backoff_s=0.01, transport_backoff_max_s=0.05,
+                spool_dir=str(Path(work) / name), **cfg_kw)
+            proc = JobProcessor(cfg, device="cuda", work_dir=str(Path(work) / name))
+            proc.engines[corpus_dir] = engines[mode]
+            engines[mode].clear_content_memos()
+            t0 = time.perf_counter()
+            try:
+                proc.process_jobs()
+            finally:
+                stub.close()
+                clear_plan()
+            return proc, time.perf_counter() - t0
+
+        try:
+            # (a) the degraded job, beside the same job without a plan
+            clean = {}
+            for mode, spec in RESILIENCE_JOBS.items():
+                eng = engines[mode]
+                stub = StubServer(blob, module="fingerprint")
+                _proc, clean_s = job(mode, stub, f"clean_{mode}", max_jobs=1)
+                if stub.statuses != complete:
+                    raise AssertionError(f"fault-free job ({mode}) statuses {stub.statuses}")
+                clean[mode] = stub.output
+                if clean[mode] != clean["off"]:
+                    raise AssertionError(f"fault-free job ({mode}) output differs from "
+                                         "the pipeline-off job")
+                if eng.stats.device_faults or eng.stats.degraded_batches:
+                    raise AssertionError(f"fault-free job ({mode}): {eng.stats}")
+                os.environ["SWARM_FAULT_PLAN"] = spec["plan"]
+                batches0 = eng.stats.batches
+                kernels.reset_launches()
+                stub = StubServer(blob, module="fingerprint")
+                with breaker_log() as events, kernels.record_calls() as calls:
+                    _proc, seconds = job(mode, stub, f"degraded_{mode}", max_jobs=1)
+                os.environ.pop("SWARM_FAULT_PLAN")
+                launches = {k: kernels.LAUNCHES[k] for k in MATCH_KERNELS}
+                st = eng.stats
+                states = eng._device_breakers.states()
+                line = {"mode": mode, "plan": spec["plan"], "batch_rows": spec["batch_rows"],
+                        "breaker_threshold": spec["threshold"],
+                        "cooldown_s": spec["cooldown_s"], "seconds": seconds,
+                        "fault_free_seconds": clean_s, "device_faults": st.device_faults,
+                        "degraded_batches": st.degraded_batches,
+                        "batches": st.batches - batches0,
+                        "breaker_events": [state for _n, state in events],
+                        "breaker_states": states, "launches_after_cooldown": launches,
+                        "status": stub.statuses[-1] if stub.statuses else None}
+                emit({"phase": "resilience_worker", "job": "degraded", **line})
+                if stub.statuses != complete:
+                    raise AssertionError(f"degraded job ({mode}) statuses {stub.statuses}")
+                if stub.output != clean["off"]:
+                    raise AssertionError(f"degraded job ({mode}) output differs from the "
+                                         "fault-free job")
+                # pipeline off, each fault degrades its own batch and
+                # nothing else; pipeline on, batches already in flight
+                # when the breaker opened may degrade as well
+                want = spec["faults"]
+                if st.device_faults != want or not (
+                        st.degraded_batches == want if mode == "off"
+                        else want <= st.degraded_batches < st.batches - batches0):
+                    raise AssertionError(f"degraded job ({mode}): {st.device_faults} faults, "
+                                         f"{st.degraded_batches} degraded batches, want {want}")
+                if not _in_order(events, ("open", "half-open", "closed")):
+                    raise AssertionError(f"degraded job ({mode}): breaker events {events}")
+                if any(v != "closed" for v in states.values()):
+                    raise AssertionError(f"degraded job ({mode}): breakers {states}")
+                if sum(launches.values()) < 1:
+                    raise AssertionError(f"degraded job ({mode}): no launch after the cooldown")
+                line["max_abs_err"] = check_calls(calls)
+                out[f"degraded_{mode}"] = line
+
+            # (b) a slow chunk keeps its lease
+            stub = StubServer(blob, module="fingerprint")
+            proc, seconds = job("on", stub, "slow", max_jobs=1, heartbeat_interval_s=HEARTBEAT_S,
+                                fault_plan=f"executor.run:1:sleep={SLOW_CHUNK_S}")
+            hb = proc._last_heartbeat
+            out["slow_chunk"] = line = {
+                "seconds": seconds, "heartbeat_interval_s": HEARTBEAT_S,
+                "sleep_s": SLOW_CHUNK_S, "renewals": stub.renewals,
+                "heartbeat_renewals": hb.renewals, "heartbeat_running": hb.running,
+                "status": stub.statuses[-1] if stub.statuses else None}
+            emit({"phase": "resilience_worker", "job": "slow_chunk", **line})
+            if stub.statuses != complete or stub.output != clean["off"]:
+                raise AssertionError(f"slow chunk: statuses {stub.statuses} or output differs")
+            if stub.renewals < 3 or hb.running:
+                raise AssertionError(f"slow chunk: {stub.renewals} renewals, running {hb.running}")
+
+            # (c) an upload outage longer than the retries, then a drain
+            stub = StubServer(blob, module="fingerprint", put_failures=3, drain_on_poll=3)
+            proc, seconds = job("off", stub, "outage", max_jobs=0)
+            out["outage_drain"] = line = {
+                "seconds": seconds, "failed_puts": stub.failed_puts, "polls": stub.polls,
+                "spooled": proc.spool.spooled, "replayed": proc.spool.replayed,
+                "spool_left": len(proc.spool), "uploads": len(stub.uploads),
+                "drain_outcome": proc.drain_outcome, "deregistered": stub.deregistered,
+                "renewals": stub.renewals, "statuses": stub.statuses}
+            emit({"phase": "resilience_worker", "job": "outage_drain", **line})
+            if stub.failed_puts != 3 or proc.spool.spooled != 1 or len(proc.spool):
+                raise AssertionError(f"outage: {line}")
+            if stub.uploads != [clean["off"]] or stub.statuses[-1] != "complete":
+                raise AssertionError("outage: the replayed upload differs from the fault-free "
+                                     "job, or the job did not complete")
+            if proc.drain_outcome not in ("completed", "idle") or stub.deregistered != [
+                    "chip-smoke"]:
+                raise AssertionError(f"drain: {proc.drain_outcome}, {stub.deregistered}")
+
+            # (d) a real kernel error on the card is not degraded: a
+            # launch that raises (a stand-in wrapper here, so the
+            # context stays sound) propagates out of match, and no
+            # batch goes to the host oracle
+            eng = engines["off"]
+            eng.clear_content_memos()
+            before = (eng.stats.device_faults, eng.stats.degraded_batches)
+            msg = "match_verdicts: CUDA error at launch (stand-in)"
+
+            def broken(*_a, **_k):
+                raise RuntimeError(msg)
+
+            real, kernels.match_verdicts = kernels.match_verdicts, broken
+            try:
+                eng.match(port_rows(dicts[:64]))
+                raised = None
+            except RuntimeError as e:
+                raised = str(e)
+            finally:
+                kernels.match_verdicts = real
+            after = (eng.stats.device_faults, eng.stats.degraded_batches)
+            out["kernel_error"] = line = {"raised": raised, "device_faults_degraded": after,
+                                          "breakers": eng._device_breakers.states()}
+            emit({"phase": "resilience_worker", "job": "kernel_error", **line})
+            if raised != msg or after != before:
+                raise AssertionError(f"kernel error on the card: raised {raised!r}, "
+                                     f"faults/degraded {before} -> {after}")
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    # what the fault point and the device breaker add to a fault-free
+    # batch on the host: the dispatch's fault_point, and the walk's
+    # breaker lookup by shape class, allow and record_success
+    from swarm_tpu_torch.resilience.faults import fault_point
+
+    eng = engines["off"]
+    batch = eng.encode(port_rows(dicts[:256]))
+    reps = 100_000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fault_point("device.dispatch")
+    fault_point_ns = (time.perf_counter() - t0) / reps * 1e9
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        br = eng._device_breakers.get(eng._shape_class(batch))
+        br.allow()
+        br.record_success()
+    breaker_ns = (time.perf_counter() - t0) / reps * 1e9
+    out["fault_free_ns_per_batch"] = {"fault_point": fault_point_ns, "breaker": breaker_ns}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "resilience_worker", "rows": len(dicts), "seconds": out["seconds"],
+          "fault_free_ns_per_batch": out["fault_free_ns_per_batch"], "card": smi})
+    return out
+
+
 def main() -> int:
     import tempfile
 
@@ -4493,9 +4807,45 @@ def main() -> int:
         return run_phases(smi)
 
 
+#: (phase, EngineStats) of every MatchEngine built in this run: the
+#: engine may be gone, its counts stay
+ENGINE_STATS: list = []
+_PHASE = ["start"]
+
+
+def track_engines() -> None:
+    """Record the stats of every MatchEngine built from here on (the
+    phases', the worker's, a scanner's, a classifier's) under the phase
+    that built it."""
+    from swarm_tpu_torch.ops.engine import MatchEngine
+
+    init = MatchEngine.__init__
+
+    def tracked(self, *args, **kw):
+        init(self, *args, **kw)
+        ENGINE_STATS.append((_PHASE[0], self.stats))
+
+    MatchEngine.__init__ = tracked
+
+
+def no_faults(name: str, fn, *args):
+    """Run phase ``fn``; then no engine built by this or an earlier
+    phase (the resilience phase's aside) may show a device fault or a
+    degraded batch: outside that phase, a degraded batch is a failed
+    run, not a slow one."""
+    _PHASE[0] = name
+    out = fn(*args)
+    bad = [(phase, st.device_faults, st.degraded_batches) for phase, st in ENGINE_STATS
+           if phase != "resilience_worker" and (st.device_faults or st.degraded_batches)]
+    if bad:
+        raise AssertionError(f"device faults or degraded batches after {name}: {bad}")
+    return out
+
+
 def run_phases(smi: str) -> int:
     import torch
 
+    track_engines()
     probe = phase_build()
     b1_rate = phase_mma(probe)
     rng = np.random.default_rng(0)
@@ -4507,21 +4857,28 @@ def run_phases(smi: str) -> int:
     for name, entry in summary.items():
         entry["launches"] = launches[name]
     templates, plants, db = phase_corpus()
-    max_err = phase_match_kernels(templates, plants, db)
-    eng, rows = phase_match(templates, plants, db, smi)
-    phase_match_trace(eng, rows)
+    max_err = no_faults("match_kernels", phase_match_kernels, templates, plants, db)
+    eng, rows = no_faults("match", phase_match, templates, plants, db, smi)
+    no_faults("match_trace", phase_match_trace, eng, rows)
     del eng
-    sched_launches = phase_sched(templates, plants, db, smi)
-    launches, calls = phase_fingerprint_worker(templates, plants, db)
-    timing, job_err = phase_match_timing(calls, smi)
+    sched_launches = no_faults("sched", phase_sched, templates, plants, db, smi)
+    launches, calls = no_faults("fingerprint_worker", phase_fingerprint_worker, templates,
+                                plants, db)
+    timing, job_err = no_faults("match_timing", phase_match_timing, calls, smi)
     del calls
-    svc_timing, svc_launches, svc_err = phase_service(smi)
-    phase_service_worker(smi)
-    phase_tpu_forms_worker(smi)
-    active_launches = phase_active_worker(smi)
-    oob_launches = phase_oob_headless_worker(smi)
-    file_launches = phase_file_worker(smi)
+    svc_timing, svc_launches, svc_err = no_faults("service", phase_service, smi)
+    no_faults("service_worker", phase_service_worker, smi)
+    no_faults("tpu_forms_worker", phase_tpu_forms_worker, smi)
+    active_launches = no_faults("active_worker", phase_active_worker, smi)
+    oob_launches = no_faults("oob_headless_worker", phase_oob_headless_worker, smi)
+    file_launches = no_faults("file_worker", phase_file_worker, smi)
     phase_command_worker()
+    _PHASE[0] = "resilience_worker"
+    phase_resilience_worker(templates, plants, db, smi)
+    checked = [phase for phase, _st in ENGINE_STATS if phase != "resilience_worker"]
+    emit({"phase": "no_device_faults", "engines": len(checked),
+          "by_phase": {p: checked.count(p) for p in dict.fromkeys(checked)},
+          "device_faults": 0, "degraded_batches": 0})
     replaces = {
         "match_phase_a": "swarm_tpu/ops/match.py:1350",
         "match_verify": "swarm_tpu/ops/match.py:1465",

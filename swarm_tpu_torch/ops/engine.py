@@ -49,8 +49,23 @@ Per batch of up to ``batch_rows`` rows:
   extraction and confirm caches): a measurement of the device path
   clears them before each call, or known content never reaches it.
 
-Not ported (ROADMAP.md): the breaker and degraded mode (a device
-fault raises, on either path), the shared result tier, AOT and corpus
+A device fault degrades instead of failing: a fault that a dispatch or
+a collect raises trips a breaker of the batch's shape class, and the
+batch is redone on the exact CPU oracle — the whole-row redo that
+overflowed rows take — so its verdicts and extractions are
+bit-identical (``EngineStats.device_faults``, ``degraded_batches``).
+After ``device_breaker_threshold`` faults in a row the breaker opens
+and the shape class stays on the host for ``device_breaker_cooldown_s``;
+then one probe batch goes to the card again. On the card only an
+injected fault (``FaultInjected``, from the ``device.dispatch`` fault
+point) degrades: a real launch or collect error — a CUDA error, or a
+sticky fault that poisons the context — propagates and fails the job,
+so no kernel failure moves work to the host unseen. On the CPU any
+exception degrades, as in the JAX package. The kernels' libraries load
+when the engine is built, outside the breaker: a kernel that does not
+build or load raises there and never degrades a batch.
+
+Not ported (ROADMAP.md): the shared result tier, AOT and corpus
 refresh, the sharded backend, the telemetry exporters (the memo's hits
 and misses are counts on :class:`EngineStats`).
 """
@@ -74,6 +89,8 @@ from swarm_tpu_torch.native.scanio import ext_resolve, plane_bits, rows_dedup
 from swarm_tpu_torch.ops import cpu_ref, fastre
 from swarm_tpu_torch.ops.encoding import _RotatingPool, encode_batch, round_up
 from swarm_tpu_torch.ops.match import DeviceDB, Device
+from swarm_tpu_torch.resilience.breaker import BreakerBoard
+from swarm_tpu_torch.resilience.faults import FaultInjected
 
 
 @dataclasses.dataclass
@@ -149,6 +166,11 @@ class EngineStats:
     # memo-served ROW count, summed per batch (rows whose verdict came
     # from the cross-batch memo without device or walk work)
     memo_slots: int = 0
+    # device-degraded mode: device-path failures observed, and batches
+    # that ran on the exact CPU-oracle fallback (results stay
+    # bit-identical — only throughput degrades)
+    device_faults: int = 0
+    degraded_batches: int = 0
     # host-walk sub-phases (all included in host_confirm_seconds):
     # uncertainty resolution, the extraction pass, memo inserts, and
     # the member fan-out/fixup assembly
@@ -228,10 +250,26 @@ class MatchEngine:
         walk_threads: Optional[int] = None,  # None → SWARM_WALK_THREADS
         pipeline: Optional[str] = None,  # "on" | "off" | None → SWARM_PIPELINE
         device: Device = None,
+        device_breaker_threshold: int = 2,
+        device_breaker_cooldown_s: float = 60.0,
     ):
         self.templates = list(templates)
         self.db = db if db is not None else compile_corpus(self.templates)
         self.device = DeviceDB(self.db, device=device)
+        # here, not under the breaker: a kernel that fails to build or
+        # load must fail loudly, never degrade
+        self.device.load_kernels()
+        # device-degraded mode: a failure on the device path (on the
+        # card, only an injected device.dispatch fault) trips a
+        # per-shape-class breaker and the batch falls back to the exact
+        # CPU oracle; the cooldown retries the device path, so a
+        # transient fault heals itself
+        self._on_card = self.device.device.type == "cuda"
+        self._device_breakers = BreakerBoard(
+            "engine.device",
+            threshold=device_breaker_threshold,
+            cooldown_s=device_breaker_cooldown_s,
+        )
         self.max_body = max_body
         self.max_header = max_header
         self.batch_rows = batch_rows
@@ -250,7 +288,7 @@ class MatchEngine:
         # and the scheduler's walk worker (finish_packed → _walk_plane),
         # or the encode thread and the matching thread, update —
         # unsynchronized float += across threads loses updates
-        self._stats_lock = threading.Lock()  # guards: stats.device_seconds, phase_*_seconds, encode_seconds, memo_hits, memo_misses
+        self._stats_lock = threading.Lock()  # guards: stats.device_seconds, phase_*_seconds, encode_seconds, memo_hits, memo_misses, device_faults
         # row-parallel batched confirm walk: explicit arg >
         # SWARM_WALK_THREADS > SWARM_EXT_THREADS (compat) > spare cores.
         # 0 = serial reference walk; 1 = batched native passes, inline;
@@ -1666,6 +1704,63 @@ class MatchEngine:
             self.stats.phase_b_seconds += dt - pa
         return pending
 
+    # ------------------------------------------------------------------
+    # Device-degraded mode
+
+    @staticmethod
+    def _shape_class(batch) -> str:
+        """Breaker key: one breaker per batch shape class (rows × each
+        stream's width), so a width bucket that keeps failing degrades
+        alone while other shapes stay on the card."""
+        streams = getattr(batch, "streams", None) or {}
+        parts = [
+            f"{name}{arr.shape[-1]}" for name, arr in sorted(streams.items())
+        ]
+        rows = next(iter(streams.values())).shape[0] if streams else 0
+        return f"r{rows}." + ".".join(parts)
+
+    def _note_device_fault(self, breaker, exc: BaseException) -> None:
+        """A dispatch or collect failed with ``exc``: count it and trip
+        the breaker, so the caller degrades the batch. On the card only
+        an injected fault degrades: a real kernel error is re-raised
+        and fails the job loudly instead of finishing it on the host,
+        and the breaker is closed again so that no half-open probe is
+        left out that would keep later batches off the card."""
+        if self._on_card and not isinstance(exc, FaultInjected):
+            breaker.reset()
+            raise exc
+        # with the scheduler's walk offload this runs on the submit
+        # thread (begin_packed) and on the walk worker (_walk_plane)
+        with self._stats_lock:
+            self.stats.device_faults += 1
+        breaker.record_failure()
+        print(
+            f"device path failed ({type(exc).__name__}: {exc}); "
+            f"falling back to CPU oracle "
+            f"[breaker {breaker.name}: {breaker.state}]"
+        )
+
+    def _oracle_planes(self, B: int):
+        """The device output of a degraded batch: zero value and
+        uncertainty planes and an all-true overflow vector, which the
+        walk reads as "redo every row on the host oracle" — exactness is
+        the redo path's contract."""
+        db = self.db
+        ntb = max((db.num_templates + 7) >> 3, 1)
+        nob = max((len(db.op_matchers) + 7) >> 3, 1)
+        nmb = max((len(db.m_src) + 7) >> 3, 1)
+        return (
+            np.zeros((B, ntb), dtype=np.uint8),
+            np.zeros((B, ntb), dtype=np.uint8),
+            np.zeros((B, nob), dtype=np.uint8),
+            np.zeros((B, nob), dtype=np.uint8),
+            np.zeros((B, nmb), dtype=np.uint8),
+            np.ones((B,), dtype=bool),
+            # no workflow gate planes: the runner resolves every
+            # condition on the host (exact by construction)
+            None,
+        )
+
     def _walk_plane(self, nrows, batch, matcher, pending=None):
         """Device dispatch + sparse host resolution over DISTINCT new
         response contents (the unique content plane).
@@ -1673,7 +1768,11 @@ class MatchEngine:
         ``pending`` is an already-launched dispatch from
         :meth:`begin_packed`: the walk then only pays the wait for that
         batch's read, and its kernels ran while the caller walked a
-        previous batch.
+        previous batch. Without it the batch is dispatched here, if its
+        breaker allows; a batch whose dispatch or collect fails with a
+        fault that degrades (:meth:`_note_device_fault`), or whose
+        breaker is open, walks the oracle planes. Any other failure
+        propagates.
 
         Returns ``(pt_value, uextractions, deferred, redo_pos,
         confirms, wf_planes)``: the final content-side verdict bits
@@ -1683,20 +1782,36 @@ class MatchEngine:
         that needed a whole-row oracle redo (truncation/overflow —
         never memoized), per-position host-confirm counts, and the
         workflow gate planes of the B rows (None without gates)."""
-        if pending is None:
-            pending = self._launch(batch, matcher)
-        t0 = time.perf_counter()
-        pt_value, pt_unc, pop_value, pop_unc, pm_unc, overflow, wf_planes = matcher.collect(
-            pending
-        )
+        B = len(nrows)
+        planes = None
+        breaker = self._device_breakers.get(self._shape_class(batch))
+        if pending is None and breaker.allow():
+            try:
+                pending = self._launch(batch, matcher)
+            except Exception as e:
+                self._note_device_fault(breaker, e)
+        if pending is not None:
+            t0 = time.perf_counter()
+            try:
+                planes = matcher.collect(pending)
+                breaker.record_success()
+            except Exception as e:
+                self._note_device_fault(breaker, e)
+            with self._stats_lock:
+                self.stats.device_seconds += time.perf_counter() - t0
+        if planes is None:
+            # degraded mode: the all-overflow plane routes every row
+            # through the whole-row oracle redo — the path truncated and
+            # overflowed rows always take, so verdicts and extractions
+            # are bit-identical to the device path
+            planes = self._oracle_planes(B)
+            self.stats.degraded_batches += 1
+        pt_value, pt_unc, pop_value, pop_unc, pm_unc, overflow, wf_planes = planes
         if wf_planes is not None:
             # packed cond/emit value+uncertainty bits, sliced to the
             # walked rows; the caller invalidates redo rows (their
             # planes were computed from unsound word bits)
-            B = len(nrows)
             wf_planes = tuple(np.ascontiguousarray(p[:B]) for p in wf_planes)
-        with self._stats_lock:
-            self.stats.device_seconds += time.perf_counter() - t0
         with record_function("engine.resolve"):
             return self._walk_unique(
                 nrows, batch, pt_value, pt_unc, pop_value, pop_unc, pm_unc, overflow
@@ -1984,18 +2099,29 @@ class MatchEngine:
 
         This is the continuous-batching scheduler's submission surface:
         with bounded in-flight handles the card crunches batch i+1 while
-        the host walks batch i. A device fault raises here."""
+        the host walks batch i. A launch that fails with a fault that
+        degrades (:meth:`_note_device_fault`), or an open breaker, leaves the
+        handle without a dispatch: :meth:`finish_packed` then retries
+        the card if the breaker allows, else degrades. Any other launch
+        failure propagates."""
         if pre is None:
             pre = self.encode_packed(all_rows, reuse_buffers=True)
         batch, matcher = pre[1], pre[2]
-        pending = None if batch is None else self._launch(batch, matcher)
+        pending = None
+        if batch is not None:
+            breaker = self._device_breakers.get(self._shape_class(batch))
+            if breaker.allow():
+                try:
+                    pending = self._launch(batch, matcher)
+                except Exception as e:
+                    self._note_device_fault(breaker, e)
         return (all_rows, pre, pending)
 
     def finish_packed(self, handle) -> PackedMatches:
         """Complete a :meth:`begin_packed` batch: wait for its own read,
         run the sparse host walk, assemble exact verdicts —
-        bit-identical to :meth:`match_packed` on the same rows. A device
-        fault raises here."""
+        bit-identical to :meth:`match_packed` on the same rows, a
+        degraded batch's included."""
         rows, pre, pending = handle
         return self._match_packed_native(rows, pre, pending=pending)
 

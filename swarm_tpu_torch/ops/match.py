@@ -50,6 +50,7 @@ from swarm_tpu_torch.fingerprints import compile as fpc
 from swarm_tpu_torch.ops import hashing, kernels
 from swarm_tpu_torch.ops.encoding import STREAMS
 from swarm_tpu_torch.ops.kernels import StreamView
+from swarm_tpu_torch.resilience.faults import fault_point
 from swarm_tpu_torch.utils.device import resolve_device
 
 MASK32 = 0xFFFFFFFF
@@ -924,6 +925,15 @@ class DeviceDB:
         self._meta = None
         self._arrays = None
 
+    def load_kernels(self) -> None:
+        """Build (at first use) and load the libraries of the match
+        kernels on a CUDA device; nothing on the CPU. The engine calls it
+        when it is built, outside its device breaker: a kernel that does
+        not build or load raises there, and never degrades a batch."""
+        if self.device.type == "cuda":
+            for name in ("match", "md5", "verdicts"):
+                kernels.load_library(name)
+
     def _ensure_layout(self):
         if self._arrays is None:
             meta, arrays_np = fpc.build_device_layout(self.db)
@@ -961,6 +971,11 @@ class DeviceDB:
         stream whose event the Dispatch carries."""
         from swarm_tpu_torch.ops.regexdev import regex_verify
 
+        # stands in for a dispatch that never reached the card (an
+        # allocation or launch failure): before the upload, so an
+        # injected fault leaves nothing on the card; MatchEngine catches
+        # it and redoes the batch on the exact CPU oracle
+        fault_point("device.dispatch")
         db = self.db
         meta, arrays = self._ensure_layout()
         T = len(meta.table_stream)

@@ -45,8 +45,10 @@ N's collect (a wait on its own CUDA event, then the read of its pinned
 buffer) and its sparse confirm/extract walk run there while THIS
 thread already encodes and dispatches batch N+1.
 
-A device fault in ``begin_packed`` or ``finish_packed`` propagates out
-of :meth:`BatchScheduler.run`: there is no degraded mode.
+A device fault in ``begin_packed`` or ``finish_packed`` degrades that
+batch to the engine's exact CPU oracle (``MatchEngine``'s device
+breaker): the run's results stay bit-identical. Only a fault at the
+``sched.submit`` fault point propagates out of :meth:`BatchScheduler.run`.
 
 Each stage runs in a ``torch.profiler`` span (``sched.plan``,
 ``sched.encode``, ``sched.wait``, ``sched.submit``, ``sched.finish``);
@@ -66,6 +68,7 @@ from typing import Callable, Iterable, Iterator, Optional, Sequence
 
 from torch.profiler import record_function
 
+from swarm_tpu_torch.resilience.faults import fault_point
 from swarm_tpu_torch.sched.buckets import (
     QOS_BULK,
     QOS_INTERACTIVE,
@@ -497,6 +500,10 @@ class BatchScheduler:
             return out
 
         def submit(pb: PlannedBatch, pre) -> Iterator[list]:
+            # a failing submission propagates to the caller (the
+            # worker's execute fails the job); device faults inside
+            # begin_packed degrade in the engine
+            fault_point("sched.submit", detail=pb.kind)
             with record_function("sched.submit"):
                 handle = engine.begin_packed(pb.rows, pre=pre)
             inflight.append((pb, handle))

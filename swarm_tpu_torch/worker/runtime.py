@@ -46,9 +46,28 @@ JAX worker's:
 - a module without a backend runs its ``command`` through the shell in
   the worker's ``work_dir`` and ends ``cmd failed`` on a non-zero exit.
 
-Not ported yet (ROADMAP.md): lease heartbeats, the output spool,
-graceful drain, the retrying transport, tracing and telemetry, the
-result cache, the executable cache and multi-host engines.
+The worker survives what the JAX worker survives (``resilience/``):
+
+- the client is a :class:`RetryingServerClient` over
+  :class:`ServerClient`: jittered backoff and a breaker per operation;
+  a dead server raises :class:`TransportError`, an idle queue is
+  ``None``;
+- a :class:`LeaseHeartbeat` renews the job's lease every
+  ``heartbeat_interval_s`` (``lease_seconds / 3`` when 0) while the
+  chunk runs;
+- a finished chunk whose upload or completion cannot reach the server
+  goes to the :class:`OutputSpool` (``spool_dir``, else
+  ``<work_dir>/spool``) and is replayed after the next successful poll;
+- a new ``X-Swarm-Generation`` (a restarted server) resets the
+  transport breakers;
+- SIGTERM or an ``X-Swarm-Drain`` answer drains the worker: it finishes
+  the current chunk, replays the spool, deregisters and returns
+  (:meth:`JobProcessor.drain`);
+- fault points ``transport.<op>``, ``executor.run`` and
+  ``worker.drain`` serve the fault harness (``SWARM_FAULT_PLAN``).
+
+Not ported yet (ROADMAP.md): tracing and telemetry, the result cache,
+the executable cache and multi-host engines.
 """
 
 from __future__ import annotations
@@ -56,6 +75,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import signal
 import subprocess
 import tempfile
 import time
@@ -73,6 +93,11 @@ from swarm_tpu_torch.ops import cluster as cl
 from swarm_tpu_torch.ops.engine import MatchEngine
 from swarm_tpu_torch.ops.service import ServiceClassifier
 from swarm_tpu_torch.ops.workflows import WorkflowRunner
+from swarm_tpu_torch.resilience.breaker import breaker_states
+from swarm_tpu_torch.resilience.faults import FaultInjected, fault_point, install_plan
+from swarm_tpu_torch.resilience.heartbeat import LeaseHeartbeat
+from swarm_tpu_torch.resilience.spool import OutputSpool
+from swarm_tpu_torch.resilience.transport import RetryingServerClient, TransportError
 from swarm_tpu_torch.utils.device import resolve_device
 from swarm_tpu_torch.worker import filescan, formats, sslscan
 from swarm_tpu_torch.worker.active import ActiveScanner
@@ -102,54 +127,99 @@ class WorkerConfig:
     #: max-age flush for every bucket class; 0 = off (a partial bucket
     #: waits for end of stream)
     sched_max_age_ms: float = 0.0
+    #: the server's lease on a dispatched job
+    lease_seconds: float = 600.0
+    #: seeded fault-injection plan (``resilience/faults`` grammar);
+    #: empty = fault points are no-ops
+    fault_plan: str = ""
+    # the retrying transport: jittered exponential backoff and a circuit
+    # breaker per operation around the ServerClient
+    transport_retries: int = 3
+    transport_backoff_s: float = 0.2
+    transport_backoff_max_s: float = 5.0
+    transport_breaker_threshold: int = 5
+    transport_breaker_cooldown_s: float = 10.0
+    #: lease renewal cadence while a chunk runs (0 = lease_seconds / 3)
+    heartbeat_interval_s: float = 0.0
+    #: spool of finished chunks the server could not take
+    #: ("" = <work_dir>/spool)
+    spool_dir: str = ""
 
-    #: environment names read by :meth:`from_env`, as the JAX worker's
-    #: config reads them (``SWARM_<FIELD>``, then the reference aliases)
-    _ENV = {
-        "server_url": ("SWARM_SERVER_URL", "SERVER_URL"),
-        "api_key": ("SWARM_API_KEY", "API_KEY"),
-        "worker_id": ("SWARM_WORKER_ID", "WORKER_ID"),
-        "modules_dir": ("SWARM_MODULES_DIR",),
-        "max_jobs": ("SWARM_MAX_JOBS",),
-        "pipeline": ("SWARM_PIPELINE",),
-        "qos_deadline_ms": ("SWARM_QOS_DEADLINE_MS",),
-        "sched_max_age_ms": ("SWARM_SCHED_MAX_AGE_MS",),
+    #: names read by :meth:`from_env` besides ``SWARM_<FIELD>``: the
+    #: reference worker's
+    _ALIASES = {
+        "server_url": ("SERVER_URL",),
+        "api_key": ("API_KEY",),
+        "worker_id": ("WORKER_ID",),
     }
 
     @classmethod
     def from_env(cls, **overrides) -> "WorkerConfig":
-        """Defaults, then the environment, then ``overrides`` not None."""
+        """Defaults, then the environment (``SWARM_<FIELD>``, then the
+        reference aliases, as the JAX worker's config reads them), then
+        ``overrides`` not None; values coerced to each field's type."""
+        fields = {f.name: f for f in dataclasses.fields(cls)}
         values: dict = {}
-        for field, names in cls._ENV.items():
-            for name in names:
-                if os.environ.get(name):
-                    values[field] = os.environ[name]
+        for name in fields:
+            for key in ("SWARM_" + name.upper(),) + cls._ALIASES.get(name, ()):
+                if os.environ.get(key):
+                    values[name] = os.environ[key]
                     break
         values.update({k: v for k, v in overrides.items() if v is not None})
-        if "max_jobs" in values:
-            values["max_jobs"] = int(values["max_jobs"])
-        for field in ("qos_deadline_ms", "sched_max_age_ms"):
-            if field in values:
-                values[field] = float(values[field])
+        for name, value in values.items():
+            kind = fields[name].type
+            if kind in ("int", int):
+                values[name] = int(value)
+            elif kind in ("float", float):
+                values[name] = float(value)
         return cls(**values)
 
 
 class ServerClient:
-    """HTTP client for the worker-facing server API."""
+    """HTTP client for the worker-facing server API.
+
+    Connection failures and 5xx answers raise :class:`TransportError`,
+    so a caller can tell "server down" from "queue empty" or a contract
+    rejection. Each operation declares a ``transport.<op>`` fault point.
+    """
 
     def __init__(self, server_url: str, api_key: str, timeout: float = 30.0):
         self.base = server_url.rstrip("/")
         self.timeout = timeout
         self.session = requests.Session()
         self.session.headers["Authorization"] = f"Bearer {api_key}"
+        #: the server's generation from the last /get-job answer's
+        #: X-Swarm-Generation header (None until the first successful
+        #: poll): the poll loop watches it to see a server restart
+        self.last_server_generation: Optional[int] = None
+        #: the drain order of the last /get-job answer's X-Swarm-Drain
+        #: header (its reason, or None): the poll loop passes it to
+        #: :meth:`JobProcessor.request_drain`
+        self.last_drain_reason: Optional[str] = None
 
-    def _request(self, method: str, path: str, **kw) -> requests.Response:
-        return self.session.request(
-            method, f"{self.base}{path}", timeout=self.timeout, **kw
-        )
+    def _request(self, op: str, method: str, path: str, detail=None, **kw):
+        fault_point(f"transport.{op}", detail=detail, exc=TransportError)
+        try:
+            resp = self.session.request(
+                method, f"{self.base}{path}", timeout=self.timeout, **kw
+            )
+        except requests.RequestException as e:
+            raise TransportError(f"{op}: {e}") from e
+        if resp.status_code >= 500:
+            raise TransportError(f"{op}: server error {resp.status_code}")
+        return resp
 
     def get_job(self, worker_id: str) -> Optional[dict]:
-        resp = self._request("GET", "/get-job", params={"worker_id": worker_id})
+        resp = self._request(
+            "get_job", "GET", "/get-job", params={"worker_id": worker_id}
+        )
+        gen = resp.headers.get("X-Swarm-Generation")
+        if gen is not None:
+            try:
+                self.last_server_generation = int(gen)
+            except ValueError:
+                pass
+        self.last_drain_reason = resp.headers.get("X-Swarm-Drain")
         return resp.json() if resp.status_code == 200 else None
 
     def update_job(
@@ -157,16 +227,45 @@ class ServerClient:
     ) -> bool:
         if worker_id is not None:
             changes = {**changes, "worker_id": worker_id}  # fencing token
-        resp = self._request("POST", f"/update-job/{job_id}", json=changes)
+        resp = self._request(
+            "update_job", "POST", f"/update-job/{job_id}", json=changes
+        )
         return resp.status_code == 200
 
     def get_input_chunk(self, scan_id: str, chunk_index: int) -> Optional[bytes]:
-        resp = self._request("GET", f"/get-input-chunk/{scan_id}/{chunk_index}")
+        resp = self._request(
+            "get_chunk", "GET", f"/get-input-chunk/{scan_id}/{chunk_index}"
+        )
         return resp.content if resp.status_code == 200 else None
 
     def put_output_chunk(self, scan_id: str, chunk_index: int, data: bytes) -> bool:
         resp = self._request(
-            "POST", f"/put-output-chunk/{scan_id}/{chunk_index}", data=data
+            "put_chunk", "POST", f"/put-output-chunk/{scan_id}/{chunk_index}",
+            detail=f"{scan_id}_{chunk_index}", data=data,
+        )
+        return resp.status_code == 200
+
+    def renew_lease(
+        self, job_id: str, worker_id: str, saturation: Optional[float] = None
+    ) -> bool:
+        """Renew one lease; False = the lease is no longer ours.
+        ``saturation`` (0..1, optional) reports the scheduler's
+        in-flight saturation to the server's admission."""
+        body = {"worker_id": worker_id}
+        if saturation is not None:
+            body["saturation"] = saturation
+        resp = self._request(
+            "renew_lease", "POST", f"/renew-lease/{job_id}",
+            detail=job_id, json=body,
+        )
+        return resp.status_code == 200
+
+    def deregister(self, worker_id: str) -> bool:
+        """Tell the server this worker is leaving now: its leases go
+        back at once and its saturation report is dropped."""
+        resp = self._request(
+            "deregister", "POST", "/deregister",
+            detail=worker_id, json={"worker_id": worker_id},
         )
         return resp.status_code == 200
 
@@ -182,11 +281,23 @@ class JobProcessor:
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.client = client or ServerClient(cfg.server_url, cfg.api_key)
+        if cfg.fault_plan:
+            install_plan(cfg.fault_plan)
+        if client is None:
+            client = RetryingServerClient(
+                ServerClient(cfg.server_url, cfg.api_key),
+                retries=cfg.transport_retries,
+                backoff_s=cfg.transport_backoff_s,
+                backoff_max_s=cfg.transport_backoff_max_s,
+                breaker_threshold=cfg.transport_breaker_threshold,
+                breaker_cooldown_s=cfg.transport_breaker_cooldown_s,
+            )
+        self.client = client
         self.registry = registry or ModuleRegistry(cfg.modules_dir)
         #: where a command module's chunk files are written
         self.work_dir = Path(work_dir or tempfile.mkdtemp(prefix="swarm_worker_"))
         self.work_dir.mkdir(parents=True, exist_ok=True)
+        self.spool = OutputSpool(cfg.spool_dir or self.work_dir / "spool")
         self.jobs_done = 0
         #: what a job builds once and the worker keeps: the MatchEngine
         #: per templates directory, its WorkflowRunner under
@@ -201,29 +312,148 @@ class JobProcessor:
         self._job_engine: Optional[MatchEngine] = None
         #: the current job's scan counters (an active job's), perf fields
         self._scan_perf_extra: dict = {}
+        #: the drain order's reason, set by SIGTERM, an X-Swarm-Drain
+        #: answer or a caller: the poll loop finishes its current chunk,
+        #: then runs :meth:`drain` and returns
+        self.drain_requested: Optional[str] = None
+        #: how the drain that ended process_jobs went (None until then):
+        #: "completed" | "spooled" | "idle" | "aborted"
+        self.drain_outcome: Optional[str] = None
+        #: True while a leased chunk is processed (decides the drain
+        #: outcome: "completed" or "idle")
+        self._job_in_flight = False
+        #: True when the drain order came mid-chunk: the chunk was
+        #: finished first, and the drain reports "completed"
+        self._drained_mid_job = False
+        #: the heartbeat of the last chunk (its renewals, for callers)
+        self._last_heartbeat: Optional[LeaseHeartbeat] = None
+        #: the scheduler's last in-flight saturation (0..1; None until a
+        #: pipelined engine reports): renewals carry it
+        self._last_saturation: Optional[float] = None
+        #: the server generation seen on the last successful poll
+        self._seen_generation: Optional[int] = None
+
+    def request_drain(self, reason: str) -> None:
+        """Ask the poll loop to drain: finish the current chunk, flush
+        or spool, deregister, return. Safe from a signal handler or
+        another thread — it only sets a flag. The first reason wins."""
+        if self.drain_requested is None:
+            self.drain_requested = reason
+            if self._job_in_flight:
+                self._drained_mid_job = True
 
     def process_jobs(self) -> None:
-        """The poll loop; returns after ``cfg.max_jobs`` attempts when set."""
+        """The poll loop; returns after ``cfg.max_jobs`` attempts when
+        set, or after a drain."""
         while True:
+            if self.drain_requested is not None:
+                # process_chunk is synchronous: reaching this check
+                # means no chunk is in flight
+                self.drain(self.drain_requested)
+                return
             try:
                 job = self.client.get_job(self.cfg.worker_id)
-            except (requests.RequestException, ValueError) as e:
+            except TransportError as e:
+                # server down is not "queue empty" (the retrying client
+                # already spent its backoff)
+                print(f"server unreachable: {e}")
+                time.sleep(self.cfg.poll_interval_idle_s)
+                continue
+            except Exception as e:
                 print(f"error getting job: {e}")
                 time.sleep(self.cfg.poll_interval_idle_s)
                 continue
+            self._note_server_generation()
+            # a drain order on the poll's answer: the server offers no
+            # more jobs — drain now instead of sleeping an idle interval
+            drain = getattr(self.client, "last_drain_reason", None)
+            if drain:
+                self.request_drain(drain)
+                continue
+            # the poll proved the server reachable: flush the chunks
+            # spooled while it was down (idempotent through fencing)
+            self._replay_spool()
             if not job:
                 time.sleep(self.cfg.poll_interval_idle_s)
+                time.sleep(self.cfg.poll_interval_busy_s)
                 continue
+            self._job_in_flight = True
+            failed = False
             try:
                 self.process_chunk(job)
-            except requests.RequestException as e:
+            except Exception as e:
                 print(f"error processing job: {e}")
+                failed = True
+            finally:
+                self._job_in_flight = False
             # max_jobs bounds attempts: a failing job must not leave a
             # --max-jobs worker polling forever
             self.jobs_done += 1
             if self.cfg.max_jobs and self.jobs_done >= self.cfg.max_jobs:
                 return
+            if failed:
+                time.sleep(self.cfg.poll_interval_idle_s)
             time.sleep(self.cfg.poll_interval_busy_s)
+
+    def _note_server_generation(self) -> None:
+        """A server restart: a new X-Swarm-Generation on the poll that
+        just succeeded. The poll itself re-registered this worker on the
+        server; here the transport breakers that the dead process earned
+        are closed, so the heartbeat and upload paths resume at once."""
+        gen = getattr(self.client, "last_server_generation", None)
+        if gen is None or gen == self._seen_generation:
+            return
+        prior = self._seen_generation
+        self._seen_generation = gen
+        if prior is None:
+            return  # first contact, not a restart
+        breakers = getattr(self.client, "breakers", None)
+        if breakers is not None:
+            breakers.reset_all()
+        print(
+            f"server restarted (generation {prior} -> {gen}); "
+            "re-registered and reset transport breakers"
+        )
+
+    def _replay_spool(self) -> None:
+        if not len(self.spool):
+            return
+        try:
+            cleared = self.spool.replay(self.client)
+        except Exception as e:
+            print(f"spool replay failed: {e}")
+            return
+        if cleared:
+            print(f"spool: replayed {cleared} finished chunk(s)")
+
+    def drain(self, reason: str) -> str:
+        """The graceful exit. The current chunk already finished
+        (process_jobs calls this only between chunks), so what is left
+        is flushing the spool while the server is reachable, then
+        deregistering (the server hands the leases back at once). An
+        armed ``worker.drain`` fault point aborts the sequence: the node
+        dies mid-drain, and recovery rides the on-disk spool and the
+        fencing instead."""
+        t0 = time.monotonic()
+        outcome = "completed" if self._drained_mid_job else "idle"
+        try:
+            fault_point("worker.drain", detail=self.cfg.worker_id)
+            self._replay_spool()
+            if len(self.spool):
+                # the replay could not clear everything (server gone
+                # again): the chunks stay spooled for the next process
+                outcome = "spooled"
+            try:
+                self.client.deregister(self.cfg.worker_id)
+            except Exception as e:
+                print(f"drain: deregister undeliverable: {e}")
+        except FaultInjected:
+            # injected death mid-drain: no replay, no deregister
+            outcome = "aborted"
+        self.drain_outcome = outcome
+        elapsed = time.monotonic() - t0
+        print(f"worker drained ({reason}): {outcome} in {elapsed:.2f}s")
+        return outcome
 
     def process_chunk(self, job: dict) -> None:
         job_id = job.get("job_id") or f"{job['scan_id']}_{job['chunk_index']}"
@@ -233,15 +463,39 @@ class JobProcessor:
             self.client.update_job(job_id, {"status": JobStatus.CMD_FAILED})
             return
 
-        def update(status: str, **extra) -> bool:
-            return self.client.update_job(
-                job_id, {"status": status, **extra}, worker_id=self.cfg.worker_id
-            )
+        def update(status: str, **extra) -> Optional[bool]:
+            try:
+                return self.client.update_job(
+                    job_id, {"status": status, **extra}, worker_id=self.cfg.worker_id
+                )
+            except TransportError as e:
+                # server unreachable mid-job: a lost phase update is
+                # harmless (the lease covers us); a lost completion is
+                # spooled by the caller. None is not False: False means
+                # the server refused (fencing)
+                print(f"update {status!r} undeliverable: {e}")
+                return None
 
-        self._run_chunk(job, scan_id, chunk_index, update)
+        # the lease heartbeat: renewals from a background thread while
+        # the chunk runs, so a long chunk never outlives its lease
+        hb = LeaseHeartbeat(
+            self.client,
+            job_id,
+            self.cfg.worker_id,
+            self.cfg.heartbeat_interval_s or self.cfg.lease_seconds / 3.0,
+            saturation_fn=lambda: self._last_saturation,
+        )
+        self._last_heartbeat = hb
+        hb.start()
+        try:
+            self._run_chunk(job, job_id, scan_id, chunk_index, update)
+        finally:
+            hb.stop()
 
-    def _run_chunk(self, job: dict, scan_id: str, chunk_index: int, update) -> None:
-        """Download → execute → upload."""
+    def _run_chunk(
+        self, job: dict, job_id: str, scan_id: str, chunk_index: int, update
+    ) -> None:
+        """Download → execute → upload under a running heartbeat."""
         update(JobStatus.STARTING)
         update(JobStatus.DOWNLOADING)
         t0 = time.perf_counter()
@@ -270,6 +524,9 @@ class JobProcessor:
         self._job_engine = None
         self._scan_perf_extra = {}
         try:
+            # fail (or delay) this chunk's execution; the detail carries
+            # the job id, so a plan can poison one job
+            fault_point("executor.run", detail=job_id)
             if module.backend == "active":
                 output = self._execute_active(module, data, chunk_index=chunk_index)
             elif execute is None:  # the reference's command fallback
@@ -286,13 +543,19 @@ class JobProcessor:
         execute_s = time.perf_counter() - t0
 
         update(JobStatus.UPLOADING)
+        unreachable = False
         t0 = time.perf_counter()
         try:
             ok = self.client.put_output_chunk(scan_id, chunk_index, output)
+        except TransportError:
+            # server unreachable after the retries: the chunk's work is
+            # paid for — never lose it (spooled below)
+            ok = False
+            unreachable = True
         except requests.RequestException:
             ok = False
         upload_s = time.perf_counter() - t0
-        if not ok:
+        if not (ok or unreachable):
             update(JobStatus.UPLOAD_FAILED_UNKNOWN)
             return
         perf = {
@@ -305,15 +568,28 @@ class JobProcessor:
         if self._job_engine is not None:
             perf.update(self._sched_perf(self._job_engine))
         perf.update(self._scan_perf_extra)
-        update(JobStatus.COMPLETE, perf=perf)
+        # this worker's breakers that are not closed (transport and
+        # device) ride the perf fields to the server
+        open_breakers = {k: v for k, v in breaker_states().items() if v != "closed"}
+        if open_breakers:
+            perf["breakers_open"] = open_breakers
+        done = True
+        if ok:
+            done = update(JobStatus.COMPLETE, perf=perf)
+        if unreachable or done is None:
+            # finished work outlives the outage: spool the output and
+            # its completion, replayed on reconnect (the fencing token
+            # discards it if the job was re-leased)
+            self.spool.put(job_id, scan_id, chunk_index, self.cfg.worker_id, output,
+                           perf=perf)
+            print(f"server unreachable; spooled finished chunk {job_id}")
 
-    @staticmethod
-    def _sched_perf(engine: MatchEngine) -> dict:
+    def _sched_perf(self, engine: MatchEngine) -> dict:
         """The engine's scheduler mode and feed health, as the JAX
         worker reports them on a job: ``pipeline``; once the scheduler
         has run, its cumulative ``sched`` snapshot and
         ``inflight_saturation``, the share of its wall time the submit
-        thread waited on the prefetch stage."""
+        thread waited on the prefetch stage (later renewals carry it)."""
         out: dict = {"pipeline": engine.pipeline}
         sched = engine._sched
         if sched is not None:
@@ -321,9 +597,9 @@ class JobProcessor:
             out["sched"] = snap
             wall = snap["wall_seconds"]
             if wall > 0:
-                out["inflight_saturation"] = round(
-                    min(1.0, snap["stall_seconds"] / wall), 4
-                )
+                saturation = min(1.0, snap["stall_seconds"] / wall)
+                out["inflight_saturation"] = round(saturation, 4)
+                self._last_saturation = saturation
         return out
 
     def _execute_jarm(self, module: ModuleSpec, data: bytes) -> bytes:
@@ -692,4 +968,12 @@ def main(argv: Optional[list[str]] = None) -> None:
         modules_dir=args.modules_dir,
         max_jobs=args.max_jobs,
     )
-    JobProcessor(cfg, device=args.device).process_jobs()
+    proc = JobProcessor(cfg, device=args.device)
+    # SIGTERM drains instead of dying mid-upload: the handler only sets
+    # a flag; the poll loop finishes its chunk, flushes or spools, and
+    # deregisters. Off the main thread a process cannot own signals.
+    try:
+        signal.signal(signal.SIGTERM, lambda _sig, _frm: proc.request_drain("sigterm"))
+    except ValueError:
+        pass
+    proc.process_jobs()

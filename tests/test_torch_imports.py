@@ -58,6 +58,10 @@ def test_module_list_covers_the_slice():
         "swarm_tpu_torch.worker.dnsquery", "swarm_tpu_torch.worker.headless",
         # the OOB interaction listener
         "swarm_tpu_torch.worker.oob",
+        # the worker's resilience layer
+        "swarm_tpu_torch.resilience", "swarm_tpu_torch.resilience.faults",
+        "swarm_tpu_torch.resilience.breaker", "swarm_tpu_torch.resilience.transport",
+        "swarm_tpu_torch.resilience.heartbeat", "swarm_tpu_torch.resilience.spool",
     } <= names
 
 

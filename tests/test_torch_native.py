@@ -11,6 +11,7 @@ exactly: everything compared is integers, bytes or strings.
 
 import random
 import re
+import time
 import warnings
 from pathlib import Path
 
@@ -30,6 +31,29 @@ from test_crex import HAND, fuzz_texts
 
 BUILD = Path(t_scanio.__file__).resolve().parents[1] / "_build"
 SIDES = {"jax": (j_scanio, j_model), "torch": (t_scanio, t_model)}
+
+
+def load_jax_crex(tries: int = 20) -> None:
+    """Make sure the JAX package's libcrex is loaded. Its loader marks
+    the library failed for the rest of the process after one failed
+    load (``_lib_failed``), and its regex helpers then answer None
+    (undecided) where the port's crex answers. Several test workers
+    starting cold run its ``make -C native`` into the same files at
+    once, and a worker that loads a half-written library is marked so
+    (``tests/test_crex.py`` loads it at collection). By the time a test
+    runs that build has finished: clear the mark and load again."""
+    for _ in range(tries):
+        if j_crex.ensure_crex() is not None:
+            return
+        with j_crex._load_lock:
+            j_crex._lib_failed = False
+        time.sleep(0.5)
+    raise AssertionError("the JAX package's libcrex does not load")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_crex_loaded():
+    load_jax_crex()
 
 
 def test_libraries_load_from_the_port_build():

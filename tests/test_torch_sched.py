@@ -12,7 +12,8 @@ the engine's split submission surface against the JAX package.
   direct path and never exceeds its in-flight cap;
 - two dispatches in flight each keep their own result and their own
   phase attribution;
-- a device fault propagates out of ``run()``: no degraded result.
+- a device fault degrades its batch to the CPU oracle: ``run()`` and
+  ``match()`` still give the fault-free results, and JAX's.
 
 Results are compared as ``tests/test_sched.py`` compares them: template
 ids and extractions row for row, exact (``confirmed_on_host`` follows
@@ -440,31 +441,55 @@ def test_two_dispatches_in_flight_keep_their_own_results_and_phases(corpus):
     assert eng.stats.phase_a_seconds == s1.phase_a_seconds
 
 
+@pytest.fixture(scope="module")
+def jax_degrading(data):
+    """One pipelined JAX engine for the fault cases (its kernels compile
+    once), its breaker opening at the first fault."""
+    return JaxEngine(data.j_templates, mesh=None, batch_rows=BATCH, pipeline="on",
+                     db=data.jax[0].db, device_breaker_threshold=1)
+
+
 @pytest.mark.parametrize("prefetch", ["thread", "inline"])
 @pytest.mark.parametrize("walk_offload", ["on", "off"])
 @pytest.mark.parametrize("where", ["dispatch", "collect"])
-def test_device_fault_propagates_out_of_run(data, monkeypatch, where, walk_offload, prefetch):
-    """A fault raised by ``DeviceDB.dispatch`` or ``collect`` ends
-    ``run()`` with that error: no chunk's result is yielded, nothing
-    degrades to the CPU oracle."""
-    eng = data.port_on
-    eng.clear_content_memos()
-    rows = [t_model.Response(**d) for d in scan_rows(64, seed=2)]
+def test_device_fault_degrades_out_of_run(data, jax_degrading, monkeypatch, where, walk_offload,
+                                          prefetch):
+    """A fault raised by ``DeviceDB.dispatch`` or ``collect`` degrades its
+    batch to the exact CPU oracle: ``run()`` yields every chunk in
+    order, equal to the fault-free direct path's results and to JAX's
+    ``run`` under the same fault, and so does ``match()``. The faults
+    and degraded batches are counted, and the breaker is open."""
+    c = data
+    dicts = scan_rows(64, seed=2)
+    chunks = [dicts[i : i + 16] for i in range(0, len(dicts), 16)]
+    c.port.clear_content_memos()
+    want = c.port.match(c.t_rows(dicts))
+    eng = MatchEngine(c.t_templates, db=c.port.db, batch_rows=BATCH, device="cpu",
+                      pipeline="on", walk_threads=1, device_breaker_threshold=1)
+    j_eng = jax_degrading
+    j_eng.clear_content_memos()
+    j_eng._device_breakers.reset_all()
 
     def fault(*_a, **_k):
         raise RuntimeError(f"device fault in {where}")
 
     monkeypatch.setattr(eng.device, where, fault)
-    sched = BatchScheduler(eng, SchedulerConfig(walk_offload=walk_offload, prefetch=prefetch,
-                                                inflight=2))
+    monkeypatch.setattr(j_eng.device, where, fault)
+    cfg = dict(walk_offload=walk_offload, prefetch=prefetch, inflight=2)
+    sched = BatchScheduler(eng, SchedulerConfig(**cfg))
     sched._overlap_helps = True
-    yielded = []
-    with pytest.raises(RuntimeError, match=f"device fault in {where}"):
-        for res in sched.run([rows[i : i + 16] for i in range(0, len(rows), 16)]):
-            yielded.append(res)
-    assert yielded == []
-    with pytest.raises(RuntimeError, match="device fault"):
-        eng.match(rows)
+    got = list(sched.run([c.t_rows(ch) for ch in chunks]))
+    j_got = list(JaxScheduler(j_eng, JaxConfig(**cfg)).run([c.j_rows(ch) for ch in chunks]))
+    assert [len(r) for r in got] == [len(ch) for ch in chunks] == [len(r) for r in j_got]
+    flat = [m for res in got for m in res]
+    assert_same(flat, want)
+    assert_same(flat, [m for res in j_got for m in res])
+    assert eng.stats.device_faults >= 1 and eng.stats.degraded_batches >= 1
+    assert eng._device_breakers.any_open()
+    eng.clear_content_memos()
+    assert_same(eng.match(c.t_rows(dicts)), want)
+    j_eng.clear_content_memos()
+    assert_same(j_eng.match(c.j_rows(dicts)), want)
 
 
 def test_stats_add_up_across_threads(data):

@@ -33,9 +33,17 @@ from bench import walk_stress_rows, walk_stress_templates
 from test_fastre import HAND_CASES, corpus_patterns, sample_texts
 from test_match_parity import DATA
 from test_torch_engine import corpus_docs, rows_of
+from test_torch_native import load_jax_crex
 
 #: batch rows: the corpus's rows make three batches, the last partial
 BATCH = 128
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_crex_loaded():
+    """Both packages' regex helpers on their crex VM (see
+    :func:`test_torch_native.load_jax_crex`)."""
+    load_jax_crex()
 
 #: engine methods the port keeps as the reference wrote them
 SAME_METHODS = (

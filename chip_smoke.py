@@ -2,6 +2,8 @@
 """Chip smoke test of the PyTorch/CUDA port (``swarm_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only match       # device, corpus, match, telemetry_cost
+    python3 chip_smoke.py --only telemetry   # device, corpus, telemetry_worker
 
 Runs from the root of a checkout, on a machine with one CUDA card, and
 prints one JSON line per phase:
@@ -81,7 +83,9 @@ prints one JSON line per phase:
    device ran and confirms per batch; then the same window without
    clearing (memo-warm rows/s); a sample of rows against the oracle.
    ``match`` encodes each call's next batch on a helper thread while the
-   current one is matched.
+   current one is matched. Then ``telemetry_cost``: fresh calls of that
+   engine in interleaved pairs, the port's metric families as they are
+   and with their mutators no-ops (see :func:`phase_telemetry_cost`).
 11. ``match_trace`` — one fresh call under ``torch.profiler`` (the host
    steps of the calling thread; the helper thread's encode is not
    traced), and the CUDA runtime calls that block the host, by step.
@@ -152,7 +156,19 @@ prints one JSON line per phase:
    :func:`phase_oob_headless_worker`).
 20. ``file_worker``, ``command_worker`` — a ``file`` job and an ``echo``
    job through the worker.
-21. ``resilience_worker`` — the worker's resilience against the
+21. ``telemetry_worker`` (run right after ``corpus``: late in a run,
+   after many profiler traces, a profile once came back without device
+   events, an open defect) — the worker's telemetry (see
+   :func:`phase_telemetry_worker`): a ``jarm`` job and a 4,096-row
+   ``fingerprint`` job with the pipeline off and on, untraced, traced
+   (``SWARM_TRACE``, a trace id on the job) and profiled
+   (``SWARM_PROFILE_DIR``): outputs byte-identical, the reference's span
+   names and nesting, the job's ``rows`` and ``device_s``, every
+   ``__global__`` function of every launched kernel named in the job's
+   ``torch.profiler`` trace (the worker fails the job otherwise), the
+   recorded kernel calls exact, the registry's families non-zero, and
+   the traced ÷ untraced job seconds.
+22. ``resilience_worker`` — the worker's resilience against the
    stand-in server (see :func:`phase_resilience_worker`): a
    ``fingerprint`` job whose first two device dispatches fail
    (``SWARM_FAULT_PLAN=device.dispatch:1-2``) ends ``complete``,
@@ -163,7 +179,7 @@ prints one JSON line per phase:
    outage longer than the retries is spooled and replayed on the next
    poll, then a drain order ends the worker, which deregisters once.
 
-Every MatchEngine that phases 9–20 build (the phases' own, the
+Every MatchEngine that phases 9–21 build (the phases' own, the
 worker's, a scanner's, a classifier's) must end its phase with no device
 fault and no degraded batch (the ``no_device_faults`` line counts them).
 Each phase's compile cache (``SWARM_DB_CACHE_DIR``) lies in a temporary
@@ -178,6 +194,7 @@ script exits non-zero without that line.
 from __future__ import annotations
 
 import base64
+import contextlib
 import ctypes
 import gc
 import hashlib
@@ -736,24 +753,34 @@ class SyntheticTlsFleet:
 class StubServer:
     """Stdlib stand-in for the server's worker routes (``/get-job``,
     ``/get-input-chunk``, ``/put-output-chunk``, ``/update-job``,
-    ``/renew-lease/<job>``, ``/deregister``) that hands out one job of
-    ``module`` over the input ``blob``. Every ``/get-job`` answer carries
+    ``/renew-lease/<job>``, ``/deregister``, ``/spans``) that hands out
+    one job of ``module`` over the input ``blob``, with ``trace_id`` on
+    it when given. Every ``/get-job`` answer carries
     ``X-Swarm-Generation: 1``; the ``drain_on_poll``-th (1-based) also
     carries ``X-Swarm-Drain: preempted``. The first ``put_failures``
     uploads are answered 503 (an outage). A renewal of the job is
-    accepted until the job is complete."""
+    accepted until the job is complete. Spans are taken, as the server
+    takes them, off a completing update's ``perf["spans"]`` and from
+    ``POST /spans``."""
 
     def __init__(self, blob: bytes, module: str = "jarm", api_key: str = API_KEY,
-                 drain_on_poll: int = 0, put_failures: int = 0):
+                 drain_on_poll: int = 0, put_failures: int = 0,
+                 trace_id: str | None = None):
         scan = f"{module}_1"
         self.job = {
             "job_id": f"{scan}_0", "scan_id": scan, "chunk_index": 0,
             "module": module,
         }
+        if trace_id is not None:
+            self.job["trace_id"] = trace_id
         self.targets = blob
         self.statuses: list[str] = []
-        #: the perf fields of the job's completing update
+        #: the perf fields of the job's completing update (its spans
+        #: taken off)
         self.perf: dict | None = None
+        #: every span received, and how many came by ``POST /spans``
+        self.spans: list[dict] = []
+        self.posted_spans = 0
         self.output: bytes | None = None
         #: every upload the stub accepted, in order
         self.uploads: list[bytes] = []
@@ -806,7 +833,14 @@ class StubServer:
                 if self.path == f"/update-job/{scan}_0":
                     update = json.loads(body)
                     stub.statuses.append(update["status"])
-                    stub.perf = update.get("perf", stub.perf)
+                    if "perf" in update:
+                        stub.perf = dict(update["perf"])
+                        stub.spans.extend(stub.perf.pop("spans", []))
+                    return self._reply(200, b"{}")
+                if self.path == "/spans":
+                    spans = json.loads(body)["spans"]
+                    stub.spans.extend(spans)
+                    stub.posted_spans += len(spans)
                     return self._reply(200, b"{}")
                 if self.path == f"/put-output-chunk/{scan}/0":
                     if stub.failed_puts < stub.put_failures:
@@ -1763,9 +1797,7 @@ def phase_build() -> ctypes.CDLL:
                              if v.exists()},
           "ptxas": ptxas})
     built = {k["kernel"].split("<")[0] for k in ptxas}
-    for want in ("cluster_counts_kernel", "cluster_parent_kernel", "match_phase_a_probe_kernel",
-                 "match_phase_a_rank_kernel", "match_verify_kernel", "match_regex_scan_kernel", "match_md5_kernel",
-                 "match_verdicts_pack_kernel", "match_verdicts_kernel"):
+    for want in sorted({sym for syms in kernels.SYMBOLS.values() for sym in syms}):
         if want not in built:
             raise AssertionError(f"build: ptxas reported no {want}")
     spilled = [k for k in ptxas if k.get("spill_stores") or k.get("spill_loads")]
@@ -4526,6 +4558,288 @@ def phase_command_worker() -> None:
           "seconds": seconds})
 
 
+#: interleaved pairs of fresh match calls of ``phase_telemetry_cost``
+TELEMETRY_COST_PAIRS = 24
+
+
+@contextlib.contextmanager
+def metrics_off():
+    """Every mutator of the port's metric families (``labels`` and the
+    ``inc``/``set``/``observe`` of a family or a labelled handle) a
+    no-op in the block; the call sites' own work (a batch's byte sum,
+    the calls themselves) stays."""
+    from swarm_tpu_torch.telemetry import metrics as m
+
+    def noop(self, *args, **kw):
+        return None
+
+    class Noop:
+        inc = set = observe = noop
+
+    handle = Noop()
+    patches = {(m._Metric, "labels"): lambda self, *a, **kw: handle}
+    for cls, names in ((m._Handle, ("inc", "set", "observe")), (m.Counter, ("inc",)),
+                       (m.Gauge, ("set", "inc")), (m.Histogram, ("observe",))):
+        for name in names:
+            if name in vars(cls):
+                patches[(cls, name)] = noop
+    saved = {key: vars(key[0])[key[1]] for key in patches}
+    for (cls, name), fn in patches.items():
+        setattr(cls, name, fn)
+    try:
+        yield
+    finally:
+        for (cls, name), fn in saved.items():
+            setattr(cls, name, fn)
+
+
+def phase_telemetry_cost(eng, rows, smi: str, pairs: int = TELEMETRY_COST_PAIRS) -> dict:
+    """What the match path's metric calls cost on the match phase's
+    engine: ``pairs`` pairs of fresh ``eng.match(rows)`` calls (content
+    memos cleared outside the timed call), one call with the port's
+    metric families as they are and one under :func:`metrics_off`, the
+    order within a pair alternating. The staged-batch counter must move
+    in every call with the families on and in none with them off. →
+    each call's ms and the median of the pairs' on ÷ off ratios."""
+    import torch
+
+    from swarm_tpu_torch.telemetry import device_export
+
+    staged = device_export.STAGED_BATCHES._unlabeled()  # a handle: its value
+    ms = {"on": [], "off": []}
+    eng.clear_content_memos()
+    eng.match(rows)  # warm
+    torch.cuda.synchronize()
+    for k in range(pairs):
+        for arm in ("on", "off") if k % 2 == 0 else ("off", "on"):
+            eng.clear_content_memos()
+            before = staged.value
+            with metrics_off() if arm == "off" else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                eng.match(rows)
+                ms[arm].append((time.perf_counter() - t0) * 1e3)
+            moved = staged.value - before
+            if (arm == "on") != (moved > 0):
+                raise AssertionError(f"telemetry_cost: {arm} call moved the staged "
+                                     f"batches by {moved}")
+    ratios = [a / b for a, b in zip(ms["on"], ms["off"])]
+    out = {"phase": "telemetry_cost", "rows": len(rows), "pairs": pairs,
+           "on_ms": ms["on"], "off_ms": ms["off"],
+           "median_on_over_off": float(np.median(ratios)),
+           "on_over_off_quartiles": [float(q) for q in np.percentile(ratios, [25, 75])],
+           "rows_per_s_on": len(rows) * pairs / sum(ms["on"]) * 1e3,
+           "rows_per_s_off": len(rows) * pairs / sum(ms["off"]) * 1e3, "card": smi}
+    emit(out)
+    return out
+
+
+TELEMETRY_JOB_ROWS = 4096
+#: the runs of each telemetry job: (arm, traced, profiled)
+TELEMETRY_ARMS = (("warm", False, False), ("untraced", False, False), ("traced", True, False),
+                  ("traced", True, False), ("untraced", False, False), ("profiled", True, True))
+#: (parent span name, span name) of every span a job ships, by job: the
+#: attempt root and its phases; a ``tpu`` job's device and walk spans
+#: synthesized under ``execute``; the pipelined drive's ``sched`` span
+ATTEMPT_SPANS = {(None, "attempt"): 1, ("attempt", "download"): 1,
+                 ("attempt", "execute"): 1, ("attempt", "upload"): 1}
+TPU_SPANS = {**ATTEMPT_SPANS, ("execute", "device"): 1, ("device", "device.phase_a"): 1,
+             ("device", "device.phase_b"): 1, ("execute", "walk"): 1}
+
+
+def span_tree(spans: list) -> dict:
+    """(parent name, name) → count over a job's spans; every parent must
+    be among them (no orphan)."""
+    by_id = {s["span_id"]: s["name"] for s in spans}
+    tree: dict = {}
+    for s in spans:
+        if s["parent_id"] is not None and s["parent_id"] not in by_id:
+            raise AssertionError(f"span {s['name']} has no parent among the job's spans")
+        key = (by_id.get(s["parent_id"]), s["name"])
+        tree[key] = tree.get(key, 0) + 1
+    return tree
+
+
+def profiled_kernels(profile_dir: Path, job_id: str) -> set:
+    """The ``__global__`` functions of the card's kernel events in the
+    job's ``torch.profiler`` trace."""
+    from swarm_tpu_torch.utils.trace import profiled_symbols
+
+    [path] = list((profile_dir / job_id).glob("trace_*.json"))
+    return profiled_symbols(str(path))
+
+
+def phase_telemetry_worker(templates, plants, db, smi: str) -> dict:
+    """The worker's telemetry on the card: a ``jarm`` job (both cluster
+    kernels) and a ``fingerprint`` job of ``TELEMETRY_JOB_ROWS`` rows
+    with the pipeline off and on, each through the stand-in server in
+    the order of ``TELEMETRY_ARMS``: untraced to warm up, then untraced
+    and traced (``SWARM_TRACE=1``, a ``trace_id`` on the job) in turns,
+    then traced with ``SWARM_PROFILE_DIR`` set and its kernel calls
+    recorded. Each job
+    ends ``complete``, byte-identical to its untraced run; its spans (on
+    ``perf["spans"]``, or ``POST /spans`` for the ``jarm`` job, whose
+    inline limit is set to 2 here to drive that route) have the
+    reference's names and nesting; the ``fingerprint`` job's ``rows``
+    equal its rows and ``device_s`` > 0; the profile names every kernel
+    the job launched; every recorded match-kernel call equals its plain
+    version, and the ``jarm`` job's output the same module's on the CPU
+    (the cluster kernels' plain versions); the rendered registry parses,
+    with non-zero worker, sched, device and memo samples. The profiled
+    job runs once: the worker fails a job whose profile lacks a kernel
+    it launched (``utils/trace.py``), and this phase then fails. Prints
+    the traced ÷ untraced job seconds (means of two runs each)."""
+    import tempfile
+
+    from swarm_tpu_torch.ops import kernels
+    from swarm_tpu_torch.ops.engine import MatchEngine
+    from swarm_tpu_torch.telemetry import REGISTRY, tracing
+    from swarm_tpu_torch.telemetry.metrics import parse_exposition
+    from swarm_tpu_torch.worker import runtime
+    from swarm_tpu_torch.worker.runtime import JobProcessor, ServerClient, WorkerConfig
+
+    t_phase = time.perf_counter()
+    complete = ["starting", "downloading", "executing", "uploading", "complete"]
+    saved_env = {k: os.environ.get(k) for k in
+                 ("SWARM_TEMPLATES_DIR", "SWARM_TRACE", "SWARM_PROFILE_DIR")}
+    saved_inline = runtime._SPAN_INLINE_MAX
+
+    def run(proc, module: str, blob: bytes, trace: bool = False,
+            profile_dir: Path | None = None) -> tuple:
+        """One job through ``proc`` → (stub, seconds)."""
+        stub = StubServer(blob, module=module, trace_id=f"tel{time.time_ns():x}")
+        if trace:
+            os.environ["SWARM_TRACE"] = "1"
+        if profile_dir is not None:
+            os.environ["SWARM_PROFILE_DIR"] = str(profile_dir)
+        tracing.set_enabled(None)  # re-read the environment
+        try:
+            proc.client = ServerClient(stub.url, API_KEY)
+            t0 = time.perf_counter()
+            proc.process_jobs()
+            seconds = time.perf_counter() - t0
+        finally:
+            stub.close()
+            os.environ.pop("SWARM_TRACE", None)
+            os.environ.pop("SWARM_PROFILE_DIR", None)
+            tracing.set_enabled(None)
+        if stub.statuses != complete:
+            raise AssertionError(f"{module} job statuses {stub.statuses}")
+        if not trace and stub.spans:
+            raise AssertionError(f"untraced {module} job shipped {len(stub.spans)} spans")
+        return stub, seconds
+
+    jobs: dict = {}
+    try:
+        with tempfile.TemporaryDirectory() as work, \
+                tempfile.TemporaryDirectory() as corpus_dir, \
+                tempfile.TemporaryDirectory() as profiles, \
+                SyntheticTlsFleet(per_shape=8) as fleet:
+            os.environ["SWARM_TEMPLATES_DIR"] = corpus_dir
+            profiles = Path(profiles)
+            cfg = dict(api_key=API_KEY, worker_id="chip-smoke",
+                       modules_dir=str(REPO / "modules"), max_jobs=1,
+                       poll_interval_idle_s=0.05, poll_interval_busy_s=0.0)
+            dicts = realistic_rows(TELEMETRY_JOB_ROWS, seed=31, plants=plants)
+            specs = {"jarm": ("jarm", ("\n".join(fleet.targets) + "\n").encode(), "off"),
+                     "fingerprint_off": ("fingerprint", jsonl_rows(dicts), "off"),
+                     "fingerprint_on": ("fingerprint", jsonl_rows(dicts), "on")}
+            for name, (module, blob, mode) in specs.items():
+                proc = JobProcessor(WorkerConfig(pipeline=mode, **cfg), device="cuda",
+                                    work_dir=str(Path(work) / name))
+                engine = None
+                if module == "fingerprint":
+                    engine = MatchEngine(templates, db=db, device="cuda", pipeline=mode)
+                    proc.engines[corpus_dir] = engine
+                # the inline limit at 2: the jarm job's 4 spans go by POST /spans
+                runtime._SPAN_INLINE_MAX = 2 if module == "jarm" else saved_inline
+                runs = []  # (arm, stub, seconds, launches, recorded calls)
+                for arm, trace, profile in TELEMETRY_ARMS:
+                    if engine is not None:
+                        engine.clear_content_memos()  # every job's rows fresh
+                    kernels.reset_launches()
+                    with kernels.record_calls() as calls:
+                        stub, seconds = run(proc, module, blob, trace=trace,
+                                            profile_dir=profiles / name if profile else None)
+                    runs.append((arm, stub, seconds, dict(kernels.LAUNCHES), calls))
+                runtime._SPAN_INLINE_MAX = saved_inline
+                out = runs[0][1].output
+                if any(r[1].output != out for r in runs):
+                    raise AssertionError(f"{name}: a traced or profiled job's output differs")
+                want = ATTEMPT_SPANS if module == "jarm" else {
+                    **TPU_SPANS, **({("execute", "sched"): 1} if mode == "on" else {})}
+                trees = [span_tree(r[1].spans) for r in runs if r[0] != "warm" and r[1].spans]
+                if len(trees) != 3 or any(t != want for t in trees):
+                    raise AssertionError(f"{name}: span trees {trees}, want {want}")
+                _arm, stub, _s, launches, calls = runs[-1]
+                launched = sorted(k for k, n in launches.items() if n)
+                names = profiled_kernels(profiles / name, stub.job["job_id"])
+                want_syms = {sym for k in launched for sym in kernels.SYMBOLS[k]}
+                if not want_syms <= names:
+                    raise AssertionError(f"{name}: the profile names no "
+                                         f"{sorted(want_syms - names)}")
+                found = sorted(want_syms)
+                seconds = {arm: [r[2] for r in runs if r[0] == arm]
+                           for arm in dict.fromkeys(a for a, _t, _p in TELEMETRY_ARMS)}
+                mean = {arm: sum(v) / len(v) for arm, v in seconds.items()}
+                traced_run = runs[2][1]
+                line = {"seconds": seconds,
+                        "traced_over_untraced": mean["traced"] / mean["untraced"],
+                        "profiled_over_untraced": mean["profiled"] / mean["untraced"],
+                        "spans": len(traced_run.spans), "spans_posted": traced_run.posted_spans,
+                        "span_tree": {f"{p}>{n}": c for (p, n), c in trees[0].items()},
+                        "launches": launches, "profile_kernels": found,
+                        "profile_kernel_functions": len(names)}
+                if module == "jarm":
+                    if min(launches["cluster_counts"], launches["cluster_parent"]) < 1:
+                        raise AssertionError(f"jarm job: cluster kernels not launched {launches}")
+                    if traced_run.posted_spans != len(traced_run.spans):
+                        raise AssertionError("jarm job: spans not shipped by POST /spans")
+                    cpu = JobProcessor(WorkerConfig(**cfg), device="cpu")
+                    if cpu._execute_jarm(cpu.registry.load("jarm"), blob) != out:
+                        raise AssertionError("jarm job: output differs from the CPU run")
+                else:
+                    if launched != sorted(MATCH_KERNELS):
+                        raise AssertionError(f"{name}: launched {launched}")
+                    line["max_abs_err"] = check_calls(calls)
+                    perf = traced_run.perf
+                    if perf["rows"] != len(dicts) or not perf["device_s"] > 0:
+                        raise AssertionError(f"{name}: perf rows {perf['rows']}, "
+                                             f"device_s {perf['device_s']}")
+                    keys = list(runs[1][1].perf)
+                    if "phase_a_s" in keys or keys[:8] != [
+                            "download_s", "execute_s", "upload_s", "input_bytes",
+                            "output_bytes", "rows", "device_s", "host_confirm_s"]:
+                        raise AssertionError(f"{name}: untraced perf keys {keys}")
+                    line["perf"] = {k: perf[k] for k in (
+                        "rows", "device_s", "host_confirm_s", "phase_a_s", "phase_b_s")
+                        if k in perf}
+                jobs[name] = line
+            samples: dict = {}
+            for fam, _labels, value in parse_exposition(REGISTRY.render()):
+                samples[fam] = samples.get(fam, 0.0) + value
+            wanted = ("swarm_worker_jobs_total", "swarm_worker_phase_seconds_count",
+                      "swarm_worker_rows_total", "swarm_sched_rows_total",
+                      "swarm_sched_batches_total", "swarm_device_staged_batches_total",
+                      "swarm_device_compacted_dispatches_total", "swarm_memo_lookups_total",
+                      "swarm_trace_spans_total", "swarm_events_total", "swarm_engine_rows")
+            zero = [f for f in wanted if not samples.get(f)]
+            if zero:
+                raise AssertionError(f"registry: no samples of {zero}")
+    finally:
+        runtime._SPAN_INLINE_MAX = saved_inline
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tracing.set_enabled(None)
+    out = {"phase": "telemetry_worker", "rows": TELEMETRY_JOB_ROWS, "jobs": jobs,
+           "registry": {f: samples[f] for f in wanted}, "registry_families": len(
+               REGISTRY._metrics), "seconds": time.perf_counter() - t_phase, "card": smi}
+    emit(out)
+    return out
+
+
 RESILIENCE_JOB_ROWS = 4096
 #: the degraded job per pipeline mode: its fault plan, the engine's
 #: breaker threshold, cooldown and batch rows, and the device faults
@@ -4796,15 +5110,37 @@ def phase_resilience_worker(templates, plants, db, smi: str) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
     import tempfile
 
     global DB_CACHE_ROOT
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--only", "match"], ["--only", "telemetry"]):
+        print("usage: python3 chip_smoke.py [--only match|telemetry]", file=sys.stderr)
+        return 2
     smi = phase_device()
     with tempfile.TemporaryDirectory(prefix="swarm-db-cache-") as cache_root:
         DB_CACHE_ROOT = Path(cache_root)
         use_db_cache("match")
-        return run_phases(smi)
+        return run_only(smi, argv[1]) if argv else run_phases(smi)
+
+
+def run_only(smi: str, which: str) -> int:
+    """One phase after the corpus, the kernels built as the phase first
+    needs them: ``match`` (what a comparison of two checkouts runs in
+    turns), then ``telemetry_cost`` where the checkout has the port's
+    telemetry; or ``telemetry_worker``, its engines held to no fault."""
+    import importlib.util
+
+    templates, plants, db = phase_corpus()
+    if which == "telemetry":
+        track_engines()
+        no_faults("telemetry_worker", phase_telemetry_worker, templates, plants, db, smi)
+        return 0
+    eng, rows = phase_match(templates, plants, db, smi)
+    if importlib.util.find_spec("swarm_tpu_torch.telemetry") is not None:
+        phase_telemetry_cost(eng, rows, smi)
+    return 0
 
 
 #: (phase, EngineStats) of every MatchEngine built in this run: the
@@ -4857,8 +5193,16 @@ def run_phases(smi: str) -> int:
     for name, entry in summary.items():
         entry["launches"] = launches[name]
     templates, plants, db = phase_corpus()
+    # early: late in a run, after many profiler traces, the profiled job's
+    # trace once held no device event (an open defect; the worker fails
+    # such a job, so the phase would fail)
+    no_faults("telemetry_worker", phase_telemetry_worker, templates, plants, db, smi)
+    # its workers and engines hang in reference cycles: free them now,
+    # not in a generation-2 collection inside a later phase's timed window
+    gc.collect()
     max_err = no_faults("match_kernels", phase_match_kernels, templates, plants, db)
     eng, rows = no_faults("match", phase_match, templates, plants, db, smi)
+    no_faults("telemetry_cost", phase_telemetry_cost, eng, rows, smi)
     no_faults("match_trace", phase_match_trace, eng, rows)
     del eng
     sched_launches = no_faults("sched", phase_sched, templates, plants, db, smi)

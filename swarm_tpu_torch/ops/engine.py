@@ -91,6 +91,8 @@ from swarm_tpu_torch.ops.encoding import _RotatingPool, encode_batch, round_up
 from swarm_tpu_torch.ops.match import DeviceDB, Device
 from swarm_tpu_torch.resilience.breaker import BreakerBoard
 from swarm_tpu_torch.resilience.faults import FaultInjected
+from swarm_tpu_torch.telemetry.engine_export import register_engine
+from swarm_tpu_torch.telemetry.memo_export import L1_HITS, L1_MISSES
 
 
 @dataclasses.dataclass
@@ -315,6 +317,9 @@ class MatchEngine:
         # recycled verdict planes for reuse_buffers encodes, keyed PER
         # SHAPE (see _encode_native)
         self._bits_pool = _RotatingPool(depth=8)
+        # export this engine's stats to the registry: weakref-tracked,
+        # read only at scrape time — no cost on the match path
+        register_engine(self)
 
     def _bind_db(self) -> None:
         """Derive every db-indexed lookup table the walk and the
@@ -1208,6 +1213,10 @@ class MatchEngine:
         with self._stats_lock:
             self.stats.memo_hits += hits
             self.stats.memo_misses += misses
+        if hits:
+            L1_HITS.inc(hits)
+        if misses:
+            L1_MISSES.inc(misses)
         served = (extr_known, deferred_known)
         if not miss_uniq:
             return (

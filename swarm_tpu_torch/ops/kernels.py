@@ -60,6 +60,17 @@ LAUNCHES: dict[str, int] = {
     "match_phase_a": 0, "match_verify": 0, "match_regex_scan": 0,
     "match_md5": 0, "match_verdicts": 0,
 }
+#: the ``__global__`` functions each wrapper launches on every call, as
+#: a profiler trace names them (template arguments left off)
+SYMBOLS: dict[str, tuple[str, ...]] = {
+    "cluster_counts": ("cluster_counts_kernel",),
+    "cluster_parent": ("cluster_parent_kernel",),
+    "match_phase_a": ("match_phase_a_probe_kernel", "match_phase_a_rank_kernel"),
+    "match_verify": ("match_verify_kernel",),
+    "match_regex_scan": ("match_regex_scan_kernel",),
+    "match_md5": ("match_md5_kernel",),
+    "match_verdicts": ("match_verdicts_pack_kernel", "match_verdicts_kernel"),
+}
 
 _libs: dict[str, ctypes.CDLL] = {}  # guarded-by: _load_locks[name]
 #: one lock a library, so that the libraries build in parallel

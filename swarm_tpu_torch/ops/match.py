@@ -51,6 +51,7 @@ from swarm_tpu_torch.ops import hashing, kernels
 from swarm_tpu_torch.ops.encoding import STREAMS
 from swarm_tpu_torch.ops.kernels import StreamView
 from swarm_tpu_torch.resilience.faults import fault_point
+from swarm_tpu_torch.telemetry import device_export
 from swarm_tpu_torch.utils.device import resolve_device
 
 MASK32 = 0xFFFFFFFF
@@ -968,7 +969,9 @@ class DeviceDB:
         runs in a ``record_function`` span (``match.<step>``) that a
         profiler trace reads. Every launch and the read go to the
         calling thread's current stream on this DeviceDB's device, the
-        stream whose event the Dispatch carries."""
+        stream whose event the Dispatch carries. The staged batch and
+        its host bytes, and a compacted dispatch's survivor max and
+        phase-B width, go to the ``swarm_device_*`` families."""
         from swarm_tpu_torch.ops.regexdev import regex_verify
 
         # stands in for a dispatch that never reached the card (an
@@ -1045,6 +1048,16 @@ class DeviceDB:
             else:
                 host, done = out, None
         lc["phase_b_s"] = time.perf_counter() - t3
+        device_export.STAGED_BATCHES.inc()
+        device_export.STAGED_BYTES.inc(
+            sum(getattr(v, "nbytes", 0) for v in streams.values())
+            + sum(getattr(v, "nbytes", 0) for v in lengths.values())
+            + int(getattr(status, "nbytes", 0))
+        )
+        if T:
+            device_export.COMPACTED_DISPATCHES.inc()
+            device_export.SURVIVOR_MAX.set(lc["survivor_max"])
+            device_export.VERIFY_K.set(lc["verify_k"])
         return Dispatch(host, done, lc)
 
     def collect(self, pending: Dispatch):

@@ -29,10 +29,11 @@ EVERY workflow is content-pure (no reachable template reads
 host/port/duration), so a rescan of known trigger content completes
 without any device dispatch. The ``active`` backend's batched gate
 re-confirm (:meth:`WorkflowRunner.resolve_gate_names`) reads the named
-matchers it needs off the same planes. Left out of the port: the shared
-result tier's ``"w"`` family lookups, which go with the cache layer,
-and the workflow counters (``WORKFLOW_GATE_PLANE_BATCHES`` and the
-rest), which go with telemetry.
+matchers it needs off the same planes. The ``swarm_workflow_*``
+families count the steps lowered, the batches decoded through gate
+planes, the step memo's hits and misses and the host-twin fallbacks.
+Left out of the port: the shared result tier's ``"w"`` family lookups,
+which go with the cache layer.
 """
 
 from __future__ import annotations
@@ -58,6 +59,13 @@ from swarm_tpu_torch.fingerprints.workflows import (
     parse_workflow,
 )
 from swarm_tpu_torch.ops import cpu_ref
+from swarm_tpu_torch.telemetry.workflow_export import (
+    WORKFLOW_GATE_PLANE_BATCHES,
+    WORKFLOW_HOST_TWIN_FALLBACKS,
+    WORKFLOW_STEP_MEMO_HITS,
+    WORKFLOW_STEP_MEMO_MISSES,
+    WORKFLOW_STEPS_COMPILED,
+)
 
 #: runner-local per-content memo cap (FIFO, oldest half dropped)
 _WF_MEMO_MAX = 4096
@@ -184,6 +192,10 @@ class WorkflowRunner:
                     self._plane_names.setdefault(
                         plan.cond_template[ci], {}
                     ).setdefault(plan.cond_name[ci], []).append(ci)
+        if plan is not None:
+            WORKFLOW_STEPS_COMPILED.labels().set(
+                float(plan.stats.get("steps_compiled", 0))
+            )
 
     # ------------------------------------------------------------------
     def _wf_template_ids(self, wf: Workflow) -> set:
@@ -274,6 +286,8 @@ class WorkflowRunner:
                 slot[id(row)] = len(rows_u)
                 rows_u.append(row)
         results = self.engine.match(rows_u)
+        if self.device and any(rm.wf is not None for rm in results):
+            WORKFLOW_GATE_PLANE_BATCHES.labels().inc()
         out: list = []
         fb: dict = {}
         for tid, row in needs:
@@ -346,10 +360,18 @@ class WorkflowRunner:
                         still.append(i)
                     else:
                         out[i] = {k: list(v) for k, v in entry.items()}
+            if len(pending) - len(still):
+                WORKFLOW_STEP_MEMO_HITS.labels(tier="l1").inc(
+                    len(pending) - len(still)
+                )
+            if still:
+                WORKFLOW_STEP_MEMO_MISSES.labels().inc(len(still))
             pending = still
         if pending:
             fresh = [rows[i] for i in pending]
             results = self.engine.match(fresh)
+            if self.device and any(rm.wf is not None for rm in results):
+                WORKFLOW_GATE_PLANE_BATCHES.labels().inc()
             for i, rm in zip(pending, results):
                 row = rows[i]
                 per = self._gate_row(rm, lambda _tid, _r=row: [_r])
@@ -380,6 +402,8 @@ class WorkflowRunner:
                 if matched:
                     per[wf.id] = sorted(matched)
             return per
+        if self.plan is not None:
+            WORKFLOW_HOST_TWIN_FALLBACKS.labels().inc()
         per = {}
         for wf in self.workflows:
             matched = self._eval_workflow(wf, row_of, hit_ids, cache)

@@ -17,9 +17,10 @@ deterministic fault harness:
 - :mod:`~swarm_tpu_torch.resilience.heartbeat` — background lease
   renewal, so a long chunk keeps its lease.
 
-The reference's metric families are not ported with it: the counts it
-keeps are on the objects (``FaultPlan.snapshot()``, a breaker's
-``state``, ``LeaseHeartbeat.renewals``, ``OutputSpool.replayed``).
+Each piece reports through the reference's ``swarm_resilience_*``
+families on the port's registry (``telemetry/``) and keeps its counts
+on the object too (``FaultPlan.snapshot()``, a breaker's ``state``,
+``LeaseHeartbeat.renewals``, ``OutputSpool.replayed``).
 """
 
 from swarm_tpu_torch.resilience.breaker import (  # noqa: F401

@@ -4,7 +4,9 @@
 Closed → (``threshold`` consecutive failures) → open → (``cooldown_s``
 elapses) → half-open: exactly one probe call is allowed through; its
 outcome closes or re-opens the breaker. Breakers register on a global
-board, so :func:`breaker_states` shows every breaker of the process.
+board, so :func:`breaker_states` shows every breaker of the process;
+state changes also drive the ``swarm_resilience_breaker_open`` gauge
+and the transitions counter.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 import threading
 import time
 import weakref
+
+from swarm_tpu_torch.telemetry import REGISTRY
 
 _BOARD_LOCK = threading.Lock()  # guards: _BOARD
 # name → live instances: several objects may share a name (two workers'
@@ -22,6 +26,17 @@ _BOARD: dict[str, "weakref.WeakSet[CircuitBreaker]"] = {}
 
 #: severity order for same-named aggregation (worst state wins)
 _SEVERITY = {"closed": 0, "half-open": 1, "open": 2}
+
+_BREAKER_OPEN = REGISTRY.gauge(
+    "swarm_resilience_breaker_open",
+    "1 while the named circuit breaker is open (0 closed/half-open)",
+    ("name",),
+)
+_BREAKER_TRANSITIONS = REGISTRY.counter(
+    "swarm_resilience_breaker_transitions_total",
+    "Circuit-breaker state transitions",
+    ("name", "state"),
+)
 
 
 def breaker_states(prefix: str = "") -> dict[str, str]:
@@ -85,7 +100,11 @@ class CircuitBreaker:
 
     def _transition(self, state: str) -> None:  # requires-lock: _lock
         """Every change of state goes through here."""
+        if state == self._state:
+            return
         self._state = state
+        _BREAKER_OPEN.labels(name=self.name).set(1 if state == self.OPEN else 0)
+        _BREAKER_TRANSITIONS.labels(name=self.name, state=state).inc()
 
     def allow(self) -> bool:
         """Whether the protected call may proceed right now. In

@@ -25,7 +25,8 @@ delays instead of raising — the lease-expiry lever.
 
 When no plan is set, :func:`fault_point` is one global load and an
 ``is None`` test (the environment variable is read once, lazily). The
-counts of a plan are :meth:`FaultPlan.snapshot`.
+counts of a plan are :meth:`FaultPlan.snapshot`; each fired fault also
+counts in ``swarm_resilience_faults_injected_total{point}``.
 """
 
 from __future__ import annotations
@@ -37,7 +38,19 @@ import threading
 import time
 from typing import Optional
 
+from swarm_tpu_torch.telemetry import REGISTRY
+
 ENV_VAR = "SWARM_FAULT_PLAN"
+
+_FAULTS_INJECTED = REGISTRY.counter(
+    "swarm_resilience_faults_injected_total",
+    "Faults fired by the injection harness, by fault point",
+    ("point",),
+)
+_PLAN_ACTIVE = REGISTRY.gauge(
+    "swarm_resilience_fault_plan_active",
+    "1 while a fault-injection plan is installed in this process",
+)
 
 
 class FaultInjected(RuntimeError):
@@ -142,6 +155,7 @@ class FaultPlan:
                     fire = clause
         if fire is None:
             return
+        _FAULTS_INJECTED.labels(point=name).inc()
         if fire.action == "sleep":
             time.sleep(float(fire.arg or "0"))
             return
@@ -177,6 +191,7 @@ def install_plan(spec: str) -> FaultPlan:
     plan = FaultPlan(spec)
     with _state_lock:
         _active = plan
+    _PLAN_ACTIVE.set(1)
     return plan
 
 
@@ -185,12 +200,14 @@ def clear_plan() -> None:
     global _active
     with _state_lock:
         _active = None
+    _PLAN_ACTIVE.set(0)
 
 
 def active_plan() -> Optional[FaultPlan]:
     plan = _active
     if plan is _UNSET:
         plan = _resolve_env()
+    _PLAN_ACTIVE.set(1 if plan is not None else 0)
     return plan
 
 
@@ -201,6 +218,8 @@ def _resolve_env() -> Optional[FaultPlan]:
             return _active
         spec = os.environ.get(ENV_VAR, "").strip()
         _active = FaultPlan(spec) if spec else None
+    if _active is not None:
+        _PLAN_ACTIVE.set(1)
     return _active
 
 

@@ -14,6 +14,14 @@ from __future__ import annotations
 import threading
 from typing import Optional
 
+from swarm_tpu_torch.telemetry import REGISTRY
+
+_RENEWALS = REGISTRY.counter(
+    "swarm_resilience_lease_renewals_total",
+    "Lease-heartbeat renewal attempts",
+    ("outcome",),
+)
+
 
 class LeaseHeartbeat:
     """Context manager: renew ``job_id``'s lease every ``interval_s``
@@ -60,11 +68,14 @@ class LeaseHeartbeat:
                 # server unreachable: keep ticking — the lease may still
                 # be live on the server, and the next tick may land
                 self.errors += 1
+                _RENEWALS.labels(outcome="error").inc()
                 continue
             if ok:
                 self.renewals += 1
+                _RENEWALS.labels(outcome="renewed").inc()
             else:
                 self.lease_ok = False
+                _RENEWALS.labels(outcome="rejected").inc()
                 return  # not ours anymore; stop renewing
 
     def start(self) -> "LeaseHeartbeat":

@@ -23,6 +23,17 @@ from pathlib import Path
 from typing import Optional
 
 from swarm_tpu_torch.resilience.transport import TransportError
+from swarm_tpu_torch.telemetry import REGISTRY, emit_event
+
+_SPOOLED = REGISTRY.counter(
+    "swarm_resilience_spooled_chunks_total",
+    "Completed output chunks spooled to disk (server unreachable)",
+)
+_REPLAYED = REGISTRY.counter(
+    "swarm_resilience_spool_replayed_total",
+    "Spool replay outcomes",
+    ("outcome",),
+)
 
 
 class OutputSpool:
@@ -56,6 +67,7 @@ class OutputSpool:
         }
         (self.root / f"{job_id}.json").write_text(json.dumps(meta))
         self.spooled += 1
+        _SPOOLED.inc()
 
     def entries(self) -> list[dict]:
         """Spooled entries in (scan_id, chunk_index) order: numeric
@@ -125,11 +137,13 @@ class OutputSpool:
                     )
             except TransportError:
                 self.replayed["deferred"] += 1
+                _REPLAYED.labels(outcome="deferred").inc()
                 break
             self._drop(job_id)
             cleared += 1
             outcome = "completed" if ok else "fenced"
             self.replayed[outcome] += 1
+            _REPLAYED.labels(outcome=outcome).inc()
             per_scan.setdefault(
                 str(meta.get("scan_id")), {"completed": [], "fenced": []}
             )[outcome].append(int(meta.get("chunk_index") or 0))
@@ -139,5 +153,11 @@ class OutputSpool:
                 f"spool replay [{scan_id}]: "
                 f"completed chunks {summary['completed']}, "
                 f"fenced chunks {summary['fenced']}"
+            )
+            emit_event(
+                "spool.scan_replayed",
+                scan_id=scan_id,
+                completed=summary["completed"],
+                fenced=summary["fenced"],
             )
         return cleared

@@ -21,6 +21,18 @@ import time
 from typing import Optional
 
 from swarm_tpu_torch.resilience.breaker import BreakerBoard
+from swarm_tpu_torch.telemetry import REGISTRY
+
+_RETRIES = REGISTRY.counter(
+    "swarm_resilience_transport_retries_total",
+    "Transport operations retried after a TransportError",
+    ("op",),
+)
+_FAILURES = REGISTRY.counter(
+    "swarm_resilience_transport_failures_total",
+    "Transport operations that exhausted retries (or hit an open breaker)",
+    ("op",),
+)
 
 
 class TransportError(RuntimeError):
@@ -79,6 +91,7 @@ class RetryingServerClient:
     def _call(self, op: str, *args, **kw):
         breaker = self.breakers.get(op)
         if not breaker.allow():
+            _FAILURES.labels(op=op).inc()
             raise CircuitOpenError(f"transport breaker open for {op}")
         fn = getattr(self.inner, op)
         attempt = 0
@@ -88,7 +101,9 @@ class RetryingServerClient:
             except TransportError:
                 breaker.record_failure()
                 if attempt >= self.retries or not breaker.allow():
+                    _FAILURES.labels(op=op).inc()
                     raise
+                _RETRIES.labels(op=op).inc()
                 self._sleep(self._delay(attempt))
                 attempt += 1
                 continue

@@ -54,6 +54,17 @@ Each stage runs in a ``torch.profiler`` span (``sched.plan``,
 ``sched.encode``, ``sched.wait``, ``sched.submit``, ``sched.finish``);
 :class:`SchedStats` counts rows by source, batches, fill, stalls,
 offloaded walks and the deepest in-flight window reached.
+
+Telemetry (the port's ``REGISTRY``, the reference's families):
+- ``swarm_sched_batches_total{bucket,kind}`` — bucket occupancy
+- ``swarm_sched_rows_total{source}`` — fresh / memo / dead split
+- ``swarm_sched_fill_ratio`` — rows ÷ padded rows per device batch
+- ``swarm_sched_prefetch_stall_seconds_total`` — submit loop starved
+- ``swarm_sched_inflight_depth`` — current in-flight device batches
+- ``swarm_sched_bucket_rows{bucket}`` — pending rows per bucket
+- ``swarm_sched_walk_offloaded_total`` — walks run on the walk worker
+- ``swarm_sched_flush_deadline_total{qos}`` and
+  ``swarm_sched_batch_age_seconds{qos}`` from ``telemetry/sched_export``
 """
 
 from __future__ import annotations
@@ -74,6 +85,45 @@ from swarm_tpu_torch.sched.buckets import (
     QOS_INTERACTIVE,
     BucketPlanner,
     PlannedBatch,
+)
+from swarm_tpu_torch.telemetry import REGISTRY
+from swarm_tpu_torch.telemetry.sched_export import (
+    SCHED_BATCH_AGE,
+    SCHED_FLUSH_DEADLINE,
+)
+
+_BATCHES = REGISTRY.counter(
+    "swarm_sched_batches_total",
+    "Scheduler batches submitted, by padding bucket and kind",
+    ("bucket", "kind"),
+)
+_ROWS = REGISTRY.counter(
+    "swarm_sched_rows_total",
+    "Rows through the scheduler, by resolution source",
+    ("source",),  # fresh | memo | dead
+)
+_FILL = REGISTRY.histogram(
+    "swarm_sched_fill_ratio",
+    "Real rows / padded rows per submitted device batch",
+    buckets=(0.125, 0.25, 0.5, 0.75, 0.9, 1.0),
+)
+_STALL = REGISTRY.counter(
+    "swarm_sched_prefetch_stall_seconds_total",
+    "Seconds the submission loop waited on the prefetch stage",
+)
+_INFLIGHT = REGISTRY.gauge(
+    "swarm_sched_inflight_depth",
+    "Device batches currently in flight (begun, not yet walked)",
+)
+_BUCKET_ROWS = REGISTRY.gauge(
+    "swarm_sched_bucket_rows",
+    "Rows pending in each padding bucket (set at plan time)",
+    ("bucket",),
+)
+_WALK_OFFLOADED = REGISTRY.counter(
+    "swarm_sched_walk_offloaded_total",
+    "Host walks handed to the scheduler's walk worker instead of "
+    "blocking the device-submit thread (docs/HOST_WALK.md)",
 )
 
 
@@ -337,8 +387,13 @@ class BatchScheduler:
                         state = spec_pre[4]
                         if spec_pre[1] is None:
                             n_dead = int((state == -2).sum())
-                            stats.memo_rows += len(rows) - n_dead
+                            n_memo = len(rows) - n_dead
+                            stats.memo_rows += n_memo
                             stats.dead_rows += n_dead
+                            if n_memo:
+                                _ROWS.labels(source="memo").inc(n_memo)
+                            if n_dead:
+                                _ROWS.labels(source="dead").inc(n_dead)
                             pb = PlannedBatch(
                                 ids=range(gid, gid + len(rows)),
                                 rows=rows,
@@ -384,9 +439,14 @@ class BatchScheduler:
                         yield pb, None
                 if dead_ids:
                     register_dead(cid, dead_ids)
+                    _ROWS.labels(source="dead").inc(len(dead_ids))
                 stats.dead_rows += len(dead_ids)
                 stats.memo_rows += n_memo
                 stats.fresh_rows += n_fresh
+                if n_memo:
+                    _ROWS.labels(source="memo").inc(n_memo)
+                if n_fresh:
+                    _ROWS.labels(source="fresh").inc(n_fresh)
                 self._steady_streak = (
                     0 if n_fresh else self._steady_streak + 1
                 )
@@ -396,6 +456,7 @@ class BatchScheduler:
                 # max_age_ms set, bulk tails get the same bound.
                 # Checked once per chunk — the feed's natural tick.
                 for pb in planner.flush_due(time.monotonic()):
+                    SCHED_FLUSH_DEADLINE.labels(qos=pb.qos).inc()
                     yield pb, None
             for pb in planner.flush_all():
                 yield pb, None
@@ -410,7 +471,12 @@ class BatchScheduler:
 
         def encode_of(pb: PlannedBatch):
             with record_function("sched.encode"):
-                return engine.encode_packed(pb.rows, reuse_buffers=True)
+                pre = engine.encode_packed(pb.rows, reuse_buffers=True)
+            occ = planner.occupancy()
+            occ.setdefault(pb.bucket, 0)  # flushed bucket reads 0
+            for bucket, rows_pending in occ.items():
+                _BUCKET_ROWS.labels(bucket=bucket).set(rows_pending)
+            return pre
 
         inflight: list = []  # FIFO of (PlannedBatch, handle)
         inflight_cap = cfg.inflight if self._device_overlap_ok() else 1
@@ -471,6 +537,7 @@ class BatchScheduler:
 
         def finish_oldest() -> None:
             pb, handle = inflight.pop(0)
+            _INFLIGHT.set(len(inflight))
             if walk_exec is not None:
                 # batch N's walk runs on the walk worker while this
                 # thread keeps encoding + dispatching batch N+1. One
@@ -479,6 +546,7 @@ class BatchScheduler:
                 walking.append((pb, walk_exec.submit(finish_batch, pb,
                                                      handle)))
                 stats.offloaded_walks += 1
+                _WALK_OFFLOADED.inc()
                 drain_walks(1)
             else:
                 finish_batch(pb, handle)
@@ -507,11 +575,20 @@ class BatchScheduler:
             with record_function("sched.submit"):
                 handle = engine.begin_packed(pb.rows, pre=pre)
             inflight.append((pb, handle))
+            _INFLIGHT.set(len(inflight))
             stats.max_inflight = max(stats.max_inflight, len(inflight))
             stats.batches += 1
+            _BATCHES.labels(bucket=pb.bucket, kind=pb.kind).inc()
+            if pb.oldest_ts is not None:
+                # the oldest row's coalescing wait — what the deadline
+                # flush bounds per class
+                SCHED_BATCH_AGE.labels(qos=pb.qos).observe(
+                    max(0.0, time.monotonic() - pb.oldest_ts)
+                )
             if pb.kind == "fresh":
                 stats.device_batches += 1
                 stats.fill_sum += pb.fill_rows
+                _FILL.labels().observe(pb.fill_rows)
             while len(inflight) >= inflight_cap:
                 finish_oldest()
             yield from ready_chunks()
@@ -570,7 +647,9 @@ class BatchScheduler:
                     t0 = time.perf_counter()
                     with record_function("sched.wait"):
                         item = q.get()
-                    stats.stall_seconds += time.perf_counter() - t0
+                    dt = time.perf_counter() - t0
+                    stats.stall_seconds += dt
+                    _STALL.inc(dt)
                     if item is _DONE:
                         break
                     pb, pre = item

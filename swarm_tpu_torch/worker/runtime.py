@@ -66,14 +66,44 @@ The worker survives what the JAX worker survives (``resilience/``):
 - fault points ``transport.<op>``, ``executor.run`` and
   ``worker.drain`` serve the fault harness (``SWARM_FAULT_PLAN``).
 
-Not ported yet (ROADMAP.md): tracing and telemetry, the result cache,
-the executable cache and multi-host engines.
+The worker reports what the JAX worker reports (``telemetry/``):
+
+- the completed job's ``perf`` fields: the phase seconds
+  (``download_s``, ``execute_s``, ``upload_s``), input and output bytes,
+  and for the ``tpu`` and ``active`` backends the engine's deltas over
+  the job (``rows``, ``device_s``, ``host_confirm_s``; ``phase_a_s`` and
+  ``phase_b_s`` only while tracing is on), ``pipeline``, ``sched`` and
+  ``inflight_saturation``, then the scan counters and
+  ``breakers_open`` — with tracing off, the JAX worker's keys in its
+  order. The server rolls ``rows`` and ``device_s`` up into the scan's
+  ``rows_processed`` and ``rows_per_second``;
+- with tracing on (``SWARM_TRACE``) and a job that carries a
+  ``trace_id``, one span batch per attempt: the ``attempt`` root, its
+  ``download``, ``execute`` and ``upload`` children, under ``execute``
+  the ``device`` span (with ``device.phase_a`` and ``device.phase_b``)
+  and the ``walk`` span synthesized from the engine's deltas, and the
+  ``sched`` span of a pipelined drive. Up to 256 spans ride the
+  completed job's ``perf["spans"]``; a larger batch, or a failed
+  attempt's, goes to ``POST /spans``;
+- events keyed by the job's trace id: ``job.start``, ``job.phase``,
+  ``job.worker_done``, ``job.spooled``, ``worker.server_restarted``,
+  ``worker.stopped`` (``SWARM_EVENTS``, or in-process subscribers);
+- on the registry: ``swarm_worker_phase_seconds{phase}``,
+  ``swarm_worker_jobs_total{outcome}``, the rows counter and rows/s
+  gauge, the last-poll gauge, poll errors, the server generation and
+  restarts, and the drain's outcome and seconds;
+- with ``SWARM_PROFILE_DIR`` set, a ``torch.profiler`` trace of each
+  job's execute (``utils/trace.py``).
+
+Not ported yet (ROADMAP.md): the result cache, the executable cache and
+multi-host engines.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import signal
 import subprocess
@@ -98,7 +128,10 @@ from swarm_tpu_torch.resilience.faults import FaultInjected, fault_point, instal
 from swarm_tpu_torch.resilience.heartbeat import LeaseHeartbeat
 from swarm_tpu_torch.resilience.spool import OutputSpool
 from swarm_tpu_torch.resilience.transport import RetryingServerClient, TransportError
+from swarm_tpu_torch.telemetry import REGISTRY, emit_event, tracing
+from swarm_tpu_torch.telemetry.fleet_export import WORKER_DRAIN, WORKER_DRAIN_SECONDS
 from swarm_tpu_torch.utils.device import resolve_device
+from swarm_tpu_torch.utils.trace import PhaseTimer, maybe_device_profile
 from swarm_tpu_torch.worker import filescan, formats, sslscan
 from swarm_tpu_torch.worker.active import ActiveScanner
 from swarm_tpu_torch.worker.executor import ProbeExecutor
@@ -109,6 +142,46 @@ from swarm_tpu_torch.worker.modules import (
     format_match_line,
     parse_response_line,
 )
+
+# the worker's families (the JAX worker's): remote workers' phase
+# timings also reach the server through the job's perf fields
+_PHASE_SECONDS = REGISTRY.histogram(
+    "swarm_worker_phase_seconds",
+    "Per-phase job pipeline seconds measured on the worker",
+    ("phase",),
+)
+_JOBS_PROCESSED = REGISTRY.counter(
+    "swarm_worker_jobs_total",
+    "Jobs processed by this worker, by outcome",
+    ("outcome",),
+)
+_LAST_POLL = REGISTRY.gauge(
+    "swarm_worker_last_poll_timestamp",
+    "Unix time of this worker's most recent /get-job poll (heartbeat)",
+)
+_ROWS_PER_SEC = REGISTRY.gauge(
+    "swarm_worker_rows_per_second",
+    "Rows/sec of the most recently completed device job",
+)
+_ROWS_TOTAL = REGISTRY.counter(
+    "swarm_worker_rows_total", "Device-engine rows processed by this worker"
+)
+_POLL_ERRORS = REGISTRY.counter(
+    "swarm_worker_poll_errors_total",
+    "Polls that failed with a transport error (server down ≠ idle queue)",
+)
+_SERVER_GENERATION = REGISTRY.gauge(
+    "swarm_worker_server_generation",
+    "Control-plane generation last observed on a successful poll",
+)
+_SERVER_RESTARTS = REGISTRY.counter(
+    "swarm_worker_server_restarts_total",
+    "Control-plane generation changes observed by this worker",
+)
+
+#: span batches up to this size ride the completed job's ``perf``
+#: field; larger batches (long scans) ship out of band via ``POST /spans``
+_SPAN_INLINE_MAX = 256
 
 
 @dataclasses.dataclass
@@ -245,6 +318,16 @@ class ServerClient:
         )
         return resp.status_code == 200
 
+    def post_spans(self, scan_id: str, spans: list) -> bool:
+        """Ship a span batch out of band: an attempt's batch too large
+        to ride the completed job's perf field, or a failed attempt's,
+        which has no perf field to ride."""
+        resp = self._request(
+            "post_spans", "POST", "/spans", detail=scan_id,
+            json={"scan_id": scan_id, "spans": spans},
+        )
+        return resp.status_code == 200
+
     def renew_lease(
         self, job_id: str, worker_id: str, saturation: Optional[float] = None
     ) -> bool:
@@ -307,9 +390,10 @@ class JobProcessor:
         #: ``file::<dir>::<scan_root>``, the SslScanner under
         #: ``ssl::<dir>::<probe spec>``
         self.engines: dict = {}
-        #: the MatchEngine the current job ran on, if any (its scheduler
-        #: state rides the job's perf fields)
-        self._job_engine: Optional[MatchEngine] = None
+        #: (engine, its cumulative counts) at the start of the current
+        #: job on a MatchEngine, if any: the job's perf fields report
+        #: the deltas (:meth:`_engine_perf_delta`)
+        self._engine_stats_mark: Optional[tuple] = None
         #: the current job's scan counters (an active job's), perf fields
         self._scan_perf_extra: dict = {}
         #: the drain order's reason, set by SIGTERM, an X-Swarm-Drain
@@ -343,8 +427,9 @@ class JobProcessor:
                 self._drained_mid_job = True
 
     def process_jobs(self) -> None:
-        """The poll loop; returns after ``cfg.max_jobs`` attempts when
-        set, or after a drain."""
+        """The poll loop; returns after ``cfg.max_jobs`` chunks that
+        returned when set (a chunk whose processing raises is not
+        counted, as the JAX worker counts), or after a drain."""
         while True:
             if self.drain_requested is not None:
                 # process_chunk is synchronous: reaching this check
@@ -352,10 +437,12 @@ class JobProcessor:
                 self.drain(self.drain_requested)
                 return
             try:
+                _LAST_POLL.set(time.time())
                 job = self.client.get_job(self.cfg.worker_id)
             except TransportError as e:
                 # server down is not "queue empty" (the retrying client
                 # already spent its backoff)
+                _POLL_ERRORS.inc()
                 print(f"server unreachable: {e}")
                 time.sleep(self.cfg.poll_interval_idle_s)
                 continue
@@ -373,25 +460,22 @@ class JobProcessor:
             # the poll proved the server reachable: flush the chunks
             # spooled while it was down (idempotent through fencing)
             self._replay_spool()
-            if not job:
-                time.sleep(self.cfg.poll_interval_idle_s)
-                time.sleep(self.cfg.poll_interval_busy_s)
-                continue
-            self._job_in_flight = True
-            failed = False
             try:
-                self.process_chunk(job)
+                if job:
+                    self._job_in_flight = True
+                    try:
+                        self.process_chunk(job)
+                    finally:
+                        self._job_in_flight = False
+                    # a chunk that ended (failed jobs included) counts;
+                    # one whose processing raised does not
+                    self.jobs_done += 1
+                    if self.cfg.max_jobs and self.jobs_done >= self.cfg.max_jobs:
+                        return
+                else:
+                    time.sleep(self.cfg.poll_interval_idle_s)
             except Exception as e:
                 print(f"error processing job: {e}")
-                failed = True
-            finally:
-                self._job_in_flight = False
-            # max_jobs bounds attempts: a failing job must not leave a
-            # --max-jobs worker polling forever
-            self.jobs_done += 1
-            if self.cfg.max_jobs and self.jobs_done >= self.cfg.max_jobs:
-                return
-            if failed:
                 time.sleep(self.cfg.poll_interval_idle_s)
             time.sleep(self.cfg.poll_interval_busy_s)
 
@@ -405,11 +489,19 @@ class JobProcessor:
             return
         prior = self._seen_generation
         self._seen_generation = gen
+        _SERVER_GENERATION.set(gen)
         if prior is None:
             return  # first contact, not a restart
+        _SERVER_RESTARTS.inc()
         breakers = getattr(self.client, "breakers", None)
         if breakers is not None:
             breakers.reset_all()
+        emit_event(
+            "worker.server_restarted",
+            worker_id=self.cfg.worker_id,
+            generation=gen,
+            prior_generation=prior,
+        )
         print(
             f"server restarted (generation {prior} -> {gen}); "
             "re-registered and reset transport breakers"
@@ -452,20 +544,61 @@ class JobProcessor:
             outcome = "aborted"
         self.drain_outcome = outcome
         elapsed = time.monotonic() - t0
+        WORKER_DRAIN.labels(outcome=outcome).inc()
+        WORKER_DRAIN_SECONDS.labels().observe(elapsed)
+        emit_event(
+            "worker.stopped",
+            worker_id=self.cfg.worker_id,
+            reason=reason,
+            outcome=outcome,
+            jobs_done=self.jobs_done,
+            drain_seconds=round(elapsed, 4),
+        )
         print(f"worker drained ({reason}): {outcome} in {elapsed:.2f}s")
         return outcome
 
     def process_chunk(self, job: dict) -> None:
         job_id = job.get("job_id") or f"{job['scan_id']}_{job['chunk_index']}"
         scan_id, chunk_index = job["scan_id"], int(job["chunk_index"])
+        trace_id = job.get("trace_id")
         # the server validates scan ids, but they flow into URL paths
         if not SCAN_ID_RE.match(str(scan_id)):
             self.client.update_job(job_id, {"status": JobStatus.CMD_FAILED})
+            _JOBS_PROCESSED.labels(outcome=JobStatus.CMD_FAILED).inc()
             return
+        timer = PhaseTimer()
+        # the attempt's span collector (None when tracing is off or the
+        # job carries no trace id: the completed-job payload is then
+        # byte-identical to the untraced worker's)
+        ctx = tracing.attempt_context(
+            trace_id,
+            job_id=job_id,
+            attempt=job.get("attempts"),
+            worker_id=self.cfg.worker_id,
+            module=job.get("module"),
+        )
+
+        def _ship_spans(extra: dict) -> dict:
+            """Close the attempt root; inline the batch on the perf
+            field when small, else POST /spans (also the only path for
+            a failed attempt, which carries no perf)."""
+            spans = ctx.finish()
+            if not spans:
+                return extra
+            perf = extra.get("perf")
+            if isinstance(perf, dict) and len(spans) <= _SPAN_INLINE_MAX:
+                return {**extra, "perf": {**perf, "spans": spans}}
+            try:
+                self.client.post_spans(scan_id, spans)
+            except Exception as e:
+                print(f"span batch undeliverable: {e}")
+            return extra
 
         def update(status: str, **extra) -> Optional[bool]:
+            if status in JobStatus.TERMINAL and ctx is not None:
+                extra = _ship_spans(extra)
             try:
-                return self.client.update_job(
+                ok = self.client.update_job(
                     job_id, {"status": status, **extra}, worker_id=self.cfg.worker_id
                 )
             except TransportError as e:
@@ -474,8 +607,41 @@ class JobProcessor:
                 # spooled by the caller. None is not False: False means
                 # the server refused (fencing)
                 print(f"update {status!r} undeliverable: {e}")
-                return None
+                ok = None
+            if status not in JobStatus.TERMINAL:
+                emit_event(
+                    "job.phase",
+                    trace_id=trace_id,
+                    job_id=job_id,
+                    worker_id=self.cfg.worker_id,
+                    phase=status,
+                )
+            else:
+                # one observation a phase a job: the job-level latency
+                # distributions of the registry
+                seconds, _counters = timer.snapshot()
+                for phase, secs in seconds.items():
+                    _PHASE_SECONDS.labels(phase=phase).observe(secs)
+                _JOBS_PROCESSED.labels(outcome=status).inc()
+                emit_event(
+                    "job.worker_done",
+                    trace_id=trace_id,
+                    job_id=job_id,
+                    worker_id=self.cfg.worker_id,
+                    status=status,
+                    perf=extra.get("perf"),
+                )
+            return ok
 
+        self._engine_stats_mark = None
+        self._scan_perf_extra = {}
+        emit_event(
+            "job.start",
+            trace_id=trace_id,
+            job_id=job_id,
+            worker_id=self.cfg.worker_id,
+            module=job.get("module"),
+        )
         # the lease heartbeat: renewals from a background thread while
         # the chunk runs, so a long chunk never outlives its lease
         hb = LeaseHeartbeat(
@@ -488,19 +654,20 @@ class JobProcessor:
         self._last_heartbeat = hb
         hb.start()
         try:
-            self._run_chunk(job, job_id, scan_id, chunk_index, update)
+            with tracing.activate(ctx):
+                self._run_chunk(job, job_id, scan_id, chunk_index, timer, update)
         finally:
             hb.stop()
 
     def _run_chunk(
-        self, job: dict, job_id: str, scan_id: str, chunk_index: int, update
+        self, job: dict, job_id: str, scan_id: str, chunk_index: int,
+        timer: PhaseTimer, update,
     ) -> None:
         """Download → execute → upload under a running heartbeat."""
         update(JobStatus.STARTING)
         update(JobStatus.DOWNLOADING)
-        t0 = time.perf_counter()
-        data = self.client.get_input_chunk(scan_id, chunk_index)
-        download_s = time.perf_counter() - t0
+        with timer.phase("download"), tracing.span("download"):
+            data = self.client.get_input_chunk(scan_id, chunk_index)
         if data is None:
             update(JobStatus.CMD_FAILED)
             return
@@ -520,19 +687,21 @@ class JobProcessor:
             "file": self._execute_file,
             "ssl": self._execute_ssl,
         }.get(module.backend)
-        t0 = time.perf_counter()
-        self._job_engine = None
-        self._scan_perf_extra = {}
+        # kept by name: after a successful execute the engine's deltas
+        # become device and walk child spans under it
+        exec_span = tracing.span("execute", module=job.get("module"))
         try:
-            # fail (or delay) this chunk's execution; the detail carries
-            # the job id, so a plan can poison one job
-            fault_point("executor.run", detail=job_id)
-            if module.backend == "active":
-                output = self._execute_active(module, data, chunk_index=chunk_index)
-            elif execute is None:  # the reference's command fallback
-                output = self._execute_command(module, scan_id, chunk_index, data)
-            else:
-                output = execute(module, data)
+            with (timer.phase("execute"),
+                  maybe_device_profile(job_id, device=self.device), exec_span):
+                # fail (or delay) this chunk's execution; the detail
+                # carries the job id, so a plan can poison one job
+                fault_point("executor.run", detail=job_id)
+                if module.backend == "active":
+                    output = self._execute_active(module, data, chunk_index=chunk_index)
+                elif execute is None:  # the reference's command fallback
+                    output = self._execute_command(module, scan_id, chunk_index, data)
+                else:
+                    output = execute(module, data)
         except Exception as e:  # one bad chunk must not stop the worker
             print(f"execution failed: {type(e).__name__}: {e}")
             update(JobStatus.CMD_FAILED, message=f"{type(e).__name__}: {e}")
@@ -540,39 +709,41 @@ class JobProcessor:
         if output is None:  # a command that exited non-zero
             update(JobStatus.CMD_FAILED)
             return
-        execute_s = time.perf_counter() - t0
 
         update(JobStatus.UPLOADING)
         unreachable = False
-        t0 = time.perf_counter()
-        try:
-            ok = self.client.put_output_chunk(scan_id, chunk_index, output)
-        except TransportError:
-            # server unreachable after the retries: the chunk's work is
-            # paid for — never lose it (spooled below)
-            ok = False
-            unreachable = True
-        except requests.RequestException:
-            ok = False
-        upload_s = time.perf_counter() - t0
+        with timer.phase("upload"), tracing.span("upload"):
+            try:
+                ok = self.client.put_output_chunk(scan_id, chunk_index, output)
+            except TransportError:
+                # server unreachable after the retries: the chunk's work
+                # is paid for — never lose it (spooled below)
+                ok = False
+                unreachable = True
+            except requests.RequestException:
+                ok = False
         if not (ok or unreachable):
             update(JobStatus.UPLOAD_FAILED_UNKNOWN)
             return
-        perf = {
-            "download_s": round(download_s, 6),
-            "execute_s": round(execute_s, 6),
-            "upload_s": round(upload_s, 6),
-            "input_bytes": len(data),
-            "output_bytes": len(output),
-        }
-        if self._job_engine is not None:
-            perf.update(self._sched_perf(self._job_engine))
+        perf = timer.perf()
+        perf["input_bytes"] = len(data)
+        perf["output_bytes"] = len(output)
+        perf.update(self._engine_perf_delta())
         perf.update(self._scan_perf_extra)
+        ctx = tracing.current_context()
+        if ctx is not None:
+            self._synth_engine_spans(ctx, perf, exec_span)
         # this worker's breakers that are not closed (transport and
         # device) ride the perf fields to the server
         open_breakers = {k: v for k, v in breaker_states().items() if v != "closed"}
         if open_breakers:
             perf["breakers_open"] = open_breakers
+        rows = perf.get("rows")
+        exec_s = perf.get("execute_s")
+        if isinstance(rows, (int, float)) and math.isfinite(rows) and rows > 0:
+            _ROWS_TOTAL.inc(rows)
+            if exec_s and math.isfinite(exec_s):
+                _ROWS_PER_SEC.set(rows / exec_s)
         done = True
         if ok:
             done = update(JobStatus.COMPLETE, perf=perf)
@@ -580,17 +751,85 @@ class JobProcessor:
             # finished work outlives the outage: spool the output and
             # its completion, replayed on reconnect (the fencing token
             # discards it if the job was re-leased)
-            self.spool.put(job_id, scan_id, chunk_index, self.cfg.worker_id, output,
-                           perf=perf)
-            print(f"server unreachable; spooled finished chunk {job_id}")
+            self._spool_finished(job_id, scan_id, chunk_index, output, perf)
 
-    def _sched_perf(self, engine: MatchEngine) -> dict:
-        """The engine's scheduler mode and feed health, as the JAX
-        worker reports them on a job: ``pipeline``; once the scheduler
-        has run, its cumulative ``sched`` snapshot and
+    def _spool_finished(
+        self, job_id: str, scan_id: str, chunk_index: int, output: bytes, perf: dict
+    ) -> None:
+        self.spool.put(job_id, scan_id, chunk_index, self.cfg.worker_id, output, perf=perf)
+        _JOBS_PROCESSED.labels(outcome="spooled").inc()
+        emit_event(
+            "job.spooled",
+            job_id=job_id,
+            worker_id=self.cfg.worker_id,
+            scan_id=scan_id,
+            chunk_index=chunk_index,
+        )
+        print(f"server unreachable; spooled finished chunk {job_id}")
+
+    def _synth_engine_spans(self, ctx, perf: dict, exec_span) -> None:
+        """Fold the engine's device and walk seconds of the job into
+        child spans of the execute span. The card holds no wall clock
+        of its own, so the phases are laid out one after another from
+        the execute span's start; the durations are the EngineStats
+        deltas (phase A and B when tracing reported them)."""
+        parent = getattr(exec_span, "span_id", None)
+        start = getattr(exec_span, "start", None)
+        if parent is None or start is None:
+            return
+        device_s = perf.get("device_s") or 0.0
+        walk_s = perf.get("host_confirm_s") or 0.0
+        if device_s > 0:
+            dev_id = ctx.add_synth(
+                "device", start, device_s, parent_id=parent,
+                rows=perf.get("rows"), pipeline=perf.get("pipeline"),
+            )
+            pa = perf.get("phase_a_s") or 0.0
+            pb = perf.get("phase_b_s") or 0.0
+            if pa > 0:
+                ctx.add_synth("device.phase_a", start, pa, parent_id=dev_id)
+            if pb > 0:
+                ctx.add_synth("device.phase_b", start + pa, pb, parent_id=dev_id)
+        if walk_s > 0:
+            ctx.add_synth("walk", start + device_s, walk_s, parent_id=parent)
+
+    def _mark_engine_stats(self, engine: MatchEngine) -> None:
+        """Take the engine's cumulative counts at job start, so
+        :meth:`_engine_perf_delta` reports this job's share."""
+        ds = engine.stats
+        self._engine_stats_mark = (
+            engine, ds.rows, ds.device_seconds, ds.host_confirm_seconds,
+            ds.phase_a_seconds, ds.phase_b_seconds,
+        )
+
+    def _engine_perf_delta(self) -> dict:
+        """The engine's counts over this job (the worker keeps engines
+        across jobs), as the JAX worker reports them: ``rows``,
+        ``device_s``, ``host_confirm_s``; ``phase_a_s`` and ``phase_b_s``
+        only while tracing is on (with tracing off the payload stays
+        the untraced worker's); ``pipeline``; once the scheduler has
+        run, its cumulative ``sched`` snapshot and
         ``inflight_saturation``, the share of its wall time the submit
-        thread waited on the prefetch stage (later renewals carry it)."""
-        out: dict = {"pipeline": engine.pipeline}
+        thread waited on the prefetch stage (later renewals carry it).
+        The port has no mesh, so no ``mesh``."""
+        mark = self._engine_stats_mark
+        if mark is None:
+            return {}
+        engine, rows0, dev0, confirm0, pa0, pb0 = mark
+        ds = engine.stats
+        out = {
+            "rows": ds.rows - rows0,
+            "device_s": round(ds.device_seconds - dev0, 6),
+            "host_confirm_s": round(ds.host_confirm_seconds - confirm0, 6),
+        }
+        if tracing.enabled():
+            pa = round(ds.phase_a_seconds - pa0, 6)
+            pb = round(ds.phase_b_seconds - pb0, 6)
+            if pa > 0:
+                out["phase_a_s"] = pa
+            if pb > 0:
+                out["phase_b_s"] = pb
+        out["pipeline"] = engine.pipeline
         sched = engine._sched
         if sched is not None:
             snap = sched.stats.snapshot()
@@ -661,7 +900,7 @@ class JobProcessor:
         if not module.templates_dir:
             raise ValueError(f"tpu module {module.name} missing 'templates'")
         engine = self.engine_for(module.templates_dir)
-        self._job_engine = engine
+        self._mark_engine_stats(engine)
         text = data.decode("utf-8", "surrogateescape")
         if module.input_format == "targets":
             rows, results, _stats = stream_match(
@@ -701,9 +940,13 @@ class JobProcessor:
             # scheduler is engine-lazy; the engine never sees the cfg)
             sched.config.qos_deadline_ms = self.cfg.qos_deadline_ms
             sched.config.max_age_ms = self.cfg.sched_max_age_ms
-            for ci, res in enumerate(sched.run(payloads, decode=decode)):
-                rows.extend(rows_by_chunk.pop(ci))
-                results.extend(res)
+            # "sched" = the continuous-batching drive window (planning,
+            # coalescing, deadline flushes); the engine's device and
+            # walk seconds ride the synthesized spans instead
+            with tracing.span("sched", pipeline="on"):
+                for ci, res in enumerate(sched.run(payloads, decode=decode)):
+                    rows.extend(rows_by_chunk.pop(ci))
+                    results.extend(res)
         else:
             rows = []
             for line in text.splitlines():
@@ -808,7 +1051,7 @@ class JobProcessor:
         if not module.templates_dir:
             raise ValueError(f"active module {module.name} missing 'templates'")
         engine = self.engine_for(module.templates_dir)
-        self._job_engine = engine
+        self._mark_engine_stats(engine)
         # keyed by probe spec + vars too: two modules sharing a
         # templates dir but differing in ports/timeouts/concurrency or
         # operator-supplied template vars must not alias

@@ -62,6 +62,14 @@ def test_module_list_covers_the_slice():
         "swarm_tpu_torch.resilience", "swarm_tpu_torch.resilience.faults",
         "swarm_tpu_torch.resilience.breaker", "swarm_tpu_torch.resilience.transport",
         "swarm_tpu_torch.resilience.heartbeat", "swarm_tpu_torch.resilience.spool",
+        # tracing and telemetry
+        "swarm_tpu_torch.telemetry", "swarm_tpu_torch.telemetry.metrics",
+        "swarm_tpu_torch.telemetry.events", "swarm_tpu_torch.telemetry.tracing",
+        "swarm_tpu_torch.telemetry.trace_export", "swarm_tpu_torch.telemetry.walk_export",
+        "swarm_tpu_torch.telemetry.memo_export", "swarm_tpu_torch.telemetry.device_export",
+        "swarm_tpu_torch.telemetry.engine_export", "swarm_tpu_torch.telemetry.sched_export",
+        "swarm_tpu_torch.telemetry.workflow_export", "swarm_tpu_torch.telemetry.fleet_export",
+        "swarm_tpu_torch.utils.trace",
     } <= names
 
 

@@ -1167,22 +1167,46 @@ def test_worker_chunk_under_faults_equals_jax(case, tmp_path):
     assert_equal_outcomes(out, want)
 
 
-def test_worker_max_jobs_counts_a_chunk_that_raises(tmp_path, monkeypatch, capsys):
-    """``max_jobs`` bounds attempts: a chunk whose processing raises
-    still counts, so a ``--max-jobs 1`` worker returns after it instead
-    of polling on. (The JAX worker counts only a chunk that returned;
-    the port counts every attempt, as its own worker did before.)"""
-    srv = ScriptedServer(t_transport.TransportError, drain_after=3)
-    proc = _port_worker(srv, tmp_path, worker_id="w0", max_jobs=1, poll_interval_idle_s=0.01,
-                        poll_interval_busy_s=0.0, spool_dir=str(tmp_path / "spool"))
+class RaiseThenCompleteServer(ScriptedServer):
+    """Two ``echo`` jobs: the first one's input download raises an
+    error that is not a TransportError (so ``process_chunk`` raises),
+    the second completes."""
 
-    def boom(job):
-        raise RuntimeError("chunk exploded")
+    def __init__(self, exc):
+        super().__init__(exc, drain_after=99)
+        self.jobs = [dict(self.job, job_id="e_1_0", chunk_index=0),
+                     dict(self.job, job_id="e_1_1", chunk_index=1)]
 
-    monkeypatch.setattr(proc, "process_chunk", boom)
-    proc.process_jobs()
-    assert (proc.jobs_done, srv.polls, proc.drain_outcome) == (1, 1, None)
-    assert "error processing job: chunk exploded" in capsys.readouterr().out
+    def get_job(self, worker_id):
+        super().get_job(worker_id)
+        return self.jobs.pop(0) if self.jobs else None
+
+    def get_input_chunk(self, scan_id, chunk_index):
+        if chunk_index == 0:
+            self.calls.append("get_input_chunk:raised")
+            raise RuntimeError("chunk store exploded")
+        return super().get_input_chunk(scan_id, chunk_index)
+
+
+def test_worker_max_jobs_counts_a_chunk_that_raises(tmp_path, capsys):
+    """How ``--max-jobs`` counts a chunk whose processing raises: as the
+    JAX worker counts it, not at all. Under ``max_jobs=1`` both workers
+    poll on past the chunk that raised and return after the chunk that
+    completed, with ``jobs_done == 1`` and the same polls and calls."""
+    out = {}
+    for name, pkg in PKGS.items():
+        srv = RaiseThenCompleteServer(pkg.transport.TransportError)
+        proc = pkg.worker(srv, tmp_path / name, worker_id="w0", max_jobs=1,
+                          modules_dir=str(REPO / "modules"), poll_interval_idle_s=0.01,
+                          poll_interval_busy_s=0.0, spool_dir=str(tmp_path / name / "spool"))
+        proc.process_jobs()
+        out[name] = (proc.jobs_done, srv.polls, srv.calls, srv.statuses, srv.outputs)
+        assert "error processing job: chunk store exploded" in capsys.readouterr().out
+    assert_equal_outcomes(out, (
+        1, 2, ["get_job", "update:starting", "update:downloading", "get_input_chunk:raised",
+               "get_job"] + PHASES + ["put_output_chunk", "update:complete"],
+        ["starting", "downloading", "starting", "downloading", "executing", "uploading",
+         "complete"], [ECHO]))
 
 
 def test_worker_drain_ordered_mid_chunk_completes_the_chunk_equal_jax(tmp_path):

@@ -4,6 +4,9 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only match       # device, corpus, match, telemetry_cost
     python3 chip_smoke.py --only telemetry   # device, corpus, telemetry_worker
+    python3 chip_smoke.py --only timing      # device, corpus, fingerprint_worker, match_timing
+    python3 chip_smoke.py --only mesh        # device, build, corpus, mesh
+    python3 chip_smoke.py --only startup     # device, corpus, fingerprint_worker, startup_worker
 
 Runs from the root of a checkout, on a machine with one CUDA card, and
 prints one JSON line per phase:
@@ -123,6 +126,24 @@ prints one JSON line per phase:
    ``match_verify`` and ``match_regex_scan`` also the card time of the
    same call with no live work (every row empty, every candidate or
    pair dead): the launch and the walk apart from the work.
+14a. ``mesh`` — ``parallel/`` on the card (see :func:`phase_mesh`): the
+   worker's engine over ``make_mesh`` grids (1,1,1), (2,1,1), (1,2,1),
+   (1,1,2) and (2,2,2) of ranks on the one card (``cuda:0`` k times; on
+   a host with several cards, the cards in turn), 2,048 realistic rows:
+   each device batch's planes exactly equal to the single-device
+   ``DeviceDB``'s, every kernel call exact against its plain version
+   (the seq grids' phase A and verify calls carry halos), the results
+   equal to the single-device engine's, ms a call and launches a grid;
+   the (2,2,2) grid's halo calls of phase A and the verify timed as the
+   job's calls are; a pipelined stream of 4,096 rows through a (2,1,1)
+   engine, exact, two batches in flight, the deferred combines
+   overlapped.
+14b. ``startup_worker`` — the worker started as an operator starts it,
+   ``python -m swarm_tpu_torch.worker --config <file>`` in a subprocess,
+   one ``fingerprint`` job of 2,048 rows from the stand-in server,
+   without and with ``prewarm_modules`` (see
+   :func:`phase_startup_worker`): the same output, the seconds to the
+   first poll and the first job's seconds.
 15. ``service`` — service detection at the production DB's full width:
    ``ServiceClassifier`` over ``swarm_tpu/data/service-probes-large.txt``
    (487 probes, 12,331 signatures, read as data) on ``cuda``, built cold
@@ -179,14 +200,16 @@ prints one JSON line per phase:
    outage longer than the retries is spooled and replayed on the next
    poll, then a drain order ends the worker, which deregisters once.
 
-Every MatchEngine that phases 9–21 build (the phases' own, the
+Every MatchEngine that phases 9–21 build in this process (the phases' own, the
 worker's, a scanner's, a classifier's) must end its phase with no device
 fault and no degraded batch (the ``no_device_faults`` line counts them).
 Each phase's compile cache (``SWARM_DB_CACHE_DIR``) lies in a temporary
 directory of the run. Then the ``{"kernels": [...]}`` summary (all
 seven kernels; each match kernel also with its launches on the sched
 phase's traced pipelined call, and its launches and times on the
-service corpus), the ``nvidia-smi`` line, and as the last line
+service corpus, and for each grid of the mesh phase, with the seq-halo
+calls' times for phase A and the verify), the ``nvidia-smi`` line, and
+as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
 script exits non-zero without that line.
 """
@@ -775,6 +798,9 @@ class StubServer:
             self.job["trace_id"] = trace_id
         self.targets = blob
         self.statuses: list[str] = []
+        #: perf_counter() when the job was handed out, and at each update
+        self.handed_at: float | None = None
+        self.status_times: list[float] = []
         #: the perf fields of the job's completing update (its spans
         #: taken off)
         self.perf: dict | None = None
@@ -821,6 +847,7 @@ class StubServer:
                     if stub._handed:
                         return self._reply(204, headers=headers)
                     stub._handed = True
+                    stub.handed_at = time.perf_counter()
                     return self._reply(200, json.dumps(stub.job).encode(), headers)
                 if self.path == f"/get-input-chunk/{scan}/0":
                     return self._reply(200, stub.targets)
@@ -833,6 +860,7 @@ class StubServer:
                 if self.path == f"/update-job/{scan}_0":
                     update = json.loads(body)
                     stub.statuses.append(update["status"])
+                    stub.status_times.append(time.perf_counter())
                     if "perf" in update:
                         stub.perf = dict(update["perf"])
                         stub.spans.extend(stub.perf.pop("spans", []))
@@ -2410,20 +2438,26 @@ def kernel_work(name: str, args: tuple) -> tuple:
     import torch
 
     if name == "match_phase_a":
-        # the streams' bytes up to each length and the T blooms read once,
-        # col and n_surv written once; 2q multiply-adds a window + a probe
-        views, qs, _cs, bloom, budget, _k = args
+        # the views' bytes up to each length and the T blooms read once,
+        # col and n_surv written once; 2q multiply-adds a window + a
+        # probe. A seq rank's view holds its slice of the row (global
+        # offset off) with `back` bytes before it: the windows of its
+        # slice that begin a gram, the bytes of the view up to the length
+        views, qs, _cs, bloom, budget = args[:5]
+        back, fwd = args[6:8] if len(args) > 6 else (0, 0)
+        offs = args[8] if len(args) > 8 and args[8] is not None else (0,) * len(views)
         rows = views[0].data.shape[0]
-        lens = [v.lengths.to(torch.int64) for v in views]
-        q_ops = sum(int((n - q + 1).clamp(min=0).sum()) * (4 * int(q) + 8)
-                    for n, q in zip(lens, qs))
-        streams = {v.data.data_ptr(): int(n.sum()) for v, n in zip(views, lens)}
+        lens = [v.lengths.to(torch.int64) - o for v, o in zip(views, offs)]
+        q_ops = sum(int((n - q + 1).clamp(0, v.data.shape[1] - back - fwd).sum())
+                    * (4 * int(q) + 8) for v, n, q in zip(views, lens, qs))
+        streams = {v.data.data_ptr(): int((n + back).clamp(0, v.data.shape[1]).sum())
+                   for v, n in zip(views, lens)}
         return (sum(streams.values()) + bloom.numel() * 4 + rows * budget * 4 + rows * 4,
                 q_ops)
     if name == "match_verify":
         # each live candidate's col entry, window, group search, entries
         # and up to 64 verify bytes; both [B, slots] planes written once
-        _v, _q, _cs, col, kc, _tab, max_group, _sb, _sl, pw = args
+        col, kc, _tab, max_group, _sb, _sl, pw = args[3:10]
         live = int((col[:, :kc] >= 0).sum())
         return (live * (4 + 8 + 64 + 4 * 16 + max_group * 40) + 2 * col.shape[0] * pw,
                 live * (40 + max_group * (16 + 64)))
@@ -3235,6 +3269,28 @@ def phase_sched(templates, plants, db, smi: str) -> dict:
     return traces["on"]["launches"]
 
 
+_YAML_CORPUS: list = []
+
+
+def yaml_corpus() -> Path | None:
+    """``synthetic_corpus(0)`` as YAML template files in one directory
+    of the run, written once (None without PyYAML): the workers of the
+    ``fingerprint_worker`` and ``startup_worker`` phases read it, so the
+    second finds the first's compile in the run's compile cache."""
+    import tempfile
+
+    if not _YAML_CORPUS:
+        try:
+            import yaml
+        except ImportError:
+            return None
+        root = Path(tempfile.mkdtemp(prefix="corpus-", dir=DB_CACHE_ROOT))
+        for doc in synthetic_corpus(0)[0]:
+            (root / f"{doc['id']}.yaml").write_text(yaml.safe_dump(doc))
+        _YAML_CORPUS.append(root)
+    return _YAML_CORPUS[0]
+
+
 def phase_fingerprint_worker(templates, plants, db) -> dict:
     """The main path: the stand-in server hands out one ``fingerprint``
     job of 2,048 JSONL rows, the port's worker runs it on ``cuda``. The
@@ -3255,16 +3311,10 @@ def phase_fingerprint_worker(templates, plants, db) -> dict:
 
     dicts = realistic_rows(JOB_ROWS, seed=11, plants=plants)
     blob = jsonl_rows(dicts)
-    docs, _ = synthetic_corpus(0)
-    with tempfile.TemporaryDirectory() as corpus_dir:
-        try:
-            import yaml
-
-            for doc in docs:
-                (Path(corpus_dir) / f"{doc['id']}.yaml").write_text(yaml.safe_dump(doc))
-            route = "yaml"
-        except ImportError:
-            route = "engine_cache"
+    shared = yaml_corpus()
+    with tempfile.TemporaryDirectory() as scratch:
+        corpus_dir = str(shared) if shared is not None else scratch
+        route = "yaml" if shared is not None else "engine_cache"
         saved = os.environ.get("SWARM_TEMPLATES_DIR")
         os.environ["SWARM_TEMPLATES_DIR"] = corpus_dir
         stub = StubServer(blob, module="fingerprint")
@@ -3338,7 +3388,8 @@ def idle_call(name: str, args: tuple) -> tuple:
     if name == "match_phase_a":
         views, qs, cs = args[:3]
         empty = kernels.MatchTables([kernels.StreamView(v.data, torch.zeros_like(v.lengths),
-                                                        v.lowered) for v in views], qs, cs)
+                                                        v.lowered) for v in views], qs, cs,
+                                    *args[6:9])
         return (empty, qs, cs, *args[3:])
     return (*args[:3], torch.full_like(args[3], -1), *args[4:])
 
@@ -3429,6 +3480,227 @@ def kernel_timing(calls: list, names: tuple, clock_hz: float,
         if "latency_ms" in per[0]:
             timing[name]["latency_bound_ms"] = sum(p["latency_ms"] for p in per) / len(per)
     return timing
+
+
+#: the grids of the mesh phase: (data, model, seq)
+MESH_GRIDS = ((1, 1, 1), (2, 1, 1), (1, 2, 1), (1, 1, 2), (2, 2, 2))
+#: timed ``MatchEngine.match`` calls of each grid, memos cleared before each
+MESH_CALLS = 3
+#: rows of the pipelined stream through a (2, 1, 1) engine
+MESH_STREAM_ROWS = 4096
+#: the device type the mesh phase puts its ranks on
+MESH_DEVICE = "cuda"
+
+
+def mesh_devices(k: int) -> list:
+    """``k`` ranks' devices: the distinct cards, in turn, when there are
+    several; else one card ``k`` times."""
+    import torch
+
+    if MESH_DEVICE != "cuda":
+        return [MESH_DEVICE] * k
+    n = torch.cuda.device_count()
+    return [f"cuda:{i % n}" for i in range(k)] if n > 1 else ["cuda:0"] * k
+
+
+def _same_results(got, want) -> bool:
+    return len(got) == len(want) and all(
+        sorted(a.template_ids) == sorted(b.template_ids) and a.extractions == b.extractions
+        for a, b in zip(got, want))
+
+
+def phase_mesh(templates, plants, db, smi: str) -> dict:
+    """``parallel/`` on the card: the worker's engine at full width
+    (``synthetic_corpus(0)``, batch_rows 1,024, max_body 4,096) over a
+    ``make_mesh`` of each grid of :data:`MESH_GRIDS` (one card ``k``
+    times, or the distinct cards), 2,048 ``realistic_rows``:
+
+    - each device batch of the engine (its mesh encode: per-rank
+      placement, seq padding) through ``ShardedMatcher.match``, its
+      planes exactly equal to the same batch through the single-device
+      ``DeviceDB``, and every kernel call it made exact against its
+      plain version (the seq grids' phase A and verify calls carry
+      halos);
+    - ``MatchEngine.match`` of the rows equal to the single-device
+      engine's, its launches, and ms a call over :data:`MESH_CALLS`
+      fresh calls;
+    - the seq-halo calls of phase A and the verify on the (2, 2, 2)
+      grid timed as the job's calls are (:func:`kernel_timing`);
+    - a pipelined stream of 4,096 rows through a (2, 1, 1) engine: equal
+      to the direct engine, two batches in flight, the deferred combines
+      overlapped.
+    → {"launches": {grid: launches}, "halo": timing, "max_err": by kernel}."""
+    import torch
+
+    from swarm_tpu_torch.ops import kernels
+    from swarm_tpu_torch.ops.engine import MatchEngine
+    from swarm_tpu_torch.ops.match import DeviceDB
+    from swarm_tpu_torch.parallel.mesh import make_mesh
+    from swarm_tpu_torch.telemetry import REGISTRY
+    from swarm_tpu_torch.telemetry.metrics import parse_exposition
+
+    def overlapped() -> float:
+        return next(v for n, _lab, v in parse_exposition(REGISTRY.render())
+                    if n == "swarm_shard_overlapped_dispatches_total")
+
+    t_phase = time.perf_counter()
+    rows = port_rows(realistic_rows(JOB_ROWS, seed=19, plants=plants))
+    direct = MatchEngine(templates, db=db, device=MESH_DEVICE, mesh=None)
+    want = direct.match(rows)
+    single = DeviceDB(db, device=MESH_DEVICE)
+    max_err = {k: 0.0 for k in MATCH_KERNELS}
+    grids: dict = {}
+    halo_calls: list = []
+    for shape in MESH_GRIDS:
+        label = "x".join(map(str, shape))
+        k = shape[0] * shape[1] * shape[2]
+        mesh = make_mesh(shape, mesh_devices(k))
+        t0 = time.perf_counter()
+        eng = MatchEngine(templates, db=db, device=MESH_DEVICE, mesh=mesh)
+        build_s = time.perf_counter() - t0
+        batches = []
+        for s in range(0, len(rows), eng.batch_rows):
+            pre = eng.encode_packed(rows[s:s + eng.batch_rows])
+            batch = pre[1]
+            with kernels.record_calls() as calls:
+                got = eng.sharded.match(batch.streams, batch.lengths, batch.status)
+            ref = single.match(batch.streams, batch.lengths, batch.status)
+            if not all(np.array_equal(a, b) for a, b in zip(got[:6], ref[:6])) or (
+                    (got[6] is None) != (ref[6] is None)) or not all(
+                    np.array_equal(a, b) for a, b in zip(got[6] or (), ref[6] or ())):
+                raise AssertionError(f"{label}: the mesh's planes differ from DeviceDB's")
+            err = check_calls(calls)
+            for name, e in err.items():
+                max_err[name] = max(max_err[name], e)
+            halo = [(n, a) for n, a in calls
+                    if n in ("match_phase_a", "match_verify") and a[-3] > 0]
+            if shape[2] > 1 and len(halo) != 2 * k:
+                raise AssertionError(f"{label}: {len(halo)} halo calls for {k} ranks")
+            if shape == (2, 2, 2):
+                halo_calls += halo
+            batches.append({"rows": int(batch.status.shape[0]),
+                            "widths": {n: int(v.shape[1]) for n, v in batch.streams.items()},
+                            "calls": len(calls), "halo_calls": len(halo),
+                            **eng.sharded.last_compact})
+        kernels.reset_launches()
+        eng.clear_content_memos()
+        got = eng.match(rows)
+        if not _same_results(got, want):
+            raise AssertionError(f"{label}: the mesh engine's results differ from one device's")
+        launches = dict(kernels.LAUNCHES)
+        if any(launches[n] < 1 for n in MATCH_KERNELS):
+            raise AssertionError(f"{label}: a match kernel was not launched: {launches}")
+        ms = []
+        for _ in range(MESH_CALLS):
+            eng.clear_content_memos()
+            t0 = time.perf_counter()
+            eng.match(rows)
+            if MESH_DEVICE == "cuda":
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        grids[label] = {"devices": sorted({str(d) for d in mesh.devices.flat}),
+                        "ranks": k, "halo": eng.sharded.halo, "build_s": build_s,
+                        "batches": batches, "launches": launches,
+                        "ms_per_call": sorted(ms)[len(ms) // 2], "ms_calls": ms,
+                        "rows_per_s": len(rows) / (sorted(ms)[len(ms) // 2] / 1e3),
+                        "planes_exact": True}
+        del eng
+    # the pipelined stream through a (2, 1, 1) mesh engine
+    stream = port_rows(realistic_rows(MESH_STREAM_ROWS, seed=23, plants=plants))
+    want = direct.match(stream)
+    mesh = make_mesh((2, 1, 1), mesh_devices(2))
+    eng = MatchEngine(templates, db=db, device=MESH_DEVICE, mesh=mesh, pipeline="on")
+    before = overlapped()
+    t0 = time.perf_counter()
+    got = eng.match(stream)
+    stream_s = time.perf_counter() - t0
+    st = eng.scheduler().stats
+    n_overlapped = overlapped() - before
+    if not _same_results(got, want):
+        raise AssertionError("the pipelined mesh engine's results differ from the direct engine's")
+    if st.max_inflight < 2 or n_overlapped < 1:
+        raise AssertionError(f"no overlap on the mesh: inflight {st.max_inflight}, "
+                             f"overlapped {n_overlapped}")
+    halo = kernel_timing(halo_calls, ("match_phase_a", "match_verify"), sm_clock_hz(),
+                         split_verdicts=False)
+    emit({"phase": "mesh", "rows": len(rows), "grids": grids,
+          "pipelined_2x1x1": {"rows": len(stream), "seconds": stream_s,
+                              "rows_per_s": len(stream) / stream_s,
+                              "max_inflight": st.max_inflight,
+                              "device_batches": st.device_batches,
+                              "overlapped_dispatches": n_overlapped, "exact": True},
+          "halo_timing_2x2x2": {n: {k: v for k, v in t.items() if k != "calls"}
+                                for n, t in halo.items()},
+          "max_abs_err": max_err, "seconds": time.perf_counter() - t_phase, "card": smi})
+    return {"launches": {g: v["launches"] for g, v in grids.items()}, "halo": halo,
+            "max_err": max_err}
+
+
+#: worker arguments of the startup phase's subprocesses besides
+#: ``--config`` (the worker runs on the card by default)
+STARTUP_ARGS: tuple = ()
+
+
+def phase_startup_worker(plants, smi: str) -> dict:
+    """The worker as an operator starts it: ``python -m
+    swarm_tpu_torch.worker --config <file>``, in a subprocess, against
+    the stand-in server handing out one ``fingerprint`` job of 2,048
+    rows over the YAML corpus of :func:`yaml_corpus` (whose compile the
+    ``fingerprint_worker`` phase left in the run's compile cache). Two
+    arms, each its own process: ``prewarm_modules`` empty, and
+    ``fingerprint`` (the engine, its kernel libraries and its device
+    layout before the first poll). Each must end ``complete`` with one
+    line a row and the same output; → the seconds to the first poll,
+    the first job's seconds (handed out → completed) and its
+    ``execute_s``."""
+    import tempfile
+
+    corpus = yaml_corpus()
+    if corpus is None:
+        raise AssertionError("the startup phase needs PyYAML for its corpus files")
+    dicts = realistic_rows(JOB_ROWS, seed=17, plants=plants)
+    blob = jsonl_rows(dicts)
+    arms: dict = {}
+    outputs = {}
+    with tempfile.TemporaryDirectory() as work:
+        for arm, prewarm in (("no_prewarm", ""), ("prewarm", "fingerprint")):
+            stub = StubServer(blob, module="fingerprint")
+            cfg_path = Path(work) / f"{arm}.json"
+            cfg_path.write_text(json.dumps({
+                "server_url": stub.url, "api_key": API_KEY, "worker_id": f"startup-{arm}",
+                "modules_dir": str(REPO / "modules"), "max_jobs": 1,
+                "poll_interval_idle_s": 0.05, "poll_interval_busy_s": 0.0,
+                "prewarm_modules": prewarm, "spool_dir": str(Path(work) / arm)}))
+            env = dict(os.environ, SWARM_TEMPLATES_DIR=str(corpus))
+            t0 = time.perf_counter()
+            try:
+                proc = subprocess.run(
+                    [sys.executable, "-m", "swarm_tpu_torch.worker", "--config", str(cfg_path),
+                     *STARTUP_ARGS],
+                    cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+            finally:
+                stub.close()
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"{arm} worker exit {proc.returncode}: {proc.stderr[-2000:]}")
+            if stub.statuses != ["starting", "downloading", "executing", "uploading",
+                                 "complete"]:
+                raise AssertionError(f"{arm} job statuses {stub.statuses}")
+            if ("prewarmed module fingerprint" in proc.stdout) != bool(prewarm):
+                raise AssertionError(f"{arm}: prewarm line {proc.stdout[-500:]!r}")
+            outputs[arm] = stub.output
+            arms[arm] = {"wall_s": wall, "to_job_s": stub.handed_at - t0,
+                         "first_job_s": stub.status_times[-1] - stub.handed_at,
+                         "execute_s": stub.perf["execute_s"], "rows": stub.perf.get("rows")}
+    if outputs["prewarm"] != outputs["no_prewarm"]:
+        raise AssertionError("the prewarmed worker's output differs")
+    if len(outputs["prewarm"].decode().splitlines()) != len(dicts):
+        raise AssertionError("one line a row")
+    out = {"phase": "startup_worker", "rows": len(dicts), "arms": arms,
+           "first_job_s_saved": arms["no_prewarm"]["first_job_s"] - arms["prewarm"]["first_job_s"],
+           "identical": True, "card": smi}
+    emit(out)
+    return out
 
 
 #: the directory under which each phase's corpus-compile cache lives
@@ -5115,8 +5387,8 @@ def main(argv: list[str] | None = None) -> int:
 
     global DB_CACHE_ROOT
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--only", "match"], ["--only", "telemetry"]):
-        print("usage: python3 chip_smoke.py [--only match|telemetry]", file=sys.stderr)
+    if argv and (argv[0] != "--only" or argv[1:] not in ([p] for p in ONLY)):
+        print(f"usage: python3 chip_smoke.py [--only {'|'.join(ONLY)}]", file=sys.stderr)
         return 2
     smi = phase_device()
     with tempfile.TemporaryDirectory(prefix="swarm-db-cache-") as cache_root:
@@ -5125,17 +5397,36 @@ def main(argv: list[str] | None = None) -> int:
         return run_only(smi, argv[1]) if argv else run_phases(smi)
 
 
+#: the phases ``--only`` runs alone (:func:`run_only`)
+ONLY = ("match", "telemetry", "timing", "mesh", "startup")
+
+
 def run_only(smi: str, which: str) -> int:
     """One phase after the corpus, the kernels built as the phase first
     needs them: ``match`` (what a comparison of two checkouts runs in
     turns), then ``telemetry_cost`` where the checkout has the port's
-    telemetry; or ``telemetry_worker``, its engines held to no fault."""
+    telemetry; ``telemetry_worker``, its engines held to no fault;
+    ``timing``, the ``fingerprint`` job and its kernel calls timed (the
+    other comparison of two checkouts); ``mesh``, after the build phase
+    (its ptxas report and spill check); or ``startup``, after the
+    ``fingerprint`` job that fills the compile cache it reads."""
     import importlib.util
 
+    if which == "mesh":
+        phase_build()
     templates, plants, db = phase_corpus()
-    if which == "telemetry":
+    if which in ("telemetry", "mesh"):
         track_engines()
-        no_faults("telemetry_worker", phase_telemetry_worker, templates, plants, db, smi)
+        phase = {"telemetry": ("telemetry_worker", phase_telemetry_worker),
+                 "mesh": ("mesh", phase_mesh)}[which]
+        no_faults(*phase, templates, plants, db, smi)
+        return 0
+    if which in ("timing", "startup"):
+        _launches, calls = phase_fingerprint_worker(templates, plants, db)
+        if which == "timing":
+            phase_match_timing(calls, smi)
+        else:
+            phase_startup_worker(plants, smi)
         return 0
     eng, rows = phase_match(templates, plants, db, smi)
     if importlib.util.find_spec("swarm_tpu_torch.telemetry") is not None:
@@ -5210,6 +5501,8 @@ def run_phases(smi: str) -> int:
                                 plants, db)
     timing, job_err = no_faults("match_timing", phase_match_timing, calls, smi)
     del calls
+    mesh = no_faults("mesh", phase_mesh, templates, plants, db, smi)
+    phase_startup_worker(plants, smi)
     svc_timing, svc_launches, svc_err = no_faults("service", phase_service, smi)
     no_faults("service_worker", phase_service_worker, smi)
     no_faults("tpu_forms_worker", phase_tpu_forms_worker, smi)
@@ -5238,7 +5531,8 @@ def run_phases(smi: str) -> int:
             "name": name, "route": "cuda",
             "source": sources.get(name, "swarm_tpu_torch/ops/csrc/match.cu"),
             "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": max(max_err[name], job_err[name], svc_err.get(name, 0.0)),
+            "max_abs_err": max(max_err[name], job_err[name], svc_err.get(name, 0.0),
+                               mesh["max_err"][name]),
             "ms": t["ms"], "card_ms": t["card_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "job_rows": JOB_ROWS,
@@ -5264,6 +5558,17 @@ def run_phases(smi: str) -> int:
         # and on the nuclei-oob job (the OOB drain and the headless round)
         summary[name]["oob_headless"] = {"launches": oob_launches[name]}
         summary[name]["file"] = {"launches": file_launches[name]}
+        # its launches on each grid of the mesh phase (one call of 2,048
+        # rows), and for phase A and the verify the seq-halo calls of the
+        # (2, 2, 2) grid timed as the job's calls are
+        summary[name]["mesh"] = {"launches": {g: n[name] for g, n in
+                                              mesh["launches"].items()}}
+        if name in mesh["halo"]:
+            h = mesh["halo"][name]
+            summary[name]["mesh"]["halo_2x2x2"] = {
+                "calls": len(h["calls"]),
+                **{k: h[k] for k in ("ms", "card_ms", "plain_ms", "bound_ms", "bound_by",
+                                     "no_live_work_card_ms")}}
         sv = svc_timing.get(name)
         summary[name]["service"] = {"launches": svc_launches[name], **(
             {k: sv[k] for k in ("ms", "card_ms", "plain_ms", "bound_ms", "bound_by")}

@@ -22,12 +22,22 @@
 // and the verify its corpus arrays as one VerifyCorpus
 // (kernels.VerifyCorpusC, built once per corpus).
 //
+// Sequence parallelism (swarm_tpu/ops/match.py match_slots, :1054-1074).
+// A seq-sharded grid hands each rank its slice of the row's bytes with
+// `back` bytes of the previous slice before it and `fwd` bytes of the
+// next after it (kernels.TableSetC's back and fwd; 0 and 0 unsharded).
+// A table's windows start only in [back, width - fwd): its local width
+// W = width - back - fwd is its run of candidate columns.  Hash, suffix
+// and byte reads may reach into both halos.  Window i of table t sits
+// at global position off[t] + i, where off[t] is the slice's first byte
+// in the row, and lengths are the row's global lengths.
+//
 // match_phase_a  (replaces swarm_tpu/ops/match.py prefilter_counts +
 // compact_candidates).  For each row, each table's two-hash bloom probe
-// of every window i < min(W, len - q + 1); the fired (table, window)
-// columns col_start[t] + i in ascending table-major order: col[b, r] the
-// r-th for r < min(n_surv, kclamp), -1 after it up to budget; n_surv[b]
-// the row's count, overflow included.
+// of every window i < min(W, len - off - q + 1), hashed at back + i; the
+// fired (table, window) columns col_start[t] + i in ascending
+// table-major order: col[b, r] the r-th for r < min(n_surv, kclamp), -1
+// after it up to budget; n_surv[b] the row's count, overflow included.
 //   Bound: 2q multiply-adds and two bloom bits a live window, the
 //   streams' bytes read once: sub-microsecond at the fingerprint job's
 //   shapes.  What holds a design that probes the bitmaps in device
@@ -62,11 +72,13 @@
 //
 // match_verify  (replaces swarm_tpu/ops/match.py verify_candidates).
 // For each live candidate of col[:, :kc]: its table (the last t with
-// col_start[t] <= c), the window's (h1, h2) (zero past W), the lower
+// col_start[t] <= c), the window's (h1, h2) at back + c - col_start[t]
+// (zero past the width), the lower
 // bound of h1 in the table's sorted group_h1[:n_groups] (clamped to
 // gmax - 1), then for up to min(max_group, count) entries (each index
 // clamped to emax - 1) the h2, suffix-gram (in bounds only) and bounds
-// screens and a byte verify of min(len, 64) bytes against slot_bytes; a
+// screens (the word inside the row's global length and inside the
+// view) and a byte verify of min(len, 64) bytes against slot_bytes; a
 // verified entry sets value[b, slot], and unc[b, slot] when the slot is
 // longer than 64.  Every write stores 1 into zeroed planes, so two
 // candidates that verify one slot agree.
@@ -156,12 +168,14 @@ struct StreamRef {
 // The batch's word tables, built once per dispatch (kernels.TableSetC,
 // same field order).  group_table lists the tables of each group, -1
 // past its last; word_base[t] = sum over tables before t of
-// ceil(width / 32), table t's first (table, word) slot of a row of phase
-// A's masks, and scan_words = word_base[n_tables], a row's slots.
+// ceil(W / 32) (W the local width), table t's first (table, word) slot
+// of a row of phase A's masks, and scan_words = word_base[n_tables], a
+// row's slots; back and fwd the halos, off[t] table t's global offset.
 struct TableSet {
-  int32_t n_tables, n_groups, scan_words, pad;
+  int32_t n_tables, n_groups, scan_words, back, fwd, pad;
   StreamRef s[kMaxTables];
   int32_t q[kMaxTables];
+  int32_t off[kMaxTables];
   int32_t col_start[kMaxTables + 1];
   int32_t word_base[kMaxTables + 1];
   int32_t group_table[kMaxTables][kGroupTables];
@@ -280,6 +294,13 @@ __device__ __forceinline__ void load_word_bytes(const StreamRef& s, int b, int p
   }
 }
 
+// the windows of table t in row b that can begin a gram: those below
+// its local width whose global position is at most len - q
+__device__ __forceinline__ int live_windows(const TableSet& ts, int t, int b) {
+  const int w = ts.s[t].width - ts.back - ts.fwd;
+  return max(min(w, __ldg(ts.s[t].len + b) - ts.off[t] - ts.q[t] + 1), 0);
+}
+
 // both bloom bits of (h1, h2) in a table's bitmap in shared memory
 __device__ __forceinline__ uint32_t bloom_bit(const uint32_t* sb, uint32_t h1, uint32_t h2) {
   const uint32_t i1 = h1 & (kBloomBits - 1), i2 = h2 & (kBloomBits - 1);
@@ -287,7 +308,8 @@ __device__ __forceinline__ uint32_t bloom_bit(const uint32_t* sb, uint32_t h1, u
 }
 
 // The fired-window masks of word k of group g in row b: mask[j] bit i is
-// window 32 k + i of the group's table j; live[j] of the word's windows
+// window 32 k + i of the group's table j (hashed at back + 32 k + i);
+// live[j] of the word's windows
 // can fire (the rest are masked off).  sbloom holds the group's bitmaps,
 // kBloomWords a table.  For q = 4 and q = 8 the hashes come from the
 // word's bytes in registers, both q at once; any other q hashes each
@@ -311,14 +333,14 @@ __device__ __forceinline__ void probe_group_word(const TableSet& ts, const uint3
     for (int j = 0; j < kGroupTables; ++j) {
       for (int i = 0; i < live[j]; ++i) {
         uint32_t h1, h2;
-        hash_at(s, ts.q[tab[j]], b, kWordWindows * k + i, h1, h2);
+        hash_at(s, ts.q[tab[j]], b, ts.back + kWordWindows * k + i, h1, h2);
         mask[j] |= bloom_bit(sbloom + j * kBloomWords, h1, h2) << i;
       }
     }
     return;
   }
   uint32_t w[kWordBytes / 4];
-  load_word_bytes(s, b, kWordWindows * k, w);
+  load_word_bytes(s, b, ts.back + kWordWindows * k, w);
   bool eight[kGroupTables];
 #pragma unroll
   for (int j = 0; j < kGroupTables; ++j) eight[j] = ts.q[tab[j]] == 8;
@@ -376,9 +398,7 @@ match_phase_a_probe_kernel(const TableSet ts, const uint32_t* __restrict__ bloom
       for (int j = 0; j < kGroupTables; ++j) {
         const int t = ts.group_table[g][j];
         int live = 0;
-        if (t >= 0 && r0 + lane < n_rows) {
-          live = max(min(ts.s[t].width, __ldg(ts.s[t].len + r0 + lane) - ts.q[t] + 1), 0);
-        }
+        if (t >= 0 && r0 + lane < n_rows) live = live_windows(ts, t, r0 + lane);
         s_live[lane][j] = live;
         words = max(words, (live + kWordWindows - 1) / kWordWindows);
       }
@@ -427,10 +447,7 @@ match_phase_a_rank_kernel(const TableSet ts, const uint32_t* __restrict__ masks,
     for (int h = 0; h < 2; ++h) {
       const int t = lane + 32 * h;
       nw[h] = 0;
-      if (t < ts.n_tables) {
-        const int live = max(min(ts.s[t].width, __ldg(ts.s[t].len + b) - ts.q[t] + 1), 0);
-        nw[h] = (live + kWordWindows - 1) / kWordWindows;
-      }
+      if (t < ts.n_tables) nw[h] = (live_windows(ts, t, b) + kWordWindows - 1) / kWordWindows;
     }
     exclusive_scan64(nw[0], nw[1], lane, s_wbase);
   }
@@ -504,8 +521,9 @@ __device__ __forceinline__ void verify_candidate(const TableSet& ts, const Verif
   const int t = le1 ? 63 - __clz(le1) : 31 - __clz(le0);
   const StreamRef s = ts.s[t];
   const int q = ts.q[t];
-  const int cpos = c - ts.col_start[t];
+  const int cpos = ts.back + c - ts.col_start[t];  // in the view
   const int slen = __ldg(s.len + b);
+  const int goff = ts.off[t] - ts.back;  // view position -> global position
   uint32_t h1, h2;
   warp_gram_hash(s, q, b, cpos, pw1, pw2, lane, h1, h2);
 
@@ -546,8 +564,8 @@ __device__ __forceinline__ void verify_candidate(const TableSet& ts, const Verif
         uint32_t s1, s2;
         hash_at(s, q, b, spos, s1, s2);
         start = cpos - off;
-        hit = s1 == sh1 && s2 == sh2 && start >= 0 && start + len <= slen &&
-              start + len <= s.width;
+        hit = s1 == sh1 && s2 == sh2 && start + goff >= 0 && start + goff + len <= slen &&
+              start >= 0 && start + len <= s.width;
         nv = min(len, kVerifyWidth);
       }
     }

@@ -83,6 +83,10 @@ class ResponseBatch:
     status: np.ndarray
     truncated: np.ndarray
     rows: list  # original Response objects (host fallback + reporting)
+    #: the position of the i-th real row in the batch, when a mesh's
+    #: placement spread the real rows over its data ranks' blocks; None
+    #: when they lead the batch (the single-device layout)
+    row_index: Optional[np.ndarray] = None
 
     @property
     def batch_size(self) -> int:

@@ -1,12 +1,23 @@
 """MatchEngine: the exact template-fingerprint engine of the port.
 
 The port of ``swarm_tpu/ops/engine.py`` as it runs with its native
-libraries on one device (``mesh=None``): template corpus → CompiledDB
-(once), responses → padded batches →
-:class:`~swarm_tpu_torch.ops.match.DeviceDB` on the card → sparse host
-confirmation with the exact CPU oracle. The result is bit-identical to
-running the oracle on every (row, template) pair, and to the JAX
-engine's: template ids, extractions and host confirms per row.
+libraries: template corpus → CompiledDB (once), responses → padded
+batches → :class:`~swarm_tpu_torch.ops.match.DeviceDB` on the card, or
+:class:`~swarm_tpu_torch.parallel.sharded.ShardedMatcher` over a mesh
+of devices → sparse host confirmation with the exact CPU oracle. The
+result is bit-identical to running the oracle on every (row, template)
+pair, and to the JAX engine's: template ids, extractions and host
+confirms per row.
+
+``mesh="auto"`` (the default) shards every batch over a (data, model,
+seq) mesh of all local CUDA devices when the engine runs on the card
+and there is more than one, as the JAX engine does over its chips;
+``mesh=None`` keeps one device, and a
+:class:`~swarm_tpu_torch.parallel.mesh.Mesh` may be passed in. On a
+mesh the unique rows are placed so that every data rank holds its
+share of the real rows, each batch's rows are padded to a multiple of
+the data ranks, and on a seq grid the streams to whole halo-wide
+slices (``pad_streams_for_seq``).
 
 Two ways to feed it, with the same results:
 
@@ -66,8 +77,7 @@ when the engine is built, outside the breaker: a kernel that does not
 build or load raises there and never degrades a batch.
 
 Not ported (ROADMAP.md): the shared result tier, AOT and corpus
-refresh, the sharded backend, the telemetry exporters (the memo's hits
-and misses are counts on :class:`EngineStats`).
+refresh, and a mesh across several hosts.
 """
 
 from __future__ import annotations
@@ -81,6 +91,7 @@ import time
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 from torch.profiler import record_function
 
 from swarm_tpu_torch.fingerprints.compile import CompiledDB, compile_corpus
@@ -89,10 +100,13 @@ from swarm_tpu_torch.native.scanio import ext_resolve, plane_bits, rows_dedup
 from swarm_tpu_torch.ops import cpu_ref, fastre
 from swarm_tpu_torch.ops.encoding import _RotatingPool, encode_batch, round_up
 from swarm_tpu_torch.ops.match import DeviceDB, Device
+from swarm_tpu_torch.parallel.mesh import make_mesh
+from swarm_tpu_torch.parallel.sharded import ShardedMatcher, pad_streams_for_seq
 from swarm_tpu_torch.resilience.breaker import BreakerBoard
 from swarm_tpu_torch.resilience.faults import FaultInjected
 from swarm_tpu_torch.telemetry.engine_export import register_engine
 from swarm_tpu_torch.telemetry.memo_export import L1_HITS, L1_MISSES
+from swarm_tpu_torch.telemetry.shard_export import RANK_FILL
 
 
 @dataclasses.dataclass
@@ -241,6 +255,37 @@ def _dedup_rows(rows: list):
     return uniq, back, keys
 
 
+def _place_rows_per_rank(nrows: list, padded: int, ranks: int):
+    """Spread ``nrows`` real rows over ``ranks`` contiguous per-rank
+    blocks of ``padded // ranks`` slots: rank r gets ``floor(n/R)`` or
+    ``ceil(n/R)`` real rows at the head of its block, padding fills the
+    tails. Sharding a [B] batch over 'data' is contiguous blocks, so
+    without this a partial bucket lands every real row on rank 0 and
+    the rest of the mesh matches pure padding.
+
+    Returns ``(placed_rows, row_index)``: a ``padded``-length row list
+    (pad slots are empty Responses — zero-length, matched by nothing)
+    and the position of each real row in it (``row_index[i]`` is where
+    real row i landed; relative order is preserved within and across
+    blocks, so verdict planes gather back with one fancy index)."""
+    n = len(nrows)
+    per = padded // ranks
+    base, extra = divmod(n, ranks)
+    placed: list = [None] * padded
+    row_index = np.empty(n, dtype=np.int64)
+    i = 0
+    for r in range(ranks):
+        take = base + (1 if r < extra else 0)
+        for j in range(take):
+            pos = r * per + j
+            placed[pos] = nrows[i]
+            row_index[i] = pos
+            i += 1
+    pad = Response()
+    placed = [row if row is not None else pad for row in placed]
+    return placed, row_index
+
+
 class MatchEngine:
     def __init__(
         self,
@@ -254,6 +299,7 @@ class MatchEngine:
         device: Device = None,
         device_breaker_threshold: int = 2,
         device_breaker_cooldown_s: float = 60.0,
+        mesh="auto",  # "auto" | None | parallel.mesh.Mesh
     ):
         self.templates = list(templates)
         self.db = db if db is not None else compile_corpus(self.templates)
@@ -261,12 +307,18 @@ class MatchEngine:
         # here, not under the breaker: a kernel that fails to build or
         # load must fail loudly, never degrade
         self.device.load_kernels()
+        #: the sharded matcher over ``mesh`` (None on one device)
+        self.sharded: Optional[ShardedMatcher] = None
+        self.mesh = None
+        self._resolve_backend(mesh)
         # device-degraded mode: a failure on the device path (on the
         # card, only an injected device.dispatch fault) trips a
         # per-shape-class breaker and the batch falls back to the exact
         # CPU oracle; the cooldown retries the device path, so a
         # transient fault heals itself
-        self._on_card = self.device.device.type == "cuda"
+        self._on_card = self.device.device.type == "cuda" or (
+            self.sharded is not None
+            and any(d.type == "cuda" for d in self.sharded.devices))
         self._device_breakers = BreakerBoard(
             "engine.device",
             threshold=device_breaker_threshold,
@@ -1036,6 +1088,35 @@ class MatchEngine:
         return want_all
 
     # ------------------------------------------------------------------
+    def _resolve_backend(self, mesh) -> None:
+        """``"auto"``: a mesh over every local CUDA device when the
+        engine runs on the card and there is more than one, else one
+        device; a Mesh: that mesh. The sharded matcher's kernels load
+        here, outside the breaker, as the DeviceDB's do."""
+        if isinstance(mesh, str):
+            if mesh != "auto":
+                raise ValueError(f"mesh must be 'auto', None or a Mesh, got {mesh!r}")
+            mesh = None
+            if self.device.device.type == "cuda" and torch.cuda.device_count() > 1:
+                mesh = make_mesh()
+        if mesh is not None:
+            self.sharded = ShardedMatcher(self.db, mesh)
+            self.sharded.load_kernels()
+            self.mesh = mesh
+
+    def prewarm(self) -> None:
+        """Upload the device layout before the first batch (the sharded
+        matcher uploads its own when it is built), so that a worker's
+        first job pays for none of it."""
+        if self.sharded is None:
+            self.device._ensure_layout()
+
+    def data_ranks(self) -> int:
+        """The 'data' axis size of the active backend (1 on one
+        device): the scheduler's bucket planner fills its buckets per
+        rank."""
+        return self.sharded.ranks["data"] if self.sharded is not None else 1
+
     def scheduler(self):
         """This engine's continuous-batching scheduler (lazily built;
         exists regardless of the ``pipeline`` flag so callers can drive
@@ -1231,21 +1312,55 @@ class MatchEngine:
         )
 
     def _encode_unique(self, nrows: list, reuse_buffers: bool):
-        """Encode the distinct-content rows for the device, padded to a
-        256-row bucket (a bounded set of batch shapes)."""
+        """Encode the distinct-content rows for the active backend,
+        padded to a 256-row bucket (a bounded set of batch shapes).
+
+        A mesh also needs the row count divisible by the 'data' axis
+        and every stream width divisible by 'seq' with each per-rank
+        slice at least one halo wide (the sharded matcher raises
+        otherwise); padding is zeros, which the length masks already
+        ignore, and padded rows are sliced off the verdicts."""
+        n_pad = round_up(max(len(nrows), 1), 256)
+        if self.sharded is None:
+            batch = encode_batch(
+                nrows,
+                max_body=self.max_body,
+                max_header=self.max_header,
+                pad_rows_to=n_pad,
+                reuse_buffers=reuse_buffers,
+                # the "all" stream synthesizes on device (half the encode
+                # bytes and H2D traffic stay on the host); coarse width
+                # buckets bound the set of batch shapes
+                build_all=False,
+                width_multiple=512,
+            )
+            return batch, self.device
+        data_ranks = self.sharded.ranks["data"]
+        seq_ranks = self.sharded.ranks["seq"]
+        P = round_up(n_pad, data_ranks)
+        row_index = None
+        encode_rows = nrows
+        if data_ranks > 1 and nrows:
+            # the real rows interleave into per-data-rank blocks, so a
+            # partially filled bucket spreads its live rows over every
+            # rank instead of handing rank 0 all the work
+            encode_rows, row_index = _place_rows_per_rank(nrows, P, data_ranks)
         batch = encode_batch(
-            nrows,
+            encode_rows,
             max_body=self.max_body,
             max_header=self.max_header,
-            pad_rows_to=round_up(max(len(nrows), 1), 256),
+            pad_rows_to=P,
             reuse_buffers=reuse_buffers,
-            # the "all" stream synthesizes on device (half the encode
-            # bytes and H2D traffic stay on the host); coarse width
-            # buckets bound the set of batch shapes
-            build_all=False,
             width_multiple=512,
         )
-        return batch, self.device
+        if row_index is not None:
+            batch.row_index = row_index
+            per = P // data_ranks
+            counts = np.bincount(row_index // per, minlength=data_ranks)
+            RANK_FILL.set(float(counts.min()) / per)
+        if seq_ranks > 1:
+            pad_streams_for_seq(batch.streams, seq_ranks, self.sharded.halo)
+        return batch, self.sharded
 
     def _gather_confirm_candidates(
         self, pt_value, pt_unc, pop_value, pop_unc, pm_unc, skip
@@ -1815,35 +1930,42 @@ class MatchEngine:
             # are bit-identical to the device path
             planes = self._oracle_planes(B)
             self.stats.degraded_batches += 1
-        pt_value, pt_unc, pop_value, pop_unc, pm_unc, overflow, wf_planes = planes
+        # the walked rows' planes: the leading B rows, or where the
+        # mesh placement put them (batch.row_index); a degraded batch's
+        # oracle planes are B rows already
+        ridx = batch.row_index
+
+        def rows_view(a):
+            a = np.asarray(a)
+            if ridx is not None and a.shape[0] != B:
+                return a[ridx]
+            return a[:B]
+
+        *device_planes, wf_planes = planes
+        pt_value, pt_unc, pop_value, pop_unc, pm_unc, overflow = map(rows_view, device_planes)
         if wf_planes is not None:
             # packed cond/emit value+uncertainty bits, sliced to the
             # walked rows; the caller invalidates redo rows (their
             # planes were computed from unsound word bits)
-            wf_planes = tuple(np.ascontiguousarray(p[:B]) for p in wf_planes)
+            wf_planes = tuple(np.ascontiguousarray(rows_view(p)) for p in wf_planes)
         with record_function("engine.resolve"):
             return self._walk_unique(
-                nrows, batch, pt_value, pt_unc, pop_value, pop_unc, pm_unc, overflow
-            ) + (wf_planes,)
+                nrows, pt_value, pt_unc, pop_value, pop_unc, pm_unc, overflow,
+                rows_view(batch.truncated)) + (wf_planes,)
 
-    def _walk_unique(self, nrows, batch, pt_value, pt_unc, pop_value, pop_unc, pm_unc,
-                     overflow):
+    def _walk_unique(self, nrows, pt_value, pt_unc, pop_value, pop_unc, pm_unc, overflow,
+                     truncated):
         """The host half of :meth:`_walk_plane`, over the device's planes
-        of the unique rows (bucket padding sliced off here)."""
+        of the unique rows (bucket padding already sliced off)."""
         NT = self.db.num_templates
         db = self.db
         B = len(nrows)
         # np.array(order="C"): ALWAYS a writable copy (the row-redo
         # pass writes rowbits back) AND row-major for the native passes
-        pt_value = np.array(pt_value[:B], order="C")
-        pt_unc = pt_unc[:B]
-        pop_value = pop_value[:B]
-        pop_unc = pop_unc[:B]
-        pm_unc = pm_unc[:B]
-        overflow = overflow[:B]
+        pt_value = np.array(pt_value, order="C")
         # rows needing whole-row reconfirmation (candidate overflow or
         # stream truncation made word bits unsound for the row)
-        row_redo = overflow | batch.truncated[:B]
+        row_redo = overflow | truncated
         self.stats.overflow_rows += int(row_redo.sum())
 
         t1 = time.perf_counter()

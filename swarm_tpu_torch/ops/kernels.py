@@ -406,8 +406,10 @@ class TableSetC(ctypes.Structure):
 
     _fields_ = [
         ("n_tables", ctypes.c_int32), ("n_groups", ctypes.c_int32),
-        ("scan_words", ctypes.c_int32), ("pad", ctypes.c_int32),
+        ("scan_words", ctypes.c_int32), ("back", ctypes.c_int32), ("fwd", ctypes.c_int32),
+        ("pad", ctypes.c_int32),
         ("s", StreamRefC * MATCH_MAX_TABLES), ("q", ctypes.c_int32 * MATCH_MAX_TABLES),
+        ("off", ctypes.c_int32 * MATCH_MAX_TABLES),
         ("col_start", ctypes.c_int32 * (MATCH_MAX_TABLES + 1)),
         ("word_base", ctypes.c_int32 * (MATCH_MAX_TABLES + 1)),
         ("group_table", (ctypes.c_int32 * GROUP_TABLES) * MATCH_MAX_TABLES),
@@ -425,16 +427,34 @@ def table_groups(views: list) -> list:
             for i in range(0, len(ts), GROUP_TABLES)]
 
 
+def table_offsets(pos_offset, n_tables: int) -> tuple:
+    """Each table's global offset (``pos_offset``: one int a table, or
+    None for all zero) as a tuple of ints."""
+    if pos_offset is None:
+        return (0,) * n_tables
+    offs = tuple(int(o) for o in pos_offset)
+    if len(offs) != n_tables or min(offs, default=0) < 0:
+        raise ValueError(f"need {n_tables} offsets >= 0, got {list(offs)}")
+    return offs
+
+
 class MatchTables(tuple):
     """The word tables of one batch: its :class:`StreamView` s (the tuple
     itself, as the plain versions read them) with their gram sizes
-    ``qs`` and column starts ``col_starts`` (T + 1), checked once, and
-    ``struct``, the :class:`TableSetC` that ``match_phase_a`` and
+    ``qs``, column starts ``col_starts`` (T + 1), halos ``back`` and
+    ``fwd`` and global offsets ``offsets`` (one a table), checked once,
+    and ``struct``, the :class:`TableSetC` that ``match_phase_a`` and
     ``match_verify`` launch with. ``DeviceDB.dispatch`` builds one a batch
     and hands it to both wrappers, so the descriptor is built once a
-    dispatch; a wrapper given plain views builds its own."""
+    dispatch; a wrapper given plain views builds its own.
 
-    def __new__(cls, views, qs, col_starts):
+    A view of a seq-sharded grid is its slice of the row with ``back``
+    bytes of the slice before it and ``fwd`` of the one after: a table's
+    windows, and its run of columns, are its local width
+    ``width - back - fwd``."""
+
+    def __new__(cls, views, qs, col_starts, back_halo: int = 0, fwd_halo: int = 0,
+                pos_offset=None):
         self = super().__new__(cls, views)
         device = _check_views(self, MATCH_MAX_TABLES)
         q = np.ascontiguousarray(qs, dtype=np.int32)
@@ -443,15 +463,22 @@ class MatchTables(tuple):
             raise ValueError("one q per table and T + 1 column starts")
         if q.min() < 1 or q.max() > 8:
             raise ValueError("gram sizes must lie in 1..8")
-        widths = np.array([v.data.shape[1] for v in self], dtype=np.int64)
+        if back_halo < 0 or fwd_halo < 0:
+            raise ValueError(f"halos must be >= 0, got {back_halo} / {fwd_halo}")
+        offs = table_offsets(pos_offset, len(self))
+        widths = np.array([v.data.shape[1] for v in self], dtype=np.int64) - back_halo - fwd_halo
+        if widths.min() < 0:
+            raise ValueError(f"a view is narrower than its halos {back_halo} + {fwd_halo}")
         if cs[0] != 0 or not np.array_equal(np.diff(cs.astype(np.int64)), widths):
-            raise ValueError(f"column starts {cs.tolist()} are not the tables' widths "
+            raise ValueError(f"column starts {cs.tolist()} are not the tables' local widths "
                              f"{widths.tolist()} laid end to end")
         self.qs, self.col_starts, self.device = qs, col_starts, device
+        self.back, self.fwd, self.offsets = int(back_halo), int(fwd_halo), offs
         self.rows = self[0].data.shape[0]
         groups = table_groups(self)
         st = TableSetC()
         st.n_tables, st.n_groups = len(self), len(groups)
+        st.back, st.fwd = self.back, self.fwd
         words = np.concatenate([[0], np.cumsum((widths + WORD_WINDOWS - 1) // WORD_WINDOWS)])
         st.scan_words = int(words[-1])
         st.word_base[: len(words)] = words.tolist()
@@ -459,6 +486,7 @@ class MatchTables(tuple):
             st.s[t] = StreamRefC(v.data.data_ptr(), v.lengths.data_ptr(), v.data.shape[1],
                                  int(v.lowered))
             st.q[t] = int(q[t])
+            st.off[t] = offs[t]
         st.col_start[: len(cs)] = cs.tolist()
         for g, ts in enumerate(groups):
             st.group_table[g][:] = ts + [-1] * (GROUP_TABLES - len(ts))
@@ -466,32 +494,40 @@ class MatchTables(tuple):
         return self
 
 
-def match_tables(views, qs, col_starts) -> MatchTables:
+def match_tables(views, qs, col_starts, back_halo: int = 0, fwd_halo: int = 0,
+                 pos_offset=None) -> MatchTables:
     """``views`` itself when it is the :class:`MatchTables` built for
-    these ``qs`` and ``col_starts``, else a new one."""
-    if isinstance(views, MatchTables) and views.qs is qs and views.col_starts is col_starts:
+    these ``qs``, ``col_starts``, halos and offsets, else a new one."""
+    if (isinstance(views, MatchTables) and views.qs is qs and views.col_starts is col_starts
+            and (views.back, views.fwd) == (back_halo, fwd_halo)
+            and views.offsets == table_offsets(pos_offset, len(views))):
         return views
-    return MatchTables(views, qs, col_starts)
+    return MatchTables(views, qs, col_starts, back_halo, fwd_halo, pos_offset)
 
 
 def match_phase_a(
-    views, qs, col_starts, bloom: torch.Tensor, budget: int, kclamp: int
+    views, qs, col_starts, bloom: torch.Tensor, budget: int, kclamp: int,
+    back_halo: int = 0, fwd_halo: int = 0, pos_offset=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Phase A of the match: each table's bloom probe over every window
     of its stream, and the first ``kclamp`` fired (table, window)
     columns of each row in ascending order → (col int32 [B, budget],
     -1 past them; n_surv int32 [B], the row's count of fired windows).
     ``bloom`` is the stacked int32 [T, BLOOM_WORDS] bitmap; ``views``
-    the tables' stream views, or the batch's :class:`MatchTables`. On
-    the card a call is two launches, the probe and the rank pass, and
-    its launch count adds both."""
-    _record("match_phase_a", (views, qs, col_starts, bloom, budget, kclamp))
+    the tables' stream views, or the batch's :class:`MatchTables`. A
+    seq-sharded rank's views carry ``back_halo`` and ``fwd_halo`` bytes
+    of its neighbours, and ``pos_offset`` is each table's global offset
+    (:class:`MatchTables`). On the card a call is two launches, the
+    probe and the rank pass, and its launch count adds both."""
+    _record("match_phase_a", (views, qs, col_starts, bloom, budget, kclamp, back_halo,
+                              fwd_halo, pos_offset))
     device = views[0].data.device
     if device.type == "cpu":
         from swarm_tpu_torch.ops.match import phase_a_plain
 
-        return phase_a_plain(views, qs, col_starts, bloom, budget, kclamp)
-    tabs = match_tables(views, qs, col_starts)
+        return phase_a_plain(views, qs, col_starts, bloom, budget, kclamp, back_halo,
+                             fwd_halo, pos_offset)
+    tabs = match_tables(views, qs, col_starts, back_halo, fwd_halo, pos_offset)
     _need(bloom, torch.int32, "bloom", device)
     if bloom.dim() != 2 or bloom.shape[0] < len(tabs) or bloom.shape[1] != BLOOM_WORDS:
         raise ValueError(f"bloom must be [T, {BLOOM_WORDS}], got {tuple(bloom.shape)}")
@@ -566,23 +602,26 @@ class VerifyCorpus(dict):
 def match_verify(
     views, qs, col_starts, col: torch.Tensor, kc: int, tab: dict,
     max_group: int, slot_bytes: torch.Tensor, slot_len: torch.Tensor,
-    plane_width: int,
+    plane_width: int, back_halo: int = 0, fwd_halo: int = 0, pos_offset=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Phase B's gather-verify of the candidates ``col[:, :kc]`` →
     (value bool [B, plane_width], uncertain bool [B, plane_width]) slot
     planes. ``tab`` holds the stacked tables (int32 tensors, the uint32
     ones as their bits), or is the corpus's :class:`VerifyCorpus`;
-    ``views`` as :func:`match_phase_a` takes them. On the card the two
-    planes are one zeroed [2, B, plane_width] tensor (one fill)."""
+    ``views``, the halos and offsets as :func:`match_phase_a` takes
+    them. On the card the two planes are one zeroed [2, B, plane_width]
+    tensor (one fill)."""
     _record("match_verify", (views, qs, col_starts, col, kc, tab, max_group,
-                             slot_bytes, slot_len, plane_width))
+                             slot_bytes, slot_len, plane_width, back_halo, fwd_halo,
+                             pos_offset))
     device = col.device
     if device.type == "cpu":
         from swarm_tpu_torch.ops.match import verify_plain
 
         return verify_plain(views, qs, col_starts, col, kc, tab, max_group,
-                            slot_bytes, slot_len, plane_width)
-    tabs = match_tables(views, qs, col_starts)
+                            slot_bytes, slot_len, plane_width, back_halo, fwd_halo,
+                            pos_offset)
+    tabs = match_tables(views, qs, col_starts, back_halo, fwd_halo, pos_offset)
     corpus = tab if (isinstance(tab, VerifyCorpus) and tab.max_group == max_group
                      and tab.slot_bytes is slot_bytes and tab.slot_len is slot_len) else (
         VerifyCorpus(tab, max_group, slot_bytes, slot_len))

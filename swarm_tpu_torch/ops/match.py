@@ -238,31 +238,39 @@ class _ViewCache:
 # Phase A and phase B: plain versions of the kernels
 
 
-def prefilter_flags(views: list, qs, bloom: torch.Tensor) -> torch.Tensor:
+def prefilter_flags(views: list, qs, bloom: torch.Tensor, back_halo: int = 0,
+                    fwd_halo: int = 0, pos_offset=None) -> torch.Tensor:
     """The fired (table, window) flags, bool [B, C] on the table-major
-    candidate axis (the JAX ``prefilter_counts`` before its cumsum)."""
+    candidate axis (the JAX ``prefilter_counts`` before its cumsum). A
+    seq rank's windows start only in ``[back_halo, width - fwd_halo)``
+    of its halo-extended views; ``pos_offset`` gives each table's
+    global offset (:class:`kernels.MatchTables`)."""
+    offs = kernels.table_offsets(pos_offset, len(views))
     cache = _ViewCache()
     flags = []
     for t, (v, q) in enumerate(zip(views, qs)):
         h1, h2 = cache.hashes(v, int(q))
-        W = h1.shape[1]
+        W = h1.shape[1] - back_halo - fwd_halo
+        h1 = h1[:, back_halo : back_halo + W]
+        h2 = h2[:, back_halo : back_halo + W]
         i1 = h1 & (hashing.BLOOM_BITS - 1)
         i2 = h2 & (hashing.BLOOM_BITS - 1)
         words = u32(bloom[t])
         b1 = (words[i1 >> 5] >> (i1 & 31)) & 1
         b2 = (words[i2 >> 5] >> (i2 & 31)) & 1
         # windows starting past len - q cannot begin a real gram
-        pos = torch.arange(W, dtype=torch.int64, device=h1.device)[None, :]
+        pos = torch.arange(W, dtype=torch.int64, device=h1.device)[None, :] + offs[t]
         bound = (v.lengths.to(torch.int64) - int(q))[:, None]
         flags.append(((b1 & b2) == 1) & (pos <= bound))
     return torch.cat(flags, dim=1)
 
 
 def phase_a_plain(
-    views: list, qs, col_starts, bloom: torch.Tensor, budget: int, kclamp: int
+    views: list, qs, col_starts, bloom: torch.Tensor, budget: int, kclamp: int,
+    back_halo: int = 0, fwd_halo: int = 0, pos_offset=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of kernel ``match_phase_a`` (same contract)."""
-    flags = prefilter_flags(views, qs, bloom)
+    flags = prefilter_flags(views, qs, bloom, back_halo, fwd_halo, pos_offset)
     B, C = flags.shape
     cnt = torch.cumsum(flags.to(torch.int64), dim=1)
     n_surv = cnt[:, -1] if C else torch.zeros(B, dtype=torch.int64, device=flags.device)
@@ -278,10 +286,11 @@ def phase_a_plain(
 def verify_plain(
     views: list, qs, col_starts, col: torch.Tensor, kc: int, tab: dict,
     max_group: int, slot_bytes: torch.Tensor, slot_len: torch.Tensor,
-    plane_width: int,
+    plane_width: int, back_halo: int = 0, fwd_halo: int = 0, pos_offset=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of kernel ``match_verify`` — the JAX
-    ``verify_candidates``, gather for gather."""
+    ``verify_candidates``, gather for gather (its halos and offsets as
+    :func:`prefilter_flags` takes them)."""
     dev = col.device
     col = col[:, :kc]
     B, K = col.shape
@@ -295,7 +304,7 @@ def verify_plain(
     cs = torch.as_tensor(np.asarray(col_starts, dtype=np.int64), device=dev)
     tid = torch.searchsorted(cs, colc, right=True) - 1
     tid = tid.clamp(0, T - 1)
-    cpos = colc - cs[tid]
+    cpos = colc - cs[tid] + back_halo  # in the extended view
 
     # per-candidate table attributes via small [T] tables
     combos = []
@@ -314,6 +323,9 @@ def verify_plain(
     cand_slen = torch.gather(
         torch.stack([v.lengths.to(torch.int64) for v in views], dim=1), 1, tid
     )
+    t_goff = torch.as_tensor(kernels.table_offsets(pos_offset, T), dtype=torch.int64,
+                             device=dev)
+    cand_goff = t_goff[tid] - back_halo  # view position -> global position
 
     def hash_at(positions):
         out1 = torch.zeros((B, K), dtype=torch.int64, device=dev)
@@ -375,7 +387,9 @@ def verify_plain(
         off_e = tab["entry_off"].to(torch.int64)[tid, e]
         len_e = tab["entry_len"].to(torch.int64)[tid, e]
         start = cpos - off_e
-        fits = (start >= 0) & (start + len_e <= cand_slen) & (start + len_e <= cand_we)
+        gstart = start + cand_goff
+        fits = ((gstart >= 0) & (gstart + len_e <= cand_slen) & (start >= 0)
+                & (start + len_e <= cand_we))
         hit = in_group & h2_ok & suf_ok & fits
         slot = tab["entry_slot"].to(torch.int64)[tid, e]
         idx = (start[:, :, None] + offs).clamp(0, wmax - 1)
@@ -394,10 +408,14 @@ def verify_plain(
 
 def tiny_slot_bits(
     meta: "fpc.DeviceLayoutMeta", tiny_bytes: np.ndarray, tiny_slot: np.ndarray,
-    streams: dict, lengths: dict, value_bits: torch.Tensor,
+    streams: dict, lengths: dict, value_bits: torch.Tensor, back_halo: int = 0,
+    pos_offset: Optional[dict] = None,
 ) -> torch.Tensor:
     """Tiny slots (1–3 bytes): dense shifted compare — exact. The
-    pattern bytes and slot ids are host ints (static per corpus)."""
+    pattern bytes and slot ids are host ints (static per corpus). On a
+    seq rank ``streams`` are its halo-extended views and ``pos_offset``
+    each stream's global offset: every position of a view counts, the
+    halos' too (the byte compare is exact and the ranks' OR dedupes)."""
     value_bits = value_bits.clone()
     shift_cache: dict = {}
     for i, (length, name, lowered) in enumerate(meta.tiny):
@@ -414,7 +432,10 @@ def tiny_slot_bits(
         for j in range(1, length):
             eq = eq & (shifts[j] == int(tiny_bytes[i, j]))
         pos = torch.arange(W, dtype=torch.int64, device=eq.device)[None, :]
-        eq = eq & (pos <= (lengths[name].to(torch.int64) - length)[:, None])
+        gpos = pos - back_halo + (pos_offset or {}).get(name, 0)
+        if back_halo:  # a position of the back halo may lie before the row
+            eq = eq & (gpos >= 0)
+        eq = eq & (gpos <= (lengths[name].to(torch.int64) - length)[:, None])
         # the window lies inside the view's real bytes
         eq = eq & (pos + length <= W)
         slot = int(tiny_slot[i])

@@ -240,9 +240,19 @@ class BatchScheduler:
         run off-host, so walking batch i while the card crunches i+1 is
         free; on the CPU the "device" IS the host — an in-flight
         batch's torch threads steal exactly the cores the walk needs,
-        so the depth collapses to 1."""
+        so the depth collapses to 1.
+
+        Except on a mesh of more than one rank: the sharded matcher's
+        deferred combine (``parallel/sharded.py``, ``_PendingShard``)
+        only rides behind the next batch's phase A when dispatch N+1
+        comes before collect N, so the window stays open even on the
+        CPU."""
         if self._overlap_helps is None:
-            self._overlap_helps = self.engine.device.device.type == "cuda"
+            ok = self.engine.device.device.type == "cuda"
+            mesh = getattr(getattr(self.engine, "sharded", None), "mesh", None)
+            if mesh is not None and int(mesh.devices.size) > 1:
+                ok = True
+            self._overlap_helps = ok
         return self._overlap_helps
 
     def _walk_offload_ok(self) -> bool:
@@ -320,10 +330,14 @@ class BatchScheduler:
             )
             qos_of = lambda _payload: fixed_qos  # noqa: E731
         target = cfg.rows_target or engine.batch_rows
+        # a mesh's bucket targets round up to its 'data' axis, so full
+        # buckets fill per rank; one device (and stub engines) report 1
+        data_ranks = getattr(engine, "data_ranks", lambda: 1)()
         planner = BucketPlanner(
             rows_target=target,
             max_body=engine.max_body,
             max_header=engine.max_header,
+            data_ranks=data_ranks,
             qos_deadline_s=max(0.0, cfg.qos_deadline_ms) / 1000.0,
             max_age_s=max(0.0, cfg.max_age_ms) / 1000.0,
         )

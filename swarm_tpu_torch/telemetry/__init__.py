@@ -14,8 +14,7 @@ has.
 Families, kinds, help strings, label names and buckets are the
 reference's, letter for letter: the JAX server and its scrapers read
 them. A family of a layer the port does not have (server, gateway,
-queue, journal, fleet, shared cache, AOT, sharding, monitor) is not
-registered.
+queue, journal, fleet, shared cache, AOT, monitor) is not registered.
 """
 
 from swarm_tpu_torch.telemetry.metrics import (  # noqa: F401
@@ -31,11 +30,12 @@ from swarm_tpu_torch.telemetry.events import (  # noqa: F401
     subscribe,
 )
 
-# the walk, device, memo, sched, trace, worker-drain and workflow
-# families register at import time so every process's exposition
-# carries them
+# the walk, device, shard, memo, sched, trace, worker-drain and
+# workflow families register at import time so every process's
+# exposition carries them
 from swarm_tpu_torch.telemetry import walk_export  # noqa: E402,F401
 from swarm_tpu_torch.telemetry import device_export  # noqa: E402,F401
+from swarm_tpu_torch.telemetry import shard_export  # noqa: E402,F401
 from swarm_tpu_torch.telemetry import memo_export  # noqa: E402,F401
 from swarm_tpu_torch.telemetry import sched_export  # noqa: E402,F401
 from swarm_tpu_torch.telemetry import trace_export  # noqa: E402,F401

@@ -95,8 +95,16 @@ The worker reports what the JAX worker reports (``telemetry/``):
 - with ``SWARM_PROFILE_DIR`` set, a ``torch.profiler`` trace of each
   job's execute (``utils/trace.py``).
 
+The worker starts as the JAX worker starts: ``--config <path>`` (or
+``~/.swarm_tpu.json``, then ``~/.axiom.json``), then ``SWARM_<FIELD>``,
+then the flags (``swarm_tpu_torch/config.py``); the modules of
+``prewarm_modules`` (``SWARM_PREWARM_MODULES``) build their engines
+before the first poll. A ``tpu`` engine on a host with several cards
+shards its batches over all of them (``parallel/``).
+
 Not ported yet (ROADMAP.md): the result cache, the executable cache and
-multi-host engines.
+multi-host engines (a worker given ``SWARM_COORDINATOR``,
+``SWARM_NUM_PROCESSES`` or ``SWARM_PROCESS_ID`` raises).
 """
 
 from __future__ import annotations
@@ -115,6 +123,7 @@ from typing import Optional, Union
 import requests
 import torch
 
+from swarm_tpu_torch import config
 from swarm_tpu_torch.datamodel import SCAN_ID_RE, JobStatus
 from swarm_tpu_torch.fingerprints.dbcache import load_or_compile
 from swarm_tpu_torch.fingerprints.model import Response
@@ -123,6 +132,7 @@ from swarm_tpu_torch.ops import cluster as cl
 from swarm_tpu_torch.ops.engine import MatchEngine
 from swarm_tpu_torch.ops.service import ServiceClassifier
 from swarm_tpu_torch.ops.workflows import WorkflowRunner
+from swarm_tpu_torch.parallel.mesh import check_single_host
 from swarm_tpu_torch.resilience.breaker import breaker_states
 from swarm_tpu_torch.resilience.faults import FaultInjected, fault_point, install_plan
 from swarm_tpu_torch.resilience.heartbeat import LeaseHeartbeat
@@ -217,35 +227,23 @@ class WorkerConfig:
     #: spool of finished chunks the server could not take
     #: ("" = <work_dir>/spool)
     spool_dir: str = ""
+    #: comma-separated modules whose engines or scanners are built
+    #: before the first poll (:meth:`JobProcessor.prewarm`)
+    prewarm_modules: str = ""
 
-    #: names read by :meth:`from_env` besides ``SWARM_<FIELD>``: the
-    #: reference worker's
-    _ALIASES = {
-        "server_url": ("SERVER_URL",),
-        "api_key": ("API_KEY",),
-        "worker_id": ("WORKER_ID",),
-    }
+    @classmethod
+    def load(cls, path: Optional[str] = None, env=None, **overrides) -> "WorkerConfig":
+        """Defaults, then the config file (``path``, which must load;
+        else ``~/.swarm_tpu.json`` or ``~/.axiom.json``), then the
+        environment, then ``overrides`` not None, as the JAX worker's
+        ``Config.load`` reads them (``swarm_tpu_torch/config.py``)."""
+        return config.load(cls, path=path, env=env, **overrides)
 
     @classmethod
     def from_env(cls, **overrides) -> "WorkerConfig":
-        """Defaults, then the environment (``SWARM_<FIELD>``, then the
-        reference aliases, as the JAX worker's config reads them), then
-        ``overrides`` not None; values coerced to each field's type."""
-        fields = {f.name: f for f in dataclasses.fields(cls)}
-        values: dict = {}
-        for name in fields:
-            for key in ("SWARM_" + name.upper(),) + cls._ALIASES.get(name, ()):
-                if os.environ.get(key):
-                    values[name] = os.environ[key]
-                    break
-        values.update({k: v for k, v in overrides.items() if v is not None})
-        for name, value in values.items():
-            kind = fields[name].type
-            if kind in ("int", int):
-                values[name] = int(value)
-            elif kind in ("float", float):
-                values[name] = float(value)
-        return cls(**values)
+        """:meth:`load` without a config file: defaults, the
+        environment, then ``overrides`` not None."""
+        return config.load(cls, read_files=False, **overrides)
 
 
 class ServerClient:
@@ -416,6 +414,34 @@ class JobProcessor:
         self._last_saturation: Optional[float] = None
         #: the server generation seen on the last successful poll
         self._seen_generation: Optional[int] = None
+
+    def prewarm(self, module_name: str) -> bool:
+        """Build a module's engine or scanner before the first job: an
+        empty-input execution of its backend runs exactly the
+        construction path. For a ``tpu`` module on the card that is the
+        kernel libraries' build, the corpus load and the upload of the
+        device layout. A failure is printed → False; a command module
+        has nothing to warm → False."""
+        try:
+            module = self.registry.load(module_name)
+            dispatch = {
+                "tpu": self._execute_tpu,
+                "probe": self._execute_probe,
+                "service": self._execute_service,
+                "jarm": self._execute_jarm,
+                "active": self._execute_active,
+                "file": self._execute_file,
+                "ssl": self._execute_ssl,
+            }.get(module.backend)
+            if dispatch is None:
+                return False
+            dispatch(module, b"")
+            if module.backend == "tpu":
+                self.engine_for(module.templates_dir).prewarm()
+            return True
+        except Exception as e:
+            print(f"prewarm {module_name} failed: {e}")
+            return False
 
     def request_drain(self, reason: str) -> None:
         """Ask the poll loop to drain: finish the current chunk, flush
@@ -681,7 +707,9 @@ class JobProcessor:
             return
         execute = {
             "jarm": self._execute_jarm,
-            "tpu": self._execute_tpu,
+            # the job's qos (the server sets it from ``swarm scan --qos``)
+            # plans its rows into the scheduler's express or bulk buckets
+            "tpu": lambda m, d: self._execute_tpu(m, d, qos=job.get("qos")),
             "probe": self._execute_probe,
             "service": self._execute_service,
             "file": self._execute_file,
@@ -878,9 +906,14 @@ class JobProcessor:
         and its walk pool is sized as the reference sizes it
         (``SWARM_WALK_THREADS``, else the spare cores up to 4). The
         corpus compile comes from the disk cache when the corpus and
-        the port's compiler are unchanged (``dbcache.load_or_compile``)."""
+        the port's compiler are unchanged (``dbcache.load_or_compile``).
+        The engine takes the reference's mesh default: on a host with
+        several cards, a mesh over all of them."""
         engine = self.engines.get(templates_dir)
         if engine is None:
+            # a mesh across hosts is not ported: a worker configured for
+            # one must not run alone while the other hosts wait for it
+            check_single_host()
             templates, db = load_or_compile(templates_dir)
             engine = MatchEngine(
                 templates, db=db, device=self.device, pipeline=self.cfg.pipeline
@@ -888,7 +921,7 @@ class JobProcessor:
             self.engines[templates_dir] = engine
         return engine
 
-    def _execute_tpu(self, module: ModuleSpec, data: bytes) -> bytes:
+    def _execute_tpu(self, module: ModuleSpec, data: bytes, qos: Optional[str] = None) -> bytes:
         """Device-batch path: chunk rows → MatchEngine → JSONL hits (or
         nuclei lines), then the workflow lines.
 
@@ -943,8 +976,8 @@ class JobProcessor:
             # "sched" = the continuous-batching drive window (planning,
             # coalescing, deadline flushes); the engine's device and
             # walk seconds ride the synthesized spans instead
-            with tracing.span("sched", pipeline="on"):
-                for ci, res in enumerate(sched.run(payloads, decode=decode)):
+            with tracing.span("sched", qos=qos, pipeline="on"):
+                for ci, res in enumerate(sched.run(payloads, decode=decode, qos=qos)):
                     rows.extend(rows_by_chunk.pop(ci))
                     results.extend(res)
         else:
@@ -1199,18 +1232,21 @@ def main(argv: Optional[list[str]] = None) -> None:
     parser.add_argument("--worker-id", default=None)
     parser.add_argument("--modules-dir", default=None)
     parser.add_argument("--max-jobs", type=int, default=None)
+    parser.add_argument("--config", default=None)
     parser.add_argument(
         "--device", default=None,
         help="torch device for the kernels (default: cuda)",
     )
     args = parser.parse_args(argv)
-    cfg = WorkerConfig.from_env(
+    cfg = WorkerConfig.load(
+        path=args.config,
         server_url=args.server_url,
         api_key=args.api_key,
         worker_id=args.worker_id,
         modules_dir=args.modules_dir,
         max_jobs=args.max_jobs,
     )
+    check_single_host()
     proc = JobProcessor(cfg, device=args.device)
     # SIGTERM drains instead of dying mid-upload: the handler only sets
     # a flag; the poll loop finishes its chunk, flushes or spools, and
@@ -1219,4 +1255,7 @@ def main(argv: Optional[list[str]] = None) -> None:
         signal.signal(signal.SIGTERM, lambda _sig, _frm: proc.request_drain("sigterm"))
     except ValueError:
         pass
+    for name in filter(None, (n.strip() for n in cfg.prewarm_modules.split(","))):
+        if proc.prewarm(name):
+            print(f"prewarmed module {name}")
     proc.process_jobs()

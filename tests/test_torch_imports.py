@@ -1,7 +1,8 @@
 """The port imports torch and nothing of JAX or of the JAX package.
 
-Every module of ``swarm_tpu_torch`` is imported in a fresh interpreter,
-which then must hold no ``jax`` and no ``swarm_tpu`` module.
+Every module of ``swarm_tpu_torch``, and ``chip_smoke.py``, is imported
+in a fresh interpreter, which then must hold no ``jax`` and no
+``swarm_tpu`` module.
 """
 
 import json
@@ -70,6 +71,10 @@ def test_module_list_covers_the_slice():
         "swarm_tpu_torch.telemetry.engine_export", "swarm_tpu_torch.telemetry.sched_export",
         "swarm_tpu_torch.telemetry.workflow_export", "swarm_tpu_torch.telemetry.fleet_export",
         "swarm_tpu_torch.utils.trace",
+        # the worker's start-up surface, and several devices
+        "swarm_tpu_torch.config", "swarm_tpu_torch.parallel",
+        "swarm_tpu_torch.parallel.mesh", "swarm_tpu_torch.parallel.sharded",
+        "swarm_tpu_torch.telemetry.shard_export",
     } <= names
 
 
@@ -85,6 +90,8 @@ def _entry_points():
     from swarm_tpu_torch.ops.workflows import WorkflowRunner
     from swarm_tpu_torch.fingerprints.nuclei import parse_template
     from swarm_tpu_torch.worker.filescan import FileScanner
+    from swarm_tpu_torch.parallel.mesh import make_mesh
+    from swarm_tpu_torch.parallel.sharded import ShardedMatcher
     from swarm_tpu_torch.worker.runtime import JobProcessor, WorkerConfig
 
     templates, _ = load_corpus(REPO / "tests" / "data" / "templates" / "http")
@@ -97,6 +104,9 @@ def _entry_points():
         "BatchScheduler": lambda device: MatchEngine(
             templates, device=device, pipeline="on").scheduler(),
         "DeviceDB": lambda device: DeviceDB(compile_corpus(templates), device=device),
+        "ShardedMatcher": lambda device: ShardedMatcher(
+            compile_corpus(templates),
+            make_mesh((2, 1, 1), [device] * 2) if device else make_mesh((2, 1, 1))),
         "JobProcessor": lambda device: JobProcessor(WorkerConfig(), device=device),
         "FileScanner": lambda device: FileScanner([parse_template({
             "id": "f", "file": [{"extensions": ["all"], "matchers": [
@@ -108,7 +118,8 @@ def _entry_points():
 
 @pytest.mark.parametrize(
     "name", ["MatchEngine", "DeviceDB", "JobProcessor", "density_cluster",
-             "ServiceClassifier", "WorkflowRunner", "BatchScheduler", "FileScanner"])
+             "ServiceClassifier", "WorkflowRunner", "BatchScheduler", "FileScanner",
+             "ShardedMatcher"])
 def test_entry_points_run_on_cuda_unless_asked(name):
     build = _entry_points()[name]
     build("cpu")  # the CPU when asked for
@@ -118,7 +129,7 @@ def test_entry_points_run_on_cuda_unless_asked(name):
         build(None)
 
 
-@pytest.mark.parametrize("module", port_modules())
+@pytest.mark.parametrize("module", port_modules() + ["chip_smoke"])
 def test_imports_no_jax(module):
     code = (
         "import importlib, json, sys\n"
@@ -134,3 +145,21 @@ def test_imports_no_jax(module):
     assert proc.returncode == 0, proc.stderr
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result["bad"] == []
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    """Every import statement of ``chip_smoke.py``, its functions' too:
+    none names ``jax`` or the JAX package (it reads the package's data
+    files as files)."""
+    import ast
+
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    roots = {n.split(".")[0] for n in names}
+    assert "swarm_tpu_torch" in roots and "torch" in roots
+    assert not roots & {"jax", "jaxlib", "swarm_tpu"}

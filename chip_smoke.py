@@ -5,8 +5,10 @@
     python3 chip_smoke.py --only match       # device, corpus, match, telemetry_cost
     python3 chip_smoke.py --only telemetry   # device, corpus, telemetry_worker
     python3 chip_smoke.py --only timing      # device, corpus, fingerprint_worker, match_timing
+                                             #   (and the pipelined stream's md5 calls)
     python3 chip_smoke.py --only mesh        # device, build, corpus, mesh
     python3 chip_smoke.py --only startup     # device, corpus, fingerprint_worker, startup_worker
+    python3 chip_smoke.py --only profiles    # device, 1,000 device profiles (ROADMAP C)
 
 Runs from the root of a checkout, on a machine with one CUDA card, and
 prints one JSON line per phase:
@@ -21,12 +23,21 @@ prints one JSON line per phase:
    libraries (``make``: the scan library, libfastpack — the engine's
    dedup, memo, pack and walk passes, against the interpreter's
    ``Python.h`` — and the crex regex VM) from the checkout's sources,
-   all in parallel; the seconds are set-up. Prints each kernel's
-   registers and shared memory (``ptxas -v``) and fails if ptxas
-   reports a spill.
+   all in parallel; the seconds are set-up. Each kernel library is
+   built into a file named by its key (``kernels.library_key``: its
+   sources, the nvcc flags, ``nvcc --version``, the card's capability);
+   the keyed files are removed first, so every library is built, then
+   loaded a second time, which must find its keyed file and run no
+   nvcc. Prints each library's key and how each load went, each
+   kernel's registers and shared memory (``ptxas -v``), and the
+   longest dependent chain of ``match_md5``'s SASS a round
+   (``cuobjdump -sass``, :func:`sass_chain`); fails if ptxas reports a
+   spill.
 3. ``mma``     — the probe's ``mma.sync`` rates: 1-bit m16n8k256
    .and.popc (the kernels' product; it prices each kernel's bound, as
-   the data sheet gives no 1-bit rate), .xor.popc, and int8 m16n8k32.
+   the data sheet gives no 1-bit rate), .xor.popc, and int8 m16n8k32;
+   and the cycles of one md5 round on one thread, rounds back to back
+   (``md5_round_cycles``), beside the latency bound's cycles a round.
 4. ``kernels`` — each kernel against its plain PyTorch version on the
    card, at N in {1, 7, 16, 127, 128, 129, 300, 4097, 8193, 65536} on
    random and JARM-like rows and one all-duplicate set of 4,097, radius
@@ -60,9 +71,12 @@ prints one JSON line per phase:
    rows over the candidate budget, a batch over k_pairs, and a batch of
    the ``tests/data/templates`` corpus, whose workflow gates read the
    verdict kernel's m_value; the planes of each against the same batch
-   through the plain versions. Then ``match_md5`` on the md5 edge
-   lengths (0, 55, 56, 63, 64, 119, 120, W, ...) with bytes past each
-   length that are not zero, against its plain version and hashlib,
+   through the plain versions. Then ``match_md5`` on :func:`md5_cases`
+   at widths 64, 256, 320, 2,048 and 4,096 (1,024 random lengths; the
+   md5 edge lengths 0, 55, 56, 63, 64, 119, 120, W, ... at several
+   lanes of a block; every chunk border of its shared-memory ring ±1;
+   lengths of 0 and below beside W; lengths past W), every byte past
+   each length random, against its plain version and hashlib,
    ``match_verdicts`` on the stress batch's call without the digest,
    without the regex overlay, on random slot planes and on its first 1,
    33 and 257 rows and on a corpus whose status and size matchers hold
@@ -106,7 +120,8 @@ prints one JSON line per phase:
    ``fingerprint`` job of 4,096 rows with ``pipeline: on`` through the
    port's worker on ``cuda``, byte-identical to the job with the
    pipeline off and to the pipelined job on the CPU, its perf fields
-   carrying ``pipeline`` and ``sched``.
+   carrying ``pipeline`` and ``sched``. The ``match_md5`` calls of one
+   more fresh pipelined call of the stream are recorded for 14.
 13. ``fingerprint_worker`` — the main path of the match: the stand-in
    server hands out one ``fingerprint`` job of 2,048 JSONL rows over the
    synthetic corpus, and the port's worker runs it on ``cuda``. It must
@@ -126,6 +141,8 @@ prints one JSON line per phase:
    ``match_verify`` and ``match_regex_scan`` also the card time of the
    same call with no live work (every row empty, every candidate or
    pair dead): the launch and the walk apart from the work.
+   ``match_md5`` also on the calls of the stream of 12, exact and
+   timed in the same way.
 14a. ``mesh`` — ``parallel/`` on the card (see :func:`phase_mesh`): the
    worker's engine over ``make_mesh`` grids (1,1,1), (2,1,1), (1,2,1),
    (1,1,2) and (2,2,2) of ranks on the one card (``cuda:0`` k times; on
@@ -205,7 +222,10 @@ worker's, a scanner's, a classifier's) must end its phase with no device
 fault and no degraded batch (the ``no_device_faults`` line counts them).
 Each phase's compile cache (``SWARM_DB_CACHE_DIR``) lies in a temporary
 directory of the run. Then the ``{"kernels": [...]}`` summary (all
-seven kernels; each match kernel also with its launches on the sched
+seven kernels; ``match_md5`` also with its registers, shared memory,
+spills and SASS chain a round from the build, the cycles of its round on
+one thread from the probe, and its times on the stream's calls; each
+match kernel also with its launches on the sched
 phase's traced pipelined call, and its launches and times on the
 service corpus, and for each grid of the mesh phase, with the seq-halo
 calls' times for phase A and the verify), the ``nvidia-smi`` line, and
@@ -1792,16 +1812,20 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> ctypes.CDLL:
-    """Build everything; → the rate probe's library."""
+def phase_build() -> tuple:
+    """Build everything; → (the rate probe's library, ``match_md5``'s
+    ptxas report and the dependent chain of its SASS,
+    :func:`md5_sass_chain`)."""
     from swarm_tpu_torch.native import crex, scanio
     from swarm_tpu_torch.ops import kernels
 
     probe_path = kernels.BUILD_DIR / "libswarm_mma_rate.so"
     # built anew from the checkout's sources, so that ptxas reports on
-    # every kernel even where an earlier run left the libraries
-    for _sources, lib_path in kernels.LIBRARIES.values():
-        lib_path.unlink(missing_ok=True)
+    # every kernel even where an earlier run left the libraries under
+    # their keys
+    keys = {name: kernels.library_key(name) for name in kernels.LIBRARIES}
+    for name in kernels.LIBRARIES:
+        kernels.library_path(name).unlink(missing_ok=True)
     host_libs = {"scanio": scanio._LIB_PATH, "fastpack": scanio._FASTPACK_PATH,
                  "crex": crex._LIB_PATH}
     for lib_path in host_libs.values():
@@ -1810,20 +1834,38 @@ def phase_build() -> ctypes.CDLL:
     t0 = time.perf_counter()
     # one nvcc per source, all started together, beside the host builds
     with ThreadPoolExecutor(len(kernels.LIBRARIES) + 4) as pool:
-        jobs = [pool.submit(kernels.load_library, name) for name in kernels.LIBRARIES]
-        jobs.append(pool.submit(kernels.compile_library, (MMA_PROBE,), probe_path))
-        jobs += [pool.submit(scanio.ensure_lib), pool.submit(scanio.ensure_fastpack),
-                 pool.submit(crex.ensure_crex)]
+        first = {name: pool.submit(library_load, name) for name in kernels.LIBRARIES}
+        jobs = [pool.submit(kernels.compile_library, (MMA_PROBE,), probe_path),
+                pool.submit(scanio.ensure_lib), pool.submit(scanio.ensure_fastpack),
+                pool.submit(crex.ensure_crex)]
         for job in jobs:
             job.result()
+        first = {name: job.result() for name, job in first.items()}
+    setup_s = time.perf_counter() - t0
+    # a second load of each, as a new process would make it: the keyed
+    # file is there, so no nvcc runs
+    for name in kernels.LIBRARIES:
+        kernels._libs.pop(name, None)
+    second = {name: library_load(name) for name in kernels.LIBRARIES}
+    libraries = {}
+    for name in kernels.LIBRARIES:
+        if first[name]["how"] != "built" or second[name]["how"] != "fetched":
+            raise AssertionError(f"build: {name} was {first[name]['how']}, then "
+                                 f"{second[name]['how']} (want built, then fetched)")
+        if second[name]["nvcc_s"] != 0.0:
+            raise AssertionError(f"build: the second load of {name} ran nvcc")
+        libraries[name] = {"key": keys[name],
+                           "path": str(kernels.library_path(name).relative_to(REPO)),
+                           "first": first[name], "second": second[name]}
     ptxas = [k for name in kernels.LIBRARIES
              for k in kernels.ptxas_report(kernels.build_logs.get(name, ""))]
-    emit({"phase": "build", "setup_seconds": time.perf_counter() - t0,
+    md5_chain = md5_sass_chain(kernels.library_path("md5"))
+    emit({"phase": "build", "setup_seconds": setup_s,
           "fastpack": scanio._fastpack is not None, "crex": crex._lib is not None,
           "python_h": str(python_h) if python_h.exists() else None,
           "host_libraries": {k: str(v.relative_to(REPO)) for k, v in host_libs.items()
                              if v.exists()},
-          "ptxas": ptxas})
+          "libraries": libraries, "ptxas": ptxas, "md5_sass_chain": md5_chain})
     built = {k["kernel"].split("<")[0] for k in ptxas}
     for want in sorted({sym for syms in kernels.SYMBOLS.values() for sym in syms}):
         if want not in built:
@@ -1835,13 +1877,127 @@ def phase_build() -> ctypes.CDLL:
     lib.mma_rate.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                              ctypes.c_void_p, ctypes.c_void_p]
     lib.mma_rate.restype = ctypes.c_int
-    return lib
+    lib.md5_round_cycles.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                     ctypes.c_void_p]
+    lib.md5_round_cycles.restype = ctypes.c_int
+    (md5_ptxas,) = [k for k in ptxas if k["kernel"] == "match_md5_kernel"]
+    return lib, {**{k: md5_ptxas[k] for k in ("registers", "smem_bytes", "spill_stores",
+                                              "spill_loads")},
+                 "sass_chain": md5_chain}
 
 
-def phase_mma(probe: ctypes.CDLL) -> float:
+def library_load(name: str) -> dict:
+    """``kernels.load_library(name)``, timed, with the nvcc seconds it
+    took: "built" when it compiled the library under its key, "fetched"
+    when the keyed file was there."""
+    from swarm_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    fetched = kernels.library_path(name).exists()
+    kernels.load_library(name)
+    seconds = time.perf_counter() - t0
+    return {"how": "fetched" if fetched else "built", "seconds": seconds,
+            "nvcc_s": 0.0 if fetched else seconds}
+
+
+#: instructions after which a SASS basic block ends
+_SASS_BRANCHES = ("BRA", "BRX", "JMP", "EXIT", "RET", "CALL", "BSYNC", "BREAK", "WARPSYNC")
+#: opcodes that write no register
+_SASS_NO_DEST = ("ST", "BRA", "BRX", "JMP", "EXIT", "RET", "CALL", "BAR", "SYNCS", "RED",
+                 "NOP", "WARPSYNC", "BSSY", "BSYNC", "BREAK", "MEMBAR", "CCTL", "ERRBAR",
+                 "UBLKCP", "DEPBAR", "YIELD", "NANOSLEEP", "ARRIVES", "FENCE")
+
+
+def sass_chain(listing: str, kernel: str, rounds: int) -> dict:
+    """The longest chain of register dependences in the largest basic
+    block of ``kernel``'s SASS (``cuobjdump -sass`` ``listing``), in
+    instructions, and that over ``rounds``: for ``match_md5`` the block
+    is one 64-byte block's 64 unrolled rounds, so it is the dependent
+    operations a round that the latency bound counts (MD5_CHAIN_OPS).
+    Also the opcodes of one round of the chain from the block's middle."""
+    body, in_fn = [], False
+    for line in listing.splitlines():
+        if "Function :" in line:
+            in_fn = kernel in line
+            continue
+        if not in_fn:
+            continue
+        if re.match(r"\s*\.L_x_\d+:", line):
+            body.append(None)
+            continue
+        found = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if found:
+            body.append(found.group(1))
+    blocks, cur = [], []
+    for ins in body + [None]:
+        if ins is None:
+            blocks.append(cur)
+            cur = []
+            continue
+        cur.append(ins)
+        if re.sub(r"^@!?U?P\w+\s+", "", ins).startswith(_SASS_BRANCHES):
+            blocks.append(cur)
+            cur = []
+    if not any(blocks):
+        raise AssertionError(f"no SASS of {kernel}")
+    block = max(blocks, key=len)
+    depth, prev, last_def, ops = [], [], {}, []
+    for i, ins in enumerate(block):
+        guard = re.match(r"^@!?(U?P\w+)\s+", ins)
+        text = ins[guard.end():] if guard else ins
+        op, _, rest = text.partition(" ")
+        operands = [o.strip() for o in rest.split(",")] if rest else []
+        dest = None
+        if (operands and not op.startswith(_SASS_NO_DEST)
+                and re.fullmatch(r"U?[RP]\d+", operands[0])):
+            dest, operands = operands[0], operands[1:]
+        srcs = re.findall(r"\bU?R\d+\b|\bU?P\d\b", " ".join(operands))
+        if guard:
+            srcs.append(guard.group(1))
+        best, via = 0, -1
+        for reg in srcs:
+            j = last_def.get(reg)
+            if j is not None and depth[j] > best:
+                best, via = depth[j], j
+        depth.append(best + 1)
+        prev.append(via)
+        ops.append(op)
+        if dest is not None:
+            width = 4 if ".128" in op else 2 if ".64" in op else 1
+            base = int(re.sub(r"\D", "", dest))
+            prefix = re.match(r"U?[RP]", dest).group(0)
+            for k in range(width if prefix.endswith("R") else 1):
+                last_def[f"{prefix}{base + k}"] = i
+    end = int(np.argmax(depth))
+    chain = []
+    while end >= 0:
+        chain.append(ops[end])
+        end = prev[end]
+    chain.reverse()
+    per_round = len(chain) / rounds
+    mid = len(chain) // 2
+    return {"kernel": kernel, "block_instructions": len(block), "chain": len(chain),
+            "rounds": rounds, "chain_ops_per_round": per_round,
+            "round_ops": chain[mid: mid + max(1, round(per_round))]}
+
+
+def md5_sass_chain(lib_path: Path) -> dict:
+    """:func:`sass_chain` of ``match_md5_kernel`` in the built library
+    (``cuobjdump -sass``, beside the build's nvcc)."""
+    from swarm_tpu_torch.ops import kernels
+
+    cuobjdump = Path(kernels._nvcc()).parent / "cuobjdump"
+    listing = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                             text=True, check=True).stdout
+    return sass_chain(listing, "match_md5_kernel", 64)
+
+
+def phase_mma(probe: ctypes.CDLL) -> tuple:
     """The probe's mma.sync rates, each warp issuing 8 independent
     products a round on register operands, 8 warps a block, 8 blocks an
-    SM; → the 1-bit .and.popc rate in products/s."""
+    SM, and the cycles of one md5 round on one thread
+    (:func:`md5_round_cycles`); → (the 1-bit .and.popc rate in
+    products/s, the md5 round cycles)."""
     import torch
 
     blocks = 8 * torch.cuda.get_device_properties(0).multi_processor_count
@@ -1863,8 +2019,32 @@ def phase_mma(probe: ctypes.CDLL) -> float:
             "ms": ms, "mma_per_s": mmas / ms * 1e3,
             "tops": mmas * 16 * 8 * k * 2 / ms / 1e9,
         }
-    emit({"phase": "mma", "blocks": blocks, "iters": iters, "rates": rates})
-    return rates["b1_and_popc_m16n8k256"]["mma_per_s"]
+    rounds = md5_round_cycles(probe)
+    emit({"phase": "mma", "blocks": blocks, "iters": iters, "rates": rates,
+          "md5_round_cycles": rounds})
+    return rates["b1_and_popc_m16n8k256"]["mma_per_s"], rounds
+
+
+def md5_round_cycles(probe: ctypes.CDLL, iters: int = 1 << 16) -> dict:
+    """The probe's md5 rounds on one thread, each waiting on the one
+    before, in clock64 cycles a round: ``kernel``, csrc/md5.cu's round
+    (a + x + k off the chain), and ``as_written``, a + F + x + k summed
+    in that order. The latency bound takes MD5_CHAIN_OPS x
+    DEPENDENT_OP_CYCLES cycles a round."""
+    import torch
+
+    out = torch.zeros(3, dtype=torch.int64, device="cuda")
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    cycles = {}
+    for variant, name in ((0, "kernel"), (1, "as_written")):
+        for _ in range(2):  # the second launch is timed warm
+            rc = probe.md5_round_cycles(variant, iters, ctypes.c_void_p(out.data_ptr()), stream)
+            if rc != 0:
+                raise RuntimeError(f"md5_round_cycles: CUDA error {rc} at launch")
+        n_cycles, ns = out[:2].tolist()
+        cycles[name] = n_cycles / (iters * 4)
+        cycles[f"{name}_clock_hz"] = n_cycles / ns * 1e9  # the SM clock it ran at
+    return {**cycles, "bound": MD5_CHAIN_OPS * DEPENDENT_OP_CYCLES}
 
 
 def sm_clock_hz() -> float:
@@ -2275,10 +2455,12 @@ REFERENCE_COMPILED = {"device_templates": 3750, "word_slots": 14291,
 SCALAR_OPS_PER_S = 67e12
 MATCH_KERNELS = ("match_phase_a", "match_verify", "match_regex_scan", "match_md5",
                  "match_verdicts")
-#: md5's dependent chain a round (add, F, add, rotate, add after the
-#: independent x + k + a) and the cycles of one dependent integer
-#: operation, for the one-thread-a-row kernel's latency bound
-MD5_CHAIN_OPS, DEPENDENT_OP_CYCLES = 4, 4
+#: md5's dependent chain a round after the independent a + x + k: F
+#: (one LOP3), an add, and the rotate with its add (one LEA.HI on
+#: sm_90a, as csrc/md5.cu's SASS shows: :func:`sass_chain`), and the
+#: cycles of one dependent integer operation, for the one-thread-a-row
+#: kernel's latency bound
+MD5_CHAIN_OPS, DEPENDENT_OP_CYCLES = 3, 4
 #: the regex scan's dependent chain a byte (csrc/match.cu regex_step),
 #: run by one lane a pair: a funnel shift, then one three-input logic
 #: operation; each closure round adds a shift and an OR of an AND
@@ -2599,33 +2781,101 @@ def tree_batch():
                             width_multiple=512)
 
 
+#: ``match_md5``'s chunk: the bytes of a row one stage of its shared
+#: ring holds (csrc/md5.cu kChunkBlocks x 64), and its rows a block (kRows)
+MD5_CHUNK_BYTES, MD5_BLOCK_ROWS = 256, 32
+#: the widths of :func:`md5_cases`: one block, one chunk, a width that is
+#: not a multiple of the chunk, and the widest body the engine encodes
+MD5_CASE_WIDTHS = (64, 256, 320, 4096)
+#: lengths of 0 and below (the JAX code walks one block, with a wrapped
+#: bit length, for -8 .. -1, none from -9 down)
+MD5_NONPOSITIVE = (0, -1, -8, -9, -10, -63, -64, -72, -73, -100, -2**31)
+#: lengths past the width W, as W + d: the marker and the bit length in
+#: the extra block (d <= 55), the marker without it (56 .. 63), neither
+MD5_PAST_WIDTH = (1, 8, 9, 55, 56, 60, 63, 64, 65, 127, 128, 1000)
+
+
+def md5_cases(width: int, seed: int = 12) -> dict:
+    """Named ``match_md5`` inputs at one width, each (stream uint8 [B,
+    width], lengths int32 [B]); every byte of every stream is random, so
+    the bytes past each length are not zero:
+
+    - ``random``: 1,024 rows of lengths in [0, width], so each of the
+      kernel's blocks of ``MD5_BLOCK_ROWS`` rows mixes long and short;
+    - ``edge_lanes``: the md5 edge lengths and width - 9, width - 8,
+      width - 1 and width, in a cycle of odd length over 256 rows, so
+      that each lands at eight lanes of the blocks;
+    - ``chunk_borders``: every multiple of ``MD5_CHUNK_BYTES`` up to the
+      width and the width, each -1, 0, +1;
+    - ``nonpositive``: ``MD5_NONPOSITIVE`` beside rows of the full width;
+    - ``past_width``: ``width + d`` for each d of ``MD5_PAST_WIDTH`` (the
+      JAX code's capped block count, 0x80 in the extra block)."""
+    rng = np.random.default_rng(seed + width)
+
+    def rows(lens) -> tuple:
+        lens = np.asarray(lens, dtype=np.int64).astype(np.int32)
+        return rng.integers(0, 256, (len(lens), width), dtype=np.uint8), lens
+
+    edges = [n for n in MD5_EDGE_LENGTHS if n <= width]
+    edges += [width - 9, width - 8, width - 1, width]
+    cycle = edges + rng.integers(0, width + 1, 1 - len(edges) % 2).tolist()
+    borders = sorted({b + d for b in (*range(0, width + 1, MD5_CHUNK_BYTES), width)
+                      for d in (-1, 0, 1) if 0 <= b + d <= width})
+    return {
+        "random": rows(rng.integers(0, width + 1, 1024)),
+        "edge_lanes": rows([cycle[i % len(cycle)] for i in range(8 * MD5_BLOCK_ROWS)]),
+        "chunk_borders": rows(rng.permutation(borders)),
+        "nonpositive": rows([v for n in MD5_NONPOSITIVE for v in (n, width)]),
+        "past_width": rows([width + d for d in MD5_PAST_WIDTH]),
+    }
+
+
+def md5_hashlib(stream: np.ndarray, lens: np.ndarray) -> tuple:
+    """hashlib's digests of the rows where the JAX ``md5_words`` computes
+    MD5 of a message: lengths 0 .. W + 55, the bytes past W read as zero
+    → (mask of those rows, their four little-endian words as int64)."""
+    width = stream.shape[1]
+    ok = (lens >= 0) & (lens <= width + 55)
+    words = np.zeros((len(lens), 4), dtype=np.int64)
+    for i in np.nonzero(ok)[0]:
+        msg = stream[i, :lens[i]].tobytes() + bytes(max(0, int(lens[i]) - width))
+        words[i] = np.frombuffer(hashlib.md5(msg).digest(), "<u4")
+    return ok, words
+
+
 def md5_edge_case() -> dict:
-    """``match_md5`` on 1,024 rows at each of the worker's and the stress
-    batch's body widths: the md5 edge lengths, W - 9, W - 8, W - 1, W and
-    random lengths, every byte past a length not zero. Exact against its
-    plain version on the card and against hashlib."""
+    """``match_md5`` on :func:`md5_cases` at each of ``MD5_CASE_WIDTHS``
+    and at the worker's and the stress batch's body widths: exact
+    against its plain version on the card and against hashlib where the
+    JAX code computes MD5 of a message (:func:`md5_hashlib`) → rows a
+    case and the largest difference."""
     import torch
 
     from swarm_tpu_torch.ops import kernels
     from swarm_tpu_torch.ops.md5 import md5_words
 
-    rng = np.random.default_rng(12)
-    out = {}
-    for width in (MAX_BODY, 4096):
-        lens = [n for n in MD5_EDGE_LENGTHS] + [width - 9, width - 8, width - 1, width]
-        lens = np.array(lens + rng.integers(0, width + 1, 1024 - len(lens)).tolist(),
-                        dtype=np.int32)
-        stream = rng.integers(1, 256, (len(lens), width), dtype=np.uint8)
+    out, err = {}, 0.0
+    for width in sorted({*MD5_CASE_WIDTHS, MAX_BODY}):
+        # a width's cases in one call, each case's rows together (the
+        # plain version's time grows with the width, not the rows)
+        cases = md5_cases(width)
+        stream = np.concatenate([c[0] for c in cases.values()])
+        lens = np.concatenate([c[1] for c in cases.values()])
         s, n = torch.from_numpy(stream).cuda(), torch.from_numpy(lens).cuda()
-        got = kernels.match_md5(s, n)
-        want = md5_words(s, n)
-        host = np.stack([np.frombuffer(hashlib.md5(stream[i, :k].tobytes()).digest(), "<u4")
-                         for i, k in enumerate(lens)]).astype(np.int64)
-        err = max(_diff(got, want), float(np.abs(got.cpu().numpy() - host).max()))
-        if err:
-            raise AssertionError(f"match_md5 differs at width {width}: {err}")
-        out[f"width_{width}"] = {"rows": len(lens), "edge_lengths": len(MD5_EDGE_LENGTHS) + 4}
-    return out
+        got = kernels.match_md5(s, n).cpu().numpy()
+        want = md5_words(s, n).cpu().numpy()
+        ok, host = md5_hashlib(stream, lens)
+        start = 0
+        for name, (_s, case_lens) in cases.items():
+            rows = slice(start, start + len(case_lens))
+            start += len(case_lens)
+            e = max(float(np.abs(got[rows] - want[rows]).max()),
+                    float(np.abs(got[rows][ok[rows]] - host[rows][ok[rows]]).max(initial=0)))
+            if e:
+                raise AssertionError(f"match_md5 differs on {name} at width {width}: {e}")
+            err = max(err, e)
+            out[f"{name}_{width}"] = {"rows": len(case_lens), "hashlib_rows": int(ok[rows].sum())}
+    return {"cases": out, "max_abs_err": err}
 
 
 def verdict_variants(args: tuple) -> dict:
@@ -2860,7 +3110,9 @@ def phase_match_kernels(templates, plants, db) -> dict:
     emit({"phase": "match_kernels", "exact": True, "cases": cases,
           "verdict_variants": variants, "md5_edges": md5_edges, "regex_edges": regex_edges,
           "candidate_edges": cand_edges})
-    return {k: max(c["err"][k] for c in cases.values()) for k in MATCH_KERNELS}
+    err = {k: max(c["err"][k] for c in cases.values()) for k in MATCH_KERNELS}
+    err["match_md5"] = max(err["match_md5"], md5_edges["max_abs_err"])
+    return err
 
 
 def phase_match(templates, plants, db, smi: str) -> tuple:
@@ -3124,7 +3376,9 @@ def phase_sched(templates, plants, db, smi: str) -> dict:
       ``pipeline: on`` and the ``sched`` snapshot, all five match
       kernels launched (counted from zero over the job).
 
-    → the five kernels' launches on the pipelined traced call."""
+    → the five kernels' launches on the pipelined traced call, and the
+    ``match_md5`` calls of one more fresh pipelined call of the stream
+    (:func:`stream_md5_calls`)."""
     import yaml
 
     from swarm_tpu_torch.ops import kernels
@@ -3134,7 +3388,7 @@ def phase_sched(templates, plants, db, smi: str) -> dict:
 
     off = MatchEngine(templates, db=db, device="cuda", pipeline="off")
     on = MatchEngine(templates, db=db, device="cuda", pipeline="on")
-    rows = port_rows(realistic_rows(SCHED_CHUNKS * off.batch_rows, seed=17, plants=plants))
+    rows = stream_rows(off, plants)
     off.clear_content_memos()
     want = _results_view(off.match(rows))
     sched = on.scheduler()
@@ -3197,6 +3451,7 @@ def phase_sched(templates, plants, db, smi: str) -> dict:
 
     traces = {"off": traced_match(off, rows, "sched_off_call", MATCH_SPANS, ENCODE_SPAN),
               "on": traced_match(on, rows, "sched_on_call", SCHED_SPANS, SCHED_OPTIONAL)}
+    md5_calls = stream_md5_calls(on, rows)
 
     # the pipelined fingerprint job: the card's with the pipeline off
     # and the CPU's pipelined job as its twins
@@ -3266,7 +3521,30 @@ def phase_sched(templates, plants, db, smi: str) -> dict:
                          if k in job_perf}},
         "card": smi,
     })
-    return traces["on"]["launches"]
+    return traces["on"]["launches"], md5_calls
+
+
+def stream_rows(eng, plants) -> list:
+    """The sched phase's stream: ``SCHED_CHUNKS`` batches of the engine's
+    rows of ``realistic_rows`` (seed 17)."""
+    return port_rows(realistic_rows(SCHED_CHUNKS * eng.batch_rows, seed=17, plants=plants))
+
+
+def stream_md5_calls(eng, rows) -> list:
+    """The ``match_md5`` calls of one fresh pipelined ``eng.match(rows)``
+    of the stream (the traced call's work), recorded as made."""
+    import torch
+
+    from swarm_tpu_torch.ops import kernels
+
+    eng.clear_content_memos()
+    with kernels.record_calls() as calls:
+        eng.match(rows)
+    torch.cuda.synchronize()
+    md5 = [(name, args) for name, args in calls if name == "match_md5"]
+    if not md5:
+        raise AssertionError("the stream made no match_md5 call")
+    return md5
 
 
 _YAML_CORPUS: list = []
@@ -3394,17 +3672,42 @@ def idle_call(name: str, args: tuple) -> tuple:
     return (*args[:3], torch.full_like(args[3], -1), *args[4:])
 
 
-def phase_match_timing(calls: list, smi: str) -> dict:
+def phase_match_timing(calls: list, smi: str, md5_calls: list) -> dict:
     """Each match kernel on the exact calls the ``fingerprint`` job made
     (``kernels.record_calls`` around the worker run: its batches as the
     worker's engine deduplicated and encoded them): exact against its
-    plain version, then timed (:func:`kernel_timing`)."""
+    plain version, then timed (:func:`kernel_timing`); ``match_md5``
+    also on the pipelined stream's calls (``md5_calls``,
+    :func:`stream_md5_calls`), exact and timed, under ``"stream"``."""
     max_err = check_calls(calls)
+    max_err["match_md5"] = max(max_err["match_md5"], check_calls(md5_calls)["match_md5"])
     clock_hz = sm_clock_hz()
     timing = kernel_timing(calls, MATCH_KERNELS, clock_hz)
+    timing["match_md5"]["stream"] = md5_stream_timing(md5_calls, clock_hz)
     emit({"phase": "match_timing", "exact": True, "timing": timing, "sm_clock_hz": clock_hz,
           "card": smi})
     return timing, max_err
+
+
+def md5_stream_timing(md5_calls: list, clock_hz: float) -> dict:
+    """``match_md5`` on the stream's recorded calls: ms a call through
+    the wrapper and on the card alone beside the latency bound, means
+    over the calls (the plain version's time is the job's calls')."""
+    from swarm_tpu_torch.ops import kernels
+
+    per = []
+    for _name, args in md5_calls:
+        blocks = md5_blocks(args[0], args[1])
+        per.append({
+            "rows": int(args[0].shape[0]), "width": int(args[0].shape[1]),
+            "max_blocks": int(blocks.max()),
+            "ms": cuda_ms(lambda a=args: kernels.match_md5(*a), 10),
+            "card_ms": card_ms(lambda a=args: kernels.match_md5(*a), 10, clock_hz),
+            "latency_bound_ms": int(blocks.max()) * 64 * MD5_CHAIN_OPS * DEPENDENT_OP_CYCLES
+            / clock_hz * 1e3,
+        })
+    return {**{k: sum(p[k] for p in per) / len(per)
+               for k in ("ms", "card_ms", "latency_bound_ms")}, "calls": per}
 
 
 def kernel_timing(calls: list, names: tuple, clock_hz: float,
@@ -5398,7 +5701,7 @@ def main(argv: list[str] | None = None) -> int:
 
 
 #: the phases ``--only`` runs alone (:func:`run_only`)
-ONLY = ("match", "telemetry", "timing", "mesh", "startup")
+ONLY = ("match", "telemetry", "timing", "mesh", "startup", "profiles")
 
 
 def run_only(smi: str, which: str) -> int:
@@ -5409,9 +5712,13 @@ def run_only(smi: str, which: str) -> int:
     ``timing``, the ``fingerprint`` job and its kernel calls timed (the
     other comparison of two checkouts); ``mesh``, after the build phase
     (its ptxas report and spill check); or ``startup``, after the
-    ``fingerprint`` job that fills the compile cache it reads."""
+    ``fingerprint`` job that fills the compile cache it reads; or
+    ``profiles`` (:func:`phase_profiles`), in a process of its own."""
     import importlib.util
 
+    if which == "profiles":
+        phase_profiles(smi)
+        return 0
     if which == "mesh":
         phase_build()
     templates, plants, db = phase_corpus()
@@ -5424,7 +5731,10 @@ def run_only(smi: str, which: str) -> int:
     if which in ("timing", "startup"):
         _launches, calls = phase_fingerprint_worker(templates, plants, db)
         if which == "timing":
-            phase_match_timing(calls, smi)
+            from swarm_tpu_torch.ops.engine import MatchEngine
+
+            on = MatchEngine(templates, db=db, device="cuda", pipeline="on")
+            phase_match_timing(calls, smi, stream_md5_calls(on, stream_rows(on, plants)))
         else:
             phase_startup_worker(plants, smi)
         return 0
@@ -5432,6 +5742,48 @@ def run_only(smi: str, which: str) -> int:
     if importlib.util.find_spec("swarm_tpu_torch.telemetry") is not None:
         phase_telemetry_cost(eng, rows, smi)
     return 0
+
+
+#: device profiles of ``--only profiles``
+PROFILE_SESSIONS = 1000
+
+
+def phase_profiles(smi: str, sessions: int = PROFILE_SESSIONS) -> dict:
+    """``sessions`` device profiles in this process, as the worker takes
+    them with ``SWARM_PROFILE_DIR`` (``utils/trace.py``
+    ``maybe_device_profile``), each around one ``match_md5`` launch: how
+    many traces hold no kernel event (``ProfileError``; the open defect
+    of ROADMAP C), which sessions, and the CUDA runtime events such a
+    trace keeps. Reports; fails only if a profile cannot be taken."""
+    import tempfile
+
+    import torch
+
+    from swarm_tpu_torch.ops import kernels
+    from swarm_tpu_torch.utils import trace
+
+    rng = np.random.default_rng(3)
+    stream = torch.from_numpy(rng.integers(0, 256, (256, 2048), dtype=np.uint8)).cuda()
+    lens = torch.from_numpy(rng.integers(0, 2049, 256).astype(np.int32)).cuda()
+    lost, runtime = [], set()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        for i in range(sessions):
+            try:
+                with trace.maybe_device_profile(f"s{i}", root, "cuda"):
+                    kernels.match_md5(stream, lens)
+            except trace.ProfileError:
+                lost.append(i)
+                [path] = (Path(root) / f"s{i}").glob("trace_*.json")
+                events = json.loads(path.read_text())["traceEvents"]
+                runtime.add(sum(e.get("cat") == "cuda_runtime" for e in events))
+    out = {"phase": "profiles", "sessions": sessions, "without_kernel": len(lost),
+           "sessions_without_kernel": lost[:50], "runtime_events_then": sorted(runtime),
+           "seconds": time.perf_counter() - t0, "torch": torch.__version__,
+           "env": {k: os.environ.get(k) for k in ("TEARDOWN_CUPTI", "CUDA_MODULE_LOADING")},
+           "card": smi}
+    emit(out)
+    return out
 
 
 #: (phase, EngineStats) of every MatchEngine built in this run: the
@@ -5473,8 +5825,8 @@ def run_phases(smi: str) -> int:
     import torch
 
     track_engines()
-    probe = phase_build()
-    b1_rate = phase_mma(probe)
+    probe, md5_build = phase_build()
+    b1_rate, md5_rounds = phase_mma(probe)
     rng = np.random.default_rng(0)
     big = jarm_like_rows(rng, 65536)
     summary = phase_kernels(rng, big, b1_rate)
@@ -5496,11 +5848,11 @@ def run_phases(smi: str) -> int:
     no_faults("telemetry_cost", phase_telemetry_cost, eng, rows, smi)
     no_faults("match_trace", phase_match_trace, eng, rows)
     del eng
-    sched_launches = no_faults("sched", phase_sched, templates, plants, db, smi)
+    sched_launches, md5_calls = no_faults("sched", phase_sched, templates, plants, db, smi)
     launches, calls = no_faults("fingerprint_worker", phase_fingerprint_worker, templates,
                                 plants, db)
-    timing, job_err = no_faults("match_timing", phase_match_timing, calls, smi)
-    del calls
+    timing, job_err = no_faults("match_timing", phase_match_timing, calls, smi, md5_calls)
+    del calls, md5_calls
     mesh = no_faults("mesh", phase_mesh, templates, plants, db, smi)
     phase_startup_worker(plants, smi)
     svc_timing, svc_launches, svc_err = no_faults("service", phase_service, smi)
@@ -5545,6 +5897,14 @@ def run_phases(smi: str) -> int:
             summary[name]["launches_per_call"] = 2
         if "latency_bound_ms" in t:
             summary[name]["latency_bound_ms"] = t["latency_bound_ms"]
+        if name == "match_md5":
+            # its build (ptxas, the SASS chain a round) and its times on
+            # the pipelined stream's calls
+            st = t["stream"]
+            summary[name].update(md5_build, round_cycles=md5_rounds)
+            summary[name]["stream"] = {
+                "calls": len(st["calls"]),
+                **{k: st[k] for k in ("ms", "card_ms", "latency_bound_ms")}}
         for key in ("no_live_work_card_ms", "no_live_pair_card_ms"):
             if key in t:
                 summary[name][key] = t[key]

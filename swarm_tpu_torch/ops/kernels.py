@@ -7,7 +7,11 @@ verdict lowering) — is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library of its own with a plain C interface at first use, and
 bound with ``ctypes``. The builds go to ``swarm_tpu_torch/_build/`` and
 use only the sources in the repository; the libraries can build in
-parallel.
+parallel. Each library's file name carries its key, a digest of what it
+is built from (its sources, ``NVCC_FLAGS``, ``nvcc --version`` and the
+card's compute capability): a library whose keyed file exists is loaded
+without running ``nvcc``, and a change of any of the four builds a new
+one (:func:`library_key`, :func:`library_path`).
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else, allocates its outputs with ``torch.empty``/``zeros``,
@@ -23,6 +27,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import hashlib
 import os
 import re
 import shutil
@@ -41,12 +46,13 @@ FP_WORDS = 16
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-#: library name -> (its sources, the shared library they build)
+#: library name -> (its sources, the stem of the shared library they
+#: build: ``BUILD_DIR / f"{stem}-{key[:16]}.so"``, :func:`library_path`)
 LIBRARIES = {
-    "cluster": ((_CSRC / "cluster.cu",), BUILD_DIR / "libswarm_cluster.so"),
-    "match": ((_CSRC / "match.cu",), BUILD_DIR / "libswarm_match.so"),
-    "md5": ((_CSRC / "md5.cu",), BUILD_DIR / "libswarm_md5.so"),
-    "verdicts": ((_CSRC / "verdicts.cu",), BUILD_DIR / "libswarm_verdicts.so"),
+    "cluster": ((_CSRC / "cluster.cu",), "libswarm_cluster"),
+    "match": ((_CSRC / "match.cu",), "libswarm_match"),
+    "md5": ((_CSRC / "md5.cu",), "libswarm_md5"),
+    "verdicts": ((_CSRC / "verdicts.cu",), "libswarm_verdicts"),
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -119,11 +125,41 @@ def _nvcc() -> str:
     raise FileNotFoundError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _stale(sources: tuple[Path, ...], lib_path: Path) -> bool:
-    if not lib_path.exists():
-        return True
-    built = lib_path.stat().st_mtime
-    return any(src.stat().st_mtime > built for src in sources)
+@functools.lru_cache(maxsize=None)
+def _nvcc_version() -> str:
+    """``nvcc --version``'s output, read once a process."""
+    return subprocess.run([_nvcc(), "--version"], capture_output=True, text=True,
+                          check=True).stdout
+
+
+def _device_capability() -> tuple[int, int]:
+    """The compute capability of the current card, which the libraries
+    are built for."""
+    return torch.cuda.get_device_capability()
+
+
+def library_key(name: str) -> str:
+    """sha256 over what library ``name`` is built from: each source's
+    name and bytes, ``NVCC_FLAGS``, ``nvcc --version`` and the card's
+    compute capability (hex)."""
+    sources, _stem = LIBRARIES[name]
+    digest = hashlib.sha256()
+    for part in (
+        *(piece for src in sources for piece in (src.name.encode(), src.read_bytes())),
+        "\0".join(NVCC_FLAGS).encode(),
+        _nvcc_version().encode(),
+        "sm_{}{}".format(*_device_capability()).encode(),
+    ):
+        # each part with its length, so that no two lists of parts hash alike
+        digest.update(len(part).to_bytes(8, "little"))
+        digest.update(part)
+    return digest.hexdigest()
+
+
+def library_path(name: str) -> Path:
+    """The file library ``name`` is built into and loaded from: its stem
+    and the first 16 hex digits of :func:`library_key`."""
+    return BUILD_DIR / f"{LIBRARIES[name][1]}-{library_key(name)[:16]}.so"
 
 
 def compile_library(sources: tuple[Path, ...], lib_path: Path) -> str:
@@ -144,13 +180,13 @@ def compile_library(sources: tuple[Path, ...], lib_path: Path) -> str:
 
 
 def build(name: str) -> float:
-    """Compile library ``name`` if it is missing or older than its
-    sources; → seconds spent compiling (0 when up to date)."""
-    sources, lib_path = LIBRARIES[name]
-    if not _stale(sources, lib_path):
+    """Compile library ``name`` into its keyed path unless that file
+    exists; → seconds spent compiling (0 when it was there)."""
+    lib_path = library_path(name)
+    if lib_path.exists():
         return 0.0
     t0 = time.perf_counter()
-    build_logs[name] = compile_library(sources, lib_path)
+    build_logs[name] = compile_library(LIBRARIES[name][0], lib_path)
     return time.perf_counter() - t0
 
 
@@ -225,7 +261,7 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build(name)
-            lib = ctypes.CDLL(str(LIBRARIES[name][1]))
+            lib = ctypes.CDLL(str(library_path(name)))
             _bind(name, lib)
             _libs[name] = lib
         return lib

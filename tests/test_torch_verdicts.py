@@ -34,8 +34,9 @@ import torch
 
 import swarm_tpu.fingerprints.compile as j_compile
 import swarm_tpu.fingerprints.nuclei as j_nuclei
-from chip_smoke import (WIDE_SIZES, WIDE_STATUS, realistic_rows, synthetic_corpus,
-                        wide_matcher_docs, wide_matcher_rows)
+from chip_smoke import (MD5_CASE_WIDTHS, WIDE_SIZES, WIDE_STATUS, md5_cases, md5_hashlib,
+                        realistic_rows, sass_chain, synthetic_corpus, wide_matcher_docs,
+                        wide_matcher_rows)
 from swarm_tpu.ops import match as jm
 from swarm_tpu.ops.md5 import md5_words as j_md5_words
 from swarm_tpu_torch.fingerprints import compile as t_compile
@@ -84,6 +85,26 @@ def test_md5_edge_lengths_equal_jax_and_hashlib(width):
     bounded = t_md5_words(torch.from_numpy(stream), torch.from_numpy(lens),
                           max_len=int(lens.max()))
     assert np.array_equal(bounded.numpy(), got)
+
+
+#: the named cases of ``chip_smoke.md5_cases``
+MD5_CASES = ("random", "edge_lanes", "chunk_borders", "nonpositive", "past_width")
+
+
+@pytest.mark.parametrize("case", MD5_CASES)
+@pytest.mark.parametrize("width", [64, 320])
+def test_md5_cases_equal_jax_and_hashlib(width, case):
+    """The kernel's named cases through the wrapper on the CPU (the plain
+    version): equal to the JAX ``md5_words``, lengths of 0 and below and
+    past the width included, and to hashlib wherever the JAX code
+    digests a message."""
+    stream, lens = md5_cases(width)[case]
+    got = kernels.match_md5(torch.from_numpy(stream), torch.from_numpy(lens)).numpy()
+    want = np.asarray(jax.jit(j_md5_words)(stream, lens)).astype(np.int64)
+    assert np.array_equal(got, want)
+    ok, host = md5_hashlib(stream, lens)
+    assert np.array_equal(got[ok], host[ok])
+    assert ok.sum() == len(lens) if case in ("random", "edge_lanes", "chunk_borders") else ok.any()
 
 
 def test_md5_wrapper_checks_its_inputs():
@@ -758,6 +779,28 @@ def test_md5_kernel_equals_plain_on_card(width):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", MD5_CASES)
+@pytest.mark.parametrize("width", MD5_CASE_WIDTHS)
+def test_md5_kernel_cases_equal_plain_and_hashlib_on_card(width, case):
+    """The kernel on its named cases (``chip_smoke.md5_cases``: 1,024
+    random lengths, the edge lengths at several lanes of a block, every
+    chunk border of its shared-memory ring ±1, lengths of 0 and below
+    beside W, lengths past W; random bytes past every length), at widths
+    of one block, one chunk, not a multiple of the chunk, and 4,096:
+    exact against its plain version and against hashlib."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from swarm_tpu_torch.ops.md5 import md5_words
+
+    stream, lens = md5_cases(width)[case]
+    s, n = torch.from_numpy(stream).cuda(), torch.from_numpy(lens).cuda()
+    got = kernels.match_md5(s, n)
+    assert torch.equal(got, md5_words(s, n))
+    ok, host = md5_hashlib(stream, lens)
+    assert np.array_equal(got.cpu().numpy()[ok], host[ok])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("planes,digest,rx", CASES)
 @pytest.mark.parametrize("corpus", ["synthetic", "tree"])
 def test_verdicts_kernel_equals_plain_on_card(corpora, corpus, planes, digest, rx):
@@ -806,3 +849,45 @@ def test_ptxas_report_names_the_new_kernels():
     report = kernels.ptxas_report(log)
     assert [k["kernel"] for k in report] == ["match_md5_kernel", "match_verdicts_kernel"]
     assert all(k["registers"] == 40 and k["spill_stores"] == 0 for k in report)
+
+
+#: two md5 rounds as sm_90a emits them, in one basic block between a
+#: branch and a label: the words' shared-memory load, then per round F
+#: (LOP3), an add and the rotate with its add (LEA.HI), a + x + k summed
+#: off the chain (IADD3 with the constant); the next block's loop test
+#: and a store of another function stay out
+ROUNDS_SASS = """
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_116match_md5_kernelEPKhPKiiiPl
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/              @!P0 BRA `(.L_x_1) ;
+.L_x_0:
+        /*0020*/                   LDS.128 R4, [R20] ;
+        /*0030*/                   IADD3 R9, R3, -0x28955b88, R4 ;
+        /*0040*/                   LOP3.LUT R10, R21, R2, R22, 0xb8, !PT ;
+        /*0050*/                   IMAD.IADD R10, R9, 0x1, R10 ;
+        /*0060*/                   LEA.HI R2, R10, R2, R10, 0x7 ;
+        /*0070*/                   IADD3 R11, R22, -0x173848aa, R5 ;
+        /*0080*/                   LOP3.LUT R12, R2, R21, R2, 0xb8, !PT ;
+        /*0090*/                   IMAD.IADD R12, R11, 0x1, R12 ;
+        /*00a0*/                   LEA.HI R3, R12, R2, R12, 0xc ;
+        /*00b0*/               @P1 BRA `(.L_x_0) ;
+.L_x_1:
+        /*00c0*/                   EXIT ;
+		Function : _ZN12_GLOBAL__N_113other_kernelEv
+        /*0000*/                   STG.E desc[UR4][R2.64], R0 ;
+        /*0010*/                   EXIT ;
+"""
+
+
+def test_sass_chain_counts_the_dependent_operations_a_round():
+    """chip_smoke's SASS check: the largest basic block's longest
+    register chain (LDS, IADD3, IMAD.IADD, LEA.HI, LOP3, IMAD.IADD,
+    LEA.HI: the first round's F waits on nothing), over its rounds."""
+    got = sass_chain(ROUNDS_SASS, "match_md5_kernel", 2)
+    assert got["block_instructions"] == 10
+    assert got["chain"] == 7 and got["chain_ops_per_round"] == 3.5
+    # the chain's middle: the second round's F, add and rotate
+    assert got["round_ops"][-3:] == ["LOP3.LUT", "IMAD.IADD", "LEA.HI"]
+    with pytest.raises(AssertionError):
+        sass_chain(ROUNDS_SASS, "missing_kernel", 2)

@@ -9,6 +9,8 @@
     python3 chip_smoke.py --only mesh        # device, build, corpus, mesh
     python3 chip_smoke.py --only startup     # device, corpus, fingerprint_worker, startup_worker
     python3 chip_smoke.py --only profiles    # device, 1,000 device profiles (ROADMAP C)
+    python3 chip_smoke.py --only refresh     # device, build, corpus, refresh
+    python3 chip_smoke.py --only multihost   # device, build, multihost (two processes)
 
 Runs from the root of a checkout, on a machine with one CUDA card, and
 prints one JSON line per phase:
@@ -155,7 +157,25 @@ prints one JSON line per phase:
    job's calls are; a pipelined stream of 4,096 rows through a (2,1,1)
    engine, exact, two batches in flight, the deferred combines
    overlapped.
-14b. ``startup_worker`` — the worker started as an operator starts it,
+14b. ``refresh`` — the corpus-delta refresh at full width (see
+   :func:`phase_refresh`): the worker's engine over the match corpus,
+   2,048 rows, refreshed with one template added, one removed, one word
+   edited and a no-op: each refresh's seconds beside a fresh engine's
+   compile, layout and upload seconds, the leaves (and bytes) uploaded
+   and reused, the next batch's ms beside the one before, exact against
+   a fresh engine on the new corpus with every kernel call exact against
+   its plain version; the no-op uploads nothing and keeps the kernels'
+   corpus structs. Then a refresh on the (2,2,2) grid of the card, and
+   one between two quiesced pipelined streams.
+14c. ``multihost`` — the mesh across processes (see
+   :func:`phase_multihost`): two more copies of this script join one
+   process group over localhost (the ``SWARM_COORDINATOR`` triplet),
+   both on ``cuda:0``, so the collectives run on gloo (NCCL refuses two
+   ranks on one GPU); grids whose data, model and seq axes span the two
+   processes, each process's planes exact against a one-process
+   ``DeviceDB``, ms a call and the cross-process bytes; a refresh of the
+   model grid. Exactness only: one card shows no speed.
+14d. ``startup_worker`` — the worker started as an operator starts it,
    ``python -m swarm_tpu_torch.worker --config <file>`` in a subprocess,
    one ``fingerprint`` job of 2,048 rows from the stand-in server,
    without and with ``prewarm_modules`` (see
@@ -228,7 +248,9 @@ one thread from the probe, and its times on the stream's calls; each
 match kernel also with its launches on the sched
 phase's traced pipelined call, and its launches and times on the
 service corpus, and for each grid of the mesh phase, with the seq-halo
-calls' times for phase A and the verify), the ``nvidia-smi`` line, and
+calls' times for phase A and the verify; and its launches on the batch
+after the refresh phase's last refresh and on each grid of the
+multihost phase), the ``nvidia-smi`` line, and
 as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
 script exits non-zero without that line.
@@ -3939,6 +3961,392 @@ def phase_mesh(templates, plants, db, smi: str) -> dict:
             "max_err": max_err}
 
 
+#: the device of the refresh phase's engines
+REFRESH_DEVICE = "cuda"
+#: the word the refresh phase's added template matches
+REFRESH_NEEDLE = "refresh-probe-needle-7f3a"
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def refresh_steps(templates: list, plants: list) -> tuple:
+    """The refresh phase's corpora, each from the one before: ``add`` (one
+    new word template), ``remove`` (one corpus template), ``edit`` (one
+    word of another corpus template changed), ``noop`` (the same list);
+    and the rows that tell them apart: the new template's word, the
+    removed template's fragments, the edited template's old and new
+    word. → ([(step, templates), ...], rows)."""
+    import copy
+
+    from swarm_tpu_torch.fingerprints.nuclei import parse_template
+
+    single = [i for i, t in enumerate(templates)
+              if len(t.operations) == 1 and len(t.operations[0].matchers) == 1
+              and t.operations[0].matchers[0].type == "word"
+              and t.operations[0].matchers[0].part == "body"
+              and t.operations[0].matchers[0].condition == "or"
+              and not t.operations[0].matchers[0].negative]
+    edit_i, remove_i = single[0], single[1]
+    probe = parse_template({
+        "id": "refresh-probe", "info": {"name": "refresh probe", "severity": "info"},
+        "http": [{"method": "GET", "path": ["{{BaseURL}}"], "matchers": [
+            {"type": "word", "words": [REFRESH_NEEDLE], "part": "body"}]}]})
+    added = list(templates) + [probe]
+    removed_id = templates[remove_i].id
+    removed = [t for t in added if t.id != removed_id]
+    edited_t = copy.deepcopy(templates[edit_i])
+    old_word = edited_t.operations[0].matchers[0].words[0]
+    new_word = old_word + " refreshed"
+    edited_t.operations[0].matchers[0].words = [new_word]
+    edited = [edited_t if t.id == edited_t.id else t for t in removed]
+    extra = [
+        {"host": "198.51.100.1", "port": 80, "status": 200,
+         "body": f"<html>{REFRESH_NEEDLE}</html>".encode(), "header": b"HTTP/1.1 200 OK"},
+        {"host": "198.51.100.2", "port": 80, "status": 200,
+         "body": " ".join(plants[remove_i]["body"]).encode(), "header": b"HTTP/1.1 200 OK"},
+        {"host": "198.51.100.3", "port": 80, "status": 200,
+         "body": f"<html>{old_word}</html>".encode(), "header": b"HTTP/1.1 200 OK"},
+        {"host": "198.51.100.4", "port": 80, "status": 200,
+         "body": f"<html>{new_word}</html>".encode(), "header": b"HTTP/1.1 200 OK"},
+    ]
+    rows = realistic_rows(JOB_ROWS, seed=29, plants=plants)[:JOB_ROWS - len(extra)] + extra
+    steps = [("add", added), ("remove", removed), ("edit", edited), ("noop", list(edited))]
+    return steps, port_rows(rows)
+
+
+def fresh_engine(templates: list, device) -> tuple:
+    """A fresh engine over ``templates`` as the worker builds one, and
+    the seconds of its compile, layout and upload."""
+    from swarm_tpu_torch.fingerprints import compile as fpc
+    from swarm_tpu_torch.ops.engine import MatchEngine
+
+    t0 = time.perf_counter()
+    db = fpc.compile_corpus(templates)
+    t1 = time.perf_counter()
+    fpc.build_device_layout(db)
+    t2 = time.perf_counter()
+    eng = MatchEngine(templates, db=db, device=device, mesh=None)
+    eng.device._ensure_layout()
+    _sync(device)
+    t3 = time.perf_counter()
+    return eng, {"compile_s": t1 - t0, "layout_s": t2 - t1, "upload_s": t3 - t2,
+                 "total_s": t3 - t0}
+
+
+def timed_match(eng, rows, device) -> tuple:
+    """One fresh ``MatchEngine.match`` (memos cleared) with its kernel
+    calls recorded and its launches counted → (results, ms, calls,
+    launches)."""
+    from swarm_tpu_torch.ops import kernels
+
+    eng.clear_content_memos()
+    _sync(device)
+    kernels.reset_launches()
+    with kernels.record_calls() as calls:
+        t0 = time.perf_counter()
+        got = eng.match(rows)
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+    return got, ms, calls, dict(kernels.LAUNCHES)
+
+
+def phase_refresh(templates, plants, db, smi: str) -> dict:
+    """The corpus-delta refresh (``MatchEngine.refresh_corpus``) at full
+    width: the worker's engine over ``synthetic_corpus(0)`` (3,989
+    templates), 2,048 ``realistic_rows`` plus the rows of
+    :func:`refresh_steps`, refreshed in turn with one template added, one
+    removed, one word edited, and a no-op. For each refresh: its seconds
+    beside a fresh engine's compile, layout and upload seconds, the
+    layout leaves uploaded and reused and their bytes; the next batch's
+    ms beside the batch before the refresh, its results exactly a fresh
+    engine's on the new corpus, every recorded kernel call exact against
+    its plain version, every match kernel launched. The no-op uploads no
+    leaf and keeps the kernels' corpus structs (the ``VerifyCorpus`` and
+    ``VerdictLayout`` objects). Then a refresh on the (2,2,2) grid of one
+    card, and one between two quiesced pipelined streams, each exact.
+    → {"launches": launches of the last step's batch, "max_err": by kernel}."""
+    from swarm_tpu_torch.ops.engine import MatchEngine
+    from swarm_tpu_torch.parallel.mesh import make_mesh
+
+    dev = REFRESH_DEVICE
+    t_phase = time.perf_counter()
+    steps, rows = refresh_steps(templates, plants)
+    eng = MatchEngine(templates, db=db, device=dev)
+    timed_match(eng, rows, dev)  # warm
+    max_err = {k: 0.0 for k in MATCH_KERNELS}
+    out, fresh = [], {}
+    launches = {}
+    for step, new in steps:
+        _got, before_ms, _c, _l = timed_match(eng, rows, dev)
+        _meta, arrays = eng.device._ensure_layout()
+        structs = (arrays["verify"], arrays["verdict"], arrays["verdict"].struct)
+        t0 = time.perf_counter()
+        stats = eng.refresh_corpus(new)
+        _sync(dev)
+        refresh_s = time.perf_counter() - t0
+        fresh[step], fresh_s = fresh_engine(new, dev)
+        want = fresh[step].match(rows)
+        got, after_ms, calls, launches = timed_match(eng, rows, dev)
+        if not _same_results(got, want):
+            raise AssertionError(f"refresh {step}: results differ from a fresh engine's")
+        err = check_calls(calls)
+        for name, e in err.items():
+            max_err[name] = max(max_err[name], e)
+        if any(launches[n] < 1 for n in MATCH_KERNELS):
+            raise AssertionError(f"refresh {step}: a match kernel was not launched: {launches}")
+        _meta, arrays = eng.device._ensure_layout()
+        kept = all(a is b for a, b in zip(
+            (arrays["verify"], arrays["verdict"], arrays["verdict"].struct), structs))
+        if step == "noop" and (stats["uploaded_leaves"] or not stats["executables_kept"]
+                               or not kept):
+            raise AssertionError(f"the no-op refresh moved something: {stats}, kept {kept}")
+        out.append({"step": step, "templates": len(new), "refresh_s": refresh_s,
+                    "fresh_engine": fresh_s,
+                    **{k: stats[k] for k in ("uploaded_leaves", "reused_leaves",
+                                             "uploaded_bytes", "reused_bytes",
+                                             "executables_kept", "leaves_total",
+                                             "tables_rebuilt", "rows_rebuilt")},
+                    "structs_kept": kept, "before_ms": before_ms, "after_ms": after_ms,
+                    "matched_rows": sum(bool(r.template_ids) for r in got),
+                    "exact": True, "calls": len(calls), "launches": launches})
+    # the (2, 2, 2) grid of the one card, refreshed onto the added corpus
+    mesh_eng = MatchEngine(templates, db=db, device=dev, mesh=make_mesh((2, 2, 2),
+                                                                       mesh_devices(8)))
+    timed_match(mesh_eng, rows, dev)
+    t0 = time.perf_counter()
+    stats = mesh_eng.refresh_corpus(steps[0][1])
+    _sync(dev)
+    grid_s = time.perf_counter() - t0
+    got, grid_ms, calls, grid_launches = timed_match(mesh_eng, rows, dev)
+    if not _same_results(got, fresh["add"].match(rows)):
+        raise AssertionError("refresh on the (2,2,2) grid: results differ from a fresh engine's")
+    for name, e in check_calls(calls).items():
+        max_err[name] = max(max_err[name], e)
+    grid = {"refresh_s": grid_s, "halo": mesh_eng.sharded.halo, "ms": grid_ms,
+            "sharded": stats["sharded"], "exact": True, "launches": grid_launches}
+    del mesh_eng
+    # between two quiesced pipelined streams
+    s1 = port_rows(realistic_rows(JOB_ROWS, seed=31, plants=plants))
+    s2 = rows
+    base = MatchEngine(templates, db=db, device=dev, mesh=None)
+    piped = MatchEngine(templates, db=db, device=dev, pipeline="on")
+    got1 = piped.match(s1)  # returns with nothing in flight: quiesced
+    t0 = time.perf_counter()
+    piped.refresh_corpus(steps[0][1])
+    _sync(dev)
+    piped_s = time.perf_counter() - t0
+    got2 = piped.match(s2)
+    if not (_same_results(got1, base.match(s1)) and _same_results(got2, fresh["add"].match(s2))):
+        raise AssertionError("refresh between pipelined streams: results differ")
+    emit({"phase": "refresh", "rows": len(rows), "device": str(dev), "steps": out,
+          "grid_2x2x2": grid, "pipelined": {"rows": [len(s1), len(s2)], "refresh_s": piped_s,
+                                            "max_inflight": piped.scheduler().stats.max_inflight,
+                                            "exact": True},
+          "max_abs_err": max_err, "seconds": time.perf_counter() - t_phase, "card": smi})
+    return {"launches": launches, "max_err": max_err}
+
+
+#: the grids of the multihost phase, by the axis that spans the two
+#: processes (each process drives 4 of the 8 ranks on its device)
+MULTIHOST_GRIDS = {"data": (2, 2, 2), "model": (1, 2, 4), "seq": (1, 1, 8)}
+#: timed calls of each grid
+MULTIHOST_CALLS = 3
+#: each rank process's own time limit
+MULTIHOST_TIMEOUT_S = 300
+#: the device both rank processes put their ranks on
+MULTIHOST_DEVICE = "cuda:0"
+#: the templates of the rank processes' corpus (``synthetic_corpus(0, n)``)
+MULTIHOST_TEMPLATES = CORPUS_TEMPLATES
+
+
+def multihost_rank(out_dir: Path, device: str, n_templates: int, n_rows: int) -> int:
+    """One process of the multihost phase (``chip_smoke.py
+    --multihost-rank <dir> <device> <templates> <rows>``, the triplet in
+    its environment): join the group, then on each grid of
+    :data:`MULTIHOST_GRIDS` over both processes (4 ranks each on
+    ``device``) run the sharded match of the match corpus
+    (``synthetic_corpus(0, n_templates)``) and ``n_rows`` rows, its
+    planes against a one-process
+    ``DeviceDB`` on the same batch and its kernel calls against their
+    plain versions, ms a call and the cross-process bytes; then a refresh
+    of the model grid. Writes ``rank<r>.json``."""
+    import faulthandler
+
+    import torch
+
+    from swarm_tpu_torch.fingerprints import compile as fpc
+    from swarm_tpu_torch.fingerprints.nuclei import parse_template
+    from swarm_tpu_torch.ops import kernels
+    from swarm_tpu_torch.ops.encoding import encode_batch
+    from swarm_tpu_torch.ops.match import DeviceDB
+    from swarm_tpu_torch.parallel import multihost
+    from swarm_tpu_torch.parallel.mesh import make_mesh
+    from swarm_tpu_torch.parallel.sharded import (ShardedMatcher, max_entry_len,
+                                                  pad_streams_for_seq)
+
+    faulthandler.enable()  # a crash in a collective shows its stack in the rank's log
+    if not multihost.maybe_initialize_distributed(
+            devices=None if torch.device(device).type == "cuda" else [device]):
+        raise RuntimeError("the multi-host triplet is not set")
+    rank = multihost.process_index()
+    docs, plants = synthetic_corpus(0, n_templates)
+    templates = [parse_template(d) for d in docs]
+    db = fpc.compile_corpus(templates)
+    batch = encode_batch(port_rows(realistic_rows(n_rows, seed=41, plants=plants)),
+                         max_body=4096, max_header=1024, pad_rows_to=n_rows)
+    streams = dict(batch.streams)
+    pad_streams_for_seq(streams, 8, max_entry_len(db))
+    args = (streams, batch.lengths, batch.status)
+
+    def same(got, want) -> bool:
+        return all(np.array_equal(a, b) for a, b in zip(got[:6], want[:6])) and (
+            (got[6] is None) == (want[6] is None)) and all(
+            np.array_equal(a, b) for a, b in zip(got[6] or (), want[6] or ()))
+
+    single = DeviceDB(db, device=device).match(*args)
+    print(f"rank {rank}: corpus and batch ready", flush=True)
+    out = {"rank": rank, "backend": multihost.collective_backend(), "grids": {}}
+    max_err = {k: 0.0 for k in MATCH_KERNELS}
+    matchers = {}
+    for axis, shape in MULTIHOST_GRIDS.items():
+        mesh = make_mesh(shape, [device] * 4)
+        m = ShardedMatcher(db, mesh)
+        m.load_kernels()
+        m.match(*args)  # warm
+        kernels.reset_launches()
+        with kernels.record_calls() as calls:
+            planes = m.match(*args)
+        launches = dict(kernels.LAUNCHES)
+        if not same(planes, single):
+            raise AssertionError(f"rank {rank}, {axis} grid: planes differ from DeviceDB's")
+        # this process's path: phase A and the verify of its ranks, and
+        # the tail's three kernels where it runs a data rank's tail
+        path = MATCH_KERNELS if rank in m._owner else ("match_phase_a", "match_verify")
+        if torch.device(device).type == "cuda" and any(launches[n] < 1 for n in path):
+            raise AssertionError(f"rank {rank}, {axis} grid: a match kernel was not launched: "
+                                 f"{launches}")
+        for name, e in check_calls(calls).items():
+            max_err[name] = max(max_err[name], e)
+        before = dict(m.cross_process_bytes)
+        ms = []
+        for _ in range(MULTIHOST_CALLS):
+            _sync(device)
+            t0 = time.perf_counter()
+            m.match(*args)
+            _sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        per_call = {k: (m.cross_process_bytes[k] - before[k]) // MULTIHOST_CALLS for k in before}
+        print(f"rank {rank}: {axis} grid exact, {sorted(ms)[len(ms) // 2]:.1f} ms a call",
+              flush=True)
+        out["grids"][axis] = {"shape": list(shape), "multiprocess": m.multiprocess,
+                              "process": mesh.process.reshape(-1).tolist(),
+                              "ranks_here": len(m._mine), "exact": True,
+                              "launches": launches, "calls": len(calls),
+                              "ms_per_call": sorted(ms)[len(ms) // 2], "ms_calls": ms,
+                              "cross_process_bytes_per_call": per_call}
+        matchers[axis] = m
+    new = list(templates) + [parse_template({
+        "id": "refresh-probe", "info": {"name": "refresh probe", "severity": "info"},
+        "http": [{"method": "GET", "path": ["{{BaseURL}}"], "matchers": [
+            {"type": "word", "words": [REFRESH_NEEDLE], "part": "body"}]}]})]
+    db_new, _stats = fpc.compile_corpus_delta(new, db)
+    stats = matchers["model"].refresh(db_new)
+    if not same(matchers["model"].match(*args), DeviceDB(db_new, device=device).match(*args)):
+        raise AssertionError(f"rank {rank}: the refreshed model grid differs from DeviceDB's")
+    out["refresh_model_grid"] = {k: stats[k] for k in ("uploaded_leaves", "reused_leaves",
+                                                        "uploaded_bytes", "executables_kept")}
+    out["max_abs_err"] = max_err
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(out))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_multihost(smi: str) -> dict:
+    """The mesh across processes on the one card: this script started
+    twice more (:func:`multihost_rank`), the ``SWARM_COORDINATOR`` /
+    ``SWARM_NUM_PROCESSES`` / ``SWARM_PROCESS_ID`` triplet set over
+    localhost. Both processes put their ranks on ``cuda:0``; NCCL refuses
+    two ranks on one GPU, so the group's collectives run on gloo through
+    host memory. Grids where the data, the model and the seq axis span
+    the processes; each process's planes exactly a one-process
+    ``DeviceDB``'s on the same batch. The phase shows that the path is
+    exact, not its speed: both processes share one card. Fails if
+    either process exits non-zero or runs past
+    :data:`MULTIHOST_TIMEOUT_S`."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory(prefix="swarm-multihost-") as tmp:
+        tmp = Path(tmp)
+        procs, logs = [], []
+        try:
+            for rank in (0, 1):
+                env = dict(os.environ, SWARM_COORDINATOR=f"127.0.0.1:{port}",
+                           SWARM_NUM_PROCESSES="2", SWARM_PROCESS_ID=str(rank))
+                log = open(tmp / f"rank{rank}.log", "w+")
+                logs.append(log)
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "--multihost-rank",
+                     str(tmp), MULTIHOST_DEVICE, str(MULTIHOST_TEMPLATES), str(JOB_ROWS)],
+                    env=env, stdout=log, stderr=subprocess.STDOUT, cwd=str(REPO)))
+            deadline = time.monotonic() + MULTIHOST_TIMEOUT_S
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            timed_out = True
+        else:
+            timed_out = False
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=30)
+            texts = []
+            for log in logs:
+                log.seek(0)
+                texts.append(log.read())
+                log.close()
+        if timed_out:
+            raise AssertionError(f"multihost: a process ran past {MULTIHOST_TIMEOUT_S} s:\n"
+                                 + "\n".join(f"rank {r}: {t[-2000:]}" for r, t in enumerate(texts)))
+        if any(p.returncode != 0 for p in procs):
+            raise AssertionError("multihost: " + "\n".join(
+                f"rank {r} exited {p.returncode}:\n{t[-3000:]}"
+                for r, (p, t) in enumerate(zip(procs, texts))))
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text()) for r in (0, 1)]
+    backend_lines = [ln for t in texts for ln in t.splitlines()
+                     if ln.startswith("torch.distributed:")]
+    if any(r["backend"] != "gloo" for r in ranks) or len(backend_lines) != 2:
+        raise AssertionError(f"multihost: backend {[r['backend'] for r in ranks]}, "
+                             f"{backend_lines}")
+    max_err = {k: max(r["max_abs_err"][k] for r in ranks) for k in MATCH_KERNELS}
+    # each grid's recorded call, both processes' launches together
+    launches = {axis: {k: sum(r["grids"][axis]["launches"][k] for r in ranks)
+                       for k in ranks[0]["grids"][axis]["launches"]} for axis in MULTIHOST_GRIDS}
+    if MULTIHOST_DEVICE.startswith("cuda") and any(
+            n[k] < 1 for n in launches.values() for k in MATCH_KERNELS):
+        raise AssertionError(f"multihost: a match kernel was not launched: {launches}")
+    emit({"phase": "multihost", "processes": 2, "device": MULTIHOST_DEVICE,
+          "backend": ranks[0]["backend"], "backend_line": backend_lines[0],
+          "why": "both processes put their ranks on one card; NCCL refuses two ranks on one "
+                 "GPU, so the collectives run on gloo through host memory",
+          "grids": {axis: [r["grids"][axis] for r in ranks] for axis in MULTIHOST_GRIDS},
+          "refresh_model_grid": [r["refresh_model_grid"] for r in ranks],
+          "max_abs_err": max_err, "seconds": time.perf_counter() - t_phase, "card": smi,
+          "note": "exactness across processes on one card; no speed is shown"})
+    return {"launches": launches, "max_err": max_err}
+
+
 #: worker arguments of the startup phase's subprocesses besides
 #: ``--config`` (the worker runs on the card by default)
 STARTUP_ARGS: tuple = ()
@@ -5690,6 +6098,9 @@ def main(argv: list[str] | None = None) -> int:
 
     global DB_CACHE_ROOT
     argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--multihost-rank"] and len(argv) == 5:
+        # one process of the multihost phase, started by phase_multihost
+        return multihost_rank(Path(argv[1]), argv[2], int(argv[3]), int(argv[4]))
     if argv and (argv[0] != "--only" or argv[1:] not in ([p] for p in ONLY)):
         print(f"usage: python3 chip_smoke.py [--only {'|'.join(ONLY)}]", file=sys.stderr)
         return 2
@@ -5701,7 +6112,7 @@ def main(argv: list[str] | None = None) -> int:
 
 
 #: the phases ``--only`` runs alone (:func:`run_only`)
-ONLY = ("match", "telemetry", "timing", "mesh", "startup", "profiles")
+ONLY = ("match", "telemetry", "timing", "mesh", "startup", "profiles", "refresh", "multihost")
 
 
 def run_only(smi: str, which: str) -> int:
@@ -5713,19 +6124,25 @@ def run_only(smi: str, which: str) -> int:
     other comparison of two checkouts); ``mesh``, after the build phase
     (its ptxas report and spill check); or ``startup``, after the
     ``fingerprint`` job that fills the compile cache it reads; or
-    ``profiles`` (:func:`phase_profiles`), in a process of its own."""
+    ``profiles`` (:func:`phase_profiles`), in a process of its own;
+    ``refresh``, after the build phase, its engines held to no fault; or
+    ``multihost``, after the build phase, whose two processes then load
+    the built libraries."""
     import importlib.util
 
     if which == "profiles":
         phase_profiles(smi)
         return 0
-    if which == "mesh":
+    if which in ("mesh", "refresh", "multihost"):
         phase_build()
+    if which == "multihost":
+        phase_multihost(smi)
+        return 0
     templates, plants, db = phase_corpus()
-    if which in ("telemetry", "mesh"):
+    if which in ("telemetry", "mesh", "refresh"):
         track_engines()
         phase = {"telemetry": ("telemetry_worker", phase_telemetry_worker),
-                 "mesh": ("mesh", phase_mesh)}[which]
+                 "mesh": ("mesh", phase_mesh), "refresh": ("refresh", phase_refresh)}[which]
         no_faults(*phase, templates, plants, db, smi)
         return 0
     if which in ("timing", "startup"):
@@ -5854,6 +6271,8 @@ def run_phases(smi: str) -> int:
     timing, job_err = no_faults("match_timing", phase_match_timing, calls, smi, md5_calls)
     del calls, md5_calls
     mesh = no_faults("mesh", phase_mesh, templates, plants, db, smi)
+    refresh = no_faults("refresh", phase_refresh, templates, plants, db, smi)
+    multi = phase_multihost(smi)
     phase_startup_worker(plants, smi)
     svc_timing, svc_launches, svc_err = no_faults("service", phase_service, smi)
     no_faults("service_worker", phase_service_worker, smi)
@@ -5884,7 +6303,8 @@ def run_phases(smi: str) -> int:
             "source": sources.get(name, "swarm_tpu_torch/ops/csrc/match.cu"),
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": max(max_err[name], job_err[name], svc_err.get(name, 0.0),
-                               mesh["max_err"][name]),
+                               mesh["max_err"][name], refresh["max_err"][name],
+                               multi["max_err"][name]),
             "ms": t["ms"], "card_ms": t["card_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "job_rows": JOB_ROWS,
@@ -5929,6 +6349,12 @@ def run_phases(smi: str) -> int:
                 "calls": len(h["calls"]),
                 **{k: h[k] for k in ("ms", "card_ms", "plain_ms", "bound_ms", "bound_by",
                                      "no_live_work_card_ms")}}
+        # its launches on the batch after the refresh phase's last
+        # refresh, and on each grid of the multihost phase (one call,
+        # both processes)
+        summary[name]["refresh"] = {"launches": refresh["launches"][name]}
+        summary[name]["multihost"] = {"launches": {g: n[name] for g, n in
+                                                   multi["launches"].items()}}
         sv = svc_timing.get(name)
         summary[name]["service"] = {"launches": svc_launches[name], **(
             {k: sv[k] for k in ("ms", "card_ms", "plain_ms", "bound_ms", "bound_by")}

@@ -1889,6 +1889,208 @@ def build_device_layout(db: "CompiledDB"):
     return meta, arrays
 
 
+# ---------------------------------------------------------------------------
+# Corpus-delta path (docs/AOT.md): a template add/remove/edit rebuilds
+# only the touched stacked-table rows instead of the whole layout
+# ---------------------------------------------------------------------------
+
+
+def compile_corpus_delta(
+    templates_new: list,
+    db_old: "CompiledDB",
+    verify_width: int = VERIFY_WIDTH,
+) -> tuple["CompiledDB", dict]:
+    """Recompile a corpus against its previous build: unchanged word
+    tables are adopted by object identity (see ``compile_corpus``'s
+    ``reuse_from``), then the device layout is delta-built so only
+    the touched stacked-table rows are rewritten and every equal leaf
+    keeps the OLD array object (→ zero re-upload for it). Returns
+    ``(db_new, stats)``; the result is bit-identical to a from-scratch
+    ``compile_corpus`` + ``build_device_layout``."""
+    stats: dict = {}
+    db_new = compile_corpus(
+        templates_new, verify_width, reuse_from=db_old, delta_stats=stats
+    )
+    build_device_layout_delta(db_new, db_old, stats)
+    return db_new, stats
+
+
+def stack_tables_delta(
+    tables_new: list, tables_old: list, tab_old: dict, stats: dict
+) -> dict:
+    """Delta twin of :func:`stack_tables_np`: stacked rows for tables
+    adopted from the old build (object identity — the
+    ``compile_corpus`` reuse contract) are COPIED from the old stacked
+    arrays; only changed tables stack from their WordTable. When
+    nothing changed and the padded widths are identical, the old
+    stacked arrays are returned OUTRIGHT (array identity → the device
+    skips their re-upload entirely). ``stats`` gains ``rows_reused`` /
+    ``rows_rebuilt``."""
+    old_pos = {id(t): i for i, t in enumerate(tables_old)}
+    reused = [
+        old_pos.get(id(t)) for t in tables_new
+    ]  # old row index, or None = rebuild
+    rows_reused = sum(1 for r in reused if r is not None)
+    stats["rows_reused"] = rows_reused
+    stats["rows_rebuilt"] = len(tables_new) - rows_reused
+    gmax_new = max((t.num_groups for t in tables_new), default=0) or 1
+    emax_new = (
+        max((int(t.entry_h2.shape[0]) for t in tables_new), default=0) or 1
+    )
+    same_shape = (
+        tables_old
+        and len(tables_new) == len(tables_old)
+        and tab_old["group_h1"].shape[1] == gmax_new
+        and tab_old["entry_h2"].shape[1] == emax_new
+    )
+    if same_shape and all(r == i for i, r in enumerate(reused)):
+        # nothing to do: every row identical, padding identical
+        return tab_old
+    if rows_reused == 0 or not tables_new:
+        return stack_tables_np(tables_new)
+    # mixed case: allocate at the new padded widths, copy reused rows
+    # from the old stack (bit-identical to re-stacking them — old rows
+    # hold real data up to the table's own G/E, sentinel padding
+    # beyond), stack only the changed tables
+    T = max(len(tables_new), 1)
+    base = {
+        "group_h1": (np.uint32, 0xFFFFFFFF, gmax_new),
+        "entry_start": (np.int32, 0, gmax_new),
+        "entry_count": (np.int32, 0, gmax_new),
+        "entry_h2": (np.uint32, 0, emax_new),
+        "entry_slot": (np.int32, 0, emax_new),
+        "entry_off": (np.int32, 0, emax_new),
+        "entry_len": (np.int32, 1 << 30, emax_new),
+        "entry_suf_delta": (np.int32, 0, emax_new),
+        "entry_suf_h1": (np.uint32, 0, emax_new),
+        "entry_suf_h2": (np.uint32, 0, emax_new),
+        "bloom": (np.uint32, 0, hashing.BLOOM_WORDS),
+    }
+    out = {
+        name: np.full((T, width), fill, dtype=dt)
+        for name, (dt, fill, width) in base.items()
+    }
+    out["n_groups"] = np.zeros((T,), dtype=np.int32)
+    for t_idx, table in enumerate(tables_new):
+        r_old = reused[t_idx]
+        if r_old is not None:
+            for name, (dt, _fill, width) in base.items():
+                src_row = tab_old[name][r_old]
+                w = min(width, src_row.shape[0])
+                out[name][t_idx, :w] = src_row[:w]
+            out["n_groups"][t_idx] = tab_old["n_groups"][r_old]
+            continue
+        G = table.num_groups
+        E = int(table.entry_h2.shape[0])
+        out["group_h1"][t_idx, :G] = table.group_h1
+        out["entry_start"][t_idx, :G] = table.entry_start
+        out["entry_count"][t_idx, :G] = table.entry_count
+        out["entry_h2"][t_idx, :E] = table.entry_h2
+        out["entry_slot"][t_idx, :E] = table.entry_slot
+        out["entry_off"][t_idx, :E] = table.entry_off
+        out["entry_len"][t_idx, :E] = table.entry_len
+        out["entry_suf_delta"][t_idx, :E] = table.entry_suf_delta
+        out["entry_suf_h1"][t_idx, :E] = table.entry_suf_h1
+        out["entry_suf_h2"][t_idx, :E] = table.entry_suf_h2
+        out["bloom"][t_idx] = table.bloom
+        out["n_groups"][t_idx] = G
+    return out
+
+
+def layout_leaves(tree, path: tuple = ()):
+    """Every leaf of a layout tree (nested dicts, tuples and lists of
+    arrays; None holds no leaf) as ``(path, leaf)`` in walk order, the
+    path the tuple of keys and indices from the root: the port's
+    ``jax.tree_util.tree_flatten_with_path`` over a layout."""
+    if isinstance(tree, dict):
+        for key, sub in tree.items():
+            yield from layout_leaves(sub, path + (key,))
+    elif isinstance(tree, (tuple, list)):
+        for i, sub in enumerate(tree):
+            yield from layout_leaves(sub, path + (i,))
+    elif tree is not None:
+        yield path, tree
+
+
+def map_layout(fn, tree, path: tuple = ()):
+    """``tree`` with each leaf replaced by ``fn(path, leaf)``, its dicts,
+    tuples and lists rebuilt as they are (the paths of
+    :func:`layout_leaves`)."""
+    if isinstance(tree, dict):
+        return {key: map_layout(fn, sub, path + (key,)) for key, sub in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_layout(fn, sub, path + (i,)) for i, sub in enumerate(tree))
+    return None if tree is None else fn(path, tree)
+
+
+def _adopt_equal_leaves(new_tree, old_tree, stats: dict):
+    """Replace every leaf of ``new_tree`` that is byte-equal to the
+    same-path leaf of ``old_tree`` with the OLD ARRAY OBJECT, so the
+    device update can skip its re-upload by identity. Only paths
+    present in both trees with matching shape/dtype participate;
+    structural changes (bucket counts) simply upload. The walk is
+    :func:`map_layout`'s; the paths, and so the counts, are the
+    reference's."""
+    old_leaves = dict(layout_leaves(old_tree))
+    counts = {"adopted": 0, "total": 0}
+
+    def adopt(path, leaf):
+        counts["total"] += 1
+        old = old_leaves.get(path)
+        if (
+            old is not None
+            and isinstance(old, np.ndarray)
+            and isinstance(leaf, np.ndarray)
+            and old.dtype == leaf.dtype
+            and old.shape == leaf.shape
+            and (old is leaf or np.array_equal(old, leaf))
+        ):
+            counts["adopted"] += 1
+            return old
+        return leaf
+
+    out = map_layout(adopt, new_tree)
+    stats["leaves_reused"] = counts["adopted"]
+    stats["leaves_total"] = counts["total"]
+    return out
+
+
+def build_device_layout_delta(
+    db_new: "CompiledDB", db_old: "CompiledDB", stats: Optional[dict] = None
+):
+    """Delta twin of :func:`build_device_layout`: rebuild only the
+    touched stacked-table rows (``stack_tables_delta``) and adopt
+    every unchanged leaf from the old layout by identity, so a
+    one-template corpus refresh re-uploads a handful of arrays
+    instead of the whole layout. Bit-identical to a from-scratch
+    build; the result is cached on ``db_new`` exactly like
+    :func:`build_device_layout` so every later consumer sees it."""
+    if stats is None:
+        stats = {}
+    cached = getattr(db_new, "_device_layout", None)
+    if cached is not None:
+        return (*cached, stats)
+    old = getattr(db_old, "_device_layout", None)
+    if old is None:
+        old = build_device_layout(db_old)
+    _old_meta, old_arrays = old
+    meta = layout_meta(db_new)
+    arrays = {
+        "tab": stack_tables_delta(
+            db_new.tables, db_old.tables, old_arrays["tab"], stats
+        ),
+        "slot_bytes": db_new.slot_bytes,
+        "slot_len": db_new.slot_len,
+        "tiny_bytes": db_new.tiny_bytes,
+        "tiny_slot": db_new.tiny_slot,
+        "verdict": verdict_arrays_np(db_new),
+        "rx": rx_arrays_np(db_new),
+    }
+    arrays = _adopt_equal_leaves(arrays, old_arrays, stats)
+    db_new._device_layout = (meta, arrays)
+    return meta, arrays, stats
+
+
 def compile_corpus(
     templates: list[Template],
     verify_width: int = VERIFY_WIDTH,
@@ -1902,9 +2104,10 @@ def compile_corpus(
     the exact post-shedding (h1, h2, slot, offset) member list plus
     the member payload bytes — is unchanged is adopted by OBJECT
     IDENTITY instead of re-derived (gram hashing, suffix selection,
-    bloom build all skipped). The port has no stacked-layout delta yet:
-    its :class:`~swarm_tpu_torch.ops.match.DeviceDB` uploads the whole
-    layout. The result is BIT-IDENTICAL to a from-scratch compile by construction
+    bloom build all skipped), which also lets the stacked-layout delta
+    (:func:`build_device_layout_delta`) reuse the old stacked rows and
+    :class:`~swarm_tpu_torch.ops.match.DeviceDB` skip their re-upload. The
+    result is BIT-IDENTICAL to a from-scratch compile by construction
     (the reuse key captures every input of the table build).
     ``delta_stats`` (optional dict) receives the rebuild accounting
     (``tables_total`` / ``tables_reused`` / ``tables_rebuilt``)."""

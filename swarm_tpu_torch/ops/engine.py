@@ -76,8 +76,9 @@ exception degrades, as in the JAX package. The kernels' libraries load
 when the engine is built, outside the breaker: a kernel that does not
 build or load raises there and never degrades a batch.
 
-Not ported (ROADMAP.md): the shared result tier, AOT and corpus
-refresh, and a mesh across several hosts.
+A live engine takes a changed corpus without a rebuild
+(:meth:`MatchEngine.refresh_corpus`). Not ported (ROADMAP.md): the
+shared result tier.
 """
 
 from __future__ import annotations
@@ -100,6 +101,7 @@ from swarm_tpu_torch.native.scanio import ext_resolve, plane_bits, rows_dedup
 from swarm_tpu_torch.ops import cpu_ref, fastre
 from swarm_tpu_torch.ops.encoding import _RotatingPool, encode_batch, round_up
 from swarm_tpu_torch.ops.match import DeviceDB, Device
+from swarm_tpu_torch.parallel import multihost
 from swarm_tpu_torch.parallel.mesh import make_mesh
 from swarm_tpu_torch.parallel.sharded import ShardedMatcher, pad_streams_for_seq
 from swarm_tpu_torch.resilience.breaker import BreakerBoard
@@ -1089,15 +1091,21 @@ class MatchEngine:
 
     # ------------------------------------------------------------------
     def _resolve_backend(self, mesh) -> None:
-        """``"auto"``: a mesh over every local CUDA device when the
-        engine runs on the card and there is more than one, else one
-        device; a Mesh: that mesh. The sharded matcher's kernels load
+        """``"auto"``: in a process group of several processes, the mesh
+        over every process's devices; else a mesh over every local CUDA
+        device when the engine runs on the card and there is more than
+        one, else one device; a Mesh: that mesh. The sharded matcher's kernels load
         here, outside the breaker, as the DeviceDB's do."""
         if isinstance(mesh, str):
             if mesh != "auto":
                 raise ValueError(f"mesh must be 'auto', None or a Mesh, got {mesh!r}")
             mesh = None
-            if self.device.device.type == "cuda" and torch.cuda.device_count() > 1:
+            if multihost.process_count() > 1:
+                # a process group (parallel/multihost.py): the mesh over
+                # every process's devices, this process's the engine's
+                mesh = make_mesh(devices=None if self.device.device.type == "cuda"
+                                 else [self.device.device])
+            elif self.device.device.type == "cuda" and torch.cuda.device_count() > 1:
                 mesh = make_mesh()
         if mesh is not None:
             self.sharded = ShardedMatcher(self.db, mesh)
@@ -2496,3 +2504,53 @@ class MatchEngine:
         self._confirm_cache.clear()
         if self._vmemo is not None:
             self._vmemo.clear()
+
+    def refresh_corpus(self, templates_new, db_new: Optional[CompiledDB] = None) -> dict:
+        """Corpus refresh against a live engine (the reference's
+        ``refresh_corpus``): delta-compile ``templates_new`` against the
+        current CompiledDB (``compile_corpus_delta``: unchanged word
+        tables adopted by identity, only the touched stacked-table rows
+        rebuilt), re-derive the db-indexed lookup tables
+        (:meth:`_bind_db`), upload only the changed layout leaves to the
+        device (``DeviceDB.update_layout``) and to every rank of the mesh
+        (``ShardedMatcher.refresh``, whose new halo the mesh encode then
+        pads to), and drop every content-keyed memo: matcher and op
+        indices renumber and plane widths can change, so a stale entry
+        would be wrong, not slow. ``self.templates`` becomes the new
+        list, so a degraded batch's CPU-oracle redo serves the new
+        corpus.
+
+        Caller contract: quiesce first — no batch may be in flight
+        (dispatched and not collected, or inside the scheduler's
+        in-flight window) across this call.
+
+        ``db_new``: a CompiledDB already compiled for ``templates_new``
+        (e.g. from ``fingerprints/dbcache``); it is delta-layouted
+        against the current db either way. → the delta stats combined
+        (the sharded matcher's under ``"sharded"``).
+
+        Not ported: the shared result tier's corpus epoch
+        (``bind_corpus``) and the monitor's corpus-delta notice
+        (``monitor_notify``), whose layers the port does not have."""
+        from swarm_tpu_torch.fingerprints.compile import (
+            build_device_layout_delta,
+            compile_corpus_delta,
+        )
+
+        stats: dict = {}
+        if db_new is None:
+            db_new, stats = compile_corpus_delta(list(templates_new), self.db)
+        else:
+            build_device_layout_delta(db_new, self.db, stats)
+        self.templates = list(templates_new)
+        self.db = db_new
+        self._bind_db()
+        stats.update(self.device.update_layout(db_new))
+        if self.sharded is not None:
+            stats["sharded"] = self.sharded.refresh(db_new)
+        # stale-corpus state: every content-keyed memo maps content to
+        # verdicts and indices of the OLD corpus — invalid, not just cold
+        self._vmemo = None  # recreated lazily at the new plane width
+        self._ext_cache.clear()
+        self._confirm_cache.clear()
+        return stats

@@ -11,7 +11,8 @@ parallel. Each library's file name carries its key, a digest of what it
 is built from (its sources, ``NVCC_FLAGS``, ``nvcc --version`` and the
 card's compute capability): a library whose keyed file exists is loaded
 without running ``nvcc``, and a change of any of the four builds a new
-one (:func:`library_key`, :func:`library_path`).
+one (:func:`library_key`, :func:`library_path`). Each load and build
+goes to the ``swarm_aot_*`` families (:func:`load_library`).
 
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else, allocates its outputs with ``torch.empty``/``zeros``,
@@ -41,6 +42,7 @@ import numpy as np
 import torch
 
 from swarm_tpu_torch.ops.hashing import BLOOM_WORDS
+from swarm_tpu_torch.telemetry import aot_export
 
 FP_WORDS = 16
 
@@ -181,13 +183,18 @@ def compile_library(sources: tuple[Path, ...], lib_path: Path) -> str:
 
 def build(name: str) -> float:
     """Compile library ``name`` into its keyed path unless that file
-    exists; → seconds spent compiling (0 when it was there)."""
+    exists; → seconds spent compiling (0 when it was there). A build is
+    a ``stored`` publish and a ``compile`` bring-up of the
+    ``swarm_aot_*`` families."""
     lib_path = library_path(name)
     if lib_path.exists():
         return 0.0
     t0 = time.perf_counter()
     build_logs[name] = compile_library(LIBRARIES[name][0], lib_path)
-    return time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
+    aot_export.AOT_BRINGUP_SECONDS.labels(source="compile").observe(seconds)
+    aot_export.AOT_PUBLISHES.labels(outcome="stored").inc()
+    return seconds
 
 
 def ptxas_report(log: str) -> list[dict]:
@@ -218,18 +225,24 @@ def ptxas_report(log: str) -> list[dict]:
 def _short_name(mangled: str) -> str:
     """'_ZN12_GLOBAL__N_121cluster_parent_kernelIjEEv...' → 'cluster_parent_kernel<uint32>',
     '..match_regex_scan_kernelILi3EEv..' → 'match_regex_scan_kernel<3>'. The
-    name is the length-prefixed identifier that ends in ``_kernel``."""
-    for found in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", mangled):
-        n = int(found.group(1))
-        base, rest = found.group(2)[:n], found.group(2)[n:]
-        if len(base) != n or not base.endswith("_kernel"):
-            continue
-        args = re.match(r"I([jy])E|ILi(\d+)E", rest)
-        if args is None:
-            return base
-        key, lanes = args.groups()
-        return f"{base}<{lanes}>" if lanes else f"{base}<{'uint32' if key == 'j' else 'uint64'}>"
-    return mangled
+    name is the innermost length-prefixed identifier that ends in
+    ``_kernel``: the unnamed namespace before it carries nvcc's file
+    hash, whose digits can read as a longer length prefix that also
+    ends there."""
+    found = None
+    for cand in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", mangled):
+        n = int(cand.group(1))
+        base = cand.group(2)[:n]
+        if len(base) == n and base.endswith("_kernel"):
+            found = (base, cand.group(2)[n:])
+    if found is None:
+        return mangled
+    base, rest = found
+    args = re.match(r"I([jy])E|ILi(\d+)E", rest)
+    if args is None:
+        return base
+    key, lanes = args.groups()
+    return f"{base}<{lanes}>" if lanes else f"{base}<{'uint32' if key == 'j' else 'uint64'}>"
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:
@@ -256,12 +269,36 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Build library ``name`` on first use and bind its launchers."""
+    """Load library ``name`` once a process and bind its launchers: its
+    keyed file when it is there (a ``hit``), else built first (a
+    ``miss``). A keyed file that ``ctypes.CDLL`` refuses (a
+    ``deserialize_error``: a truncated or foreign file) is deleted and
+    built once from the sources; if that build does not load either,
+    the error is raised. The outcomes, the seconds of each load of a
+    keyed file and the loaded file's size go to the ``swarm_aot_*``
+    families (``telemetry/aot_export.py``)."""
     with _load_locks[name]:
         lib = _libs.get(name)
         if lib is None:
-            build(name)
-            lib = ctypes.CDLL(str(library_path(name)))
+            lib_path = library_path(name)
+            lib = None
+            if lib_path.exists():
+                t0 = time.perf_counter()
+                try:
+                    lib = ctypes.CDLL(str(lib_path))
+                except OSError:
+                    aot_export.AOT_FETCHES.labels(outcome="deserialize_error").inc()
+                    lib_path.unlink(missing_ok=True)
+                else:
+                    aot_export.AOT_BRINGUP_SECONDS.labels(source="fetch").observe(
+                        time.perf_counter() - t0)
+                    aot_export.AOT_FETCHES.labels(outcome="hit").inc()
+            else:
+                aot_export.AOT_FETCHES.labels(outcome="miss").inc()
+            if lib is None:
+                build(name)
+                lib = ctypes.CDLL(str(lib_path))
+            aot_export.AOT_ARTIFACT_BYTES.set(lib_path.stat().st_size)
             _bind(name, lib)
             _libs[name] = lib
         return lib

@@ -69,6 +69,13 @@ def _clamped(idx: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(idx < 0, idx + n, idx).clamp(0, max(n - 1, 0))
 
 
+def _host_form(leaf) -> np.ndarray:
+    """A layout leaf as its tensor holds it: contiguous, uint32 as the
+    int32 bit pattern."""
+    arr = np.ascontiguousarray(leaf)
+    return arr.view(np.int32) if arr.dtype == np.uint32 else arr
+
+
 def to_device(tree, device: torch.device):
     """numpy layout tree → torch tensors on ``device``: uint32 arrays
     as int32 bit patterns, every other dtype as it is."""
@@ -76,10 +83,74 @@ def to_device(tree, device: torch.device):
         return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return tuple(to_device(v, device) for v in tree)
-    arr = np.ascontiguousarray(tree)
-    if arr.dtype == np.uint32:
-        arr = arr.view(np.int32)
-    return torch.from_numpy(arr.copy()).to(device)
+    return torch.from_numpy(_host_form(tree).copy()).to(device)
+
+
+@dataclasses.dataclass
+class UploadCounts:
+    """What a corpus refresh moved to a device: layout leaves uploaded
+    and kept, and their bytes (``uploaded_bytes`` also counts derived
+    arrays rebuilt from changed leaves, such as the verdict kernel's
+    CSR layout)."""
+
+    uploaded_leaves: int = 0
+    reused_leaves: int = 0
+    uploaded_bytes: int = 0
+    reused_bytes: int = 0
+
+
+def upload_delta(new_np, old_np, old_dev, device: torch.device, counts: UploadCounts,
+                 leaves: bool = True, same=None):
+    """The tensors of layout tree ``new_np`` on ``device``, given the
+    tree ``old_np`` whose tensors ``old_dev`` holds. A leaf that is the
+    old leaf's very array (``compile.build_device_layout_delta`` adopts
+    every unchanged leaf by identity; ``same(old, new)`` widens the
+    test, as for derived arrays compared by their bytes) keeps its
+    tensor, with no copy. A changed leaf of the old tensor's shape and
+    dtype is copied into that tensor, so that its pointer, which the
+    kernels' corpus structs hold, stays valid; any other leaf gets a
+    new tensor. ``counts`` takes each leaf (as a layout leaf when
+    ``leaves``, else only its bytes)."""
+    old_host = dict(fpc.layout_leaves(old_np)) if old_np is not None else {}
+    old_t = dict(fpc.layout_leaves(old_dev)) if old_dev is not None else {}
+
+    def up(path, leaf):
+        old, tensor = old_host.get(path), old_t.get(path)
+        if tensor is not None and old is not None and (
+                old is leaf or (same is not None and same(old, leaf))):
+            if leaves:
+                counts.reused_leaves += 1
+            counts.reused_bytes += tensor.numel() * tensor.element_size()
+            return tensor
+        arr = _host_form(leaf)
+        if leaves:
+            counts.uploaded_leaves += 1
+        counts.uploaded_bytes += arr.nbytes
+        host = torch.from_numpy(arr.copy())
+        if tensor is not None and tuple(tensor.shape) == arr.shape and tensor.dtype == host.dtype:
+            tensor.copy_(host)
+            return tensor
+        return host.to(device)
+
+    return fpc.map_layout(up, new_np)
+
+
+def _bytes_equal(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+
+
+def layout_signature(db: "fpc.CompiledDB", meta, arrays_np, candidate_k: int) -> tuple:
+    """What the match path's launches depend on besides the corpus's
+    bytes: the layout metadata, the statics the dispatch reads off the
+    db, and each layout leaf's path, shape and dtype (the reference's
+    ``DeviceDB._layout_signature``)."""
+    return (
+        repr(meta), candidate_k, db.num_slots, db.num_templates,
+        int(db.op_src.shape[0]), int(db.m_src.shape[0]), int(db.rx_seq_always.sum()),
+        tuple((path, tuple(np.shape(leaf)), str(np.asarray(leaf).dtype))
+              for path, leaf in fpc.layout_leaves(arrays_np)),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -668,17 +739,23 @@ def _apply_workflow_gates(wf: dict, t_value, t_unc, op_value, op_unc, m_value, m
     return cond_v, cond_u, emit_v, emit_p & ~emit_v
 
 
-def verdict_arrays(db: "fpc.CompiledDB", device: torch.device) -> dict:
-    """The verdict half of the layout on ``device``, plus the matcher
-    ids of each check kind eval_verdicts computes per kind."""
-    arrays = to_device(fpc.verdict_arrays_np(db), device)
-    kind = db.m_kind
-    arrays["kind_ids"] = to_device({
-        "scalar": np.flatnonzero(kind == fpc.MK_SCALAR_DSL),
-        "status": np.flatnonzero(kind == fpc.MK_STATUS),
-        "size": np.flatnonzero(kind == fpc.MK_SIZE),
-        "md5": np.flatnonzero(db.m_md5_check),
-    }, device)
+def kind_ids_np(va: dict) -> dict:
+    """The matcher ids of each check kind eval_verdicts computes per
+    kind, from the verdict half of the layout."""
+    return {
+        "scalar": np.flatnonzero(va["is_scalar"]),
+        "status": np.flatnonzero(va["is_status"]),
+        "size": np.flatnonzero(va["is_size"]),
+        "md5": np.flatnonzero(va["m_md5_check"]),
+    }
+
+
+def verdict_arrays(db: "fpc.CompiledDB", device: torch.device, va: Optional[dict] = None) -> dict:
+    """The verdict half of the layout (``va``, else the db's) on
+    ``device``, plus the matcher ids of each check kind (``kind_ids``)."""
+    va = fpc.verdict_arrays_np(db) if va is None else va
+    arrays = to_device(va, device)
+    arrays["kind_ids"] = to_device(kind_ids_np(va), device)
     return arrays
 
 
@@ -722,7 +799,7 @@ def _csr(buckets, owners: int) -> tuple:
     return off.astype(np.int32), members
 
 
-def verdict_layout_np(db: "fpc.CompiledDB") -> dict:
+def verdict_layout_np(db: "fpc.CompiledDB", va: Optional[dict] = None) -> dict:
     """The corpus half of kernel ``match_verdicts``, from the same
     ``verdict_arrays_np`` its plain version reads: each bucket list as
     CSR (``m_slot``, ``m_neg``, ``op_m``, ``t_op`` ``_off`` / ``_idx``),
@@ -732,8 +809,9 @@ def verdict_layout_np(db: "fpc.CompiledDB") -> dict:
     plain version clamps them) to an index of :data:`CHECK_SOURCES`
     (``scalar_src``, ``m_size_src``), and ``m_rx``, each matcher's
     column of the device-regex overlay or -1; and ``chunks``, the
-    kernel's grid of template chunks (:func:`verdict_chunks`)."""
-    va = fpc.verdict_arrays_np(db)
+    kernel's grid of template chunks (:func:`verdict_chunks`). ``va``:
+    the db's ``verdict_arrays_np``, when the caller has it."""
+    va = fpc.verdict_arrays_np(db) if va is None else va
     nm = int(db.m_kind.shape[0])
     nop = int(db.op_cond_and.shape[0])
     nt = max(db.num_templates, 1)
@@ -870,14 +948,25 @@ class VerdictLayout:
     corpus: ``csr``, the layout kernel ``match_verdicts`` reads
     (:func:`verdict_layout_np`, int32 tensors, float32 ``scalar_cmp``,
     ``m_md5`` as int32 bits), and ``arrays``, the bucketed arrays of its
-    plain version and of the workflow gates (:func:`verdict_arrays`)."""
+    plain version and of the workflow gates (:func:`verdict_arrays`),
+    from ``va``, the verdict half of the db's layout (its own, when not
+    given). ``struct`` is the kernel's struct of the csr tensors'
+    pointers; :meth:`refreshed` keeps it across a corpus refresh that
+    leaves those tensors in place."""
 
-    def __init__(self, db: "fpc.CompiledDB", device: torch.device):
-        self.db = db
-        self.csr = to_device(verdict_layout_np(db), device)
+    def __init__(self, db: "fpc.CompiledDB", device: torch.device, va: Optional[dict] = None):
+        va = fpc.verdict_arrays_np(db) if va is None else va
+        csr_np = verdict_layout_np(db, va)
+        csr = to_device(csr_np, device)
         # the tensors' own device ("cuda:0" for "cuda"), as the planes carry it
-        self.device = self.csr["m_flags"].device
-        self.arrays = verdict_arrays(db, self.device)
+        arrays = verdict_arrays(db, csr["m_flags"].device, va)
+        self._set(db, va, csr_np, csr, arrays)
+        # the kernel's struct of the csr tensors' pointers, made once
+        self.struct = kernels.verdict_struct(self)
+
+    def _set(self, db, va: dict, csr_np: dict, csr: dict, arrays: dict) -> None:
+        self.db, self.va, self.csr_np, self.csr, self.arrays = db, va, csr_np, csr, arrays
+        self.device = csr["m_flags"].device
         self.nm = int(db.m_kind.shape[0])
         self.nop = int(db.op_cond_and.shape[0])
         self.nt = max(db.num_templates, 1)
@@ -885,9 +974,38 @@ class VerdictLayout:
         # m_value leaves the lowering only for the workflow gates
         self.has_gates = self.arrays.get("wf") is not None
         self.n_chunks = int(self.csr["chunks"].shape[0])
-        self.chunk_smem = chunk_smem(self.csr["chunks"].cpu().numpy())
-        # the kernel's struct of the csr tensors' pointers, made once
-        self.struct = kernels.verdict_struct(self)
+        self.chunk_smem = chunk_smem(csr_np["chunks"])
+
+    def refreshed(self, db: "fpc.CompiledDB", va: dict, counts: UploadCounts) -> "VerdictLayout":
+        """This layout for a refreshed corpus ``db`` whose verdict half
+        is ``va`` (:func:`upload_delta` against this layout's own
+        ``va``): this very object, its ``struct`` updated where a count
+        moved, when every csr tensor stayed where it was (unchanged, or
+        rewritten in place); else a new layout over the kept and the
+        new tensors, with a new struct. The caller has quiesced the
+        device: nothing in flight reads the old bytes."""
+        before = counts.uploaded_leaves
+        arrays = upload_delta(va, self.va, {k: self.arrays[k] for k in va if k in self.arrays},
+                              self.device, counts)
+        if counts.uploaded_leaves == before and max(db.num_templates, 1) == self.nt:
+            # no leaf changed: neither did the csr layout derived from them
+            arrays["kind_ids"] = self.arrays["kind_ids"]
+            self._set(db, va, self.csr_np, self.csr, arrays)
+            return self
+        arrays["kind_ids"] = upload_delta(kind_ids_np(va), kind_ids_np(self.va),
+                                          self.arrays["kind_ids"], self.device, counts,
+                                          leaves=False, same=_bytes_equal)
+        csr_np = verdict_layout_np(db, va)
+        csr = upload_delta(csr_np, self.csr_np, self.csr, self.device, counts, leaves=False,
+                           same=_bytes_equal)
+        if all(csr[k] is self.csr[k] for k in csr):
+            self._set(db, va, csr_np, csr, arrays)
+            self.struct.n_rx, self.struct.chunk_smem = self.n_rx, self.chunk_smem
+            return self
+        out = VerdictLayout.__new__(VerdictLayout)
+        out._set(db, va, csr_np, csr, arrays)
+        out.struct = kernels.verdict_struct(out)
+        return out
 
 
 def verdicts_plain(
@@ -945,7 +1063,8 @@ class DeviceDB:
         self.device = resolve_device(device)
         self.last_compact: dict = {}
         self._meta = None
-        self._arrays = None
+        self._arrays = None  # the layout's tensors on the device
+        self._arrays_np = None  # the numpy layout they were uploaded from
 
     def load_kernels(self) -> None:
         """Build (at first use) and load the libraries of the match
@@ -961,13 +1080,65 @@ class DeviceDB:
             meta, arrays_np = fpc.build_device_layout(self.db)
             arrays = to_device({k: v for k, v in arrays_np.items() if k != "verdict"},
                                self.device)
-            arrays["verdict"] = VerdictLayout(self.db, self.device)
+            arrays["verdict"] = VerdictLayout(self.db, self.device, arrays_np["verdict"])
             # the verify's corpus half and its kernel struct, made once
             arrays["verify"] = kernels.VerifyCorpus(arrays["tab"], meta.max_group,
                                                     arrays["slot_bytes"], arrays["slot_len"])
             arrays["word_tab"] = to_device(_word_table(), self.device)
-            self._meta, self._arrays = meta, arrays
+            self._meta, self._arrays, self._arrays_np = meta, arrays, arrays_np
         return self._meta, self._arrays
+
+    def update_layout(self, db_new) -> dict:
+        """Swap in a refreshed CompiledDB (``compile.compile_corpus_delta``),
+        uploading only the layout leaves that changed: a leaf the delta
+        adopted by identity keeps its tensor, with no host-to-device
+        copy, and a changed leaf of the same shape and dtype is copied
+        into its old tensor (:func:`upload_delta`).
+
+        The kernels' corpus structs hold raw device pointers: the
+        verify's :class:`~swarm_tpu_torch.ops.kernels.VerifyCorpus` and
+        the verdict kernel's :class:`VerdictLayout`. Each is kept, the
+        very object, when every tensor it points at stayed where it was,
+        and rebuilt otherwise. ``executables_kept`` is the port's
+        reading of the reference's flag: True when the layout signature
+        (:func:`layout_signature`: ``layout_meta``, the dispatch's
+        statics and each leaf's path, shape and dtype) is unchanged, and
+        it then means that both structs were kept; False also in the one
+        case where an unchanged signature still moves a struct (the
+        verdict kernel's chunk count, a function of the corpus's bytes).
+        → ``{"uploaded_leaves", "reused_leaves", "executables_kept"}``
+        plus ``uploaded_bytes`` / ``reused_bytes`` (:class:`UploadCounts`).
+
+        Caller contract (the reference's): quiesce first, no dispatch in
+        flight. On the card the device is also synchronized before any
+        tensor is rewritten, so that no queued launch reads the old
+        bytes; a replaced tensor is freed only when the last reference
+        to it goes. ``MatchEngine.refresh_corpus`` is the entry point."""
+        meta_old, old = self._ensure_layout()
+        old_np, db_old = self._arrays_np, self.db
+        meta_new, new_np = fpc.build_device_layout(db_new)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        same_sig = layout_signature(db_old, meta_old, old_np, self.candidate_k) == (
+            layout_signature(db_new, meta_new, new_np, self.candidate_k))
+        counts = UploadCounts()
+        plain = {k: v for k, v in new_np.items() if k != "verdict"}
+        arrays = upload_delta(plain, {k: old_np[k] for k in plain if k in old_np},
+                              {k: old[k] for k in plain if k in old}, self.device, counts)
+        layout = old["verdict"].refreshed(db_new, new_np["verdict"], counts)
+        verify = old["verify"]
+        if meta_new.max_group != verify.max_group or any(
+                arrays["tab"][k] is not verify[k] for k in arrays["tab"]) or (
+                arrays["slot_bytes"] is not verify.slot_bytes
+                or arrays["slot_len"] is not verify.slot_len):
+            verify = kernels.VerifyCorpus(arrays["tab"], meta_new.max_group,
+                                          arrays["slot_bytes"], arrays["slot_len"])
+        arrays.update(verdict=layout, verify=verify, word_tab=old["word_tab"])
+        kept = same_sig and layout is old["verdict"] and verify is old["verify"]
+        self.db, self._meta, self._arrays, self._arrays_np = db_new, meta_new, arrays, new_np
+        return {"uploaded_leaves": counts.uploaded_leaves,
+                "reused_leaves": counts.reused_leaves, "executables_kept": kept,
+                "uploaded_bytes": counts.uploaded_bytes, "reused_bytes": counts.reused_bytes}
 
     def _budget(self) -> int:
         meta, _ = self._ensure_layout()

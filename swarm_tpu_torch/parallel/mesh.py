@@ -19,9 +19,11 @@ every rank of a grid over ``["cpu"] * 8`` or ``["cuda:0"] * 8`` runs on
 that one device, which is how a grid is tested on the CPU and on a
 single card; with distinct GPUs the placement is the reference's.
 
-One process drives every rank (the reference's one controller for every
-local chip): the sharded matcher launches each rank's kernels on its
-rank's device and that device's current stream.
+One process drives every rank of its own (the reference's one controller
+for every local chip): the sharded matcher launches each rank's kernels
+on its rank's device and that device's current stream. In a process
+group (``parallel/multihost.py``) the grid spans every process's
+devices, and ``Mesh.process`` says which process drives each rank.
 """
 
 from __future__ import annotations
@@ -125,18 +127,27 @@ def detect_slice_shape(devices: Sequence) -> Optional[tuple[int, ...]]:
 
 class Mesh:
     """A grid of torch devices: ``devices`` an object array of
-    ``torch.device`` shaped by the axes, ``axis_names`` the axes, and
-    ``shape`` each axis's size by name (as a JAX ``Mesh`` gives them)."""
+    ``torch.device`` shaped by the axes, ``process`` the rank of the
+    process that drives each entry (all 0 in one process), ``axis_names``
+    the axes, and ``shape`` each axis's size by name (as a JAX ``Mesh``
+    gives them)."""
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str] = AXES):
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str] = AXES,
+                 process: Optional[np.ndarray] = None):
         if devices.ndim != len(axis_names):
             raise ValueError(f"a {devices.ndim}-d grid for axes {tuple(axis_names)}")
+        if process is None:
+            process = np.zeros(devices.shape, dtype=np.int64)
+        if process.shape != devices.shape:
+            raise ValueError("process must have the grid's shape")
         self.devices = devices
+        self.process = process
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, devices.shape))
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, {sorted({str(d) for d in self.devices.flat})})"
+        procs = sorted({int(p) for p in self.process.flat})
+        return f"Mesh({self.shape}, {sorted({str(d) for d in self.devices.flat})}, process {procs})"
 
 
 def _grid(devices: Sequence) -> np.ndarray:
@@ -144,22 +155,6 @@ def _grid(devices: Sequence) -> np.ndarray:
     for i, d in enumerate(devices):
         arr[i] = torch.device(d)
     return arr
-
-
-#: the reference's multi-host bring-up (``swarm_tpu/parallel/multihost.py``)
-MULTIHOST_ENV = ("SWARM_COORDINATOR", "SWARM_NUM_PROCESSES", "SWARM_PROCESS_ID")
-
-
-def check_single_host(env=None) -> None:
-    """Raise when any of :data:`MULTIHOST_ENV` is set: a mesh across
-    hosts is not ported, and a worker that ran alone would leave the
-    other hosts waiting at the coordinator's barrier."""
-    env = os.environ if env is None else env
-    given = {k: env[k] for k in MULTIHOST_ENV if env.get(k)}
-    if given:
-        raise RuntimeError(
-            f"multi-host workers are not ported ({given}); unset "
-            f"{', '.join(MULTIHOST_ENV)} to run this host alone")
 
 
 def local_devices() -> list:
@@ -175,21 +170,34 @@ def make_mesh(
     devices: Optional[Sequence] = None,
 ) -> Mesh:
     """The (data, model, seq) mesh over ``devices`` (default: every
-    local CUDA device). Without ``shape``, a slice shape lays the grid
-    out by :func:`slice_layout`, else :func:`factor_devices` splits the
-    device count; with one, its first data × model × seq devices fill
-    the grid in order."""
+    local CUDA device). In a process group of several processes
+    (``parallel/multihost.py``), ``devices`` are this process's own, and
+    the mesh spans every process's, in process order, as
+    ``jax.devices()`` orders them: each process's list is gathered
+    (``all_gather_object``; every process calls ``make_mesh`` alike) and
+    ``Mesh.process`` says which process drives each entry. Without
+    ``shape``, a slice shape lays the grid out by :func:`slice_layout`,
+    else :func:`factor_devices` splits the device count; with one, its
+    first data × model × seq devices fill the grid in order."""
+    from swarm_tpu_torch.parallel import multihost
+
     devices = list(devices) if devices is not None else local_devices()
+    per_process = multihost.gather_objects([str(torch.device(d)) for d in devices])
+    devices = [d for names in per_process for d in names]
+    procs = np.array([p for p, names in enumerate(per_process) for _ in names], dtype=np.int64)
     if shape is None:
         phys = detect_slice_shape(devices)
         if phys is not None:
             mesh_shape, perm = slice_layout(phys)
-            grid = _grid(devices).reshape(phys)
-            arr = np.ascontiguousarray(grid.transpose(perm)).reshape(mesh_shape)
-            return Mesh(arr, AXES)
+
+            def lay(grid):
+                return np.ascontiguousarray(grid.reshape(phys).transpose(perm)).reshape(mesh_shape)
+
+            return Mesh(lay(_grid(devices)), AXES, lay(procs))
         shape = factor_devices(len(devices))
     data, model, seq = shape
     count = data * model * seq
     if count > len(devices):
         raise ValueError(f"mesh {shape} needs {count} devices, have {len(devices)}")
-    return Mesh(_grid(devices[:count]).reshape(data, model, seq), AXES)
+    return Mesh(_grid(devices[:count]).reshape(data, model, seq), AXES,
+                procs[:count].reshape(data, model, seq))

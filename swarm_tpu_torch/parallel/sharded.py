@@ -1,8 +1,9 @@
 """The sharded match: data × model × seq over a :class:`~swarm_tpu_torch.parallel.mesh.Mesh`.
 
-The port of ``swarm_tpu/parallel/sharded.py``'s single-controller
-serving path. One process drives every rank of the grid, each rank's
-kernels launched on its device's current stream:
+The port of ``swarm_tpu/parallel/sharded.py``'s serving path. One
+process drives every rank of the grid (or, across processes, every rank
+of its own), each rank's kernels launched on its device's current
+stream:
 
 - **data**: the batch's rows in contiguous blocks, one a data rank; no
   traffic between data ranks until their planes are gathered;
@@ -46,9 +47,26 @@ otherwise :meth:`ShardedMatcher.collect` launches it.
 of ``DeviceDB``'s, so the engine and the scheduler drive a mesh as they
 drive one device.
 
+:meth:`ShardedMatcher.refresh` takes a refreshed corpus, uploading only
+the leaves whose bytes changed.
+
+**Across processes** (a mesh of ``parallel/multihost.py``'s process
+group, ``multiprocess``): every process passes the same host batch, as
+the reference's global arrays are built from each process's full copy,
+and each stages, probes and verifies only the ranks it drives
+(``Mesh.process``). The survivor maximum is one 4-byte
+``all_reduce(MAX)`` (the reference's pmax); the combine of a data rank
+whose model or seq ranks span processes is one all-reduce of its planes
+over that data rank's group; a seq halo whose neighbour another process
+drives is read from the host batch; each data rank's fused buffer is
+broadcast from the process that ran its tail, so every process returns
+the whole result. The overlap is off, and every process issues its
+collectives in the same order. Each byte handed to a cross-process
+collective is counted in ``swarm_shard_psum_bytes_total``
+(``cross_process_bytes`` by kind).
+
 Not ported: the fused single-kernel twin (the port's ``DeviceDB`` has
-only the split path), buffer donation, the AOT executable cache, the
-corpus refresh (ROADMAP A.6) and the multi-process mesh (A.5b).
+only the split path), buffer donation and the AOT executable cache.
 """
 
 from __future__ import annotations
@@ -66,18 +84,24 @@ from swarm_tpu_torch.fingerprints import compile as fpc
 from swarm_tpu_torch.ops import hashing, kernels
 from swarm_tpu_torch.ops.encoding import round_up
 from swarm_tpu_torch.ops.match import (
+    UploadCounts,
     VerdictLayout,
+    _bytes_equal,
     _word_table,
     col_starts_of,
     ensure_all_stream,
     full_planes,
     fuse_planes,
+    fused_plane_widths,
     global_candidate_budget,
+    layout_signature,
     split_fused,
     table_views,
     tiny_slot_bits,
     to_device,
+    upload_delta,
 )
+from swarm_tpu_torch.parallel import multihost
 from swarm_tpu_torch.resilience.faults import fault_point
 from swarm_tpu_torch.telemetry import shard_export
 
@@ -288,48 +312,156 @@ class ShardedMatcher:
 
     Each model rank's slice of the stacked tables and blooms is uploaded
     once to each of its devices; the replicated slot, verdict and regex
-    arrays once to each device of the mesh. ``last_compact`` is the
-    ``compact`` dict of the batch collected last."""
+    arrays once to each device of the mesh. On a mesh across processes
+    (``multiprocess``) this process uploads to and runs only the ranks
+    it drives (``Mesh.process``). ``last_compact`` is the ``compact``
+    dict of the batch collected last; ``cross_process_bytes`` the bytes
+    this process has handed to cross-process collectives, by kind."""
 
     def __init__(self, db: "fpc.CompiledDB", mesh, candidate_k: int = 128,
                  overlap: Optional[bool] = None):
-        self.db = db
         self.mesh = mesh
         self.candidate_k = candidate_k
         if overlap is None:
             overlap = os.environ.get("SWARM_SHARD_OVERLAP", "").strip().lower() not in (
                 "0", "off", "false", "no")
-        self.overlap = bool(overlap)
         self.ranks = {name: int(mesh.shape[name]) for name in mesh.axis_names}
-        self.halo = max_entry_len(db) if self.ranks["seq"] > 1 else 0
-        self.meta, arrays_np = fpc.build_device_layout(db)
-        self.budget = global_candidate_budget(candidate_k, len(self.meta.table_stream))
+        #: this process, and whether the mesh spans others
+        self.process = multihost.process_index()
+        procs = getattr(mesh, "process", np.zeros(mesh.devices.shape, dtype=np.int64))
+        self.multiprocess = bool((procs != self.process).any())
+        # the deferred combine's launch order is host-controlled; on a
+        # mesh across processes every process must issue its
+        # collectives in the same order, so the overlap stays
+        # single-process only
+        self.overlap = bool(overlap) and not self.multiprocess
+        #: the grid entries (d, m, s) this process drives → their device
+        self._mine = {idx: dev for idx, dev in np.ndenumerate(mesh.devices)
+                      if int(procs[idx]) == self.process}
+        #: the process driving each data rank's combine and tail: its
+        #: (d, 0, 0) entry's
+        self._owner = [int(procs[d, 0, 0]) for d in range(self.ranks["data"])]
+        self.cross_process_bytes = {"survivor": 0, "combine": 0, "gather": 0}
+        self._groups: dict = {}
+        if self.multiprocess:
+            # one group a data rank whose model and seq ranks span
+            # processes, made by every process in data-rank order
+            for d in range(self.ranks["data"]):
+                members = sorted({int(p) for p in procs[d].flat})
+                if len(members) > 1:
+                    group = multihost.new_group(members)
+                    if self.process in members:
+                        self._groups[d] = group
         self.last_compact: dict = {}
         self._lock = threading.Lock()
         #: the one un-launched deferred combine (depth 1: each dispatch
         #: launches its predecessor's before parking its own)
         self._pending: Optional[_PendingShard] = None  # guarded-by: _lock
-        #: the distinct devices of the grid, in first-appearance order
-        self.devices = list(dict.fromkeys(mesh.devices.flat))
+        #: the distinct devices of this process's ranks, in first-appearance order
+        self.devices = list(dict.fromkeys(self._mine.values()))
         self._rep: dict = {}
-        for dev in self.devices:
-            rep = to_device({"slot_bytes": db.slot_bytes, "slot_len": db.slot_len,
-                             "rx": arrays_np["rx"]}, dev)
-            rep["verdict"] = VerdictLayout(db, dev)
-            rep["word_tab"] = to_device(_word_table(), dev)
-            self._rep[dev] = rep
-        tab_np = shard_stacked_np(db, self.ranks["model"])
         self._tab: dict = {}
-        for (_d, m, _s), dev in np.ndenumerate(mesh.devices):
-            if (dev, m) in self._tab or not len(self.meta.table_stream):
-                continue
-            tab = to_device({k: v[m] for k, v in tab_np.items()}, dev)
-            rep = self._rep[dev]
-            tab["verify"] = kernels.VerifyCorpus(tab, self.meta.max_group, rep["slot_bytes"],
-                                                 rep["slot_len"])
-            self._tab[dev, m] = tab
+        self._rep_np = self._tab_np = self._va = None
+        self._signature = None
+        self._load_corpus(db)
         for ax, size in self.ranks.items():
             shard_export.MESH_AXIS.labels(axis=ax).set(size)
+
+    def _load_corpus(self, db: "fpc.CompiledDB") -> dict:
+        """Put ``db``'s layout on this process's ranks, keeping what is
+        there: the replicated arrays on each device, each model rank's
+        slice of the stacked tables on each of its devices. A leaf whose
+        bytes are the old one's keeps its tensor, a changed leaf of the
+        old shape is copied into it (``match.upload_delta``), and each
+        ``VerifyCorpus`` and ``VerdictLayout`` is kept while every
+        tensor it points at stays where it was. → the refresh stats
+        (``refresh``'s)."""
+        meta, arrays_np = fpc.build_device_layout(db)
+        tab_np = shard_stacked_np(db, self.ranks["model"])
+        rep_np = {"slot_bytes": arrays_np["slot_bytes"], "slot_len": arrays_np["slot_len"],
+                  "rx": arrays_np["rx"]}
+        va = arrays_np["verdict"]
+        halo = max_entry_len(db) if self.ranks["seq"] > 1 else 0
+        signature = (tuple(sorted(self.ranks.items())), halo,
+                     layout_signature(db, meta, arrays_np, self.candidate_k),
+                     tuple((k, v.shape, str(v.dtype)) for k, v in tab_np.items()))
+        counts = UploadCounts()
+        kept = True
+        old_rep_np, old_tab_np = self._rep_np, self._tab_np
+        rep_all: dict = {}
+        for dev in self.devices:
+            old = self._rep.get(dev)
+            rep = upload_delta(rep_np, old_rep_np, old and {k: old[k] for k in rep_np}, dev,
+                               counts, leaves=False, same=_bytes_equal)
+            if old is None:
+                rep["verdict"] = VerdictLayout(db, dev, va)
+                rep["word_tab"] = to_device(_word_table(), dev)
+            else:
+                rep["verdict"] = old["verdict"].refreshed(db, va, counts)
+                rep["word_tab"] = old["word_tab"]
+                kept = kept and rep["verdict"] is old["verdict"]
+            rep_all[dev] = rep
+        tab_all: dict = {}
+        if len(meta.table_stream):
+            for (_d, m, _s), dev in self._mine.items():
+                if (dev, m) in tab_all:
+                    continue
+                old = self._tab.get((dev, m))
+                new_t = {k: v[m] for k, v in tab_np.items()}
+                old_t = {k: v[m] for k, v in old_tab_np.items()} if old is not None else None
+                tab = upload_delta(new_t, old_t, old and {k: old[k] for k in new_t}, dev,
+                                   counts, leaves=False, same=_bytes_equal)
+                rep = rep_all[dev]
+                verify = old["verify"] if old is not None else None
+                if verify is None or verify.max_group != meta.max_group or any(
+                        tab[k] is not verify[k] for k in tab) or (
+                        rep["slot_bytes"] is not verify.slot_bytes
+                        or rep["slot_len"] is not verify.slot_len):
+                    verify = kernels.VerifyCorpus(tab, meta.max_group, rep["slot_bytes"],
+                                                  rep["slot_len"])
+                    kept = kept and old is None  # a first load keeps nothing to lose
+                tab["verify"] = verify
+                tab_all[dev, m] = tab
+        # the leaves of the host trees, counted once (the reference's
+        # count): changed ones went to every device that holds them
+        new_leaves = dict(fpc.layout_leaves({"tab": tab_np, "rep": {**rep_np, "verdict": va}}))
+        old_leaves = dict(fpc.layout_leaves({"tab": old_tab_np, "rep": {
+            **(old_rep_np or {}), "verdict": self._va}})) if old_rep_np is not None else {}
+        same = sum(1 for path, leaf in new_leaves.items() if path in old_leaves and (
+            old_leaves[path] is leaf or _bytes_equal(old_leaves[path], leaf)))
+        stats = {"uploaded_leaves": len(new_leaves) - same, "reused_leaves": same,
+                 "executables_kept": kept and signature == self._signature,
+                 "uploaded_bytes": counts.uploaded_bytes, "reused_bytes": counts.reused_bytes}
+        self.db, self.meta, self.halo = db, meta, halo
+        self.budget = global_candidate_budget(self.candidate_k, len(meta.table_stream))
+        self._rep, self._tab = rep_all, tab_all
+        self._rep_np, self._tab_np, self._va = rep_np, tab_np, va
+        self._signature = signature
+        return stats
+
+    def refresh(self, db_new: "fpc.CompiledDB") -> dict:
+        """Corpus refresh on the mesh (the reference's ``refresh``):
+        recompute the per-rank stacked and the replicated host trees and
+        upload only the leaves whose bytes changed (:meth:`_load_corpus`);
+        the new ``halo`` (``max_entry_len``) is what the engine's mesh
+        encode pads the streams to from then on. A combine still parked
+        captured the old corpus: it is launched first, and on the card
+        the grid's devices are synchronized before any tensor is
+        rewritten. → ``{"uploaded_leaves", "reused_leaves",
+        "executables_kept", "uploaded_bytes", "reused_bytes"}``: leaves
+        of the host trees (a changed leaf is uploaded to each device
+        that holds it), bytes over every device, ``executables_kept``
+        True when the signature (mesh, halo, layout, the per-rank stack's
+        shapes) is unchanged and every rank's corpus structs were kept.
+        On a mesh across processes each process refreshes its own ranks
+        and issues no collective. Caller quiesces dispatches first."""
+        stale = self._take_pending()
+        if stale is not None:
+            stale.launch("refresh")
+        for dev in self.devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        return self._load_corpus(db_new)
 
     def load_kernels(self) -> None:
         """Build (at first use) and load the match kernels' libraries
@@ -373,10 +505,11 @@ class ShardedMatcher:
                 )
 
     def _stage(self, streams: dict, lengths: dict, status) -> tuple:
-        """Upload each (data, seq) block to the devices of its ranks →
-        (local, lens, stat): ``local[d, s, dev]`` the block's slice of
-        every stream, ``lens[d, dev]`` and ``stat[d]`` (on the data
-        rank's first device) its rows' lengths and statuses. On a grid
+        """Upload each (data, seq) block to the devices of this process's
+        ranks → (local, lens, stat): ``local[d, s, dev]`` the block's
+        slice of every stream, ``lens[d, dev]`` and ``stat[d]`` (on the
+        data rank's first device, where this process drives it) its
+        rows' lengths and statuses. On a grid
         without seq ranks the "all" stream is synthesized on the device
         when the batch carries its placeholder, as ``DeviceDB`` does."""
         grid = self.mesh.devices
@@ -385,7 +518,7 @@ class ShardedMatcher:
         local: dict = {}
         lens: dict = {}
         stat: dict = {}
-        for (d, _m, s), dev in np.ndenumerate(grid):
+        for (d, _m, s), dev in self._mine.items():
             rows = slice(d * per, (d + 1) * per)
             if (d, dev) not in lens:
                 lens[d, dev] = {k: torch.from_numpy(np.ascontiguousarray(
@@ -398,19 +531,24 @@ class ShardedMatcher:
                         arr[rows, s * w:(s + 1) * w])).to(dev)
                 local[d, s, dev] = ensure_all_stream(blk, lens[d, dev]) if S == 1 else blk
         for d in range(D):
-            stat[d] = torch.from_numpy(np.ascontiguousarray(
-                status[d * per:(d + 1) * per], dtype=np.int32)).to(grid[d, 0, 0])
+            if (d, 0, 0) in self._mine:
+                stat[d] = torch.from_numpy(np.ascontiguousarray(
+                    status[d * per:(d + 1) * per], dtype=np.int32)).to(grid[d, 0, 0])
         return local, lens, stat
 
-    def _exchange_halos(self, local: dict) -> dict:
+    def _exchange_halos(self, local: dict, streams: dict) -> dict:
         """Each (data, seq, device) block's halo-extended views: ``halo``
         bytes of the previous seq rank's slice before it and of the
         next one's after it (zeros at the row's two ends), copied from
-        the neighbours' own devices. Without seq ranks, the blocks."""
+        the neighbours' own devices. A neighbour that another process
+        drives gives its edge from the host batch, which every process
+        holds whole: the same bytes, with no cross-process traffic and
+        no ordering between processes. Without seq ranks, the blocks."""
         S, h = self.ranks["seq"], self.halo
         if S <= 1:
             return dict(local)
         grid = self.mesh.devices
+        per = int(next(iter(streams.values())).shape[0]) // self.ranks["data"]
         ext: dict = {}
         for (d, s, dev), blk in local.items():
             views = {}
@@ -419,9 +557,16 @@ class ShardedMatcher:
                 for nb, cut in ((s - 1, slice(-h, None)), (s + 1, slice(0, h))):
                     if 0 <= nb < S:
                         # the neighbour's block: its copy on this device
-                        # if it has one, else the one on its own device
-                        src = local.get((d, nb, dev)) or local[d, nb, grid[d, 0, nb]]
-                        parts.append(src[name][:, cut].to(dev))
+                        # if it has one, else the one on its own device,
+                        # else (another process's) the host batch's
+                        src = local.get((d, nb, dev)) or local.get((d, nb, grid[d, 0, nb]))
+                        if src is not None:
+                            parts.append(src[name][:, cut].to(dev))
+                        else:
+                            w = mine.shape[1]
+                            blk_np = streams[name][d * per:(d + 1) * per, nb * w:(nb + 1) * w]
+                            parts.append(torch.from_numpy(np.ascontiguousarray(
+                                blk_np[:, cut])).to(dev))
                     else:
                         parts.append(torch.zeros((mine.shape[0], h), dtype=mine.dtype,
                                                  device=dev))
@@ -465,7 +610,7 @@ class ShardedMatcher:
         t0 = time.perf_counter()
         with record_function("match.upload"):
             local, lens, stat = self._stage(streams, lengths, status)
-            ext = self._exchange_halos(local)
+            ext = self._exchange_halos(local, streams)
         t1 = time.perf_counter()
         lc = {"budget": budget, "upload_s": t1 - t0}
         # each (data, seq, device) block's tables, its offsets a stream
@@ -481,7 +626,7 @@ class ShardedMatcher:
             blocks[d, s, dev] = (tabs, offs)
         ranks = {}
         with record_function("match.phase_a"):
-            for (d, m, s), dev in np.ndenumerate(self.mesh.devices):
+            for (d, m, s), dev in self._mine.items():
                 tabs, _offs = blocks[d, s, dev]
                 if tabs is None:
                     continue
@@ -501,11 +646,15 @@ class ShardedMatcher:
         # maximum (R × 4 bytes), maxed on the host to size phase B
         with record_function("match.scalar_read"):
             n_live = max((int(r[2]) for r in ranks.values()), default=0)
+            if self.multiprocess and T:
+                # the reference's pmax across processes: 4 bytes
+                n_live = int(self._all_reduce_max(torch.tensor([n_live], dtype=torch.int32),
+                                                  None, "survivor")[0])
         t3 = time.perf_counter()
         kc = fpc.survivor_bucket(n_live, budget)
         planes = {}
         with record_function("match.verify"):
-            for (d, m, s), dev in np.ndenumerate(self.mesh.devices):
+            for (d, m, s), dev in self._mine.items():
                 tabs, offs = blocks[d, s, dev]
                 if tabs is not None:
                     col, overflow, _n = ranks[d, m, s]
@@ -529,8 +678,13 @@ class ShardedMatcher:
                   phase_b_s=time.perf_counter() - t3)
         self._dispatch_metrics(streams)
         body_len = lengths.get("body")
-        handle = _PendingShard(
-            self, lambda: self._combine(planes, local, lens, stat, body_len), lc)
+        if self.multiprocess:
+            def combine():
+                return self._combine_multiprocess(planes, local, lens, stat, body_len, streams)
+        else:
+            def combine():
+                return self._combine(planes, local, lens, stat, body_len)
+        handle = _PendingShard(self, combine, lc)
         if self.overlap:
             with self._lock:
                 self._pending = handle
@@ -594,6 +748,110 @@ class ShardedMatcher:
                 done.record(torch.cuda.current_stream(out.device))
                 events.append(done)
         return host, events
+
+    # ------------------------------------------------------------------
+    # across processes
+
+    def _collective(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` where the collectives' backend takes it: host memory
+        for gloo (a card two processes share is staged through it), a
+        card of this process for NCCL."""
+        if multihost.collective_backend() == "nccl":
+            return (t if t.is_cuda else t.to(self.devices[0])).contiguous()
+        return t.cpu().contiguous()
+
+    def _all_reduce_max(self, t: torch.Tensor, group, kind: str) -> torch.Tensor:
+        """Element-wise maximum of ``t`` over ``group``'s processes (the
+        whole group for None), its bytes counted under ``kind``."""
+        import torch.distributed as dist
+
+        out = self._collective(t)
+        dist.all_reduce(out, op=dist.ReduceOp.MAX,
+                        group=multihost.world_group() if group is None else group)
+        self._count_cross(kind, out.numel() * out.element_size())
+        return out.to(t.device)
+
+    def _count_cross(self, kind: str, n: int) -> None:
+        # each byte handed to a cross-process collective: the
+        # reference's psum/pmax and its host-local gather, combined
+        self.cross_process_bytes[kind] += n
+        shard_export.PSUM_BYTES.inc(n)
+
+    def _combine_multiprocess(self, planes: dict, local: dict, lens: dict, stat: dict,
+                              body_len, streams: dict) -> tuple:
+        """The combine on a mesh across processes, launched inline by
+        every process in the same order. For each data rank: the OR of
+        this process's planes of its ranks, then, where its model and
+        seq ranks span processes, one all-reduce (MAX on uint8: the OR
+        of 0/1 bytes; NCCL has no bitwise OR) of the value, uncertain
+        and overflow planes over the data rank's group; then the process
+        that drives its (d, 0, 0) rank runs the verdict tail on whole
+        rows (from the host batch where a seq slice is another
+        process's). Last, each data rank's fused buffer is broadcast
+        from that process, so every process returns the whole result
+        (the reference's ``global_array_to_host_local_array(..., P())``).
+        → (host buffer, no events)."""
+        import torch.distributed as dist
+
+        from swarm_tpu_torch.ops.regexdev import regex_verify
+
+        db, meta = self.db, self.meta
+        grid = self.mesh.devices
+        D, S = self.ranks["data"], self.ranks["seq"]
+        rows = int(next(iter(streams.values())).shape[0]) // D
+        width = sum(fused_plane_widths(db))
+        nccl = multihost.collective_backend() == "nccl"
+        outs = []
+        with record_function("match.combine"):
+            for d in range(D):
+                dev0 = grid[d, 0, 0]
+                mine = [(idx, p) for idx, p in planes.items() if idx[0] == d]
+                value = unc = overflow = None
+                if mine:
+                    at = dev0 if (d, 0, 0) in self._mine else mine[0][1][0].device
+                    for _idx, (v, u, o) in mine:
+                        v, u, o = v.to(at), u.to(at), o.to(at)
+                        if value is None:
+                            value, unc, overflow = v, u, o
+                        else:
+                            value, unc, overflow = value | v, unc | u, overflow | o
+                if d in self._groups:
+                    ns = value.shape[1]
+                    flat = torch.cat([value.reshape(-1), unc.reshape(-1), overflow]).to(torch.uint8)
+                    flat = self._all_reduce_max(flat, self._groups[d], "combine").bool()
+                    value = flat[:rows * ns].reshape(rows, ns)
+                    unc = flat[rows * ns:2 * rows * ns].reshape(rows, ns)
+                    overflow = flat[2 * rows * ns:]
+                if self._owner[d] != self.process:
+                    outs.append(None)
+                    continue
+                ln, st = lens[d, dev0], stat[d]
+                full = local[d, 0, dev0]
+                if S > 1:
+                    full = {name: torch.from_numpy(np.ascontiguousarray(
+                        arr[d * rows:(d + 1) * rows])).to(dev0) for name, arr in streams.items()}
+                digest = None
+                if meta.has_md5 and "body" in full:
+                    max_len = int(np.max(body_len[d * rows:(d + 1) * rows])) if rows else 0
+                    digest = kernels.match_md5(full["body"], ln["body"], max_len=max_len)
+                rep = self._rep[dev0]
+                rx = None
+                if meta.n_rx:
+                    rx = regex_verify(db, full, ln, value, k_pairs=db.rx_k_pairs(rows),
+                                      arrays=rep["rx"], word_tab=rep["word_tab"])
+                layout = rep["verdict"]
+                verdicts = kernels.match_verdicts(layout, value, unc, ln, st, digest, rx)
+                outs.append(fuse_planes(full_planes(layout.arrays, verdicts), overflow))
+            # every data rank's buffer to every process, in data-rank order
+            here = next(iter(self.devices)) if nccl else torch.device("cpu")
+            host = []
+            for d, out in enumerate(outs):
+                buf = (self._collective(out) if out is not None
+                       else torch.empty((rows, width), dtype=torch.uint8, device=here))
+                dist.broadcast(buf, src=self._owner[d], group=multihost.world_group())
+                self._count_cross("gather", buf.numel())
+                host.append(buf.cpu())
+        return torch.cat(host), []
 
     def collect(self, pending: _PendingShard):
         """Launch the batch's combine if no later dispatch did, wait for

@@ -14,7 +14,9 @@ has.
 Families, kinds, help strings, label names and buckets are the
 reference's, letter for letter: the JAX server and its scrapers read
 them. A family of a layer the port does not have (server, gateway,
-queue, journal, fleet, shared cache, AOT, monitor) is not registered.
+queue, journal, fleet, shared cache, monitor) is not registered; the
+``swarm_aot_*`` families count the port's kernel libraries
+(:mod:`~swarm_tpu_torch.telemetry.aot_export`).
 """
 
 from swarm_tpu_torch.telemetry.metrics import (  # noqa: F401
@@ -30,7 +32,7 @@ from swarm_tpu_torch.telemetry.events import (  # noqa: F401
     subscribe,
 )
 
-# the walk, device, shard, memo, sched, trace, worker-drain and
+# the walk, device, shard, memo, sched, aot, trace, worker-drain and
 # workflow families register at import time so every process's
 # exposition carries them
 from swarm_tpu_torch.telemetry import walk_export  # noqa: E402,F401
@@ -38,6 +40,7 @@ from swarm_tpu_torch.telemetry import device_export  # noqa: E402,F401
 from swarm_tpu_torch.telemetry import shard_export  # noqa: E402,F401
 from swarm_tpu_torch.telemetry import memo_export  # noqa: E402,F401
 from swarm_tpu_torch.telemetry import sched_export  # noqa: E402,F401
+from swarm_tpu_torch.telemetry import aot_export  # noqa: E402,F401
 from swarm_tpu_torch.telemetry import trace_export  # noqa: E402,F401
 from swarm_tpu_torch.telemetry import fleet_export  # noqa: E402,F401
 from swarm_tpu_torch.telemetry import workflow_export  # noqa: E402,F401

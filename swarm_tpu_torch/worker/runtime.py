@@ -132,7 +132,7 @@ from swarm_tpu_torch.ops import cluster as cl
 from swarm_tpu_torch.ops.engine import MatchEngine
 from swarm_tpu_torch.ops.service import ServiceClassifier
 from swarm_tpu_torch.ops.workflows import WorkflowRunner
-from swarm_tpu_torch.parallel.mesh import check_single_host
+from swarm_tpu_torch.parallel.multihost import maybe_initialize_distributed
 from swarm_tpu_torch.resilience.breaker import breaker_states
 from swarm_tpu_torch.resilience.faults import FaultInjected, fault_point, install_plan
 from swarm_tpu_torch.resilience.heartbeat import LeaseHeartbeat
@@ -382,7 +382,7 @@ class JobProcessor:
         self.jobs_done = 0
         #: what a job builds once and the worker keeps: the MatchEngine
         #: per templates directory, its WorkflowRunner under
-        #: ``wfrunner::<dir>``, the ServiceClassifier under
+        #: ``wfrunner::<dir>`` (with the db it was built over), the ServiceClassifier under
         #: ``svc::<probes_db>``, the ActiveScanner under
         #: ``active::<dir>::<probe spec and vars>``, the FileScanner under
         #: ``file::<dir>::<scan_root>``, the SslScanner under
@@ -911,9 +911,13 @@ class JobProcessor:
         several cards, a mesh over all of them."""
         engine = self.engines.get(templates_dir)
         if engine is None:
-            # a mesh across hosts is not ported: a worker configured for
-            # one must not run alone while the other hosts wait for it
-            check_single_host()
+            # multi-host engine bring-up: join the process group BEFORE
+            # the engine's auto-mesh resolves, so the mesh spans every
+            # process's devices. Idempotent and a no-op without the
+            # SWARM_COORDINATOR/-NUM_PROCESSES/-PROCESS_ID triplet —
+            # embedded workers (started without main()) get the same
+            # bring-up as the CLI path
+            maybe_initialize_distributed(devices=_dist_devices(self.device))
             templates, db = load_or_compile(templates_dir)
             engine = MatchEngine(
                 templates, db=db, device=self.device, pipeline=self.cfg.pipeline
@@ -992,10 +996,13 @@ class JobProcessor:
         wf_lines: list[str] = []
         if any(t.protocol == "workflow" for t in engine.templates):
             wkey = f"wfrunner::{module.templates_dir}"
-            runner = self.engines.get(wkey)
-            if runner is None:
+            # kept with the db it was built over: a runner holds its
+            # corpus's workflow plan, so after the engine's corpus
+            # refresh (a new db) it is built anew
+            built_for, runner = self.engines.get(wkey, (None, None))
+            if built_for is not engine.db:
                 runner = WorkflowRunner(engine.templates, engine=engine)
-                self.engines[wkey] = runner
+                self.engines[wkey] = (engine.db, runner)
             jsonl = module.output_format != "nuclei"
             for row, rm in zip(rows, results):
                 if not rm.template_ids:
@@ -1221,6 +1228,15 @@ class JobProcessor:
         return output_file.read_bytes() if output_file.is_file() else proc.stdout
 
 
+def _dist_devices(device) -> Optional[list]:
+    """The devices a worker on ``device`` runs its ranks on, for the
+    process group's backend choice: the CPU for ``cpu``, else None
+    (every visible card)."""
+    if device is not None and torch.device(device).type == "cpu":
+        return ["cpu"]
+    return None
+
+
 def main(argv: Optional[list[str]] = None) -> None:
     import argparse
 
@@ -1246,7 +1262,11 @@ def main(argv: Optional[list[str]] = None) -> None:
         modules_dir=args.modules_dir,
         max_jobs=args.max_jobs,
     )
-    check_single_host()
+    # multi-host worker: join the process group when configured
+    # (SWARM_COORDINATOR/-NUM_PROCESSES/-PROCESS_ID) so the tpu
+    # backend's mesh spans every process's devices; no-op single-host
+    if maybe_initialize_distributed(devices=_dist_devices(args.device)):
+        print("multi-host: torch.distributed initialized")
     proc = JobProcessor(cfg, device=args.device)
     # SIGTERM drains instead of dying mid-upload: the handler only sets
     # a flag; the poll loop finishes its chunk, flushes or spools, and

@@ -75,6 +75,8 @@ def test_module_list_covers_the_slice():
         "swarm_tpu_torch.config", "swarm_tpu_torch.parallel",
         "swarm_tpu_torch.parallel.mesh", "swarm_tpu_torch.parallel.sharded",
         "swarm_tpu_torch.telemetry.shard_export",
+        # the corpus refresh's kernel-library families, and several hosts
+        "swarm_tpu_torch.telemetry.aot_export", "swarm_tpu_torch.parallel.multihost",
     } <= names
 
 

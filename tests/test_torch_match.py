@@ -155,10 +155,9 @@ COPIES = [
     (j_cpu_ref, t_cpu_ref, ()),
     # the two file loaders import yaml inside themselves
     (j_nuclei, t_nuclei, ("load_template_file", "load_corpus")),
-    # compile_corpus's docstring names the port's layout upload; the
-    # corpus-delta functions are left out
-    (j_compile, t_compile, ("compile_corpus", "compile_corpus_delta", "stack_tables_delta",
-                            "_adopt_equal_leaves", "build_device_layout_delta")),
+    # the leaf walk of _adopt_equal_leaves is the port's own, in place
+    # of jax.tree_util
+    (j_compile, t_compile, ("_adopt_equal_leaves",)),
     # numpy half only; the torch window hashes replace the jnp ones
     (j_hashing, t_hashing, ("window_hashes_jnp", "bloom_probe_jnp")),
     # the native passes only, with no Python fallback; no sharded

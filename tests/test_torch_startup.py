@@ -367,13 +367,42 @@ def test_prewarm_builds_the_engines_jax_builds(tmp_path, monkeypatch):
      "SWARM_PROCESS_ID": "0"},
 ])
 def test_multihost_config_raises(env, monkeypatch, tmp_path):
-    """A worker given the multi-host triplet, whole or in part, raises
-    instead of running alone."""
+    """A worker given part of the multi-host triplet raises the
+    reference's ValueError, from ``main`` and from ``engine_for``; given
+    the whole triplet it joins the process group (``init_process_group``
+    mocked) in both places, as the JAX worker joins at
+    ``worker/runtime.py`` ``_engine_for`` and ``main``."""
+    import torch.distributed as dist
+
+    from swarm_tpu_torch.parallel import multihost
+
     for key, value in env.items():
         monkeypatch.setenv(key, value)
-    with pytest.raises(RuntimeError, match="multi-host"):
-        t_runtime.main(["--device", "cpu", "--modules-dir", str(tmp_path)])
+    joins = []
+    monkeypatch.setattr(dist, "init_process_group", lambda **kw: joins.append(kw))
+    monkeypatch.setattr(dist, "all_gather_object",
+                        lambda out, obj: out.__setitem__(slice(None), [obj] * len(out)))
+    monkeypatch.setattr(multihost, "_BACKEND", None)
+    monkeypatch.setattr(multihost, "_GROUP", None)
+    monkeypatch.delenv("SWARM_DIST_BACKEND", raising=False)
+    monkeypatch.setattr(t_runtime.JobProcessor, "process_jobs", lambda self: None)
+    sigterm = signal.getsignal(signal.SIGTERM)
     proc = t_runtime.JobProcessor(t_runtime.WorkerConfig(), client=StubClient(None, b""),
                                   device="cpu", work_dir=str(tmp_path / "wd"))
-    with pytest.raises(RuntimeError, match="multi-host"):
-        proc.engine_for(str(DATA))
+    try:
+        if len(env) < 3:
+            with pytest.raises(ValueError, match="multi-host config incomplete"):
+                t_runtime.main(["--device", "cpu", "--modules-dir", str(tmp_path)])
+            with pytest.raises(ValueError, match="multi-host config incomplete"):
+                proc.engine_for(str(DATA))
+            assert joins == []
+            return
+        t_runtime.main(["--device", "cpu", "--modules-dir", str(tmp_path)])
+        engine = proc.engine_for(str(DATA))
+    finally:
+        signal.signal(signal.SIGTERM, sigterm)
+    want = {"backend": "gloo", "init_method": "tcp://10.0.0.1:1234", "world_size": 2,
+            "rank": 0}
+    assert joins == [want, want]  # the mock leaves the group down: each call joins
+    assert multihost.collective_backend() == "gloo"
+    assert engine.device.device.type == "cpu"

@@ -851,6 +851,18 @@ def test_ptxas_report_names_the_new_kernels():
     assert all(k["registers"] == 40 and k["spill_stores"] == 0 for k in report)
 
 
+def test_ptxas_report_reads_past_a_file_hash_that_reads_as_a_length():
+    """nvcc's hash in the unnamed namespace can hold digits that read as
+    a length prefix reaching the kernel's name too ("50" + 50 characters
+    ending in ``_kernel`` here, as in one build on the card): the name
+    is the innermost such identifier."""
+    name = ("_ZN40_GLOBAL__N__f50d7673_8_match_cu_523b098423match_regex_scan_kernel"
+            "ILi3EEviiPKhPKi")
+    log = (f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+           "ptxas info    : Used 40 registers, 384 bytes cmem[0]\n")
+    assert [k["kernel"] for k in kernels.ptxas_report(log)] == ["match_regex_scan_kernel<3>"]
+
+
 #: two md5 rounds as sm_90a emits them, in one basic block between a
 #: branch and a label: the words' shared-memory load, then per round F
 #: (LOP3), an add and the rotate with its add (LEA.HI), a + x + k summed

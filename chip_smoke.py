@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only startup     # device, corpus, fingerprint_worker, startup_worker
     python3 chip_smoke.py --only profiles    # device, 1,000 device profiles (ROADMAP C)
     python3 chip_smoke.py --only refresh     # device, build, corpus, refresh
+    python3 chip_smoke.py --only result_cache  # device, build, corpus, result_cache
     python3 chip_smoke.py --only multihost   # device, build, multihost (two processes)
 
 Runs from the root of a checkout, on a machine with one CUDA card, and
@@ -135,11 +136,12 @@ prints one JSON line per phase:
    (host work included; the kernels line's ``ms``) and on the card
    alone (``card_ms``: the calls queued behind a spin kernel) beside its
    plain version's (for ``match_verdicts``, whose call is two launches,
-   also each launch's card time from a trace: ``pack_card_ms``,
-   ``eval_card_ms``), and its bound from the call's data (for
-   ``match_md5``, one thread a row, and ``match_regex_scan``, one lane a
-   pair, also a latency bound: the longest row's or pair's dependent
-   chain at the card's maximum SM clock); for ``match_phase_a``,
+   also each launch's card time from events around and between its
+   launches: ``pack_card_ms``, ``eval_card_ms``), and its bound from the
+   call's data (for ``match_md5``, one thread a row, and
+   ``match_regex_scan``, one lane a pair, also a latency bound: the
+   longest row's or pair's dependent chain at the card's maximum SM
+   clock); for ``match_phase_a``,
    ``match_verify`` and ``match_regex_scan`` also the card time of the
    same call with no live work (every row empty, every candidate or
    pair dead): the launch and the walk apart from the work.
@@ -167,7 +169,17 @@ prints one JSON line per phase:
    its plain version; the no-op uploads nothing and keeps the kernels'
    corpus structs. Then a refresh on the (2,2,2) grid of the card, and
    one between two quiesced pipelined streams.
-14c. ``multihost`` — the mesh across processes (see
+14c. ``result_cache`` — the fleet result tier (see
+   :func:`phase_result_cache`): two workers' engines in this process
+   over ``cache_backend=memory``, the match corpus, 2,048 rows. A walks
+   them (its kernel calls exact) and writes them back; B, cold, is
+   served by the tier (no device row, the same RowMatches as A's and a
+   tierless engine's); B pipelined over 4,096 rows, half A's (the memo
+   lane, from the tier) and half fresh (its calls exact); B refreshed
+   (the epoch moves: 0 shared hits, a fresh engine's results); a
+   ``cache.get`` fault plan opens a breaker (L1-only, identical, the
+   store untouched); rows/s of A cold and B tier-warm.
+14d. ``multihost`` — the mesh across processes (see
    :func:`phase_multihost`): two more copies of this script join one
    process group over localhost (the ``SWARM_COORDINATOR`` triplet),
    both on ``cuda:0``, so the collectives run on gloo (NCCL refuses two
@@ -175,7 +187,7 @@ prints one JSON line per phase:
    processes, each process's planes exact against a one-process
    ``DeviceDB``, ms a call and the cross-process bytes; a refresh of the
    model grid. Exactness only: one card shows no speed.
-14d. ``startup_worker`` — the worker started as an operator starts it,
+14e. ``startup_worker`` — the worker started as an operator starts it,
    ``python -m swarm_tpu_torch.worker --config <file>`` in a subprocess,
    one ``fingerprint`` job of 2,048 rows from the stand-in server,
    without and with ``prewarm_modules`` (see
@@ -249,8 +261,9 @@ match kernel also with its launches on the sched
 phase's traced pipelined call, and its launches and times on the
 service corpus, and for each grid of the mesh phase, with the seq-halo
 calls' times for phase A and the verify; and its launches on the batch
-after the refresh phase's last refresh and on each grid of the
-multihost phase), the ``nvidia-smi`` line, and
+after the refresh phase's last refresh, on the result_cache phase's
+writer's call, and on each grid of the multihost phase), the
+``nvidia-smi`` line, and
 as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
 script exits non-zero without that line.
@@ -2287,28 +2300,37 @@ def _union_us(spans: list[tuple[float, float]]) -> float:
     return total
 
 
-def verdict_split_ms(args: tuple, reps: int = 10) -> dict:
+def verdict_split_ms(args: tuple, clock_hz: float, reps: int = 10) -> dict:
     """The card's time a ``kernels.match_verdicts`` call of ``args``
     spends in each of its two launches, the pack and the evaluation:
-    the kernels' own spans in a trace of ``reps`` calls."""
+    ``reps`` calls queued behind a spin kernel, as :func:`card_ms` queues
+    them, each with an event before it, one between its launches (the
+    wrapper's ``split``) and one after it. Events, not a profiler trace:
+    a process that has taken many traces now and then gets traces
+    without the card's kernels (ROADMAP C)."""
+    import torch
+
     from swarm_tpu_torch.ops import kernels
 
-    def run():
-        for _ in range(reps):
-            kernels.match_verdicts(*args)
-
-    run()  # warm
-    want = {"match_verdicts_pack_kernel", "match_verdicts_kernel"}
-    # the profiler now and then hands back a trace with no device events
-    # at all (once in eight runs of this script on an H100): up to three traces
-    for _ in range(3):
-        got = profile_call(run, "verdict_split", ())["kernels_ms"]
-        if got:
-            break
-    if set(got) != want:
-        raise AssertionError(f"a verdict call's trace holds kernels {sorted(got)}")
-    return {"pack_card_ms": got["match_verdicts_pack_kernel"] / reps,
-            "eval_card_ms": got["match_verdicts_kernel"] / reps}
+    kernels.match_verdicts(*args)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        kernels.match_verdicts(*args)
+    torch.cuda.synchronize()
+    enqueue_s = time.perf_counter() - t0
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(3)] for _ in range(reps)]
+    for _, split, _ in marks:
+        split.record()  # creates the event the launcher records
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int((2 * enqueue_s + 1e-3) * clock_hz))
+    for start, split, stop in marks:
+        start.record()
+        kernels.match_verdicts(*args, split=split)
+        stop.record()
+    torch.cuda.synchronize()
+    return {"pack_card_ms": sum(a.elapsed_time(b) for a, b, _ in marks) / reps,
+            "eval_card_ms": sum(b.elapsed_time(c) for _, b, c in marks) / reps}
 
 
 #: CUDA runtime calls that can block the host (a synchronous copy, a
@@ -3301,12 +3323,16 @@ def phase_match_trace(eng, rows) -> None:
     """One warm ``MatchEngine.match`` call under ``torch.profiler``, its
     content memos cleared first (fresh content): the host time and the
     card's idle time of each step, the card's busy time, and the kernels
-    it ran (the five match kernels by name, the torch ops summed)."""
+    it ran (the five match kernels by name, the torch ops summed); up to
+    three traces, as a trace now and then holds no device event."""
     import torch
 
-    eng.clear_content_memos()
-    torch.cuda.synchronize()
-    out = profile_call(lambda: eng.match(rows), "match_batch", MATCH_SPANS, ENCODE_SPAN)
+    for _ in range(3):
+        eng.clear_content_memos()
+        torch.cuda.synchronize()
+        out = profile_call(lambda: eng.match(rows), "match_batch", MATCH_SPANS, ENCODE_SPAN)
+        if out["device_events"]:
+            break
     kernels_ms = out.pop("kernels_ms")
     ours = {k: v for k, v in kernels_ms.items() if k.startswith(MATCH_KERNELS)}
     missing = [k for k in MATCH_KERNELS if not any(n.startswith(k) for n in ours)]
@@ -3732,18 +3758,15 @@ def md5_stream_timing(md5_calls: list, clock_hz: float) -> dict:
                for k in ("ms", "card_ms", "latency_bound_ms")}, "calls": per}
 
 
-def kernel_timing(calls: list, names: tuple, clock_hz: float,
-                  split_verdicts: bool = True) -> dict:
+def kernel_timing(calls: list, names: tuple, clock_hz: float) -> dict:
     """Each kernel of ``names`` on its recorded ``calls``: ms per call
     (CUDA events around the wrapper's calls, and on the card alone,
     :func:`card_ms`) beside its plain version's, and its bound from
     each call's data, all averaged over the calls; for the regex scan
     also its card time with no live pair, for phase A and the verify
-    with no live work, and with ``split_verdicts`` for the verdict
-    lowering each of its two launches' card time
-    (:func:`verdict_split_ms`, a profiler trace a call). → {name:
-    timing}."""
-    split = split_verdicts and "match_verdicts" in names
+    with no live work, and for the verdict lowering each of its two
+    launches' card time (:func:`verdict_split_ms`). → {name: timing}."""
+    split = "match_verdicts" in names
     import torch
 
     from swarm_tpu_torch.ops import kernels
@@ -3774,7 +3797,7 @@ def kernel_timing(calls: list, names: tuple, clock_hz: float,
                 "ms": cuda_ms(lambda a=args: getattr(kernels, name)(*a), 10),
                 "card_ms": card_ms(lambda a=args: getattr(kernels, name)(*a), 10, clock_hz),
                 "plain_ms": cuda_ms(lambda a=args: plain[name](*a), 2),
-                **(verdict_split_ms(args) if split and name == "match_verdicts" else {}),
+                **(verdict_split_ms(args, clock_hz) if name == "match_verdicts" else {}),
                 "bytes": nbytes, "operations": ops,
                 "bytes_ms": t_bytes, "operations_ms": t_ops,
             })
@@ -3946,8 +3969,7 @@ def phase_mesh(templates, plants, db, smi: str) -> dict:
     if st.max_inflight < 2 or n_overlapped < 1:
         raise AssertionError(f"no overlap on the mesh: inflight {st.max_inflight}, "
                              f"overlapped {n_overlapped}")
-    halo = kernel_timing(halo_calls, ("match_phase_a", "match_verify"), sm_clock_hz(),
-                         split_verdicts=False)
+    halo = kernel_timing(halo_calls, ("match_phase_a", "match_verify"), sm_clock_hz())
     emit({"phase": "mesh", "rows": len(rows), "grids": grids,
           "pipelined_2x1x1": {"rows": len(stream), "seconds": stream_s,
                               "rows_per_s": len(stream) / stream_s,
@@ -4149,6 +4171,267 @@ def phase_refresh(templates, plants, db, smi: str) -> dict:
                                             "exact": True},
           "max_abs_err": max_err, "seconds": time.perf_counter() - t_phase, "card": smi})
     return {"launches": launches, "max_err": max_err}
+
+
+#: the device of the result_cache phase (the CPU only to rehearse it)
+RESULT_CACHE_DEVICE = "cuda"
+#: the result_cache phase's rows/s runs of each engine
+RESULT_CACHE_RUNS = 3
+
+
+def _exact(got, want) -> bool:
+    """RowMatches equal in template ids (in order) and extractions: what
+    a row resolves to, whichever engine walked it (host confirms are
+    counted where the row was walked)."""
+    return len(got) == len(want) and all(
+        a.template_ids == b.template_ids and a.extractions == b.extractions
+        for a, b in zip(got, want))
+
+
+def _writebacks() -> dict:
+    from swarm_tpu_torch.telemetry.memo_export import MEMO_WRITEBACKS
+
+    return {f"{f}/{o}": MEMO_WRITEBACKS.labels(family=f, outcome=o).value
+            for f in ("verdict", "confirm", "workflow") for o in ("stored", "fenced", "error")}
+
+
+def _delta(before: dict, after: dict) -> dict:
+    return {k: v - before[k] for k, v in after.items() if v != before[k]}
+
+
+class _CountingStore:
+    """Counts the calls of a state store's methods (the tier's store)."""
+
+    OPS = ("hget", "hmget", "hset", "hset_many", "hincr", "hkeys", "hgetall", "hdel")
+
+    def __init__(self, store):
+        self.calls = 0
+        for op in self.OPS:
+            setattr(store, op, self._counted(getattr(store, op)))
+
+    def _counted(self, fn):
+        def call(*args, **kw):
+            self.calls += 1
+            return fn(*args, **kw)
+        return call
+
+
+def result_cache_workers(templates, db, dev) -> tuple:
+    """Two workers of one process (writers ``w0`` and ``w1``) with
+    ``cache_backend=memory``, and each one's engine for the corpus as
+    ``JobProcessor.engine_for`` builds it (from ``yaml_corpus()``'s files
+    through the compile cache; without PyYAML, built here from the same
+    templates and given the tier as ``engine_for`` gives it) → (engine
+    A, engine B, the tier)."""
+    from swarm_tpu_torch.cache import build_result_cache
+    from swarm_tpu_torch.cache.tier import _memory_tier
+    from swarm_tpu_torch.ops.engine import MatchEngine
+    from swarm_tpu_torch.worker.runtime import JobProcessor, WorkerConfig
+
+    use_db_cache("match")
+    corpus_dir = yaml_corpus()
+    engines = []
+    for writer in ("w0", "w1"):
+        cfg = WorkerConfig(worker_id=writer, cache_backend="memory")
+        proc = JobProcessor(cfg, device=dev)
+        if corpus_dir is not None:
+            eng = proc.engine_for(str(corpus_dir))
+        else:
+            eng = MatchEngine(templates, db=db, device=dev)
+            eng.attach_result_cache(build_result_cache(cfg))
+        if eng._result_cache is None:
+            raise AssertionError(f"worker {writer}: no result tier on its engine")
+        engines.append(eng)
+    return engines[0], engines[1], _memory_tier()
+
+
+def cache_run(eng, rows, dev, record: bool = False) -> dict:
+    """One ``MatchEngine.match`` → its results and what it moved: kernel
+    launches, device rows, the client's shared hits and misses, the
+    writebacks by family and outcome, and (``record``) its kernel
+    calls."""
+    from swarm_tpu_torch.ops import kernels
+
+    client = eng._result_cache
+    c0 = client.counters() if client is not None else None
+    wb, unique = _writebacks(), eng.stats.unique_rows
+    _sync(dev)
+    kernels.reset_launches()
+    with kernels.record_calls() as calls:
+        t0 = time.perf_counter()
+        got = eng.match(rows)
+        _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+    out = {"results": got, "ms": ms, "launches": dict(kernels.LAUNCHES),
+           "device_rows": eng.stats.unique_rows - unique, "writebacks": _delta(wb, _writebacks()),
+           "calls": calls if record else None}
+    if client is not None:
+        c1 = client.counters()
+        out["shared"] = {k: c1[k] - c0[k] for k in ("shared_hits", "shared_misses",
+                                                    "verdict_hits", "verdict_misses",
+                                                    "confirm_hits", "confirm_misses")}
+        out["epoch"], out["breaker"] = c1["epoch"], c1["breaker"]
+    return out
+
+
+def _line(run: dict) -> dict:
+    return {k: run[k] for k in ("ms", "launches", "device_rows", "writebacks", "shared",
+                                "epoch", "breaker") if k in run}
+
+
+def phase_result_cache(templates, plants, db, smi: str) -> dict:
+    """The fleet result tier (``swarm_tpu_torch/cache``) on the worker's
+    engines: two workers' engines in one process stand in for two
+    workers over ``cache_backend=memory`` (the card box has no Redis),
+    ``synthetic_corpus(0)`` at full width, 2,048 ``realistic_rows``.
+
+    (a) engine A (writer ``w0``), memos cleared: the match kernels
+    launch, its recorded calls are exact against the plain versions,
+    its walked rows written back; (b) engine B (writer ``w1``, cold L1)
+    on the same rows: the same RowMatches as A's and a tierless engine's,
+    from the tier, next to A's shared hits and misses, device rows and
+    launches; (c) B, memos cleared, through the pipelined scheduler on
+    4,096 rows, half of them A's (served by the tier in the prefetch
+    stage, on the memo lane), half fresh content (its kernel calls exact
+    against the plain versions), the output a tierless pipelined
+    engine's; (f) rows/s of A cold (a new epoch each run) and B
+    tier-warm, memos cleared, ``RESULT_CACHE_RUNS`` runs each; (d) B
+    refreshed with one template added: the epoch moves, the next batch
+    has 0 shared hits and is a fresh engine's on the new corpus; (e) a
+    ``cache.get:1-3`` fault plan on a third client of A: its breaker
+    opens, the batch is L1-only and identical, and neither it nor the
+    next batch touches the tier's store. Each step is one line.
+    → {"launches": A's, "max_err": by kernel}."""
+    from swarm_tpu_torch.cache.tier import ResultCacheClient
+    from swarm_tpu_torch.ops.engine import MatchEngine
+    from swarm_tpu_torch.resilience import faults
+
+    dev = RESULT_CACHE_DEVICE
+    t_phase = time.perf_counter()
+    eng_a, eng_b, tier = result_cache_workers(templates, db, dev)
+    templates, db = eng_a.templates, eng_a.db  # the workers' corpus, in their order
+    tierless = MatchEngine(templates, db=db, device=dev)
+    dicts = realistic_rows(JOB_ROWS, seed=37, plants=plants)
+    rows = port_rows(dicts)
+    max_err = {k: 0.0 for k in MATCH_KERNELS}
+
+    def exact_calls(calls) -> None:
+        for name, e in check_calls(calls).items():
+            max_err[name] = max(max_err[name], e)
+
+    def step(name: str, **fields) -> None:
+        emit({"phase": "result_cache", "step": name, **fields})
+
+    # (a) the writer
+    eng_a.clear_content_memos()
+    a = cache_run(eng_a, rows, dev, record=True)
+    missing = [k for k in MATCH_KERNELS if a["launches"][k] < 1]
+    if missing:
+        raise AssertionError(f"result_cache (a): match kernels not launched: {missing}")
+    exact_calls(a["calls"])
+    if not a["writebacks"].get("verdict/stored"):
+        raise AssertionError(f"result_cache (a): nothing written back: {a['writebacks']}")
+    step("a", engine="A", writer="w0", rows=len(rows), calls=len(a["calls"]), exact=True,
+         **_line(a))
+    # (b) the reader, cold L1, the same rows
+    want = tierless.match(rows)
+    b = cache_run(eng_b, rows, dev)
+    if not (_exact(b["results"], a["results"]) and _exact(b["results"], want)):
+        raise AssertionError("result_cache (b): B's results differ from A's or a tierless engine's")
+    if b["shared"]["verdict_misses"] or not b["shared"]["verdict_hits"] or b["device_rows"]:
+        raise AssertionError(f"result_cache (b): B not served by the tier: {_line(b)}")
+    step("b", engine="B", writer="w1", exact=True, B=_line(b), A=_line(a))
+    # (c) B through the scheduler: half A's content, half fresh
+    fresh = realistic_rows(JOB_ROWS, seed=41, plants=plants)
+    for d in fresh:
+        d["body"] = b"<!-- fresh -->" + d["body"]
+    order = np.random.default_rng(43).permutation(2 * JOB_ROWS)
+    both = dicts + fresh
+    stream = port_rows([both[i] for i in order])
+    seen = len({(r.body, r.header, r.status) for r in rows})
+    piped_want = MatchEngine(templates, db=db, device=dev, pipeline="on").match(stream)
+    eng_b.clear_content_memos()
+    eng_b.pipeline = "on"
+    eng_b._sched = None
+    try:
+        c = cache_run(eng_b, stream, dev, record=True)
+        sched = eng_b.scheduler().stats.snapshot()
+    finally:
+        eng_b.pipeline = "off"
+        eng_b._sched = None
+    if not _exact(c["results"], piped_want):
+        raise AssertionError("result_cache (c): the pipelined stream differs from a tierless one")
+    if sched["memo_rows"] < JOB_ROWS or c["shared"]["verdict_hits"] < seen:
+        raise AssertionError(f"result_cache (c): A's half not on the memo lane from the tier: "
+                             f"{sched}, {_line(c)}")
+    if not c["device_rows"]:
+        raise AssertionError("result_cache (c): the fresh half reached no device")
+    exact_calls(c["calls"])
+    step("c", engine="B", pipeline="on", rows=len(stream), seen_rows=JOB_ROWS,
+         seen_contents=seen, fresh_rows=JOB_ROWS, calls=len(c["calls"]), exact=True,
+         sched={k: sched[k] for k in ("memo_rows", "fresh_rows", "dead_rows", "batches")},
+         **_line(c))
+    # (f) rows/s: A cold (a new epoch each run), then B tier-warm on the
+    # entries of A's last run
+    client_a, client_b = eng_a._result_cache, eng_b._result_cache
+    cold, warm = [], []
+    for _ in range(RESULT_CACHE_RUNS):
+        tier.bump_epoch()
+        client_a.refresh_epoch()
+        eng_a.clear_content_memos()
+        r = cache_run(eng_a, rows, dev)
+        if r["shared"]["verdict_hits"] or not _exact(r["results"], want):
+            raise AssertionError(f"result_cache (f): A's cold run: {_line(r)}")
+        cold.append(len(rows) / (r["ms"] / 1e3))
+    client_b.refresh_epoch()
+    for _ in range(RESULT_CACHE_RUNS):
+        eng_b.clear_content_memos()
+        r = cache_run(eng_b, rows, dev)
+        if r["device_rows"] or not _exact(r["results"], want):
+            raise AssertionError(f"result_cache (f): B's warm run: {_line(r)}")
+        warm.append(len(rows) / (r["ms"] / 1e3))
+    rates = {"rows": len(rows), "A_cold_rows_per_s": cold, "B_tier_warm_rows_per_s": warm,
+             "card": smi}
+    # (d) B refreshed onto the corpus with one template added
+    added = refresh_steps(templates, plants)[0][0][1]
+    epoch0 = client_b.counters()["epoch"]
+    eng_b.refresh_corpus(added)
+    epoch1 = client_b.counters()["epoch"]
+    new_eng, _fresh_s = fresh_engine(added, dev)
+    eng_b.clear_content_memos()
+    d = cache_run(eng_b, rows, dev, record=True)
+    if epoch1 == epoch0 or d["shared"]["shared_hits"]:
+        raise AssertionError(f"result_cache (d): the epoch did not move: {epoch0} → {_line(d)}")
+    if not _exact(d["results"], new_eng.match(rows)):
+        raise AssertionError("result_cache (d): after the refresh, not a fresh engine's results")
+    exact_calls(d["calls"])
+    step("d", engine="B", templates=len(added), epoch_before=epoch0, exact=True, **_line(d))
+    # (e) a failing tier: a new client of A whose first three cache.get
+    # operations fail (its bind at attach, then the batch's lookup and
+    # the re-bind before its writeback): the breaker opens at its
+    # threshold (3) and the tier's store is not touched again
+    store = _CountingStore(tier._state)
+    plan = faults.install_plan("cache.get:1-3")
+    try:
+        eng_a.attach_result_cache(ResultCacheClient(tier, worker_id="w2"))
+        eng_a.clear_content_memos()
+        e1 = cache_run(eng_a, rows, dev)
+    finally:
+        faults.clear_plan()
+    e2 = cache_run(eng_a, port_rows(fresh[:JOB_ROWS // 2]), dev)
+    store_calls = store.calls
+    eng_a.attach_result_cache(client_a)
+    fired = sum(c["fired"] for c in plan.snapshot().values())
+    if (fired != 3 or e1["breaker"] != "open" or e2["breaker"] != "open" or store_calls
+            or e1["writebacks"].get("verdict/stored") or not _exact(e1["results"], want)):
+        raise AssertionError(f"result_cache (e): {fired} faults, {_line(e1)}, {_line(e2)}, "
+                             f"store calls {store_calls}")
+    step("e", engine="A", writer="w2", plan="cache.get:1-3", fired=fired, exact=True,
+         store_calls=store_calls, first=_line(e1), second=_line(e2))
+    step("f", **rates)
+    emit({"phase": "result_cache", "rows": len(rows), "device": str(dev),
+          "max_abs_err": max_err, "seconds": time.perf_counter() - t_phase, "card": smi})
+    return {"launches": a["launches"], "max_err": max_err}
 
 
 #: the grids of the multihost phase, by the axis that spans the two
@@ -4603,10 +4886,7 @@ def phase_service(smi: str) -> tuple:
         raise AssertionError(f"service launches {launches}")
     max_err = check_calls(calls)
     clock_hz = sm_clock_hz()
-    # no per-launch split of the verdict lowering here: each split is a
-    # profiler trace, and a process that has taken many of them now and
-    # then gets traces with no device events
-    timing = kernel_timing(calls, SERVICE_KERNELS, clock_hz, split_verdicts=False)
+    timing = kernel_timing(calls, SERVICE_KERNELS, clock_hz)
     emit({
         "phase": "service", "db": str(SERVICE_DB.relative_to(REPO)),
         "cold_build_s": cold_s, "warm_build_s": warm_s, "shape": shape,
@@ -6112,7 +6392,8 @@ def main(argv: list[str] | None = None) -> int:
 
 
 #: the phases ``--only`` runs alone (:func:`run_only`)
-ONLY = ("match", "telemetry", "timing", "mesh", "startup", "profiles", "refresh", "multihost")
+ONLY = ("match", "telemetry", "timing", "mesh", "startup", "profiles", "refresh", "multihost",
+        "result_cache")
 
 
 def run_only(smi: str, which: str) -> int:
@@ -6125,24 +6406,25 @@ def run_only(smi: str, which: str) -> int:
     (its ptxas report and spill check); or ``startup``, after the
     ``fingerprint`` job that fills the compile cache it reads; or
     ``profiles`` (:func:`phase_profiles`), in a process of its own;
-    ``refresh``, after the build phase, its engines held to no fault; or
-    ``multihost``, after the build phase, whose two processes then load
-    the built libraries."""
+    ``refresh`` or ``result_cache``, after the build phase, its engines
+    held to no fault; or ``multihost``, after the build phase, whose two
+    processes then load the built libraries."""
     import importlib.util
 
     if which == "profiles":
         phase_profiles(smi)
         return 0
-    if which in ("mesh", "refresh", "multihost"):
+    if which in ("mesh", "refresh", "multihost", "result_cache"):
         phase_build()
     if which == "multihost":
         phase_multihost(smi)
         return 0
     templates, plants, db = phase_corpus()
-    if which in ("telemetry", "mesh", "refresh"):
+    if which in ("telemetry", "mesh", "refresh", "result_cache"):
         track_engines()
         phase = {"telemetry": ("telemetry_worker", phase_telemetry_worker),
-                 "mesh": ("mesh", phase_mesh), "refresh": ("refresh", phase_refresh)}[which]
+                 "mesh": ("mesh", phase_mesh), "refresh": ("refresh", phase_refresh),
+                 "result_cache": ("result_cache", phase_result_cache)}[which]
         no_faults(*phase, templates, plants, db, smi)
         return 0
     if which in ("timing", "startup"):
@@ -6272,6 +6554,7 @@ def run_phases(smi: str) -> int:
     del calls, md5_calls
     mesh = no_faults("mesh", phase_mesh, templates, plants, db, smi)
     refresh = no_faults("refresh", phase_refresh, templates, plants, db, smi)
+    cache = no_faults("result_cache", phase_result_cache, templates, plants, db, smi)
     multi = phase_multihost(smi)
     phase_startup_worker(plants, smi)
     svc_timing, svc_launches, svc_err = no_faults("service", phase_service, smi)
@@ -6304,7 +6587,7 @@ def run_phases(smi: str) -> int:
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": max(max_err[name], job_err[name], svc_err.get(name, 0.0),
                                mesh["max_err"][name], refresh["max_err"][name],
-                               multi["max_err"][name]),
+                               cache["max_err"][name], multi["max_err"][name]),
             "ms": t["ms"], "card_ms": t["card_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "job_rows": JOB_ROWS,
@@ -6353,6 +6636,8 @@ def run_phases(smi: str) -> int:
         # refresh, and on each grid of the multihost phase (one call,
         # both processes)
         summary[name]["refresh"] = {"launches": refresh["launches"][name]}
+        # and on the result_cache phase's writer's call (A, a cold tier)
+        summary[name]["result_cache"] = {"launches": cache["launches"][name]}
         summary[name]["multihost"] = {"launches": {g: n[name] for g, n in
                                                    multi["launches"].items()}}
         sv = svc_timing.get(name)

@@ -449,13 +449,15 @@ extern "C" {
 // check sources' int32 [B] columns, in ops/match.py CHECK_SOURCES
 // order); words, int32 scratch of ceil(B / 32) * (2 ns + 2 n_rx)
 // (2 ns without the overlay); the other pointers as VerdictBatch holds
-// them.  digest, rx_value / rx_unc and m_value may be null.
+// them.  digest, rx_value / rx_unc and m_value may be null.  split, a
+// cudaEvent_t or null, is recorded on the stream between the pack and
+// the evaluation, so that events time each launch.
 int match_verdicts(const void* layout, int32_t n_rows, const uint8_t* value,
                    const uint8_t* unc, int32_t ns, const int32_t* const* sources,
                    const int64_t* digest,
                    const uint8_t* rx_value, const uint8_t* rx_unc, uint8_t* t_value,
                    uint8_t* t_unc, uint8_t* op_value, uint8_t* op_unc, uint8_t* m_value,
-                   uint8_t* m_unc, int32_t* words, void* stream) {
+                   uint8_t* m_unc, int32_t* words, void* stream, void* split) {
   if (n_rows <= 0) return 0;
   const VerdictLayout L = *static_cast<const VerdictLayout*>(layout);
   // a matcher's conjuncts are loaded a lane each (the compiler caps them
@@ -476,6 +478,10 @@ int match_verdicts(const void* layout, int32_t n_rows, const uint8_t* value,
   match_verdicts_pack_kernel<<<pgrid, kPackThreads, 0, st>>>(pa);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
+  if (split != nullptr) {
+    e = cudaEventRecord((cudaEvent_t)split, st);
+    if (e != cudaSuccess) return (int)e;
+  }
   VerdictBatch X = {vw, uw, rvw, ruw, {}, digest, t_value, t_unc, op_value, op_unc,
                     m_value, m_unc, n_rows, ns};
   for (int s = 0; s < kSources; ++s) X.src[s] = sources[s];

@@ -77,8 +77,22 @@ when the engine is built, outside the breaker: a kernel that does not
 build or load raises there and never degrades a batch.
 
 A live engine takes a changed corpus without a rebuild
-(:meth:`MatchEngine.refresh_corpus`). Not ported (ROADMAP.md): the
-shared result tier.
+(:meth:`MatchEngine.refresh_corpus`).
+
+With a fleet result tier attached (:meth:`MatchEngine.attach_result_cache`,
+a ``swarm_tpu_torch.cache.ResultCacheClient``; the worker attaches one
+when ``SWARM_CACHE_BACKEND`` is set) the verdict memo is the L1 in front
+of it, and a row resolves in the reference's order: L1, then the shared
+tier, then the card. The encode's lookup asks the tier for the contents
+the L1 missed and inserts its hits into the L1 before the misses are
+encoded; the scheduler does the same in its prefetch stage
+(:meth:`MatchEngine.prefetch_shared_memo`); the batched walk's confirm
+verdicts are read from and written to the tier's confirm family; and
+every fully resolved walked row is written back after its L1 insert. A
+tier entry is a walked result for the same content under the same corpus
+epoch, so the outputs are byte-identical with the tier off, cold, warm,
+failing or moved to a new epoch; only the rows that reach the card
+change.
 """
 
 from __future__ import annotations
@@ -368,6 +382,21 @@ class MatchEngine:
         # Python work. Entries are only stored for fully-resolved
         # (non-truncated, non-overflow) content. Created on first encode.
         self._vmemo = None
+        # fleet-wide shared result tier: when a ResultCacheClient is
+        # attached, the memo above becomes the L1 in front of it —
+        # lookups go L1 → shared tier → device, fresh walk results
+        # batch-write back after the L1 insert, and the batched walk's
+        # confirm cache promotes into the tier's confirm family. None
+        # (the default) keeps every path unchanged.
+        self._result_cache = None
+        # row ids the scheduler's prefetch stage already consulted the
+        # shared tier for (hits landed in the L1, misses are
+        # suppressed client-side): the encode-time consult skips them
+        # so a fresh row's content is sha256'd once per batch, not
+        # twice. id() keys are safe here because a stale entry can
+        # only SKIP a consult (the row is computed locally) — it can
+        # never serve wrong data. Bounded FIFO via _cache_put.
+        self._shared_seen: dict = {}
         # recycled verdict planes for reuse_buffers encodes, keyed PER
         # SHAPE (see _encode_native)
         self._bits_pool = _RotatingPool(depth=8)
@@ -1306,6 +1335,24 @@ class MatchEngine:
             L1_HITS.inc(hits)
         if misses:
             L1_MISSES.inc(misses)
+        # shared tier behind the L1: serve the miss slots' contents
+        # from the fleet cache, then re-run the lookup so served rows
+        # resolve exactly like locally-known content (one extra native
+        # pass, paid only when the tier actually held something). Rows
+        # the scheduler prefetch already consulted are skipped — their
+        # hits are in the L1 and their misses suppressed, so re-asking
+        # would only re-hash the content.
+        if miss_uniq and self._result_cache is not None:
+            seen = self._shared_seen
+            cand = [
+                rows[i]
+                for i in miss_uniq
+                if not seen or id(rows[i]) not in seen
+            ]
+            if cand and self._serve_shared(cand):
+                state, miss_uniq, extr_known, deferred_known = (
+                    self._vmemo.lookup(rows, bits)
+                )
         served = (extr_known, deferred_known)
         if not miss_uniq:
             return (
@@ -1529,6 +1576,15 @@ class MatchEngine:
         from swarm_tpu_torch.native.scanio import confirm_needles_batch
 
         cache = self._confirm_cache
+        # confirm-family promotion: the shared tier's second value
+        # family serves/absorbs the part-keyed confirm verdicts around
+        # the batched native passes — local cache first, one batched
+        # tier lookup per matcher group, and every merged insert
+        # batch-writes back at the end
+        shared = self._result_cache
+        if shared is not None and not shared.confirm:
+            shared = None
+        shared_inserts: list = []
         parts_of: dict = {}  # (b, part_name) -> bytes
 
         def row_part(b: int, name) -> bytes:
@@ -1655,9 +1711,11 @@ class MatchEngine:
             ] or [[]]
 
         def dedup_misses(m_id, bs, part_name, cache_tag) -> list:
-            """Cache-serve what the cross-batch memo holds; group the
-            remaining misses by DISTINCT part bytes →
-            [(part, [b, ...]), ...]."""
+            """Cache-serve what the cross-batch memo holds, then the
+            shared tier (one batched lookup per matcher group); group
+            the remaining misses by DISTINCT part bytes →
+            [(part, [b, ...]), ...]. A tier-served verdict also lands
+            in the local cache so the next batch never re-asks."""
             by_part: dict = {}
             for b in bs:
                 p = row_part(b, part_name)
@@ -1666,6 +1724,14 @@ class MatchEngine:
                     pre_m[(b, m_id)] = v
                 else:
                     by_part.setdefault(p, []).append(b)
+            if by_part and shared is not None:
+                got = shared.lookup_confirms(
+                    [(cache_tag, m_id, p) for p in by_part]
+                )
+                for key, v in got.items():
+                    for b in by_part.pop(key[2]):
+                        pre_m[(b, m_id)] = v
+                    self._cache_put(cache, key, v)
             return list(by_part.items())
 
         for m_id, bs in by_matcher.items():
@@ -1756,6 +1822,10 @@ class MatchEngine:
                             raw = any(len(p) == s for s in sizes)
                         v = (not raw) if neg else raw
                         self._cache_put(cache, key, v)
+                        # NOT promoted to the tier: the size branch
+                        # decides inline (a length compare) and never
+                        # consults the confirm family, so sharing
+                        # these would be write-only tier traffic
                     pre_m[(b, m_id)] = v
             else:
                 # dsl/status/kval read beyond the part — serial pairs
@@ -1811,6 +1881,13 @@ class MatchEngine:
                     pre_m[key] = v
             for ck, v in inserts:
                 self._cache_put(cache, ck, v)
+                shared_inserts.append((ck, v))
+        # batch-promote this round's freshly decided confirms into the
+        # tier's confirm family — every insert key here is one of the
+        # shareable ("m"|"pe", m_id, part) namespaces by construction
+        # (the per-object "op"-tagged keys never reach the insert lists)
+        if shared_inserts and shared is not None:
+            shared.writeback_confirms(shared_inserts)
         # ONLY pairs the grouped native passes actually decided — not
         # cache-served, plan-inline (size/empty-needle), or serial-
         # fallback pairs — so the gauge attributes real native load
@@ -2364,6 +2441,23 @@ class MatchEngine:
                 if ment or mdef:
                     extras_list[pos] = (ment, mdef)
             self._vmemo.insert_batch(nrows, pt_value[:B], skip, extras_list)
+            # shared-tier writeback: the same fully-resolved planes the
+            # L1 just absorbed batch-write to the fleet tier —
+            # truncated/overflow positions stay local-only exactly like
+            # the L1 (never memoized anywhere). Runs after the walk,
+            # off the dispatch path; a fenced or degraded put drops
+            # silently (the tier is an accelerator, never a dependency).
+            if (
+                self._result_cache is not None
+                and self._result_cache.writeback
+            ):
+                self._result_cache.writeback_rows(
+                    [
+                        (nrows[b], pt_value[b].tobytes(), extras_list[b])
+                        for b in range(B)
+                        if not skip[b]
+                    ]
+                )
             ins_dt = time.perf_counter() - t_ins
             self.stats.insert_seconds += ins_dt
             # member fan-out over miss rows. Fresh-content batches
@@ -2483,6 +2577,77 @@ class MatchEngine:
             self._vmemo = VerdictMemo(self._EXT_CACHE_MAX, nbits)
         return self._vmemo
 
+    # ------------------------------------------------------------------
+    # Shared result tier: L1 → shared → device
+    # ------------------------------------------------------------------
+    # once: client.bind_corpus (attach binds the tier epoch exactly once)
+    def attach_result_cache(self, client) -> None:
+        """Attach a fleet-wide content-addressed result tier
+        (:class:`swarm_tpu_torch.cache.ResultCacheClient`). The client
+        is bound to this engine's corpus digest, so entries can only be
+        exchanged between engines compiled from identical templates
+        (and identical lowering code — the epoch covers both). ``None``
+        detaches."""
+        if client is not None:
+            from swarm_tpu_torch.cache.tier import corpus_digest
+
+            client.bind_corpus(corpus_digest(self.templates))
+        self._result_cache = client
+
+    def _serve_shared(self, cand: list) -> int:
+        """Serve shared-tier verdict entries for L1-missed rows: each
+        hit is inserted into the verdict memo, so the caller's
+        re-lookup serves it exactly like locally-computed known content
+        — verdicts can't differ between a shared hit and a local walk
+        because the entry IS a walked result for the same content under
+        the same corpus epoch. Entries whose plane width doesn't match
+        this corpus are dropped (foreign layout — treat as a miss, never
+        as data). → the number of contents served."""
+        client = self._result_cache
+        if client is None or not cand:
+            return 0
+        entries = client.lookup_rows(cand)
+        if not entries:
+            return 0
+        nbits = max((self.db.num_templates + 7) >> 3, 1)
+        vmemo = self._ensure_vmemo(nbits)
+        n = 0
+        for pos, (mb, ment, mdef) in entries.items():
+            if len(mb) != nbits:
+                continue
+            extras = (ment, mdef) if (ment or mdef) else None
+            vmemo.insert(
+                cand[pos], np.frombuffer(mb, dtype=np.uint8).copy(), extras
+            )
+            n += 1
+        return n
+
+    def prefetch_shared_memo(self, rows: Sequence) -> int:
+        """Pipeline the shared-tier lookup into the scheduler's
+        prefetch stage: rows the L1 doesn't know are batch-looked-up in
+        the shared tier and the hits inserted into the L1 BEFORE
+        plan-time classification, so a fleet-known row rides the memo
+        lane (no bucket, no device batch slot) and a shared miss costs
+        nothing on the dispatch path — the remote round trip overlapped
+        the in-flight device batches. Returns the number of contents
+        served. No-op without an attached tier."""
+        if self._result_cache is None or not rows:
+            return 0
+        rows = list(rows)
+        known = self.memo_known_mask(rows)
+        cand = [
+            r
+            for i, r in enumerate(rows)
+            if not known[i] and getattr(r, "alive", True)
+        ]
+        if not cand:
+            return 0
+        # remember what this stage consulted (hits AND misses): the
+        # encode-time consult skips these rows instead of re-hashing
+        for r in cand:
+            self._cache_put(self._shared_seen, id(r), None)
+        return self._serve_shared(cand)
+
     def memo_contains(self, row: Response) -> bool:
         """Whether the cross-batch verdict memo holds this row's
         content."""
@@ -2505,6 +2670,7 @@ class MatchEngine:
         if self._vmemo is not None:
             self._vmemo.clear()
 
+    # once: _result_cache.bind_corpus (ONE shared-cache epoch move per refresh)
     def refresh_corpus(self, templates_new, db_new: Optional[CompiledDB] = None) -> dict:
         """Corpus refresh against a live engine (the reference's
         ``refresh_corpus``): delta-compile ``templates_new`` against the
@@ -2529,9 +2695,12 @@ class MatchEngine:
         against the current db either way. → the delta stats combined
         (the sharded matcher's under ``"sharded"``).
 
-        Not ported: the shared result tier's corpus epoch
-        (``bind_corpus``) and the monitor's corpus-delta notice
-        (``monitor_notify``), whose layers the port does not have."""
+        An attached result tier moves to the new corpus epoch with ONE
+        ``bind_corpus`` call: entries of the old corpus become
+        unreachable, and the next batch reads and writes the new
+        corpus's namespace. The reference also hands the new digest to
+        an in-process corpus monitor (``monitor_notify``); the port has
+        no monitor layer yet, so that call stays out with it."""
         from swarm_tpu_torch.fingerprints.compile import (
             build_device_layout_delta,
             compile_corpus_delta,
@@ -2553,4 +2722,11 @@ class MatchEngine:
         self._vmemo = None  # recreated lazily at the new plane width
         self._ext_cache.clear()
         self._confirm_cache.clear()
+        self._shared_seen.clear()
+        # shared result tier: ONE namespace move — the epoch's digest
+        # half covers the corpus content + lowering code
+        if self._result_cache is not None:
+            from swarm_tpu_torch.cache.tier import corpus_digest
+
+            self._result_cache.bind_corpus(corpus_digest(self.templates))
         return stats

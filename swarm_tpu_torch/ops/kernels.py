@@ -255,7 +255,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.match_md5.argtypes = [vp, vp, i32, i32, vp, vp]
         fns = (lib.match_md5,)
     elif name == "verdicts":
-        lib.match_verdicts.argtypes = [vp, i32, vp, vp, i32] + [vp] * 12
+        lib.match_verdicts.argtypes = [vp, i32, vp, vp, i32] + [vp] * 13
         fns = (lib.match_verdicts,)
     else:
         lib.match_phase_a.argtypes = [vp, i32, vp, i32, i32, vp, vp, vp, vp]
@@ -877,6 +877,7 @@ def verdict_struct(layout) -> VerdictLayoutC:
 def match_verdicts(
     layout, value_bits: torch.Tensor, uncertain_bits: torch.Tensor, lengths: dict,
     status: torch.Tensor, md5_digest: Optional[torch.Tensor] = None, rx=None,
+    split: Optional["torch.cuda.Event"] = None,
 ) -> tuple:
     """The verdict lowering (the JAX ``eval_verdicts``, full) of slot
     planes ``value_bits`` / ``uncertain_bits`` (bool [B, NS]) with the
@@ -888,7 +889,9 @@ def match_verdicts(
     workflow gates (``layout.has_gates``). ``layout`` is the corpus's
     ``match.VerdictLayout`` on the same device. On the card a call is two
     launches, the pack of the planes into row-sliced words and the
-    evaluation, and its launch count adds both."""
+    evaluation, and its launch count adds both; ``split``, a created
+    CUDA event, is recorded on the stream between them (for timing each
+    launch with events)."""
     from swarm_tpu_torch.ops.encoding import STREAMS
     from swarm_tpu_torch.ops.match import CHECK_SOURCES
 
@@ -948,6 +951,7 @@ def match_verdicts(
             value_bits.shape[1], sources,
             *(null if t is None else _ptr(t) for t in (md5_digest, rx_value, rx_unc, *planes)),
             _ptr(words), _stream(value_bits),
+            null if split is None else ctypes.c_void_p(split.cuda_event),
         )
     _raise_on(rc, "match_verdicts")
     LAUNCHES["match_verdicts"] += 2  # the pack and the evaluation

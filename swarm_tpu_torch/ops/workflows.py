@@ -26,25 +26,26 @@ Two execution paths produce bit-identical per-row results
 
 Per-content gating results additionally memoize in a runner L1 when
 EVERY workflow is content-pure (no reachable template reads
-host/port/duration), so a rescan of known trigger content completes
-without any device dispatch. The ``active`` backend's batched gate
+host/port/duration), and behind it in the engine's fleet result tier
+(the ``"w"`` family of ``swarm_tpu_torch/cache``, keyed by the tier's
+``row_digest``), so a rescan of trigger content that any worker has
+gated completes without any device dispatch. The ``active`` backend's batched gate
 re-confirm (:meth:`WorkflowRunner.resolve_gate_names`) reads the named
 matchers it needs off the same planes. The ``swarm_workflow_*``
 families count the steps lowered, the batches decoded through gate
-planes, the step memo's hits and misses and the host-twin fallbacks.
-Left out of the port: the shared result tier's ``"w"`` family lookups,
-which go with the cache layer.
+planes, the step memo's hits (``l1`` and ``shared``) and misses and the
+host-twin fallbacks.
 """
 
 from __future__ import annotations
 
-import hashlib
 import os
 import threading
 from typing import Optional, Sequence
 
 import numpy as np
 
+from swarm_tpu_torch.cache.tier import row_digest
 from swarm_tpu_torch.fingerprints.compile import (
     WFC_HIT_DEV,
     WFC_HIT_HOST,
@@ -69,43 +70,6 @@ from swarm_tpu_torch.telemetry.workflow_export import (
 
 #: runner-local per-content memo cap (FIFO, oldest half dropped)
 _WF_MEMO_MAX = 4096
-
-#: serialization format version of :func:`row_digest` — the reference
-#: cache tier's, so a row digests to the same key in both packages
-_FORMAT = b"swarm-cache-v1"
-
-
-def _lp(out: bytearray, b: bytes) -> None:
-    out += len(b).to_bytes(8, "little")
-    out += b
-
-
-def _lp_seq(out: bytearray, seq) -> None:
-    """Length-prefix a string sequence element-wise (count, then each
-    element) — joining with a separator would make element boundaries
-    ambiguous, exactly what the prefix discipline exists to prevent."""
-    _lp(out, str(len(seq)).encode())
-    for item in seq:
-        _lp(out, item.encode("utf-8", "surrogateescape"))
-
-
-def row_digest(row) -> str:
-    """Content address of one response row (the reference's
-    ``swarm_tpu/cache/tier.py`` ``row_digest``): sha256 over the
-    normalized row bytes — exactly the fields the device and the
-    content-side host walk read (``engine._content_key``),
-    length-prefixed. host/port/duration are deliberately NOT hashed:
-    the step memo only runs when no workflow reaches a row-dependent
-    template, so content-identical rows share one entry."""
-    out = bytearray(_FORMAT)
-    _lp(out, b"\x01" + row.banner if row.banner is not None else b"\x00")
-    _lp(out, row.body)
-    _lp(out, row.header)
-    _lp(out, str(int(row.status)).encode())
-    _lp_seq(out, row.oob_protocols)
-    _lp(out, row.oob_requests)
-    _lp_seq(out, row.oob_ips)
-    return hashlib.sha256(bytes(out)).hexdigest()
 
 
 def _device_default() -> bool:
@@ -349,7 +313,8 @@ class WorkflowRunner:
                 out[i] = {}  # dead rows match nothing by contract
             else:
                 pending.append(i)
-        # step-memo front: a served row never reaches the engine at all
+        # step-memo front: L1 then the shared "w" family — a served row
+        # never reaches the engine at all (the zero-dispatch rescan)
         if pending and self._memo_complete:
             digests = {i: row_digest(rows[i]) for i in pending}
             still: list[int] = []
@@ -364,6 +329,20 @@ class WorkflowRunner:
                 WORKFLOW_STEP_MEMO_HITS.labels(tier="l1").inc(
                     len(pending) - len(still)
                 )
+            client = getattr(self.engine, "_result_cache", None)
+            if still and client is not None:
+                got = client.lookup_workflows([rows[i] for i in still])
+                if got:
+                    WORKFLOW_STEP_MEMO_HITS.labels(tier="shared").inc(
+                        len(got)
+                    )
+                served = []
+                for pos, entry in got.items():
+                    i = still[pos]
+                    out[i] = {k: list(v) for k, v in entry.items()}
+                    self._memo_put(digests[i], entry)
+                    served.append(i)
+                still = [i for i in still if i not in set(served)]
             if still:
                 WORKFLOW_STEP_MEMO_MISSES.labels().inc(len(still))
             pending = still
@@ -372,12 +351,17 @@ class WorkflowRunner:
             results = self.engine.match(fresh)
             if self.device and any(rm.wf is not None for rm in results):
                 WORKFLOW_GATE_PLANE_BATCHES.labels().inc()
+            writeback: list = []
             for i, rm in zip(pending, results):
                 row = rows[i]
                 per = self._gate_row(rm, lambda _tid, _r=row: [_r])
                 out[i] = per
                 if self._memo_complete:
                     self._memo_put(row_digest(row), per)
+                    writeback.append((row, per))
+            client = getattr(self.engine, "_result_cache", None)
+            if writeback and client is not None:
+                client.writeback_workflows(writeback)
         return out
 
     def _memo_put(self, digest: str, per: dict) -> None:

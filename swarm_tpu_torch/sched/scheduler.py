@@ -13,7 +13,10 @@ stream of chunks:
    short-circuit out of device batches BEFORE padding, fresh rows go
    to the padding-bucket planner (sched/buckets.py) — and pre-encode
    planned batches (``encode_packed(reuse_buffers=True)``, drawing
-   matrices from ``encoding._RotatingPool`` per bucket shape). Runs on
+   matrices from ``encoding._RotatingPool`` per bucket shape). With a
+   fleet result tier on the engine, the chunk's L1 misses are first
+   looked up in the tier (``engine.prefetch_shared_memo``), so rows
+   another worker resolved take the memo lane too. Runs on
    a host thread when the host has cores to spare
    (``prefetch="auto"``); on starved hosts the same stage runs inline.
    The stage is numpy and the PyDLL passes of libfastpack only: it
@@ -366,6 +369,16 @@ class BatchScheduler:
             memo_split = cfg.memo_split
             add_known = planner.add_known
             add_fresh = planner.add_fresh
+            # fleet result tier: when the engine has one attached, the
+            # shared lookup rides THIS stage — rows the tier knows are
+            # in the L1 before classification, so they take the memo
+            # lane (no bucket, no device slot) and the remote round
+            # trip overlaps the in-flight batches rather than the
+            # dispatch path. Stub engines (tests) may not expose the
+            # hook.
+            prefetch_shared = getattr(
+                engine, "prefetch_shared_memo", None
+            )
             for chunk in chunks:
                 # classify from the RAW payload (decode may consume it)
                 chunk_qos = qos_of(chunk)
@@ -380,6 +393,8 @@ class BatchScheduler:
                     chunk_len.append(len(rows))
                     chunk_left.append(len(rows))
                 stats.chunks += 1
+                if memo_split and rows and prefetch_shared is not None:
+                    prefetch_shared(rows)
                 known = None
                 state = None
                 if memo_split and rows:

@@ -14,7 +14,7 @@ has.
 Families, kinds, help strings, label names and buckets are the
 reference's, letter for letter: the JAX server and its scrapers read
 them. A family of a layer the port does not have (server, gateway,
-queue, journal, fleet, shared cache, monitor) is not registered; the
+queue, journal, fleet, monitor) is not registered; the
 ``swarm_aot_*`` families count the port's kernel libraries
 (:mod:`~swarm_tpu_torch.telemetry.aot_export`).
 """

@@ -7,8 +7,8 @@ gate-apply stage ran, how the per-content step memo is performing, and
 how often a row fell back to the host-loop reference twin. Created at
 telemetry import time — not on first runner construction — so every
 process's exposition carries the families with a rendered sample. The
-port has the runner-local (``l1``) step memo only; the ``shared`` tier
-label is seeded as the reference seeds it.
+step memo's hits are labelled by level: the runner's ``l1``, and the
+fleet result tier's ``"w"`` family (``shared``).
 """
 
 from __future__ import annotations

@@ -100,11 +100,17 @@ The worker starts as the JAX worker starts: ``--config <path>`` (or
 then the flags (``swarm_tpu_torch/config.py``); the modules of
 ``prewarm_modules`` (``SWARM_PREWARM_MODULES``) build their engines
 before the first poll. A ``tpu`` engine on a host with several cards
-shards its batches over all of them (``parallel/``).
+shards its batches over all of them (``parallel/``); given the whole
+``SWARM_COORDINATOR`` / ``SWARM_NUM_PROCESSES`` / ``SWARM_PROCESS_ID``
+triplet the worker joins a process group first
+(``parallel/multihost.py``). With ``SWARM_CACHE_BACKEND`` set
+(``memory``, or ``redis`` at ``SWARM_CACHE_URL`` / ``SWARM_REDIS_URL``)
+every engine the worker builds gets the fleet result tier
+(``swarm_tpu_torch/cache``): content any worker resolved is served
+without the card. A tier that cannot be built prints why and the engine
+runs L1-only, as the JAX worker's does.
 
-Not ported yet (ROADMAP.md): the result cache, the executable cache and
-multi-host engines (a worker given ``SWARM_COORDINATOR``,
-``SWARM_NUM_PROCESSES`` or ``SWARM_PROCESS_ID`` raises).
+Not ported yet (ROADMAP.md): the executable cache.
 """
 
 from __future__ import annotations
@@ -124,6 +130,7 @@ import requests
 import torch
 
 from swarm_tpu_torch import config
+from swarm_tpu_torch.cache import build_result_cache
 from swarm_tpu_torch.datamodel import SCAN_ID_RE, JobStatus
 from swarm_tpu_torch.fingerprints.dbcache import load_or_compile
 from swarm_tpu_torch.fingerprints.model import Response
@@ -230,6 +237,34 @@ class WorkerConfig:
     #: comma-separated modules whose engines or scanners are built
     #: before the first poll (:meth:`JobProcessor.prewarm`)
     prewarm_modules: str = ""
+    #: the Redis the tier's ``redis`` backend reaches unless
+    #: ``cache_url`` names another
+    redis_url: str = "redis://127.0.0.1:6379/0"
+    # fleet result cache (swarm_tpu_torch/cache): the shared
+    # content-addressed result tier behind each engine's verdict memo.
+    #: "off" leaves every path unchanged; "memory" shares one embedded
+    #: tier across this process's engines; "redis" goes fleet-wide
+    cache_backend: str = "off"
+    #: the tier's Redis URL ("" = ``redis_url``)
+    cache_url: str = ""
+    #: blob-spill directory for oversized values on the redis backend
+    #: ("" = state store only; the memory backend spills to an embedded
+    #: blob store regardless)
+    cache_spill_dir: str = ""
+    #: promote the batched walk's confirm cache as the tier's second
+    #: value family
+    cache_confirm: bool = True
+    #: write freshly walked results back (off = read-only consumer)
+    cache_writeback: bool = True
+    #: breaker around every tier operation: a dead backend degrades the
+    #: scan to L1-only, it never blocks it
+    cache_breaker_threshold: int = 3
+    cache_breaker_cooldown_s: float = 30.0
+    #: TTL and size policy of the shared namespaces: 0 = backend
+    #: eviction and epoch bumps only; the max-entry bound applies to
+    #: each value family's namespace, oldest entries first
+    cache_ttl_s: float = 0.0
+    cache_max_entries: int = 0
 
     @classmethod
     def load(cls, path: Optional[str] = None, env=None, **overrides) -> "WorkerConfig":
@@ -922,6 +957,17 @@ class JobProcessor:
             engine = MatchEngine(
                 templates, db=db, device=self.device, pipeline=self.cfg.pipeline
             )
+            # fleet-wide result tier: rows any worker has ever resolved
+            # short-circuit before device dispatch.
+            # SWARM_CACHE_BACKEND=off (default) skips this entirely; a
+            # tier that can't be built must not kill engine bring-up —
+            # the cache is an accelerator, never a dependency
+            try:
+                client = build_result_cache(self.cfg)
+                if client is not None:
+                    engine.attach_result_cache(client)
+            except Exception as e:
+                print(f"result cache unavailable ({e}); running L1-only")
             self.engines[templates_dir] = engine
         return engine
 

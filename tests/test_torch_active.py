@@ -15,12 +15,14 @@ from one counter.
 
 import dataclasses
 import json
+import os
 import socket
 import struct
 import textwrap
 from pathlib import Path
 
 import pytest
+import torch
 import yaml
 
 from swarm_tpu.fingerprints.nuclei import parse_template as j_parse
@@ -51,6 +53,23 @@ from test_active_scan import (
 )
 from test_dns_templates import DNS_TEMPLATE, SERVFAIL_TEMPLATE, dns_server  # noqa: F401
 from test_match_parity import DATA
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread, and engines of both packages that walk
+    inline (``SWARM_WALK_THREADS=1``) unless a test sets their walk: six
+    test processes share the host, and no result depends on either."""
+    saved = torch.get_num_threads(), os.environ.get("SWARM_WALK_THREADS")
+    torch.set_num_threads(1)
+    os.environ["SWARM_WALK_THREADS"] = "1"
+    yield
+    torch.set_num_threads(saved[0])
+    if saved[1] is None:
+        os.environ.pop("SWARM_WALK_THREADS", None)
+    else:
+        os.environ["SWARM_WALK_THREADS"] = saved[1]
+
 
 RANDSTR = "swarm0123456789abcdef"
 REPO = Path(__file__).resolve().parents[1]

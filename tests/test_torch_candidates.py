@@ -34,6 +34,7 @@ plain versions on the same cases on the card.
 """
 
 import dataclasses
+import os
 import re
 from pathlib import Path
 
@@ -52,6 +53,23 @@ from swarm_tpu_torch.ops import match as tm
 from test_torch_match import (ENGINE_ENCODE, dense_row, encode_both, jax_streams, jax_tree,
                               load_tree, row_dicts, synthetic, torch_streams)
 from test_match_parity import DATA
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread, and engines of both packages that walk
+    inline (``SWARM_WALK_THREADS=1``) unless a test sets their walk: six
+    test processes share the host, and no result depends on either."""
+    saved = torch.get_num_threads(), os.environ.get("SWARM_WALK_THREADS")
+    torch.set_num_threads(1)
+    os.environ["SWARM_WALK_THREADS"] = "1"
+    yield
+    torch.set_num_threads(saved[0])
+    if saved[1] is None:
+        os.environ.pop("SWARM_WALK_THREADS", None)
+    else:
+        os.environ["SWARM_WALK_THREADS"] = saved[1]
+
 
 SOURCE = Path(kernels.__file__).parent / "csrc" / "match.cu"
 #: the kernels' constants (csrc/match.cu), as the walks take them

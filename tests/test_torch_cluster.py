@@ -7,6 +7,7 @@ PyTorch versions). Tolerance is 0 throughout: rho, parent and labels are
 integers and delta is an integer-valued f32.
 """
 
+import os
 import numpy as np
 import pytest
 import torch
@@ -14,6 +15,23 @@ import torch
 from swarm_tpu.ops import cluster as jc
 from swarm_tpu_torch.ops import cluster as tc
 from swarm_tpu_torch.ops import kernels
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread, and engines of both packages that walk
+    inline (``SWARM_WALK_THREADS=1``) unless a test sets their walk: six
+    test processes share the host, and no result depends on either."""
+    saved = torch.get_num_threads(), os.environ.get("SWARM_WALK_THREADS")
+    torch.set_num_threads(1)
+    os.environ["SWARM_WALK_THREADS"] = "1"
+    yield
+    torch.set_num_threads(saved[0])
+    if saved[1] is None:
+        os.environ.pop("SWARM_WALK_THREADS", None)
+    else:
+        os.environ["SWARM_WALK_THREADS"] = saved[1]
+
 
 NS = (0, 1, 7, 300, 1000)
 RADII = (0.0, 8.0, 32.0, 64.0)

@@ -11,6 +11,7 @@ and integer-valued f32). The numpy models of the kernel's integer
 threshold and of its two parent-key widths are checked here too.
 """
 
+import os
 import numpy as np
 import pytest
 import torch
@@ -20,6 +21,23 @@ from swarm_tpu_torch.ops import cluster as tc
 from swarm_tpu_torch.ops import kernels
 
 from test_torch_cluster import KINDS, make_rows
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread, and engines of both packages that walk
+    inline (``SWARM_WALK_THREADS=1``) unless a test sets their walk: six
+    test processes share the host, and no result depends on either."""
+    saved = torch.get_num_threads(), os.environ.get("SWARM_WALK_THREADS")
+    torch.set_num_threads(1)
+    os.environ["SWARM_WALK_THREADS"] = "1"
+    yield
+    torch.set_num_threads(saved[0])
+    if saved[1] is None:
+        os.environ.pop("SWARM_WALK_THREADS", None)
+    else:
+        os.environ["SWARM_WALK_THREADS"] = saved[1]
+
 
 NS = (1, 2, 15, 16, 17, 127, 128, 129, 300, 1000)
 RADII = (0.0, 0.5, 40.0, 511.5, 512.0)

@@ -17,8 +17,9 @@ small corpus ``tests/data/templates``:
   refresh, then an injected ``device.dispatch`` fault, gives the new
   corpus's verdicts from the CPU oracle.
 
-Left out: ``test_refresh_bumps_shared_cache_epoch_exactly_once``, since
-the shared result tier is not ported. Also here: the ``swarm_aot_*``
+``test_refresh_bumps_shared_cache_epoch_exactly_once`` is
+``tests/test_torch_result_cache.py``'s ``test_refresh_moves_the_epoch_once``,
+beside the tier's other cases. Also here: the ``swarm_aot_*``
 families against the JAX module's, and ``load_library``'s hit, miss and
 deserialize_error outcomes with the compiler and the loader stubbed.
 """

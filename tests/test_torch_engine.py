@@ -9,6 +9,7 @@ the scheduler (``pipeline: on``) as without it.
 
 import base64
 import json
+import os
 import shutil
 
 import pytest
@@ -30,6 +31,23 @@ from swarm_tpu_torch.worker.modules import ModuleRegistry
 from swarm_tpu_torch.worker.runtime import JobProcessor, WorkerConfig
 from test_match_parity import DATA, fuzz_rows
 from test_torch_worker import REPO, RecordingClient
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread, and engines of both packages that walk
+    inline (``SWARM_WALK_THREADS=1``) unless a test sets their walk: six
+    test processes share the host, and no result depends on either."""
+    saved = torch.get_num_threads(), os.environ.get("SWARM_WALK_THREADS")
+    torch.set_num_threads(1)
+    os.environ["SWARM_WALK_THREADS"] = "1"
+    yield
+    torch.set_num_threads(saved[0])
+    if saved[1] is None:
+        os.environ.pop("SWARM_WALK_THREADS", None)
+    else:
+        os.environ["SWARM_WALK_THREADS"] = saved[1]
+
 
 #: a device-lowered template that reads the host: its extraction is
 #: decided per row, not per content

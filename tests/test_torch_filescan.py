@@ -11,9 +11,11 @@ port's engine on the CPU: equal findings and equal output bytes;
 """
 
 import dataclasses
+import os
 from pathlib import Path
 
 import pytest
+import torch
 
 from swarm_tpu.fingerprints.nuclei import load_template_file as j_load_file
 from swarm_tpu.fingerprints.nuclei import parse_template as j_parse
@@ -23,6 +25,22 @@ from swarm_tpu_torch.fingerprints.nuclei import parse_template as t_parse
 from swarm_tpu_torch.ops.engine import MatchEngine
 from swarm_tpu_torch.worker import filescan as t_filescan
 from test_file_templates import INLINE_CONF_AUDIT, INLINE_PERLISH, _write
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread, and engines of both packages that walk
+    inline (``SWARM_WALK_THREADS=1``) unless a test sets their walk: six
+    test processes share the host, and no result depends on either."""
+    saved = torch.get_num_threads(), os.environ.get("SWARM_WALK_THREADS")
+    torch.set_num_threads(1)
+    os.environ["SWARM_WALK_THREADS"] = "1"
+    yield
+    torch.set_num_threads(saved[0])
+    if saved[1] is None:
+        os.environ.pop("SWARM_WALK_THREADS", None)
+    else:
+        os.environ["SWARM_WALK_THREADS"] = saved[1]
 
 
 def scan_both(j_templates, t_templates, paths: list, **kw) -> tuple:

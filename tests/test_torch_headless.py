@@ -12,10 +12,12 @@ caller free to drive a batch of the port's engine while the round runs.
 
 import copy
 import dataclasses
+import os
 import textwrap
 import threading
 
 import pytest
+import torch
 import yaml
 
 from chip_smoke import HEADLESS_RUN, HEADLESS_SKIP, _HOOKS, _PP_HOOK, OobFleet, headless_docs
@@ -32,6 +34,23 @@ from test_headless import (  # noqa: F401
     reveal_server,
 )
 from test_match_parity import DATA
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread, and engines of both packages that walk
+    inline (``SWARM_WALK_THREADS=1``) unless a test sets their walk: six
+    test processes share the host, and no result depends on either."""
+    saved = torch.get_num_threads(), os.environ.get("SWARM_WALK_THREADS")
+    torch.set_num_threads(1)
+    os.environ["SWARM_WALK_THREADS"] = "1"
+    yield
+    torch.set_num_threads(saved[0])
+    if saved[1] is None:
+        os.environ.pop("SWARM_WALK_THREADS", None)
+    else:
+        os.environ["SWARM_WALK_THREADS"] = saved[1]
+
 
 WANTS_PIXELS = """\
 id: wants-pixels

@@ -77,6 +77,8 @@ def test_module_list_covers_the_slice():
         "swarm_tpu_torch.telemetry.shard_export",
         # the corpus refresh's kernel-library families, and several hosts
         "swarm_tpu_torch.telemetry.aot_export", "swarm_tpu_torch.parallel.multihost",
+        # the stores and the fleet result tier
+        "swarm_tpu_torch.stores", "swarm_tpu_torch.cache", "swarm_tpu_torch.cache.tier",
     } <= names
 
 

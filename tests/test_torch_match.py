@@ -12,6 +12,7 @@ tests marked ``cuda`` hold them against their plain versions there.
 
 import hashlib
 import inspect
+import os
 import random
 import re
 
@@ -31,6 +32,8 @@ import swarm_tpu.fingerprints.workflows as j_workflows
 import swarm_tpu.ops.cpu_ref as j_cpu_ref
 import swarm_tpu.ops.encoding as j_encoding
 import swarm_tpu.ops.hashing as j_hashing
+import swarm_tpu.stores as j_stores
+import swarm_tpu.cache.tier as j_tier
 from chip_smoke import realistic_rows, synthetic_corpus
 from swarm_tpu.ops import match as jm
 from swarm_tpu.ops.md5 import md5_words as j_md5_words
@@ -49,10 +52,28 @@ from swarm_tpu_torch.ops import kernels
 from swarm_tpu_torch.ops import match as tm
 from swarm_tpu_torch.ops import regexdev as t_regexdev
 from swarm_tpu_torch.ops.md5 import md5_words as t_md5_words
+from swarm_tpu_torch import stores as t_stores
+from swarm_tpu_torch.cache import tier as t_tier
 from test_match_parity import DATA, fuzz_rows
 
 # ---------------------------------------------------------------------------
 # Corpora and rows, made once for both packages
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread, and engines of both packages that walk
+    inline (``SWARM_WALK_THREADS=1``) unless a test sets their walk: six
+    test processes share the host, and no result depends on either."""
+    saved = torch.get_num_threads(), os.environ.get("SWARM_WALK_THREADS")
+    torch.set_num_threads(1)
+    os.environ["SWARM_WALK_THREADS"] = "1"
+    yield
+    torch.set_num_threads(saved[0])
+    if saved[1] is None:
+        os.environ.pop("SWARM_WALK_THREADS", None)
+    else:
+        os.environ["SWARM_WALK_THREADS"] = saved[1]
 
 
 class Corpus:
@@ -163,6 +184,9 @@ COPIES = [
     # the native passes only, with no Python fallback; no sharded
     # placement map on the batch
     (j_encoding, t_encoding, ("encode_batch", "ResponseBatch", "_native_encoder_available")),
+    # the stores and the fleet result tier, whole
+    (j_stores, t_stores, ()),
+    (j_tier, t_tier, ()),
 ]
 
 

@@ -11,11 +11,13 @@ one counter, so that the two scans mint the same tokens.
 """
 
 import dataclasses
+import os
 import random
 import socket
 import threading
 
 import pytest
+import torch
 
 from swarm_tpu.fingerprints import load_corpus as j_load_corpus
 from swarm_tpu.fingerprints import model as j_model
@@ -31,8 +33,26 @@ from test_match_parity import fuzz_rows
 from test_oob_listener import _dns_query
 from test_oob_parity import _oob_rows, _write_corpus
 from test_oob_scan import JNDI_TEMPLATE, PLAIN_TEMPLATE, SSRF_TEMPLATE, _vulnerable_server
-from test_torch_active import close_shared, free_ports, hits_view, pair, tokens  # noqa: F401
+from test_torch_active import close_shared, free_ports, hits_view, pair, tokens  
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread, and engines of both packages that walk
+    inline (``SWARM_WALK_THREADS=1``) unless a test sets their walk: six
+    test processes share the host, and no result depends on either."""
+    saved = torch.get_num_threads(), os.environ.get("SWARM_WALK_THREADS")
+    torch.set_num_threads(1)
+    os.environ["SWARM_WALK_THREADS"] = "1"
+    yield
+    torch.set_num_threads(saved[0])
+    if saved[1] is None:
+        os.environ.pop("SWARM_WALK_THREADS", None)
+    else:
+        os.environ["SWARM_WALK_THREADS"] = saved[1]
+
+
+# noqa: F401
 PACKAGES = (j_oob, t_oob)
 
 

@@ -21,6 +21,7 @@ On the card the tests marked ``cuda`` hold the kernel to its plain
 version on the same calls.
 """
 
+import os
 import re
 from pathlib import Path
 
@@ -41,6 +42,23 @@ from swarm_tpu_torch.ops import kernels
 from swarm_tpu_torch.ops import match as tm
 from swarm_tpu_torch.ops import regexdev as t_regexdev
 from test_torch_match import Corpus, jax_tree, phase_inputs, slot_bits
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread, and engines of both packages that walk
+    inline (``SWARM_WALK_THREADS=1``) unless a test sets their walk: six
+    test processes share the host, and no result depends on either."""
+    saved = torch.get_num_threads(), os.environ.get("SWARM_WALK_THREADS")
+    torch.set_num_threads(1)
+    os.environ["SWARM_WALK_THREADS"] = "1"
+    yield
+    torch.set_num_threads(saved[0])
+    if saved[1] is None:
+        os.environ.pop("SWARM_WALK_THREADS", None)
+    else:
+        os.environ["SWARM_WALK_THREADS"] = saved[1]
+
 
 MASK32 = 0xFFFFFFFF
 

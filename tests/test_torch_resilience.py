@@ -34,9 +34,27 @@ import swarm_tpu_torch.resilience.faults as t_faults
 import swarm_tpu_torch.resilience.heartbeat as t_heartbeat
 import swarm_tpu_torch.resilience.spool as t_spool
 import swarm_tpu_torch.resilience.transport as t_transport
+import torch
 from swarm_tpu.config import Config
 from swarm_tpu.worker import runtime as j_runtime
 from swarm_tpu_torch.worker import runtime as t_runtime
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread, and engines of both packages that walk
+    inline (``SWARM_WALK_THREADS=1``) unless a test sets their walk: six
+    test processes share the host, and no result depends on either."""
+    saved = torch.get_num_threads(), os.environ.get("SWARM_WALK_THREADS")
+    torch.set_num_threads(1)
+    os.environ["SWARM_WALK_THREADS"] = "1"
+    yield
+    torch.set_num_threads(saved[0])
+    if saved[1] is None:
+        os.environ.pop("SWARM_WALK_THREADS", None)
+    else:
+        os.environ["SWARM_WALK_THREADS"] = saved[1]
+
 
 REPO = Path(__file__).resolve().parents[1]
 DATA = REPO / "tests" / "data" / "templates"

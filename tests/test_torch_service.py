@@ -15,10 +15,12 @@ import base64
 import dataclasses
 import inspect
 import json
+import os
 import re
 from pathlib import Path
 
 import pytest
+import torch
 
 from swarm_tpu.fingerprints import nmap_probes as j_probes
 from swarm_tpu.fingerprints.model import Response as JResponse
@@ -31,6 +33,23 @@ from swarm_tpu_torch.ops import service as t_service
 from swarm_tpu_torch.worker import formats as t_formats
 from test_service_detect import MINI_DB
 from test_service_recall import ADVERSARIAL, _case
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread, and engines of both packages that walk
+    inline (``SWARM_WALK_THREADS=1``) unless a test sets their walk: six
+    test processes share the host, and no result depends on either."""
+    saved = torch.get_num_threads(), os.environ.get("SWARM_WALK_THREADS")
+    torch.set_num_threads(1)
+    os.environ["SWARM_WALK_THREADS"] = "1"
+    yield
+    torch.set_num_threads(saved[0])
+    if saved[1] is None:
+        os.environ.pop("SWARM_WALK_THREADS", None)
+    else:
+        os.environ["SWARM_WALK_THREADS"] = saved[1]
+
 
 REPO = Path(__file__).resolve().parents[1]
 BUNDLED = REPO / "swarm_tpu_torch" / "data" / "service-probes.txt"

@@ -8,9 +8,11 @@ and per-row results must be the JAX package's, in input order, at wave
 sizes that do and do not divide the input. Exact.
 """
 
+import os
 import threading
 
 import pytest
+import torch
 
 from chip_smoke import realistic_rows, synthetic_corpus
 from swarm_tpu.fingerprints import model as j_model
@@ -23,6 +25,23 @@ from swarm_tpu_torch.fingerprints import nuclei as t_nuclei
 from swarm_tpu_torch.ops.engine import MatchEngine
 from swarm_tpu_torch.worker import executor as t_executor
 from swarm_tpu_torch.worker import streaming as t_streaming
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread, and engines of both packages that walk
+    inline (``SWARM_WALK_THREADS=1``) unless a test sets their walk: six
+    test processes share the host, and no result depends on either."""
+    saved = torch.get_num_threads(), os.environ.get("SWARM_WALK_THREADS")
+    torch.set_num_threads(1)
+    os.environ["SWARM_WALK_THREADS"] = "1"
+    yield
+    torch.set_num_threads(saved[0])
+    if saved[1] is None:
+        os.environ.pop("SWARM_WALK_THREADS", None)
+    else:
+        os.environ["SWARM_WALK_THREADS"] = saved[1]
+
 
 N_TARGETS = 90
 

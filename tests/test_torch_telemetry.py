@@ -24,6 +24,7 @@ the worker's spans, events and families) against the JAX package's.
 import base64
 import collections
 import json
+import os
 import threading
 import time
 import types
@@ -45,11 +46,29 @@ import swarm_tpu_torch.telemetry.events as t_events
 import swarm_tpu_torch.telemetry.metrics as t_metrics
 import swarm_tpu_torch.telemetry.tracing as t_tracing
 import swarm_tpu_torch.utils.trace as t_trace
+import torch
 from swarm_tpu.client.cli import JobClient
 from swarm_tpu.config import Config
 from swarm_tpu.server.app import SwarmServer
 from swarm_tpu.worker import runtime as j_runtime
 from swarm_tpu_torch.worker import runtime as t_runtime
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread, and engines of both packages that walk
+    inline (``SWARM_WALK_THREADS=1``) unless a test sets their walk: six
+    test processes share the host, and no result depends on either."""
+    saved = torch.get_num_threads(), os.environ.get("SWARM_WALK_THREADS")
+    torch.set_num_threads(1)
+    os.environ["SWARM_WALK_THREADS"] = "1"
+    yield
+    torch.set_num_threads(saved[0])
+    if saved[1] is None:
+        os.environ.pop("SWARM_WALK_THREADS", None)
+    else:
+        os.environ["SWARM_WALK_THREADS"] = saved[1]
+
 
 REPO = Path(__file__).resolve().parents[1]
 DATA = REPO / "tests" / "data" / "templates"

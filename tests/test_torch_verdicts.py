@@ -22,6 +22,7 @@ random slot planes with uncertain bits set.
 """
 
 import hashlib
+import os
 import random
 import re
 from pathlib import Path
@@ -47,6 +48,23 @@ from swarm_tpu_torch.ops import match as tm
 from swarm_tpu_torch.ops.encoding import STREAMS, encode_batch
 from swarm_tpu_torch.ops.md5 import md5_words as t_md5_words
 from test_match_parity import DATA, fuzz_rows
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread, and engines of both packages that walk
+    inline (``SWARM_WALK_THREADS=1``) unless a test sets their walk: six
+    test processes share the host, and no result depends on either."""
+    saved = torch.get_num_threads(), os.environ.get("SWARM_WALK_THREADS")
+    torch.set_num_threads(1)
+    os.environ["SWARM_WALK_THREADS"] = "1"
+    yield
+    torch.set_num_threads(saved[0])
+    if saved[1] is None:
+        os.environ.pop("SWARM_WALK_THREADS", None)
+    else:
+        os.environ["SWARM_WALK_THREADS"] = saved[1]
+
 
 #: the lengths where md5's padding changes shape: the empty message, the
 #: last length whose marker and bit length fit one block (55), the

@@ -14,9 +14,11 @@ patterns. Everything compared is integers, bytes or strings: tolerance 0.
 
 import dataclasses
 import inspect
+import os
 import re
 
 import pytest
+import torch
 
 from swarm_tpu.fingerprints import model as j_model
 from swarm_tpu.fingerprints import nuclei as j_nuclei
@@ -34,6 +36,23 @@ from test_fastre import HAND_CASES, corpus_patterns, sample_texts
 from test_match_parity import DATA
 from test_torch_engine import corpus_docs, rows_of
 from test_torch_native import load_jax_crex
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread, and engines of both packages that walk
+    inline (``SWARM_WALK_THREADS=1``) unless a test sets their walk: six
+    test processes share the host, and no result depends on either."""
+    saved = torch.get_num_threads(), os.environ.get("SWARM_WALK_THREADS")
+    torch.set_num_threads(1)
+    os.environ["SWARM_WALK_THREADS"] = "1"
+    yield
+    torch.set_num_threads(saved[0])
+    if saved[1] is None:
+        os.environ.pop("SWARM_WALK_THREADS", None)
+    else:
+        os.environ["SWARM_WALK_THREADS"] = saved[1]
+
 
 #: batch rows: the corpus's rows make three batches, the last partial
 BATCH = 128

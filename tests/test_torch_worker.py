@@ -9,6 +9,7 @@ byte-identical to the JAX worker's on the same targets.
 
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -28,6 +29,23 @@ from swarm_tpu_torch.datamodel import JobStatus
 from swarm_tpu_torch.worker.executor import ProbeExecutor, parse_target
 from swarm_tpu_torch.worker.modules import ModuleRegistry
 from swarm_tpu_torch.worker.runtime import JobProcessor, WorkerConfig
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread, and engines of both packages that walk
+    inline (``SWARM_WALK_THREADS=1``) unless a test sets their walk: six
+    test processes share the host, and no result depends on either."""
+    saved = torch.get_num_threads(), os.environ.get("SWARM_WALK_THREADS")
+    torch.set_num_threads(1)
+    os.environ["SWARM_WALK_THREADS"] = "1"
+    yield
+    torch.set_num_threads(saved[0])
+    if saved[1] is None:
+        os.environ.pop("SWARM_WALK_THREADS", None)
+    else:
+        os.environ["SWARM_WALK_THREADS"] = saved[1]
+
 
 REPO = Path(__file__).resolve().parents[1]
 JARM_MODULE = REPO / "modules" / "jarm.json"

@@ -10,10 +10,12 @@ decoded and with the host loop (``device=False``,
 row for row, and the same ``evaluate_hits`` answers. Exact.
 """
 
+import os
 import numpy as np
 import pytest
 
 import bench
+import torch
 from swarm_tpu.cache.tier import row_digest as j_row_digest
 from swarm_tpu.fingerprints import load_corpus as j_load_corpus
 from swarm_tpu.fingerprints.model import Response as JResponse
@@ -25,6 +27,23 @@ from swarm_tpu_torch.ops.engine import MatchEngine
 from swarm_tpu_torch.ops.workflows import WorkflowRunner, row_digest
 from test_match_parity import DATA
 from test_torch_walk import to_port
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread, and engines of both packages that walk
+    inline (``SWARM_WALK_THREADS=1``) unless a test sets their walk: six
+    test processes share the host, and no result depends on either."""
+    saved = torch.get_num_threads(), os.environ.get("SWARM_WALK_THREADS")
+    torch.set_num_threads(1)
+    os.environ["SWARM_WALK_THREADS"] = "1"
+    yield
+    torch.set_num_threads(saved[0])
+    if saved[1] is None:
+        os.environ.pop("SWARM_WALK_THREADS", None)
+    else:
+        os.environ["SWARM_WALK_THREADS"] = saved[1]
+
 
 ACME = b"<html><body>site powered by AcmeCMS, demo-build 3.11</body></html>"
 

@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only refresh     # device, build, corpus, refresh
     python3 chip_smoke.py --only result_cache  # device, build, corpus, result_cache
     python3 chip_smoke.py --only multihost   # device, build, multihost (two processes)
+    python3 chip_smoke.py --only aot         # device, build, corpus, aot
 
 Runs from the root of a checkout, on a machine with one CUDA card, and
 prints one JSON line per phase:
@@ -249,6 +250,16 @@ prints one JSON line per phase:
    outage longer than the retries is spooled and replayed on the next
    poll, then a drain order ends the worker, which deregisters once.
 
+23. ``aot`` (after ``result_cache``) — the AOT library cache: this
+   process publishes the four built libraries to a file-backed store;
+   a worker on a copy of the tree with no kernel library runs the
+   ``fingerprint`` job cold (nvcc), then as a joiner that prewarms the
+   four from the store and compiles nothing, with the same launches and
+   output, every recorded call and the cluster kernels exact; then a
+   truncated blob, an ``aot.fetch`` fault plan and an epoch bump, each
+   in a process of its own (see :func:`phase_aot`), and the gateway's
+   scan cache on the job's output.
+
 Every MatchEngine that phases 9–21 build in this process (the phases' own, the
 worker's, a scanner's, a classifier's) must end its phase with no device
 fault and no degraded batch (the ``no_device_faults`` line counts them).
@@ -262,7 +273,8 @@ phase's traced pipelined call, and its launches and times on the
 service corpus, and for each grid of the mesh phase, with the seq-halo
 calls' times for phase A and the verify; and its launches on the batch
 after the refresh phase's last refresh, on the result_cache phase's
-writer's call, and on each grid of the multihost phase), the
+writer's call, on each grid of the multihost phase, and on the aot
+phase's joiner; the cluster kernels also on the joiner), the
 ``nvidia-smi`` line, and
 as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
@@ -1889,6 +1901,7 @@ def phase_build() -> tuple:
                                  f"{second[name]['how']} (want built, then fetched)")
         if second[name]["nvcc_s"] != 0.0:
             raise AssertionError(f"build: the second load of {name} ran nvcc")
+        NVCC_SECONDS[name] = first[name]["nvcc_s"]
         libraries[name] = {"key": keys[name],
                            "path": str(kernels.library_path(name).relative_to(REPO)),
                            "first": first[name], "second": second[name]}
@@ -4434,6 +4447,359 @@ def phase_result_cache(templates, plants, db, smi: str) -> dict:
     return {"launches": a["launches"], "max_err": max_err}
 
 
+#: the AOT phase's subprocesses: each a worker bring-up of its own
+AOT_STEP_TIMEOUT_S = 600
+#: the device the AOT phase's subprocesses run on
+AOT_DEVICE = "cuda"
+#: nvcc seconds of each kernel library's first build in this run
+#: (``phase_build``), reported beside the joiner's fetch
+NVCC_SECONDS: dict = {}
+
+
+def aot_tree(root: Path) -> Path:
+    """A copy of what a worker runs from (the port's package, ``native/``,
+    ``modules/`` and this script) under ``root``, with a ``_build/`` of
+    its own that holds the three host libraries (``make``, not nvcc,
+    copied with their times so that they are not rebuilt) and no kernel
+    library: a host that joins the fleet."""
+    import shutil
+
+    from swarm_tpu_torch.native import crex, scanio
+
+    dst = root / "tree"
+    skip = shutil.ignore_patterns("_build", "__pycache__", "*.so")
+    shutil.copytree(REPO / "swarm_tpu_torch", dst / "swarm_tpu_torch", ignore=skip)
+    shutil.copytree(REPO / "native", dst / "native", ignore=skip)
+    shutil.copytree(REPO / "modules", dst / "modules", ignore=skip)
+    shutil.copy2(REPO / "chip_smoke.py", dst / "chip_smoke.py")
+    build = dst / "swarm_tpu_torch" / "_build"
+    build.mkdir()
+    for lib in (scanio._LIB_PATH, scanio._FASTPACK_PATH, crex._LIB_PATH):
+        shutil.copy2(lib, build / lib.name)
+    return dst
+
+
+def drop_kernel_libraries(tree: Path, names=None) -> None:
+    """Remove the keyed kernel libraries (all, or ``names``') from the
+    copy's build directory."""
+    from swarm_tpu_torch.ops import kernels
+
+    for name in names or kernels.LIBRARIES:
+        for path in (tree / "swarm_tpu_torch" / "_build").glob(f"{kernels.LIBRARIES[name][1]}-*.so"):
+            path.unlink()
+
+
+def aot_step(tree: Path, spec: dict, env: dict | None = None) -> dict:
+    """Run ``python3 chip_smoke.py --aot-run <spec>`` in the copy ``tree``
+    → the JSON it wrote, with the process's stdout and wall seconds."""
+    spec_path = tree.parent / f"{spec['arm']}.json"
+    spec = {**spec, "out": str(tree.parent / f"{spec['arm']}.out.json")}
+    spec_path.write_text(json.dumps(spec))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "chip_smoke.py", "--aot-run", str(spec_path)],
+                          cwd=tree, env={**os.environ, **(env or {})}, capture_output=True,
+                          text=True, timeout=AOT_STEP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"aot {spec['arm']}: exit {proc.returncode}: "
+                             f"{proc.stdout[-1500:]}{proc.stderr[-3000:]}")
+    out = json.loads(Path(spec["out"]).read_text())
+    out["wall_s"] = wall
+    out["stdout_tail"] = proc.stdout[-600:]
+    return out
+
+
+def md5_exact(device: str) -> float:
+    """``match_md5`` on 256 random rows of up to 2,048 bytes against its
+    plain version → the largest difference (raises on any)."""
+    import torch
+
+    from swarm_tpu_torch.ops import kernels, md5
+
+    rng = np.random.default_rng(21)
+    stream = torch.from_numpy(rng.integers(0, 256, (256, 2048), dtype=np.uint8)).to(device)
+    lens = torch.from_numpy(rng.integers(0, 2049, 256).astype(np.int32)).to(device)
+    err = _diff(kernels.match_md5(stream, lens), md5.md5_words(stream, lens))
+    if err:
+        raise AssertionError(f"match_md5 differs from its plain version: {err}")
+    return err
+
+
+def cluster_exact(device: str) -> tuple:
+    """The two cluster kernels once each at N = 65,536 JARM-like rows,
+    radius 40, against their plain versions → (launches, max errors)."""
+    import torch
+
+    from swarm_tpu_torch.ops import cluster, kernels
+
+    x = cluster.carry_packed(jarm_like_rows(np.random.default_rng(5), 65536), device)
+    kernels.reset_launches()
+    rho = kernels.cluster_counts(x, 40.0)
+    delta, parent = cluster.nearest_denser_in_order(x, rho)
+    launches = {k: kernels.LAUNCHES[k] for k in ("cluster_counts", "cluster_parent")}
+    rho_p = cluster.neighbor_counts_plain(x, 40.0)
+    delta_p, parent_p = cluster.nearest_denser_plain(x, rho)
+    err = {"cluster_counts": _diff(rho, rho_p),
+           "cluster_parent": max(float((delta.double() - delta_p.double()).abs().max()),
+                                 _diff(parent, parent_p))}
+    if any(err.values()) or not torch.equal(delta, delta_p):
+        raise AssertionError(f"cluster kernels differ from their plain versions: {err}")
+    return launches, err
+
+
+def aot_worker_job(spec: dict) -> dict:
+    """One ``fingerprint`` job (the blob of ``spec["blob"]``) through the
+    port's ``JobProcessor`` with the spec's AOT settings, against the
+    stand-in server; its kernel calls replayed against the plain
+    versions, then the cluster kernels."""
+    from swarm_tpu_torch.ops import kernels
+    from swarm_tpu_torch.worker.runtime import JobProcessor, WorkerConfig
+
+    blob = Path(spec["blob"]).read_bytes()
+    stub = StubServer(blob, module="fingerprint")
+    try:
+        cfg = WorkerConfig(
+            server_url=stub.url, api_key=API_KEY, worker_id=spec["arm"],
+            modules_dir=str(REPO / "modules"), max_jobs=1, poll_interval_idle_s=0.05,
+            poll_interval_busy_s=0.0, aot_backend=spec["backend"], aot_dir=spec["aot_dir"],
+            aot_prewarm=True)
+        proc = JobProcessor(cfg, device=spec["device"])
+        kernels.reset_launches()
+        with kernels.record_calls() as calls:
+            proc.process_jobs()
+        launches = {k: kernels.LAUNCHES[k] for k in MATCH_KERNELS}
+    finally:
+        stub.close()
+    if stub.statuses != ["starting", "downloading", "executing", "uploading", "complete"]:
+        raise AssertionError(f"aot {spec['arm']}: job statuses {stub.statuses}")
+    Path(spec["out"] + ".output").write_bytes(stub.output)
+    max_err = check_calls(calls)
+    cl_launches, cl_err = cluster_exact(spec["device"])
+    return {"launches": {**launches, **cl_launches}, "max_err": {**max_err, **cl_err},
+            "calls": len(calls), "first_job_s": stub.status_times[-1] - stub.handed_at,
+            "execute_s": stub.perf["execute_s"], "lines": len(stub.output.splitlines())}
+
+
+def aot_run(spec_path: Path) -> int:
+    """One process of the AOT phase (``--aot-run <spec>``): a worker job
+    (``mode`` ``worker``) or a load of ``libs`` through an AOT client
+    (``load``), counting every ``compile_library`` call and timing the
+    prewarm; writes what it saw to ``spec["out"]``."""
+    from swarm_tpu_torch.ops import kernels
+
+    spec = json.loads(spec_path.read_text())
+    compiles, prewarm = [], {}
+    compile_library, aot_prewarm = kernels.compile_library, kernels.aot_prewarm
+
+    def counted(sources, lib_path):
+        compiles.append(lib_path.name)
+        return compile_library(sources, lib_path)
+
+    def timed():
+        t0 = time.perf_counter()
+        n = aot_prewarm()
+        prewarm.update(libraries=n, seconds=time.perf_counter() - t0)
+        return n
+
+    kernels.compile_library, kernels.aot_prewarm = counted, timed
+    if spec["mode"] == "worker":
+        out = aot_worker_job(spec)
+    else:
+        from swarm_tpu_torch.aot import build_aot_client
+        from swarm_tpu_torch.worker.runtime import WorkerConfig
+
+        client = build_aot_client(WorkerConfig(
+            aot_backend="local", aot_dir=spec["aot_dir"], worker_id=spec["arm"]))
+        kernels.attach_aot(client)
+        if spec["prewarm"]:
+            kernels.aot_prewarm()
+        t0 = time.perf_counter()
+        for name in spec["libs"]:
+            kernels.load_library(name)
+        out = {"load_s": time.perf_counter() - t0,
+               "max_err": {"match_md5": md5_exact(spec["device"])}}
+    client = kernels.aot_client()
+    out.update(arm=spec["arm"], compiles=compiles, prewarm=prewarm,
+               counters=client.counters() if client is not None else None,
+               keys={name: kernels.library_key(name) for name in kernels.LIBRARIES},
+               loaded={name: Path(lib._name).name for name, lib in kernels._libs.items()})
+    Path(spec["out"]).write_text(json.dumps(out))
+    return 0
+
+
+def gateway_writeback(blob: bytes, output: bytes) -> dict:
+    """The port's ``GatewayScanCache`` on a memory tier: the job's output
+    written back per target, then read back whole and re-chunked, byte
+    for byte."""
+    from swarm_tpu_torch.cache.tier import SharedResultTier
+    from swarm_tpu_torch.gateway.qoscache import GatewayScanCache
+    from swarm_tpu_torch.stores import MemoryBlobStore, MemoryStateStore
+
+    targets = blob.decode().splitlines()
+    cache = GatewayScanCache(SharedResultTier(MemoryStateStore(), MemoryBlobStore()),
+                             writer_id="chip-smoke")
+    t0 = time.perf_counter()
+    if not cache.writeback("fingerprint", targets, output):
+        raise AssertionError("gateway: the job's output was not written back")
+    quarter = len(targets) // 4
+    parts = [targets[i:i + quarter] for i in range(0, len(targets), quarter)]
+    whole = cache.lookup_chunks("fingerprint", [targets])
+    chunked = cache.lookup_chunks("fingerprint", parts)
+    seconds = time.perf_counter() - t0
+    lines = output.splitlines(keepends=True)
+    want = [b"".join(lines[i:i + quarter]) for i in range(0, len(lines), quarter)]
+    if whole != [output] or chunked != want:
+        raise AssertionError("gateway: the segments read back differ from the job's output")
+    return {"targets": len(targets), "bytes": len(output), "chunks_read": len(parts) + 1,
+            "counters": cache.counters(), "seconds": seconds, "identical": True}
+
+
+def phase_aot(plants, smi: str) -> dict:
+    """The AOT library cache (``swarm_tpu_torch/aot``) on the worker's
+    bring-up, over ``aot_backend=local`` (a file-backed store one host's
+    processes share; the card box has no Redis).
+
+    (a) publisher: this process, its libraries built by the build
+    phase, publishes each (nvcc seconds, bytes); (b) a worker on a copy
+    of the tree (:func:`aot_tree`: no kernel library) runs a 2,048-row
+    ``fingerprint`` job over the ``synthetic_corpus(0)`` YAML corpus,
+    first without the store (a cold worker: nvcc on each library), then
+    with it (the joiner): 4 libraries prewarmed, no compile, every key
+    the publisher's, the same launches and output as the cold worker's,
+    every recorded call and the cluster kernels at N = 65,536 exact;
+    (c) md5's blob truncated: one ``deserialize_error``, one build of md5,
+    republished, exact; (d) ``SWARM_FAULT_PLAN=aot.fetch:1-3`` with md5
+    missing: the breaker opens, only md5 is built, exact; (e) after
+    ``bump_epoch``: a miss, a build of md5, a publish under the new
+    epoch. (c)–(e) each a process, md5 only. Then the gateway's scan
+    cache on (b)'s output. → {"launches": the joiner's, "max_err"}."""
+    import tempfile
+
+    from swarm_tpu_torch.aot import build_aot_client, libcache
+    from swarm_tpu_torch.fingerprints.dbcache import load_or_compile
+    from swarm_tpu_torch.ops import kernels
+    from swarm_tpu_torch.worker.runtime import WorkerConfig
+
+    t_phase = time.perf_counter()
+    corpus = yaml_corpus()
+    if corpus is None:
+        raise AssertionError("the aot phase needs PyYAML for its corpus files")
+    load_or_compile(str(corpus))  # both workers find the corpus compiled
+
+    def step(name: str, **fields) -> None:
+        emit({"phase": "aot", "step": name, **fields, "card": smi})
+
+    max_err = {k: 0.0 for k in ("cluster_counts", "cluster_parent", *MATCH_KERNELS)}
+    with tempfile.TemporaryDirectory(prefix="swarm-aot-") as root:
+        root = Path(root)
+        aot_dir = str(root / "store")
+        tree = aot_tree(root)
+        blob_path = root / "job.jsonl"
+        blob = jsonl_rows(realistic_rows(JOB_ROWS, seed=11, plants=plants))
+        blob_path.write_bytes(blob)
+        # (a) the publisher
+        publisher = build_aot_client(WorkerConfig(aot_backend="local", aot_dir=aot_dir,
+                                                  worker_id="publisher"))
+        kernels.attach_aot(publisher)
+        try:
+            published = {}
+            for name in kernels.LIBRARIES:
+                t0 = time.perf_counter()
+                outcome = kernels.aot_publish(name)
+                published[name] = {
+                    "outcome": outcome, "publish_s": time.perf_counter() - t0,
+                    "nvcc_s": NVCC_SECONDS.get(name),
+                    "library_bytes": kernels.library_path(name).stat().st_size,
+                    "key": kernels.library_key(name)}
+            digests = {name: kernels.aot_digest(publisher, name) for name in kernels.LIBRARIES}
+        finally:
+            kernels.attach_aot(None)
+        if any(p["outcome"] != "stored" for p in published.values()):
+            raise AssertionError(f"aot (a): {published}")
+        store = publisher._store
+        index = store.list_index("g0")
+        for name, d in digests.items():
+            published[name]["payload_bytes"] = json.loads(index[d])["n"]
+        step("a", backend="local", libraries=published, counters=publisher.counters())
+        # (b) a cold worker, then the joiner, each on the copy
+        env = {"SWARM_TEMPLATES_DIR": str(corpus)}
+        worker = {"mode": "worker", "aot_dir": aot_dir, "blob": str(blob_path),
+                  "device": AOT_DEVICE}
+        cold = aot_step(tree, {**worker, "arm": "cold", "backend": "off"}, env)
+        drop_kernel_libraries(tree)
+        join = aot_step(tree, {**worker, "arm": "joiner", "backend": "local"}, env)
+        keys = {name: p["key"] for name, p in published.items()}
+        problems = []
+        if join["prewarm"].get("libraries") != len(kernels.LIBRARIES):
+            problems.append(f"prewarmed {join['prewarm']}")
+        if "AOT prewarm: 4 executables loaded in" not in join["stdout_tail"]:
+            problems.append("no prewarm line")
+        if join["compiles"]:
+            problems.append(f"compiled {join['compiles']}")
+        if join["keys"] != keys:
+            problems.append("keys differ from the publisher's")
+        if set(join["loaded"]) != set(kernels.LIBRARIES):
+            problems.append(f"loaded {join['loaded']}")
+        if join["launches"] != cold["launches"] or any(v < 1 for v in join["launches"].values()):
+            problems.append(f"launches {join['launches']} (cold: {cold['launches']})")
+        cold_out = (root / "cold.out.json.output").read_bytes()
+        join_out = (root / "joiner.out.json.output").read_bytes()
+        if join_out != cold_out or join["lines"] != JOB_ROWS:
+            problems.append("the joiner's output differs from the cold worker's")
+        if problems:
+            raise AssertionError(f"aot (b): {problems}")
+        for name, e in join["max_err"].items():
+            max_err[name] = max(max_err[name], e)
+        fields = ("compiles", "prewarm", "counters", "launches", "calls", "first_job_s",
+                  "execute_s", "wall_s", "max_err")
+        step("b", rows=JOB_ROWS, cold={k: cold[k] for k in fields},
+             joiner={k: join[k] for k in fields}, keys_equal=True, identical=True,
+             nvcc_s_total=sum(p["nvcc_s"] or 0.0 for p in published.values()),
+             first_job_s_saved=cold["first_job_s"] - join["first_job_s"])
+        # (c) a truncated md5 blob
+        load = {"mode": "load", "aot_dir": aot_dir, "device": AOT_DEVICE}
+        key = f"aot/g0/{digests['md5']}"
+        good = store._blobs.get(key)
+        store._blobs.put(key, good[:len(good) // 2])
+        drop_kernel_libraries(tree, ["md5"])
+        c = aot_step(tree, {**load, "arm": "corrupt", "prewarm": False, "libs": ["md5"]})
+        republished = libcache.decode_payload(store._blobs.get(key))[0] == "md5"
+        cc = c["counters"]
+        if (cc["deserialize_errors"] != 1 or len(c["compiles"]) != 1 or cc["published"] != 1
+                or not republished):
+            raise AssertionError(f"aot (c): {c['compiles']}, {cc}, republished {republished}")
+        step("c", truncated_bytes=len(good) // 2, compiles=c["compiles"], counters=cc,
+             republished=True, exact=True, wall_s=c["wall_s"])
+        # (d) the store failing: aot.fetch:1-3
+        drop_kernel_libraries(tree, ["md5"])
+        d = aot_step(tree, {**load, "arm": "faults", "prewarm": True,
+                            "libs": list(kernels.LIBRARIES)},
+                     {"SWARM_FAULT_PLAN": "aot.fetch:1-3"})
+        dc = d["counters"]
+        if dc["breaker"] != "open" or len(d["compiles"]) != 1 or "md5" not in d["compiles"][0]:
+            raise AssertionError(f"aot (d): {d['compiles']}, {dc}")
+        step("d", plan="aot.fetch:1-3", compiles=d["compiles"], counters=dc, exact=True,
+             wall_s=d["wall_s"])
+        # (e) an epoch bump
+        gen = store.bump_epoch()
+        drop_kernel_libraries(tree, ["md5"])
+        e = aot_step(tree, {**load, "arm": "epoch", "prewarm": True,
+                            "libs": list(kernels.LIBRARIES)})
+        ec = e["counters"]
+        new_index = store.list_index(f"g{gen}")
+        if (ec["fetch_misses"] != 1 or len(e["compiles"]) != 1 or ec["published"] != 1
+                or len(new_index) != 1 or len(store.list_index("g0")) != len(kernels.LIBRARIES)):
+            raise AssertionError(f"aot (e): {e['compiles']}, {ec}, {sorted(new_index)}")
+        step("e", epoch=f"g{gen}", compiles=e["compiles"], counters=ec,
+             new_epoch_entries=len(new_index), exact=True, wall_s=e["wall_s"])
+        for run in (c, d, e):
+            max_err["match_md5"] = max(max_err["match_md5"], run["max_err"]["match_md5"])
+        step("gateway", **gateway_writeback(blob, join_out))
+    emit({"phase": "aot", "max_abs_err": max_err, "seconds": time.perf_counter() - t_phase,
+          "card": smi})
+    return {"launches": join["launches"], "max_err": max_err}
+
+
 #: the grids of the multihost phase, by the axis that spans the two
 #: processes (each process drives 4 of the 8 ranks on its device)
 MULTIHOST_GRIDS = {"data": (2, 2, 2), "model": (1, 2, 4), "seq": (1, 1, 8)}
@@ -6381,6 +6747,9 @@ def main(argv: list[str] | None = None) -> int:
     if argv[:1] == ["--multihost-rank"] and len(argv) == 5:
         # one process of the multihost phase, started by phase_multihost
         return multihost_rank(Path(argv[1]), argv[2], int(argv[3]), int(argv[4]))
+    if argv[:1] == ["--aot-run"] and len(argv) == 2:
+        # one process of the aot phase, started by phase_aot
+        return aot_run(Path(argv[1]))
     if argv and (argv[0] != "--only" or argv[1:] not in ([p] for p in ONLY)):
         print(f"usage: python3 chip_smoke.py [--only {'|'.join(ONLY)}]", file=sys.stderr)
         return 2
@@ -6393,7 +6762,7 @@ def main(argv: list[str] | None = None) -> int:
 
 #: the phases ``--only`` runs alone (:func:`run_only`)
 ONLY = ("match", "telemetry", "timing", "mesh", "startup", "profiles", "refresh", "multihost",
-        "result_cache")
+        "result_cache", "aot")
 
 
 def run_only(smi: str, which: str) -> int:
@@ -6408,7 +6777,8 @@ def run_only(smi: str, which: str) -> int:
     ``profiles`` (:func:`phase_profiles`), in a process of its own;
     ``refresh`` or ``result_cache``, after the build phase, its engines
     held to no fault; or ``multihost``, after the build phase, whose two
-    processes then load the built libraries."""
+    processes then load the built libraries; or ``aot``, after the build
+    phase (which the publisher publishes) and the corpus."""
     import importlib.util
 
     if which == "profiles":
@@ -6418,6 +6788,11 @@ def run_only(smi: str, which: str) -> int:
         phase_build()
     if which == "multihost":
         phase_multihost(smi)
+        return 0
+    if which == "aot":
+        phase_build()
+        _templates, plants, _db = phase_corpus()
+        phase_aot(plants, smi)
         return 0
     templates, plants, db = phase_corpus()
     if which in ("telemetry", "mesh", "refresh", "result_cache"):
@@ -6555,6 +6930,10 @@ def run_phases(smi: str) -> int:
     mesh = no_faults("mesh", phase_mesh, templates, plants, db, smi)
     refresh = no_faults("refresh", phase_refresh, templates, plants, db, smi)
     cache = no_faults("result_cache", phase_result_cache, templates, plants, db, smi)
+    aot = no_faults("aot", phase_aot, plants, smi)
+    for name in ("cluster_counts", "cluster_parent"):
+        summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], aot["max_err"][name])
+        summary[name]["aot_joiner"] = {"launches": aot["launches"][name]}
     multi = phase_multihost(smi)
     phase_startup_worker(plants, smi)
     svc_timing, svc_launches, svc_err = no_faults("service", phase_service, smi)
@@ -6587,7 +6966,8 @@ def run_phases(smi: str) -> int:
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": max(max_err[name], job_err[name], svc_err.get(name, 0.0),
                                mesh["max_err"][name], refresh["max_err"][name],
-                               cache["max_err"][name], multi["max_err"][name]),
+                               cache["max_err"][name], multi["max_err"][name],
+                               aot["max_err"][name]),
             "ms": t["ms"], "card_ms": t["card_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "job_rows": JOB_ROWS,
@@ -6638,6 +7018,8 @@ def run_phases(smi: str) -> int:
         summary[name]["refresh"] = {"launches": refresh["launches"][name]}
         # and on the result_cache phase's writer's call (A, a cold tier)
         summary[name]["result_cache"] = {"launches": cache["launches"][name]}
+        # and on the aot phase's joiner's job, from fetched libraries
+        summary[name]["aot_joiner"] = {"launches": aot["launches"][name]}
         summary[name]["multihost"] = {"launches": {g: n[name] for g, n in
                                                    multi["launches"].items()}}
         sv = svc_timing.get(name)

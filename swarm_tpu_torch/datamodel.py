@@ -1,7 +1,8 @@
 """Scan-id rule and job-status strings of the wire protocol.
 
-The port's own copy of what the worker needs from ``swarm_tpu/datamodel.py``
-(:data:`SCAN_ID_RE`, :class:`JobStatus`); the strings are wire-identical.
+The port's own copy of what the worker and the gateway need from
+``swarm_tpu/datamodel.py`` (:data:`SCAN_ID_RE`, :class:`JobStatus`); the
+strings are wire-identical.
 """
 
 from __future__ import annotations
@@ -38,3 +39,6 @@ class JobStatus:
             DEAD_LETTER,
         }
     )
+    # terminal and not complete: no output is coming (the result
+    # stream skips such a chunk, ``gateway/streaming.py``)
+    FAILED = frozenset(TERMINAL - {COMPLETE})

@@ -320,6 +320,8 @@ class MatchEngine:
         self.templates = list(templates)
         self.db = db if db is not None else compile_corpus(self.templates)
         self.device = DeviceDB(self.db, device=device)
+        #: the AOT library client attached through :meth:`attach_aot`
+        self._aot_client = None
         # here, not under the breaker: a kernel that fails to build or
         # load must fail loudly, never degrade
         self.device.load_kernels()
@@ -2593,6 +2595,32 @@ class MatchEngine:
 
             client.bind_corpus(corpus_digest(self.templates))
         self._result_cache = client
+
+    def attach_aot(self, client) -> None:
+        """Attach an AOT library client
+        (:class:`swarm_tpu_torch.aot.AotClient`) to whichever device
+        backend serves this engine — the single-device :class:`DeviceDB`,
+        and the sharded matcher when there is one. Both reach the one
+        attachment of the process's kernel loader
+        (``kernels.attach_aot``): the libraries are the process's, not an
+        engine's. The engine loaded its match libraries when it was
+        built, so an attach here reaches the libraries loaded later (the
+        cluster kernels'); the worker attaches before it builds the
+        engine (``worker/runtime.py``). ``None`` detaches."""
+        self._aot_client = client
+        self.device.attach_aot(client)
+        if self.sharded is not None:
+            self.sharded.attach_aot(client)
+
+    def aot_prewarm(self) -> int:
+        """Bring-up fetch: every library published for this process's
+        program group, checked and written under its keyed path, so a
+        later load fetches nothing and compiles nothing. → the libraries
+        pooled (0 without a client)."""
+        if self._aot_client is None:
+            return 0
+        backend = self.sharded if self.sharded is not None else self.device
+        return backend.aot_prewarm()
 
     def _serve_shared(self, cand: list) -> int:
         """Serve shared-tier verdict entries for L1-missed rows: each

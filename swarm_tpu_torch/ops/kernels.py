@@ -14,6 +14,28 @@ without running ``nvcc``, and a change of any of the four builds a new
 one (:func:`library_key`, :func:`library_path`). Each load and build
 goes to the ``swarm_aot_*`` families (:func:`load_library`).
 
+An AOT client attached to the process (:func:`attach_aot`,
+``aot/store.py`` ``AotClient``) lets a worker fetch the libraries the
+fleet has built instead of compiling them: a library whose keyed file
+is absent is fetched from the store first, and built only on a miss;
+a build is published. ``nvcc --version`` is still read, for the key:
+a joining worker needs ``nvcc`` on its path, but runs no compile. How a
+load maps onto the ``swarm_aot_*`` families:
+
+- no client: a keyed file on disk is a ``hit`` (``fetch`` bring-up), its
+  absence a ``miss``; a build is a ``compile`` bring-up and a ``stored``
+  publish; a keyed file ``ctypes.CDLL`` refuses is a
+  ``deserialize_error``, deleted and built once;
+- a client: this host's keyed files are the client's pool, as the
+  reference's loaded executables are: a keyed file on disk, or one the
+  prewarm fetched, is a pool ``hit`` with no store traffic. Anything
+  else is the reference's fetch: a store ``hit`` (the payload checked and
+  written, a ``fetch`` bring-up), a ``miss``, or a ``deserialize_error``
+  (the payload refused: nothing written); the two last build, a
+  ``compile`` bring-up, then publish (``stored``, ``fenced``, ``error``;
+  nothing with ``aot_publish`` off). The client counts all of it, so the
+  counts equal the JAX client's on the same sequence of loads.
+
 Each wrapper checks device, dtype, shape and contiguity and raises on
 anything else, allocates its outputs with ``torch.empty``/``zeros``,
 launches on PyTorch's current stream, raises if the launcher reports a
@@ -181,20 +203,78 @@ def compile_library(sources: tuple[Path, ...], lib_path: Path) -> str:
     return proc.stdout + proc.stderr
 
 
-def build(name: str) -> float:
-    """Compile library ``name`` into its keyed path unless that file
-    exists; → seconds spent compiling (0 when it was there). A build is
-    a ``stored`` publish and a ``compile`` bring-up of the
-    ``swarm_aot_*`` families."""
-    lib_path = library_path(name)
-    if lib_path.exists():
-        return 0.0
+#: the AOT client the loader consults (``aot/store.py`` ``AotClient``),
+#: one a process as the loaded libraries are; None: every library is
+#: built here
+_aot = None
+
+
+def attach_aot(client) -> None:
+    """Attach an AOT client to this process's loader (``None``
+    detaches): libraries not loaded yet are fetched from its store
+    before they are built, and builds are published to it."""
+    global _aot
+    _aot = client
+
+
+def aot_client():
+    """The attached AOT client, or None."""
+    return _aot
+
+
+def aot_digest(client, name: str) -> str:
+    """The artifact digest of library ``name`` under ``client``'s program
+    group: its name and its key; the statics and the shapes of the
+    reference's digest are empty, since a library serves every shape."""
+    return client.key_digest(name, library_key(name), "", "")
+
+
+def aot_prewarm() -> int:
+    """Fetch every library the attached client's store holds for this
+    process's program group into its keyed file → the libraries pooled
+    (0 without a client)."""
+    client = _aot
+    return client.prewarm() if client is not None else 0
+
+
+def aot_publish(name: str) -> str:
+    """Publish library ``name``'s keyed file through the attached client
+    (what a build does after it compiles) → the outcome, ``disabled``
+    without a client."""
+    client = _aot
+    return "disabled" if client is None else _publish(client, name)
+
+
+def _publish(client, name: str) -> str:
+    return client.publish(aot_digest(client, name), {"k": name, "s": "", "a": ""}, name)
+
+
+def _compile(name: str, lib_path: Path, client) -> float:
+    """Compile library ``name`` into ``lib_path`` → seconds; counted, and
+    published through ``client`` when there is one."""
     t0 = time.perf_counter()
     build_logs[name] = compile_library(LIBRARIES[name][0], lib_path)
     seconds = time.perf_counter() - t0
-    aot_export.AOT_BRINGUP_SECONDS.labels(source="compile").observe(seconds)
-    aot_export.AOT_PUBLISHES.labels(outcome="stored").inc()
+    if client is None:
+        aot_export.AOT_BRINGUP_SECONDS.labels(source="compile").observe(seconds)
+        aot_export.AOT_PUBLISHES.labels(outcome="stored").inc()
+    else:
+        client.note_compile_seconds(seconds)
+        _publish(client, name)
     return seconds
+
+
+def build(name: str) -> float:
+    """Compile library ``name`` into its keyed path unless that file
+    exists or the attached client fetches it; → seconds spent compiling
+    (0 when it was there or fetched)."""
+    lib_path = library_path(name)
+    if lib_path.exists():
+        return 0.0
+    client = _aot
+    if client is not None and client.fetch_loaded(aot_digest(client, name)) is not None:
+        return 0.0
+    return _compile(name, lib_path, client)
 
 
 def ptxas_report(log: str) -> list[dict]:
@@ -269,39 +349,66 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """Load library ``name`` once a process and bind its launchers: its
-    keyed file when it is there (a ``hit``), else built first (a
-    ``miss``). A keyed file that ``ctypes.CDLL`` refuses (a
-    ``deserialize_error``: a truncated or foreign file) is deleted and
-    built once from the sources; if that build does not load either,
-    the error is raised. The outcomes, the seconds of each load of a
-    keyed file and the loaded file's size go to the ``swarm_aot_*``
-    families (``telemetry/aot_export.py``)."""
+    """Load library ``name`` once a process and bind its launchers. With
+    no AOT client attached: its keyed file when it is there (a ``hit``),
+    else built first (a ``miss``); a keyed file that ``ctypes.CDLL``
+    refuses (a ``deserialize_error``: a truncated or foreign file) is
+    deleted and built once from the sources, and if that build does not
+    load either, the error is raised. The outcomes, the seconds of each
+    load of a keyed file and the loaded file's size go to the
+    ``swarm_aot_*`` families (``telemetry/aot_export.py``). With a client,
+    :func:`_load_through`."""
     with _load_locks[name]:
         lib = _libs.get(name)
         if lib is None:
-            lib_path = library_path(name)
-            lib = None
-            if lib_path.exists():
-                t0 = time.perf_counter()
-                try:
-                    lib = ctypes.CDLL(str(lib_path))
-                except OSError:
-                    aot_export.AOT_FETCHES.labels(outcome="deserialize_error").inc()
-                    lib_path.unlink(missing_ok=True)
-                else:
-                    aot_export.AOT_BRINGUP_SECONDS.labels(source="fetch").observe(
-                        time.perf_counter() - t0)
-                    aot_export.AOT_FETCHES.labels(outcome="hit").inc()
-            else:
-                aot_export.AOT_FETCHES.labels(outcome="miss").inc()
-            if lib is None:
-                build(name)
-                lib = ctypes.CDLL(str(lib_path))
-            aot_export.AOT_ARTIFACT_BYTES.set(lib_path.stat().st_size)
+            lib = _load_through(_aot, name) if _aot is not None else _load_local(name)
             _bind(name, lib)
             _libs[name] = lib
         return lib
+
+
+def _load_local(name: str) -> ctypes.CDLL:
+    lib_path = library_path(name)
+    lib = None
+    if lib_path.exists():
+        t0 = time.perf_counter()
+        try:
+            lib = ctypes.CDLL(str(lib_path))
+        except OSError:
+            aot_export.AOT_FETCHES.labels(outcome="deserialize_error").inc()
+            lib_path.unlink(missing_ok=True)
+        else:
+            aot_export.AOT_BRINGUP_SECONDS.labels(source="fetch").observe(
+                time.perf_counter() - t0)
+            aot_export.AOT_FETCHES.labels(outcome="hit").inc()
+    else:
+        aot_export.AOT_FETCHES.labels(outcome="miss").inc()
+    if lib is None:
+        _compile(name, lib_path, None)
+        lib = ctypes.CDLL(str(lib_path))
+    aot_export.AOT_ARTIFACT_BYTES.set(lib_path.stat().st_size)
+    return lib
+
+
+def _load_through(client, name: str) -> ctypes.CDLL:
+    """:func:`load_library`'s path with a client attached: this host's
+    keyed file joins the client's pool; then the client's pool, then its
+    store; a build on a miss or a refused payload. A pooled file that
+    ``ctypes.CDLL`` refuses is dropped, deleted and built once."""
+    lib_path = library_path(name)
+    digest = aot_digest(client, name)
+    if lib_path.exists():
+        client.pool_local(digest, lib_path)
+    if client.fetch_loaded(digest) is None:
+        _compile(name, lib_path, client)
+        return ctypes.CDLL(str(lib_path))
+    try:
+        return ctypes.CDLL(str(lib_path))
+    except OSError:
+        client.drop(digest)
+        lib_path.unlink(missing_ok=True)
+    _compile(name, lib_path, client)
+    return ctypes.CDLL(str(lib_path))
 
 
 def _check_packed(packed: torch.Tensor) -> None:

@@ -1075,6 +1075,20 @@ class DeviceDB:
             for name in ("match", "md5", "verdicts"):
                 kernels.load_library(name)
 
+    # -- AOT library cache ---------------------------------------------
+    def attach_aot(self, client) -> None:
+        """Attach an :class:`~swarm_tpu_torch.aot.AotClient` to the
+        process's kernel loader (``kernels.attach_aot``): a library not
+        loaded yet is fetched from its store before it is built, and a
+        build is published. ``None`` detaches."""
+        kernels.attach_aot(client)
+
+    def aot_prewarm(self) -> int:
+        """Bring-up fetch (worker/runtime.py): every published library
+        of this process's program group into its keyed file. No-op
+        without an attached client."""
+        return kernels.aot_prewarm()
+
     def _ensure_layout(self):
         if self._arrays is None:
             meta, arrays_np = fpc.build_device_layout(self.db)

@@ -470,6 +470,23 @@ class ShardedMatcher:
             for name in ("match", "md5", "verdicts"):
                 kernels.load_library(name)
 
+    # -- AOT library cache ---------------------------------------------
+    def attach_aot(self, client) -> None:
+        """Attach an :class:`~swarm_tpu_torch.aot.AotClient` to the
+        process's kernel loader (``kernels.attach_aot``), as the
+        single-device path does. Unlike the reference, a mesh across
+        processes fetches too: an XLA executable is bound to the
+        topology it was compiled for, but a kernel library is bound only
+        to its sources, toolchain and card, which its key holds, so each
+        rank process fetches and loads its own libraries. ``None``
+        detaches."""
+        kernels.attach_aot(client)
+
+    def aot_prewarm(self) -> int:
+        """Every published library of this process's program group into
+        its keyed file (bring-up fetch; see ``DeviceDB.aot_prewarm``)."""
+        return kernels.aot_prewarm()
+
     # ------------------------------------------------------------------
     # the deferred combine's double buffer (depth 1)
 

@@ -13,8 +13,8 @@ has.
 
 Families, kinds, help strings, label names and buckets are the
 reference's, letter for letter: the JAX server and its scrapers read
-them. A family of a layer the port does not have (server, gateway,
-queue, journal, fleet, monitor) is not registered; the
+them. A family of a layer the port does not have (server, queue,
+journal, fleet, monitor) is not registered; the
 ``swarm_aot_*`` families count the port's kernel libraries
 (:mod:`~swarm_tpu_torch.telemetry.aot_export`).
 """
@@ -32,9 +32,9 @@ from swarm_tpu_torch.telemetry.events import (  # noqa: F401
     subscribe,
 )
 
-# the walk, device, shard, memo, sched, aot, trace, worker-drain and
-# workflow families register at import time so every process's
-# exposition carries them
+# the walk, device, shard, memo, sched, aot, trace, worker-drain,
+# workflow and gateway families register at import time so every
+# process's exposition carries them
 from swarm_tpu_torch.telemetry import walk_export  # noqa: E402,F401
 from swarm_tpu_torch.telemetry import device_export  # noqa: E402,F401
 from swarm_tpu_torch.telemetry import shard_export  # noqa: E402,F401
@@ -44,3 +44,4 @@ from swarm_tpu_torch.telemetry import aot_export  # noqa: E402,F401
 from swarm_tpu_torch.telemetry import trace_export  # noqa: E402,F401
 from swarm_tpu_torch.telemetry import fleet_export  # noqa: E402,F401
 from swarm_tpu_torch.telemetry import workflow_export  # noqa: E402,F401
+from swarm_tpu_torch.telemetry import gateway_export  # noqa: E402,F401

@@ -130,12 +130,14 @@ import requests
 import torch
 
 from swarm_tpu_torch import config
+from swarm_tpu_torch.aot import build_aot_client
 from swarm_tpu_torch.cache import build_result_cache
 from swarm_tpu_torch.datamodel import SCAN_ID_RE, JobStatus
 from swarm_tpu_torch.fingerprints.dbcache import load_or_compile
 from swarm_tpu_torch.fingerprints.model import Response
 from swarm_tpu_torch.fingerprints.nuclei import load_corpus
 from swarm_tpu_torch.ops import cluster as cl
+from swarm_tpu_torch.ops import kernels
 from swarm_tpu_torch.ops.engine import MatchEngine
 from swarm_tpu_torch.ops.service import ServiceClassifier
 from swarm_tpu_torch.ops.workflows import WorkflowRunner
@@ -265,6 +267,28 @@ class WorkerConfig:
     #: each value family's namespace, oldest entries first
     cache_ttl_s: float = 0.0
     cache_max_entries: int = 0
+    # AOT library cache (swarm_tpu_torch/aot): ship the built kernel
+    # libraries through the shared stores so a joining worker fetches
+    # instead of running nvcc. "off" keeps the per-process build;
+    # "memory" shares one embedded store across this process (tests);
+    # "local" is file-backed under aot_dir (cross-process on one host);
+    # "redis" goes fleet-wide (state via aot_url/redis_url, payload
+    # blobs in aot_dir)
+    aot_backend: str = "off"
+    #: the store's Redis URL ("" = ``redis_url``)
+    aot_url: str = ""
+    #: artifact directory of the local backend / the redis blob side
+    aot_dir: str = ""
+    #: publish locally built libraries back to the store (off =
+    #: read-only consumer)
+    aot_publish: bool = True
+    #: fetch every published same-group library at engine bring-up
+    #: (off = fetched as each library is first loaded)
+    aot_prewarm: bool = True
+    #: breaker around every store operation: a dead backend degrades to
+    #: local builds, it never blocks
+    aot_breaker_threshold: int = 3
+    aot_breaker_cooldown_s: float = 30.0
 
     @classmethod
     def load(cls, path: Optional[str] = None, env=None, **overrides) -> "WorkerConfig":
@@ -953,10 +977,13 @@ class JobProcessor:
             # embedded workers (started without main()) get the same
             # bring-up as the CLI path
             maybe_initialize_distributed(devices=_dist_devices(self.device))
+            aot = self._attach_aot()
             templates, db = load_or_compile(templates_dir)
             engine = MatchEngine(
                 templates, db=db, device=self.device, pipeline=self.cfg.pipeline
             )
+            if aot is not None:
+                engine.attach_aot(aot)
             # fleet-wide result tier: rows any worker has ever resolved
             # short-circuit before device dispatch.
             # SWARM_CACHE_BACKEND=off (default) skips this entirely; a
@@ -970,6 +997,34 @@ class JobProcessor:
                 print(f"result cache unavailable ({e}); running L1-only")
             self.engines[templates_dir] = engine
         return engine
+
+    def _attach_aot(self):
+        """The AOT library cache at engine bring-up: a joining worker
+        FETCHES the kernel libraries the fleet has built instead of
+        running nvcc on each. The port's engine loads its libraries when
+        it is built, so the client is attached to the process's loader
+        and prewarmed here, before the engine. SWARM_AOT_BACKEND=off
+        (default) skips this; a store that cannot be built or prewarmed
+        must not kill bring-up — the libraries then build locally from
+        the same sources (breaker-wrapped, never blocks). → the client,
+        or None."""
+        try:
+            aot = build_aot_client(self.cfg)
+            if aot is not None:
+                kernels.attach_aot(aot)
+                if self.cfg.aot_prewarm:
+                    t0 = time.perf_counter()
+                    n = kernels.aot_prewarm()
+                    if n:
+                        print(
+                            f"AOT prewarm: {n} executables loaded "
+                            f"in {time.perf_counter() - t0:.2f}s"
+                        )
+            return aot
+        except Exception as e:
+            print(f"AOT executable cache unavailable ({e}); "
+                  "compiling locally")
+            return None
 
     def _execute_tpu(self, module: ModuleSpec, data: bytes, qos: Optional[str] = None) -> bytes:
         """Device-batch path: chunk rows → MatchEngine → JSONL hits (or

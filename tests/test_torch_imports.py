@@ -79,6 +79,11 @@ def test_module_list_covers_the_slice():
         "swarm_tpu_torch.telemetry.aot_export", "swarm_tpu_torch.parallel.multihost",
         # the stores and the fleet result tier
         "swarm_tpu_torch.stores", "swarm_tpu_torch.cache", "swarm_tpu_torch.cache.tier",
+        # the AOT library cache and the gateway
+        "swarm_tpu_torch.aot", "swarm_tpu_torch.aot.store", "swarm_tpu_torch.aot.libcache",
+        "swarm_tpu_torch.gateway", "swarm_tpu_torch.gateway.qos",
+        "swarm_tpu_torch.gateway.admission", "swarm_tpu_torch.gateway.qoscache",
+        "swarm_tpu_torch.gateway.streaming", "swarm_tpu_torch.telemetry.gateway_export",
     } <= names
 
 

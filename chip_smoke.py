@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only startup     # device, corpus, fingerprint_worker, startup_worker
     python3 chip_smoke.py --only profiles    # device, 1,000 device profiles (ROADMAP C)
     python3 chip_smoke.py --only refresh     # device, build, corpus, refresh
+    python3 chip_smoke.py --only monitor     # device, build, corpus, monitor
     python3 chip_smoke.py --only result_cache  # device, build, corpus, result_cache
     python3 chip_smoke.py --only multihost   # device, build, multihost (two processes)
     python3 chip_smoke.py --only aot         # device, build, corpus, aot
@@ -170,6 +171,18 @@ prints one JSON line per phase:
    its plain version; the no-op uploads nothing and keeps the kernels'
    corpus structs. Then a refresh on the (2,2,2) grid of the card, and
    one between two quiesced pipelined streams.
+14b'. ``monitor`` — the monitor lane (see :func:`phase_monitor`): one
+   standing spec over 2,048 ``jsonl`` targets in 8 chunks of 256 on the
+   match corpus, 4 epochs with 102 targets changed in each after the
+   first and a fifth repeating the fourth, every chunk a
+   ``fingerprint`` job of the port's worker on ``cuda``; each epoch's
+   verdicts diffed against the prior plane from the port's memory tier
+   and written as feed records and a mark. The feed equals byte for
+   byte a replay diff of the stored outputs and one of the CPU
+   oracle's lines; 2,048 ``new`` records in epoch 1, records only for
+   changed targets after, none in the fifth; the kernel calls exact;
+   one notify call with the new corpus digest from a ``refresh_corpus``.
+   The epochs' seconds, records by kind and the diff's host ms a target.
 14c. ``result_cache`` — the fleet result tier (see
    :func:`phase_result_cache`): two workers' engines in this process
    over ``cache_backend=memory``, the match corpus, 2,048 rows. A walks
@@ -272,7 +285,8 @@ match kernel also with its launches on the sched
 phase's traced pipelined call, and its launches and times on the
 service corpus, and for each grid of the mesh phase, with the seq-halo
 calls' times for phase A and the verify; and its launches on the batch
-after the refresh phase's last refresh, on the result_cache phase's
+after the refresh phase's last refresh, on the monitor phase's
+epochs, on the result_cache phase's
 writer's call, on each grid of the multihost phase, and on the aot
 phase's joiner; the cluster kernels also on the joiner), the
 ``nvidia-smi`` line, and
@@ -4186,6 +4200,300 @@ def phase_refresh(templates, plants, db, smi: str) -> dict:
     return {"launches": launches, "max_err": max_err}
 
 
+#: the device of the monitor phase (the CPU only to rehearse it)
+MONITOR_DEVICE = "cuda"
+#: the standing spec's chunks, its epochs with changes, and the targets
+#: changed in each of them (5%)
+MONITOR_CHUNKS = 8
+MONITOR_EPOCHS = 4
+MONITOR_CHANGED = JOB_ROWS * 5 // 100
+MONITOR_ID = "chipmon"
+#: the host processes that compute the oracle's lines
+ORACLE_PROCESSES = 8
+
+
+def monitor_epochs(plants: list) -> list:
+    """The rows of each epoch: 2,048 ``realistic_rows`` (seed 11), each
+    host its own; from epoch 2 on, the next 102 rows in turn answer
+    anew (another ``realistic_rows`` row, marked with the epoch, under
+    the same host and port); the last epoch repeats the one before
+    unchanged. → [rows of epoch 1, ...]."""
+    base = realistic_rows(JOB_ROWS, seed=11, plants=plants)
+    for i, d in enumerate(base):
+        d["host"] = f"198.18.{i // 256}.{i % 256}"
+    epochs = [base]
+    for k in range(2, MONITOR_EPOCHS + 1):
+        rows = list(epochs[-1])
+        fresh = realistic_rows(MONITOR_CHANGED, seed=100 + k, plants=plants)
+        for j, f in enumerate(fresh):
+            i = ((k - 2) * MONITOR_CHANGED + j) % JOB_ROWS
+            rows[i] = {**f, "host": rows[i]["host"], "port": rows[i]["port"],
+                       "body": f["body"] + b"<!-- epoch %d -->" % k}
+        epochs.append(rows)
+    epochs.append(epochs[-1])
+    return epochs
+
+
+_ORACLE_TEMPLATES: list = []
+
+
+def _oracle_init() -> None:
+    from swarm_tpu_torch.fingerprints.nuclei import parse_template
+
+    _ORACLE_TEMPLATES[:] = [parse_template(d) for d in synthetic_corpus(0)[0]]
+
+
+def _oracle_lines(dicts: list) -> list:
+    """The CPU oracle's output line of each row (``cpu_ref`` against
+    every template of the match corpus), in a host process."""
+    from swarm_tpu_torch.ops import cpu_ref
+    from swarm_tpu_torch.ops.engine import RowMatches
+    from swarm_tpu_torch.worker.modules import format_match_line
+
+    out = []
+    for row in port_rows(dicts):
+        ids, ext = [], {}
+        for tpl in _ORACLE_TEMPLATES:
+            res = cpu_ref.match_template(tpl, row)
+            if res.matched:
+                ids.append(tpl.id)
+                if res.extractions:
+                    ext[tpl.id] = res.extractions
+        out.append(format_match_line(row, RowMatches(ids, ext)))
+    return out
+
+
+def oracle_lines(dicts: list) -> list:
+    """:func:`_oracle_lines` of every row, split over
+    ``ORACLE_PROCESSES`` spawned processes (each parses the corpus
+    itself); all of them are joined before this returns."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    n = max(1, min(ORACLE_PROCESSES, len(dicts)))
+    parts = [dicts[i::n] for i in range(n)]
+    with ProcessPoolExecutor(n, mp_context=multiprocessing.get_context("spawn"),
+                             initializer=_oracle_init) as pool:
+        done = list(pool.map(_oracle_lines, parts))
+    lines = [None] * len(dicts)
+    for i, part in enumerate(done):
+        lines[i::n] = part
+    return lines
+
+
+def monitor_replay(blobs, monitor_id: str, outputs_of=None) -> bytes:
+    """Brute-force replay of a monitor's whole feed: for every marked
+    epoch, the epoch scan's stored chunk inputs and outputs (or
+    ``outputs_of(scan_id, chunks)``) re-read from the blob store and
+    diffed over the replayed prior plane → the records' bytes."""
+    from swarm_tpu_torch.datamodel import chunk_input_key, chunk_output_key
+    from swarm_tpu_torch.monitor import feed as mfeed
+    from swarm_tpu_torch.monitor.diff import diff_epoch, encode_record, extract_verdicts
+
+    plane: dict = {}
+    out = []
+    seq = 0
+    for epoch in mfeed.marked_epochs(blobs, monitor_id):
+        sid = json.loads(blobs.get(mfeed.mark_key(monitor_id, epoch)))["scan_id"]
+        chunks = []
+        while blobs.exists(chunk_input_key(sid, len(chunks))):
+            raw = blobs.get(chunk_input_key(sid, len(chunks)))
+            chunks.append(raw.decode("utf-8", "surrogateescape").split("\n"))
+        if outputs_of is None:
+            outputs = {j: blobs.get(chunk_output_key(sid, j)) for j in range(len(chunks))
+                       if blobs.exists(chunk_output_key(sid, j))}
+        else:
+            outputs = outputs_of(sid, chunks)
+        records, plane = diff_epoch(monitor_id, epoch, plane, extract_verdicts(chunks, outputs),
+                                    [t for c in chunks for t in c], seq)
+        seq += len(records)
+        out.extend(encode_record(r) for r in records)
+    return b"".join(out)
+
+
+def phase_monitor(templates, plants, db, smi: str) -> dict:
+    """The monitor lane at the port's job width (``docs/MONITORING.md``
+    §Cost model, ``bench.py --phase monitor``'s shape: a standing spec,
+    4 epochs, 5% of the targets changed in each): one spec over
+    :func:`monitor_epochs`' 2,048 ``jsonl`` targets in 8 chunks of 256
+    on the match corpus, every chunk a ``fingerprint`` job of the port's
+    worker on ``cuda`` through the stand-in server. Each epoch's outputs
+    go into a memory ``BlobStore`` under the epoch scan's keys; then, as
+    ``MonitorService._commit_epoch`` does, ``extract_verdicts``,
+    ``diff_epoch`` against the prior plane from ``MonitorPlaneStore`` on
+    the port's memory tier, ``write_records``, the plane stored and
+    ``write_mark``. The stored feed must equal byte for byte a replay
+    diff of the stored chunk outputs and one of the CPU oracle's lines
+    for the same rows; epoch 1 gives 2,048 ``new`` records, each later
+    epoch records only its changed targets, the repeated last epoch
+    none. Every recorded match-kernel call is exact against its plain
+    version and every match kernel launched. Then a listener registered
+    with the port's ``monitor.notify`` gets one call, with the new
+    ``corpus_digest``, from a ``refresh_corpus`` of the worker's engine.
+    → {"launches": by kernel over the epochs' jobs, "max_err": by kernel}."""
+    import tempfile
+
+    from swarm_tpu_torch.cache.tier import SharedResultTier, corpus_digest
+    from swarm_tpu_torch.datamodel import chunk_generator, chunk_input_key, chunk_output_key
+    from swarm_tpu_torch.monitor import feed as mfeed
+    from swarm_tpu_torch.monitor import notify
+    from swarm_tpu_torch.monitor.diff import (MonitorPlaneStore, diff_epoch, extract_verdicts,
+                                              plane_from_records)
+    from swarm_tpu_torch.monitor.spec import MonitorSpec
+    from swarm_tpu_torch.ops import kernels
+    from swarm_tpu_torch.ops.engine import MatchEngine
+    from swarm_tpu_torch.stores import MemoryBlobStore, MemoryStateStore
+    from swarm_tpu_torch.worker.runtime import JobProcessor, WorkerConfig
+
+    dev = MONITOR_DEVICE
+    t_phase = time.perf_counter()
+    epochs = monitor_epochs(plants)
+    batch = JOB_ROWS // MONITOR_CHUNKS
+    blobs = MemoryBlobStore()
+    planes = MonitorPlaneStore(SharedResultTier(MemoryStateStore(), MemoryBlobStore()),
+                               writer_id="chip-smoke")
+    spec = MonitorSpec(MONITOR_ID, "fingerprint", [], 3600.0, batch_size=batch)
+    engines: dict = {}
+    out, kinds_all = [], []
+    # a stand-in server's close waits out its poll interval: close them
+    # off the jobs' clock
+    closer, closing = ThreadPoolExecutor(max_workers=MONITOR_CHUNKS), []
+    saved = os.environ.get("SWARM_TEMPLATES_DIR")
+    with tempfile.TemporaryDirectory() as corpus_dir:
+        os.environ["SWARM_TEMPLATES_DIR"] = corpus_dir
+        engines[corpus_dir] = MatchEngine(templates, db=db, device=dev)
+        kernels.reset_launches()
+        try:
+            with kernels.record_calls() as calls:
+                for k, rows in enumerate(epochs, start=1):
+                    spec.targets = jsonl_rows(rows).decode().splitlines()
+                    scan_id = spec.scan_id_for(k, now=1_700_000_000 + 3600 * k)
+                    chunks = list(chunk_generator(spec.targets, spec.batch_size))
+                    t0 = time.perf_counter()
+                    for c, chunk in enumerate(chunks):
+                        blob = "\n".join(chunk).encode()
+                        blobs.put(chunk_input_key(scan_id, c), blob)
+                        stub = StubServer(blob, module="fingerprint")
+                        try:
+                            cfg = WorkerConfig(
+                                server_url=stub.url, api_key=API_KEY, worker_id="chip-smoke",
+                                modules_dir=str(REPO / "modules"), max_jobs=1,
+                                poll_interval_idle_s=0.05, poll_interval_busy_s=0.0)
+                            proc = JobProcessor(cfg, device=dev,
+                                                work_dir=tempfile.mkdtemp(dir=corpus_dir))
+                            proc.engines = engines
+                            proc.process_jobs()
+                        finally:
+                            closing.append(closer.submit(stub.close))
+                        if stub.statuses[-1:] != ["complete"] or stub.output is None:
+                            raise AssertionError(f"epoch {k} chunk {c}: {stub.statuses}")
+                        blobs.put(chunk_output_key(scan_id, c), stub.output)
+                    jobs_s = time.perf_counter() - t0
+                    # the prior plane as a fold of the marked feed, to hold
+                    # the tier's against
+                    folded = plane_from_records(
+                        mfeed.feed_records(blobs, MONITOR_ID, marked_only=True))
+                    # the commit, as MonitorService._commit_epoch runs it
+                    t0 = time.perf_counter()
+                    outputs = {c: blobs.get(chunk_output_key(scan_id, c))
+                               for c in range(len(chunks))}
+                    verdicts = extract_verdicts(chunks, outputs)
+                    loaded = planes.load(MONITOR_ID, spec.module)
+                    if k > 1 and (loaded is None or loaded[1] != k - 1):
+                        raise AssertionError(f"epoch {k}: no plane of epoch {k - 1} on the tier")
+                    prev = loaded[0] if loaded is not None else {}
+                    records, plane = diff_epoch(MONITOR_ID, k, prev, verdicts, spec.targets,
+                                                mfeed.seq_base(blobs, MONITOR_ID, k))
+                    mfeed.write_records(blobs, MONITOR_ID, records)
+                    planes.store(MONITOR_ID, spec.module, plane,
+                                 [r["target"] for r in records], k)
+                    mfeed.write_mark(blobs, MONITOR_ID, k, len(records), scan_id)
+                    diff_ms = (time.perf_counter() - t0) * 1e3
+                    if prev != folded:
+                        raise AssertionError(f"epoch {k}: the tier's plane is not the feed's")
+                    kinds: dict = {}
+                    for r in records:
+                        kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+                    kinds_all.append((records, kinds))
+                    out.append({"epoch": k, "jobs_s": jobs_s, "diff_ms": diff_ms,
+                                "diff_host_ms_per_target": diff_ms / len(spec.targets),
+                                "records": kinds, "targets": len(spec.targets),
+                                "chunks": len(chunks)})
+            launches = dict(kernels.LAUNCHES)
+        finally:
+            for f in closing:
+                f.result()
+            closer.shutdown()
+            if saved is None:
+                os.environ.pop("SWARM_TEMPLATES_DIR", None)
+            else:
+                os.environ["SWARM_TEMPLATES_DIR"] = saved
+        max_err = check_calls(calls)
+        del calls
+    if any(launches[n] < 1 for n in MATCH_KERNELS):
+        raise AssertionError(f"monitor: a match kernel was not launched: {launches}")
+    # the records: all new at first, then only the changed targets, none
+    # in the repeated epoch
+    first, kinds1 = kinds_all[0]
+    if kinds1 != {"new": JOB_ROWS}:
+        raise AssertionError(f"epoch 1 records {kinds1}, want {JOB_ROWS} new")
+    for k in range(2, MONITOR_EPOCHS + 1):
+        before = set(jsonl_rows(epochs[k - 2]).decode().splitlines())
+        now = set(jsonl_rows(epochs[k - 1]).decode().splitlines())
+        changed = before ^ now
+        records, kinds = kinds_all[k - 1]
+        if len(changed) != 2 * MONITOR_CHANGED or {r["target"] for r in records} != changed:
+            raise AssertionError(f"epoch {k}: records for {len(records)} targets, "
+                                 f"{len(changed)} changed")
+    if kinds_all[-1][0]:
+        raise AssertionError(f"the repeated epoch gave {len(kinds_all[-1][0])} records")
+    # the stored feed against a brute-force replay, and against the
+    # oracle's lines for the same rows
+    stored = b"".join(blobs.get(key) for key in blobs.list(mfeed.feed_prefix(MONITOR_ID)))
+    if stored != monitor_replay(blobs, MONITOR_ID):
+        raise AssertionError("the stored feed differs from the replay of the stored outputs")
+    t0 = time.perf_counter()
+    distinct: dict = {}
+    for rows in epochs:
+        for line, d in zip(jsonl_rows(rows).decode().splitlines(), rows):
+            distinct.setdefault(line, d)
+    by_line = dict(zip(distinct, oracle_lines(list(distinct.values()))))
+    oracle_s = time.perf_counter() - t0
+
+    def oracle_outputs(_sid, chunks):
+        return {c: "".join(by_line[t] + "\n" for t in chunk).encode()
+                for c, chunk in enumerate(chunks)}
+
+    if stored != monitor_replay(blobs, MONITOR_ID, oracle_outputs):
+        raise AssertionError("the stored feed differs from the diff of the oracle's lines")
+    # the refresh's fan-out: one call, the new corpus's digest
+    seen: list = []
+
+    class Listener:
+        def on_corpus_delta(self, digest):
+            seen.append(digest)
+
+    listener = Listener()
+    notify.register(listener)
+    eng = engines[corpus_dir]
+    new = templates[1:]
+    try:
+        eng.refresh_corpus(new)
+    finally:
+        notify.unregister(listener)
+    if seen != [corpus_digest(new)] or seen[0] == corpus_digest(templates):
+        raise AssertionError(f"notify: {seen}")
+    emit({"phase": "monitor", "device": str(dev), "monitor_id": MONITOR_ID,
+          "targets": JOB_ROWS, "chunks": MONITOR_CHUNKS, "changed_per_epoch": MONITOR_CHANGED,
+          "epochs": out, "feed_records": stored.count(b"\n"), "feed_bytes": len(stored),
+          "replay_identical": True, "oracle_identical": True,
+          "oracle_rows": len(distinct), "oracle_s": oracle_s,
+          "notify": {"calls": len(seen), "digest": seen[0]},
+          "launches": launches, "max_abs_err": max_err,
+          "seconds": time.perf_counter() - t_phase, "card": smi})
+    return {"launches": launches, "max_err": max_err}
+
+
 #: the device of the result_cache phase (the CPU only to rehearse it)
 RESULT_CACHE_DEVICE = "cuda"
 #: the result_cache phase's rows/s runs of each engine
@@ -6762,7 +7070,7 @@ def main(argv: list[str] | None = None) -> int:
 
 #: the phases ``--only`` runs alone (:func:`run_only`)
 ONLY = ("match", "telemetry", "timing", "mesh", "startup", "profiles", "refresh", "multihost",
-        "result_cache", "aot")
+        "result_cache", "aot", "monitor")
 
 
 def run_only(smi: str, which: str) -> int:
@@ -6775,8 +7083,8 @@ def run_only(smi: str, which: str) -> int:
     (its ptxas report and spill check); or ``startup``, after the
     ``fingerprint`` job that fills the compile cache it reads; or
     ``profiles`` (:func:`phase_profiles`), in a process of its own;
-    ``refresh`` or ``result_cache``, after the build phase, its engines
-    held to no fault; or ``multihost``, after the build phase, whose two
+    ``refresh``, ``monitor`` or ``result_cache``, after the build
+    phase, its engines held to no fault; or ``multihost``, after the build phase, whose two
     processes then load the built libraries; or ``aot``, after the build
     phase (which the publisher publishes) and the corpus."""
     import importlib.util
@@ -6784,7 +7092,7 @@ def run_only(smi: str, which: str) -> int:
     if which == "profiles":
         phase_profiles(smi)
         return 0
-    if which in ("mesh", "refresh", "multihost", "result_cache"):
+    if which in ("mesh", "refresh", "multihost", "result_cache", "monitor"):
         phase_build()
     if which == "multihost":
         phase_multihost(smi)
@@ -6795,11 +7103,12 @@ def run_only(smi: str, which: str) -> int:
         phase_aot(plants, smi)
         return 0
     templates, plants, db = phase_corpus()
-    if which in ("telemetry", "mesh", "refresh", "result_cache"):
+    if which in ("telemetry", "mesh", "refresh", "result_cache", "monitor"):
         track_engines()
         phase = {"telemetry": ("telemetry_worker", phase_telemetry_worker),
                  "mesh": ("mesh", phase_mesh), "refresh": ("refresh", phase_refresh),
-                 "result_cache": ("result_cache", phase_result_cache)}[which]
+                 "result_cache": ("result_cache", phase_result_cache),
+                 "monitor": ("monitor", phase_monitor)}[which]
         no_faults(*phase, templates, plants, db, smi)
         return 0
     if which in ("timing", "startup"):
@@ -6929,6 +7238,7 @@ def run_phases(smi: str) -> int:
     del calls, md5_calls
     mesh = no_faults("mesh", phase_mesh, templates, plants, db, smi)
     refresh = no_faults("refresh", phase_refresh, templates, plants, db, smi)
+    monitor = no_faults("monitor", phase_monitor, templates, plants, db, smi)
     cache = no_faults("result_cache", phase_result_cache, templates, plants, db, smi)
     aot = no_faults("aot", phase_aot, plants, smi)
     for name in ("cluster_counts", "cluster_parent"):
@@ -6966,6 +7276,7 @@ def run_phases(smi: str) -> int:
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": max(max_err[name], job_err[name], svc_err.get(name, 0.0),
                                mesh["max_err"][name], refresh["max_err"][name],
+                               monitor["max_err"][name],
                                cache["max_err"][name], multi["max_err"][name],
                                aot["max_err"][name]),
             "ms": t["ms"], "card_ms": t["card_ms"], "plain_ms": t["plain_ms"],
@@ -7016,6 +7327,8 @@ def run_phases(smi: str) -> int:
         # refresh, and on each grid of the multihost phase (one call,
         # both processes)
         summary[name]["refresh"] = {"launches": refresh["launches"][name]}
+        # and on the monitor phase's epochs (40 chunk jobs)
+        summary[name]["monitor"] = {"launches": monitor["launches"][name]}
         # and on the result_cache phase's writer's call (A, a cold tier)
         summary[name]["result_cache"] = {"launches": cache["launches"][name]}
         # and on the aot phase's joiner's job, from fetched libraries

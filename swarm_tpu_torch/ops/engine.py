@@ -2726,9 +2726,9 @@ class MatchEngine:
         An attached result tier moves to the new corpus epoch with ONE
         ``bind_corpus`` call: entries of the old corpus become
         unreachable, and the next batch reads and writes the new
-        corpus's namespace. The reference also hands the new digest to
-        an in-process corpus monitor (``monitor_notify``); the port has
-        no monitor layer yet, so that call stays out with it."""
+        corpus's namespace. The new digest then goes to every
+        in-process monitor service (``monitor.notify``), which makes
+        its standing specs due for one out-of-cadence epoch."""
         from swarm_tpu_torch.fingerprints.compile import (
             build_device_layout_delta,
             compile_corpus_delta,
@@ -2753,8 +2753,16 @@ class MatchEngine:
         self._shared_seen.clear()
         # shared result tier: ONE namespace move — the epoch's digest
         # half covers the corpus content + lowering code
-        if self._result_cache is not None:
-            from swarm_tpu_torch.cache.tier import corpus_digest
+        from swarm_tpu_torch.cache.tier import corpus_digest
 
-            self._result_cache.bind_corpus(corpus_digest(self.templates))
+        digest = corpus_digest(self.templates)
+        if self._result_cache is not None:
+            self._result_cache.bind_corpus(digest)
+        # corpus-delta fan-out: any in-process monitor service turns
+        # this into a journaled due-now touch so standing specs fire
+        # one immediate out-of-cadence diff epoch against the new
+        # corpus (docs/MONITORING.md §Out-of-cadence re-evaluation)
+        from swarm_tpu_torch.monitor import notify as monitor_notify
+
+        monitor_notify.notify_corpus_delta(digest)
         return stats

@@ -500,7 +500,10 @@ class BatchScheduler:
 
         def encode_of(pb: PlannedBatch):
             with record_function("sched.encode"):
-                pre = engine.encode_packed(pb.rows, reuse_buffers=True)
+                try:
+                    pre = engine.encode_packed(pb.rows, reuse_buffers=True)
+                except Exception:
+                    pre = None  # begin_packed re-encodes; never lose the rows
             occ = planner.occupancy()
             occ.setdefault(pb.bucket, 0)  # flushed bucket reads 0
             for bucket, rows_pending in occ.items():

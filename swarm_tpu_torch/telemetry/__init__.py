@@ -13,8 +13,9 @@ has.
 
 Families, kinds, help strings, label names and buckets are the
 reference's, letter for letter: the JAX server and its scrapers read
-them. A family of a layer the port does not have (server, queue,
-journal, fleet, monitor) is not registered; the
+them. A family of a layer the port does not have yet (the server's, the
+queue's own, the fleet's) is not registered; ``journal_export`` also
+registers the queue's recovery families, as the reference's does; the
 ``swarm_aot_*`` families count the port's kernel libraries
 (:mod:`~swarm_tpu_torch.telemetry.aot_export`).
 """
@@ -32,16 +33,18 @@ from swarm_tpu_torch.telemetry.events import (  # noqa: F401
     subscribe,
 )
 
-# the walk, device, shard, memo, sched, aot, trace, worker-drain,
-# workflow and gateway families register at import time so every
-# process's exposition carries them
+# the walk, device, shard, memo, sched, journal, aot, trace, monitor,
+# worker-drain, workflow and gateway families register at import time
+# so every process's exposition carries them
 from swarm_tpu_torch.telemetry import walk_export  # noqa: E402,F401
 from swarm_tpu_torch.telemetry import device_export  # noqa: E402,F401
 from swarm_tpu_torch.telemetry import shard_export  # noqa: E402,F401
 from swarm_tpu_torch.telemetry import memo_export  # noqa: E402,F401
 from swarm_tpu_torch.telemetry import sched_export  # noqa: E402,F401
+from swarm_tpu_torch.telemetry import journal_export  # noqa: E402,F401
 from swarm_tpu_torch.telemetry import aot_export  # noqa: E402,F401
 from swarm_tpu_torch.telemetry import trace_export  # noqa: E402,F401
+from swarm_tpu_torch.telemetry import monitor_export  # noqa: E402,F401
 from swarm_tpu_torch.telemetry import fleet_export  # noqa: E402,F401
 from swarm_tpu_torch.telemetry import workflow_export  # noqa: E402,F401
 from swarm_tpu_torch.telemetry import gateway_export  # noqa: E402,F401

@@ -23,8 +23,7 @@ The port runs every backend of the JAX worker:
 - ``active``: each template's own requests per ``targets`` line
   (nuclei's execution mode), ``probe`` (with ``wave_rows``,
   ``ssl_ports``, ``session_concurrency``, ...) and ``vars`` (operator
-  template variables); a ``probe`` with ``oob`` is refused, as the OOB
-  listener is not ported;
+  template variables);
 - ``file``: input lines are local file or directory paths, confined to
   ``scan_root`` when it is set;
 - ``ssl``: TLS handshakes to ``targets`` lines, ``probe``'s
@@ -56,6 +55,7 @@ class ModuleSpec:
         self.backend = raw.get("backend", "command")
         self.command_template: Optional[str] = raw.get("command")
         self._templates_raw: Optional[str] = raw.get("templates")
+        self._templates_resolved: Optional[str] = None
         self.input_format: str = raw.get("input_format", "jsonl")
         self.output_format: str = raw.get("output_format", "matches_jsonl")
         self.probe: dict = raw.get("probe", {})
@@ -64,20 +64,27 @@ class ModuleSpec:
     def templates_dir(self) -> Optional[str]:
         """Resolved template-corpus path (``$VAR`` references expanded),
         verified to exist: a corpus that cannot be found fails the job
-        loudly rather than matching nothing."""
+        loudly rather than matching nothing. The runtime reads this
+        several times per job, so the first success is kept."""
         if self._templates_raw is None:
             return None
+        if self._templates_resolved is not None:
+            return self._templates_resolved
         d = os.path.expandvars(self._templates_raw)
         if "$" in d:
             raise ValueError(
-                f"module {self.name}: templates path {self._templates_raw!r} "
-                "references an unset environment variable (set "
-                "SWARM_TEMPLATES_DIR)"
+                f"module {self.name}: templates path "
+                f"{self._templates_raw!r} references an unset "
+                "environment variable (set SWARM_TEMPLATES_DIR or bake "
+                "the corpus into the image — docker/worker.Dockerfile "
+                "TEMPLATES_SRC)"
             )
         if not os.path.isdir(d):
             raise ValueError(
-                f"module {self.name}: templates directory {d!r} does not exist"
+                f"module {self.name}: templates directory {d!r} does "
+                "not exist (corpus not bundled/mounted?)"
             )
+        self._templates_resolved = d
         return d
 
     def command(self, input_path: str, output_path: str) -> str:
@@ -98,6 +105,11 @@ class ModuleRegistry:
         path = self.modules_dir / f"{safe}.json"
         with path.open() as f:
             return ModuleSpec(safe, json.load(f))
+
+    def names(self) -> list[str]:
+        if not self.modules_dir.is_dir():
+            return []
+        return sorted(p.stem for p in self.modules_dir.glob("*.json"))
 
 
 # ---------------------------------------------------------------------------

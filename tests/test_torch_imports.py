@@ -84,6 +84,13 @@ def test_module_list_covers_the_slice():
         "swarm_tpu_torch.gateway", "swarm_tpu_torch.gateway.qos",
         "swarm_tpu_torch.gateway.admission", "swarm_tpu_torch.gateway.qoscache",
         "swarm_tpu_torch.gateway.streaming", "swarm_tpu_torch.telemetry.gateway_export",
+        # the monitor lane, the whole data model and the queue journal
+        "swarm_tpu_torch.datamodel", "swarm_tpu_torch.monitor",
+        "swarm_tpu_torch.monitor.spec", "swarm_tpu_torch.monitor.diff",
+        "swarm_tpu_torch.monitor.feed", "swarm_tpu_torch.monitor.notify",
+        "swarm_tpu_torch.monitor.service", "swarm_tpu_torch.telemetry.monitor_export",
+        "swarm_tpu_torch.server", "swarm_tpu_torch.server.journal",
+        "swarm_tpu_torch.telemetry.journal_export",
     } <= names
 
 

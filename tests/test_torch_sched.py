@@ -492,6 +492,51 @@ def test_device_fault_degrades_out_of_run(data, jax_degrading, monkeypatch, wher
     assert_same(j_eng.match(c.j_rows(dicts)), want)
 
 
+def _first_encode_raises(monkeypatch, engine) -> list:
+    """Make ``engine``'s first ``encode_packed`` raise ``MemoryError``;
+    the returned list counts the calls."""
+    real, calls = engine.encode_packed, []
+
+    def encode_packed(*a, **k):
+        calls.append(1)
+        if len(calls) == 1:
+            raise MemoryError("encode planes exhausted")
+        return real(*a, **k)
+
+    monkeypatch.setattr(engine, "encode_packed", encode_packed)
+    return calls
+
+
+@pytest.mark.parametrize("prefetch", ["inline", "thread"])
+def test_failed_pre_encode_reencodes_at_submit(data, jax_degrading, monkeypatch, prefetch):
+    """A pre-encode that raises leaves its batch without ``pre``, and
+    ``begin_packed`` encodes the rows again at submit: ``run()`` yields
+    all 64 rows in order, equal to the direct path and to JAX's ``run``
+    under the same failure."""
+    c = data
+    dicts = scan_rows(64, seed=2)
+    chunks = [dicts[i : i + 16] for i in range(0, len(dicts), 16)]
+    c.port.clear_content_memos()
+    want = c.port.match(c.t_rows(dicts))
+    eng = MatchEngine(c.t_templates, db=c.port.db, batch_rows=BATCH, device="cpu",
+                      pipeline="on", walk_threads=1)
+    j_eng = jax_degrading
+    j_eng.clear_content_memos()
+    j_eng._device_breakers.reset_all()
+    calls = [_first_encode_raises(monkeypatch, e) for e in (eng, j_eng)]
+    cfg = dict(walk_offload="off", prefetch=prefetch, inflight=2)
+    sched = BatchScheduler(eng, SchedulerConfig(**cfg))
+    sched._overlap_helps = True
+    got = list(sched.run([c.t_rows(ch) for ch in chunks]))
+    j_got = list(JaxScheduler(j_eng, JaxConfig(**cfg)).run([c.j_rows(ch) for ch in chunks]))
+    assert [len(r) for r in got] == [len(ch) for ch in chunks] == [len(r) for r in j_got]
+    flat = [m for res in got for m in res]
+    assert sum(len(r) for r in got) == 64
+    assert_same(flat, want)
+    assert_same(flat, [m for res in j_got for m in res])
+    assert all(len(n) >= 2 for n in calls)
+
+
 def test_stats_add_up_across_threads(data):
     """The direct path's pre-encode on a helper thread, then the
     scheduler with its prefetch thread and offloaded walk, each under a

@@ -547,6 +547,11 @@ def test_every_port_family_is_the_reference_family():
         assert (fam.kind, fam.help, fam.labelnames) == (want.kind, want.help,
                                                         want.labelnames), name
         assert getattr(fam, "buckets", None) == getattr(want, "buckets", None), name
+    # the monitor's and the journal's families, all of them
+    lanes = ("swarm_monitor_", "swarm_journal_")
+    want_lanes = sorted(n for n in ref if n.startswith(lanes))
+    assert sorted(n for n in port if n.startswith(lanes)) == want_lanes
+    assert len(want_lanes) == 9
     rendered = t_metrics.REGISTRY.render()
     assert j_metrics.parse_exposition(rendered) == t_metrics.parse_exposition(rendered)
 

@@ -241,6 +241,50 @@ def test_command_backend_failure_fails_job(tmp_path, spec):
     assert client.output is None
 
 
+def _templates_outcome(spec):
+    try:
+        return "ok", spec.templates_dir
+    except ValueError as e:
+        return "error", str(e)
+
+
+def test_module_registry_equals_jax(monkeypatch, tmp_path):
+    """Both registries over ``modules/``: the same ``names()``, every
+    ``load`` the same spec, and ``templates_dir`` the same result or
+    error text with ``SWARM_TEMPLATES_DIR`` set, set to a missing
+    directory, and unset. A spec keeps its first resolution when the
+    variable changes after it; a spec that failed resolves later."""
+    port, jax = ModuleRegistry(REPO / "modules"), JaxModuleRegistry(REPO / "modules")
+    names = port.names()
+    assert names == jax.names() and "fingerprint" in names and "echo" in names
+    assert ModuleRegistry(tmp_path / "none").names() == JaxModuleRegistry(tmp_path / "none").names() == []
+    fields = ("name", "raw", "backend", "command_template", "input_format",
+              "output_format", "probe")
+    corpus = tmp_path / "corpus"
+    corpus.mkdir()
+    for name in names:
+        specs = [port.load(name), jax.load(name)]
+        assert [getattr(specs[0], f) for f in fields] == [getattr(specs[1], f) for f in fields]
+        for env in (None, str(tmp_path / "missing"), str(corpus)):
+            if env is None:
+                monkeypatch.delenv("SWARM_TEMPLATES_DIR", raising=False)
+            else:
+                monkeypatch.setenv("SWARM_TEMPLATES_DIR", env)
+            got = [_templates_outcome(s) for s in specs]
+            assert got[0] == got[1]
+        if specs[0]._templates_raw is None:
+            assert got[0] == ("ok", None)
+            continue
+        assert got[0] == ("ok", str(corpus))
+        # the first success is kept, as in the reference
+        monkeypatch.delenv("SWARM_TEMPLATES_DIR")
+        assert [_templates_outcome(s) for s in specs] == [("ok", str(corpus))] * 2
+        fresh = [port.load(name), jax.load(name)]
+        unset = [_templates_outcome(s) for s in fresh]
+        assert unset[0] == unset[1] and unset[0][0] == "error"
+        assert "references an unset environment variable" in unset[0][1]
+
+
 def test_default_device_needs_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")

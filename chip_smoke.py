@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only profiles    # device, 1,000 device profiles (ROADMAP C)
     python3 chip_smoke.py --only refresh     # device, build, corpus, refresh
     python3 chip_smoke.py --only monitor     # device, build, corpus, monitor
+    python3 chip_smoke.py --only queue       # device, build, corpus, monitor, queue
     python3 chip_smoke.py --only result_cache  # device, build, corpus, result_cache
     python3 chip_smoke.py --only multihost   # device, build, multihost (two processes)
     python3 chip_smoke.py --only aot         # device, build, corpus, aot
@@ -183,6 +184,16 @@ prints one JSON line per phase:
    changed targets after, none in the fifth; the kernel calls exact;
    one notify call with the new corpus digest from a ``refresh_corpus``.
    The epochs' seconds, records by kind and the diff's host ms a target.
+14b''. ``queue`` — the server's queue side (see :func:`phase_queue`):
+   the port's worker on ``cuda`` takes its jobs from the port's
+   ``JobQueueService`` (memory stores, the journal on) through an
+   in-process client. A bulk scan of the monitor phase's 2,048 rows and
+   an interactive one of 512 (the express lane served first); the
+   queue dropped and rebuilt over the same blobs (generation 2, equal
+   state, a ``journal_recovery`` dump); a ``device.dispatch`` fault
+   degraded and dumped; a dead letter; then the monitor service over
+   this queue, whose feed must equal the monitor phase's byte for
+   byte. Every chunk's output equals the stand-in server's.
 14c. ``result_cache`` — the fleet result tier (see
    :func:`phase_result_cache`): two workers' engines in this process
    over ``cache_backend=memory``, the match corpus, 2,048 rows. A walks
@@ -286,7 +297,7 @@ phase's traced pipelined call, and its launches and times on the
 service corpus, and for each grid of the mesh phase, with the seq-halo
 calls' times for phase A and the verify; and its launches on the batch
 after the refresh phase's last refresh, on the monitor phase's
-epochs, on the result_cache phase's
+epochs, on the queue phase's jobs, on the result_cache phase's
 writer's call, on each grid of the multihost phase, and on the aot
 phase's joiner; the cluster kernels also on the joiner), the
 ``nvidia-smi`` line, and
@@ -4491,6 +4502,382 @@ def phase_monitor(templates, plants, db, smi: str) -> dict:
           "notify": {"calls": len(seen), "digest": seen[0]},
           "launches": launches, "max_abs_err": max_err,
           "seconds": time.perf_counter() - t_phase, "card": smi})
+    return {"launches": launches, "max_err": max_err, "feed": stored}
+
+
+#: the device of the queue phase (the CPU only to rehearse it)
+QUEUE_DEVICE = "cuda"
+#: the attempts a job gets before it is dead-lettered
+QUEUE_MAX_ATTEMPTS = 3
+#: empty polls before the in-process client tells an idle worker to
+#: drain (a phase that miscounts its jobs fails instead of hanging)
+QUEUE_IDLE_POLLS = 20
+
+
+class QueueClient:
+    """The worker's server client over an in-process ``JobQueueService``:
+    each call does what the server's route does (``server/app.py`` in
+    the JAX package), without HTTP. Records every job handed out; after
+    ``QUEUE_IDLE_POLLS`` empty polls in a row it answers with a drain
+    order, so a worker that waits for a job that never comes returns."""
+
+    def __init__(self, queue):
+        self.queue = queue
+        #: the queue's generation on the last poll (X-Swarm-Generation)
+        self.last_server_generation = None
+        #: the drain order of the last poll (X-Swarm-Drain)
+        self.last_drain_reason = None
+        #: (job_id, tenant, qos) of each job handed out, in order
+        self.handed: list = []
+        self._idle = 0
+
+    def get_job(self, worker_id: str):
+        job = self.queue.next_job(worker_id or "unknown")
+        self.last_server_generation = self.queue.generation
+        self.last_drain_reason = self.queue.drain_reason(worker_id or "unknown")
+        if job is None:
+            self._idle += 1
+            if self._idle >= QUEUE_IDLE_POLLS:
+                self.last_drain_reason = "idle"
+            return None
+        self._idle = 0
+        self.handed.append((job["job_id"], job.get("tenant"), job.get("qos")))
+        return json.loads(json.dumps(job))
+
+    def update_job(self, job_id: str, changes: dict, worker_id=None) -> bool:
+        if worker_id is not None:
+            changes = {**changes, "worker_id": worker_id}
+        return self.queue.update_job(job_id, json.loads(json.dumps(changes)))
+
+    def get_input_chunk(self, scan_id: str, chunk_index: int):
+        return self.queue.input_chunk(scan_id, int(chunk_index))
+
+    def put_output_chunk(self, scan_id: str, chunk_index: int, data: bytes) -> bool:
+        self.queue.put_output_chunk(scan_id, int(chunk_index), data or b"")
+        return True
+
+    def post_spans(self, scan_id: str, spans: list) -> bool:
+        self.queue.tracer.add_spans(str(scan_id), spans)
+        return True
+
+    def renew_lease(self, job_id: str, worker_id: str, saturation=None) -> bool:
+        return self.queue.renew_lease(job_id, worker_id) is not None
+
+    def deregister(self, worker_id: str) -> bool:
+        self.queue.deregister_worker(worker_id)
+        return True
+
+
+def queue_work(proc, n: int) -> None:
+    """Let the worker's poll loop run ``n`` chunks, then return."""
+    proc.jobs_done = 0
+    proc.cfg.max_jobs = n
+    proc.process_jobs()
+    if proc.jobs_done != n:
+        raise AssertionError(f"queue: the worker ran {proc.jobs_done} of {n} chunks "
+                             f"(drain {proc.drain_requested!r})")
+
+
+def _chunks_of(text_lines: list, batch: int) -> list:
+    return [text_lines[i:i + batch] for i in range(0, len(text_lines), batch)]
+
+
+def phase_queue(templates, plants, db, smi: str, monitor_feed: bytes) -> dict:
+    """The server's queue side on the card: the port's worker
+    (``JobProcessor`` on ``cuda``) takes its jobs from the port's
+    ``JobQueueService`` (memory state, blob and doc stores, the journal
+    on) through :class:`QueueClient`.
+
+    (a) a bulk ``fingerprint`` scan of the monitor phase's 2,048 rows
+    (``realistic_rows`` seed 11) in 8 chunks of 256, tenant ``bulk``;
+    after its first 2 chunks an interactive scan of 512 rows from
+    tenant ``live``, whose 2 chunks are dispatched before the next bulk
+    chunk (``swarm_queue_express_served_total`` +2). (b) every chunk's
+    output byte-equal to the same chunk through :class:`StubServer`
+    (the monitor phase's path, held there to the CPU oracle). (c) after
+    4 bulk chunks the queue is dropped and rebuilt over the same blob
+    store and a fresh state store: generation 2, a recovery summary,
+    ``statuses()`` (its workers aside: worker records are not journaled)
+    and ``jobs_by_state()`` equal to the old queue's, a
+    ``journal_recovery`` dump, the worker's
+    ``swarm_worker_server_restarts_total`` +1; the scan then completes.
+    (d) 256 fresh rows under ``device.dispatch:1``: the engine degrades
+    the batch to the CPU oracle (the same bytes as the stand-in
+    server's) and the ``fault`` dump holds ``DeviceDB.dispatch``'s
+    ``device.dispatch`` record. (e) a one-chunk scan the worker fails
+    ``QUEUE_MAX_ATTEMPTS`` times (``executor.run`` poisoned for its job)
+    ends in ``dead_letter_jobs()`` with a ``dead_letter`` dump. (f) the
+    port's ``MonitorService`` over this queue, without its ticker, on a
+    fake clock: the monitor phase's 5 epochs, each fired by ``tick()``,
+    its 8 chunks run by the worker, committed by ``drain()``; the stored
+    feed equals ``monitor_feed`` byte for byte. Every recorded
+    match-kernel call is exact against its plain version and every
+    match kernel launched.
+    → {"launches": by kernel over (a)–(f), "max_err": by kernel}."""
+    import tempfile
+
+    from swarm_tpu_torch.cache.tier import SharedResultTier
+    from swarm_tpu_torch.config import Config
+    from swarm_tpu_torch.datamodel import chunk_output_key
+    from swarm_tpu_torch.monitor import feed as mfeed
+    from swarm_tpu_torch.monitor.service import MonitorService
+    from swarm_tpu_torch.monitor.spec import MonitorSpec
+    from swarm_tpu_torch.ops import kernels
+    from swarm_tpu_torch.ops.engine import MatchEngine
+    from swarm_tpu_torch.resilience import faults
+    from swarm_tpu_torch.server.queue import JobQueueService
+    from swarm_tpu_torch.stores import MemoryBlobStore, MemoryDocStore, MemoryStateStore
+    from swarm_tpu_torch.telemetry import REGISTRY
+    from swarm_tpu_torch.telemetry.tracing import FLIGHT
+    from swarm_tpu_torch.worker.runtime import JobProcessor, WorkerConfig
+
+    dev = QUEUE_DEVICE
+    t_phase = time.perf_counter()
+    steps: dict = {}
+    # the monitor phase's chunks: 8 of 256 rows
+    batch = JOB_ROWS // MONITOR_CHUNKS
+    bulk_rows = realistic_rows(JOB_ROWS, seed=11, plants=plants)
+    for i, d in enumerate(bulk_rows):
+        d["host"] = f"198.18.{i // 256}.{i % 256}"
+    live_rows = realistic_rows(2 * batch, seed=12, plants=plants)
+    for i, d in enumerate(live_rows):
+        d["host"] = f"198.19.{i // 256}.{i % 256}"
+    fault_rows = realistic_rows(batch, seed=13, plants=plants)
+    for i, d in enumerate(fault_rows):
+        d["host"] = f"198.20.{i // 256}.{i % 256}"
+    bulk_lines = jsonl_rows(bulk_rows).decode().splitlines()
+    live_lines = jsonl_rows(live_rows).decode().splitlines()
+    fault_lines = jsonl_rows(fault_rows).decode().splitlines()
+
+    def counter(name: str, **labels) -> float:
+        return REGISTRY.get(name).labels(**labels).value
+
+    dump_reasons = ("fault", "breaker_open", "dead_letter", "journal_recovery", "other")
+    dumps_before = {r: counter("swarm_trace_flight_dumps_total", reason=r)
+                    for r in dump_reasons}
+    saved = os.environ.get("SWARM_TEMPLATES_DIR")
+    closer, closing = ThreadPoolExecutor(max_workers=4), []
+    with tempfile.TemporaryDirectory() as corpus_dir:
+        os.environ["SWARM_TEMPLATES_DIR"] = corpus_dir
+        try:
+            # (b)'s reference: each distinct chunk through the stand-in
+            # server on an engine of its own (no memo shared with the
+            # queue's), before the counts are set to 0
+            t0 = time.perf_counter()
+            ref_engines = {corpus_dir: MatchEngine(templates, db=db, device=dev)}
+            want: dict = {}
+            for lines in (bulk_lines, live_lines, fault_lines):
+                for chunk in _chunks_of(lines, batch):
+                    blob = "\n".join(chunk).encode()
+                    stub = StubServer(blob, module="fingerprint")
+                    try:
+                        cfg = WorkerConfig(
+                            server_url=stub.url, api_key=API_KEY, worker_id="chip-queue-ref",
+                            modules_dir=str(REPO / "modules"), max_jobs=1,
+                            poll_interval_idle_s=0.05, poll_interval_busy_s=0.0)
+                        proc = JobProcessor(cfg, device=dev,
+                                            work_dir=tempfile.mkdtemp(dir=corpus_dir))
+                        proc.engines = ref_engines
+                        proc.process_jobs()
+                    finally:
+                        closing.append(closer.submit(stub.close))
+                    if stub.statuses[-1:] != ["complete"] or stub.output is None:
+                        raise AssertionError(f"queue reference: {stub.statuses}")
+                    want[blob] = stub.output
+            del ref_engines
+            steps["reference_s"] = time.perf_counter() - t0
+
+            cfg = Config(worker_id="chip-queue-server", lease_seconds=600.0,
+                         max_attempts=QUEUE_MAX_ATTEMPTS, qos_express_burst=4,
+                         journal_enabled=True)
+            blobs = MemoryBlobStore()
+            queue = JobQueueService(cfg, MemoryStateStore(), blobs, MemoryDocStore())
+            if queue.generation != 1 or queue.recovery_summary is not None:
+                raise AssertionError(f"queue: a fresh queue at generation {queue.generation}")
+            client = QueueClient(queue)
+            engines = {corpus_dir: MatchEngine(templates, db=db, device=dev)}
+            wcfg = WorkerConfig(api_key=API_KEY, worker_id="chip-queue",
+                                modules_dir=str(REPO / "modules"), poll_interval_idle_s=0.05,
+                                poll_interval_busy_s=0.0)
+            proc = JobProcessor(wcfg, client=client, device=dev,
+                                work_dir=tempfile.mkdtemp(dir=corpus_dir))
+            proc.engines = engines
+
+            def outputs_equal(scan_id: str, lines: list) -> None:
+                for c, chunk in enumerate(_chunks_of(lines, batch)):
+                    got = blobs.get(chunk_output_key(scan_id, c))
+                    if got != want["\n".join(chunk).encode()]:
+                        raise AssertionError(f"queue: {scan_id} chunk {c} differs from the "
+                                             "stand-in server's output")
+
+            kernels.reset_launches()
+            with kernels.record_calls() as calls:
+                # (a) the lanes
+                t0 = time.perf_counter()
+                express0 = counter("swarm_queue_express_served_total")
+                queue.queue_scan({"module": "fingerprint", "file_content": bulk_lines,
+                                  "batch_size": batch, "scan_id": "chipbulk_1"},
+                                 tenant="bulk")
+                queue_work(proc, 2)
+                queue.queue_scan({"module": "fingerprint", "file_content": live_lines,
+                                  "batch_size": batch, "scan_id": "chiplive_1"},
+                                 tenant="live", qos="interactive")
+                queue_work(proc, 4)
+                order = [h[0] for h in client.handed]
+                want_order = ["chipbulk_1_0", "chipbulk_1_1", "chiplive_1_0", "chiplive_1_1",
+                              "chipbulk_1_2", "chipbulk_1_3"]
+                express = counter("swarm_queue_express_served_total") - express0
+                if order != want_order or express != 2:
+                    raise AssertionError(f"queue: dispatch order {order}, express {express}")
+                steps["lanes_s"] = time.perf_counter() - t0
+
+                # (c) the restart, 4 bulk chunks complete
+                t0 = time.perf_counter()
+                old = queue.statuses()
+                old.pop("workers")
+                old_by_state = queue.jobs_by_state()
+                restarts0 = counter("swarm_worker_server_restarts_total")
+                seq0 = max([d["seq"] for d in FLIGHT.last_dumps()], default=0)
+                t_rec = time.perf_counter()
+                queue = JobQueueService(cfg, MemoryStateStore(), blobs, MemoryDocStore())
+                recovery_s = time.perf_counter() - t_rec
+                summary = queue.recovery_summary
+                new = queue.statuses()
+                new.pop("workers")
+                if queue.generation != 2 or summary is None or summary["generation"] != 2:
+                    raise AssertionError(f"queue: recovered at generation {queue.generation}: "
+                                         f"{summary}")
+                if new != old or queue.jobs_by_state() != old_by_state:
+                    raise AssertionError("queue: the recovered state differs from the old")
+                rec_dumps = [d for d in FLIGHT.last_dumps()
+                             if d["seq"] > seq0 and d["reason"] == "journal_recovery"]
+                if len(rec_dumps) != 1:
+                    raise AssertionError("queue: no journal_recovery dump")
+                client.queue = queue
+                queue_work(proc, 4)
+                restarts = counter("swarm_worker_server_restarts_total") - restarts0
+                if restarts != 1:
+                    raise AssertionError(f"queue: the worker saw {restarts} restarts")
+                scans = {s["scan_id"]: s for s in queue.statuses()["scans"]}
+                if any(scans[sid]["percent_complete"] != 100
+                       for sid in ("chipbulk_1", "chiplive_1")):
+                    raise AssertionError(f"queue: scans {scans}")
+                # (b) every chunk's output
+                outputs_equal("chipbulk_1", bulk_lines)
+                outputs_equal("chiplive_1", live_lines)
+                steps["restart_s"] = time.perf_counter() - t0
+
+                # (d) a dispatch fault, on an engine of its own (its
+                # degraded batch is this step's point, not a failure)
+                t0 = time.perf_counter()
+                _PHASE[0] = "queue_dispatch_fault"
+                fault_engine = MatchEngine(templates, db=db, device=dev)
+                _PHASE[0] = "queue"
+                proc.engines = {corpus_dir: fault_engine}
+                seq0 = max([d["seq"] for d in FLIGHT.last_dumps()], default=0)
+                faults.install_plan("device.dispatch:1")
+                try:
+                    queue.queue_scan({"module": "fingerprint", "file_content": fault_lines,
+                                      "batch_size": batch, "scan_id": "chipfault_1"},
+                                     tenant="bulk")
+                    queue_work(proc, 1)
+                finally:
+                    faults.clear_plan()
+                    proc.engines = engines
+                if (fault_engine.stats.device_faults, fault_engine.stats.degraded_batches) != (1, 1):
+                    raise AssertionError(f"queue: the fault engine's stats {fault_engine.stats}")
+                if queue.chunk_status("chipfault_1", 0) != "complete":
+                    raise AssertionError("queue: the faulted job did not complete")
+                outputs_equal("chipfault_1", fault_lines)
+                fault_dumps = [d for d in FLIGHT.last_dumps()
+                               if d["seq"] > seq0 and d["reason"] == "fault"
+                               and d["detail"] == "device.dispatch"]
+                if not fault_dumps or not any(r["name"] == "device.dispatch"
+                                              for r in fault_dumps[0]["records"]):
+                    raise AssertionError("queue: no fault dump with the device.dispatch record")
+                steps["dispatch_fault_s"] = time.perf_counter() - t0
+
+                # (e) a dead letter
+                t0 = time.perf_counter()
+                seq0 = max([d["seq"] for d in FLIGHT.last_dumps()], default=0)
+                faults.install_plan("executor.run/chipdead_1_0:*")
+                try:
+                    queue.queue_scan({"module": "fingerprint", "file_content": bulk_lines[:4],
+                                      "batch_size": batch, "scan_id": "chipdead_1"},
+                                     tenant="bulk")
+                    queue_work(proc, QUEUE_MAX_ATTEMPTS)
+                finally:
+                    faults.clear_plan()
+                dead = [d for d in queue.dead_letter_jobs() if d["job_id"] == "chipdead_1_0"]
+                if len(dead) != 1 or len(dead[0]["failure_history"]) != QUEUE_MAX_ATTEMPTS:
+                    raise AssertionError(f"queue: dead letter {dead}")
+                if not [d for d in FLIGHT.last_dumps()
+                        if d["seq"] > seq0 and d["reason"] == "dead_letter"]:
+                    raise AssertionError("queue: no dead_letter dump")
+                steps["dead_letter_s"] = time.perf_counter() - t0
+
+                # (f) the monitor service over this queue
+                t0 = time.perf_counter()
+                # the queue stamps next_fire_at off its own wall clock:
+                # the fake one starts there and moves an interval a tick
+                now = [float(int(time.time()))]
+                tier = SharedResultTier(MemoryStateStore(), MemoryBlobStore())
+                service = MonitorService(
+                    queue, cfg, submit=lambda spec, sid, epoch: queue.fire_monitor_epoch(
+                        spec.to_wire(), sid, epoch), tier=tier, clock=lambda: now[0])
+                epochs_s = []
+                for k, rows in enumerate(monitor_epochs(plants), start=1):
+                    te = time.perf_counter()
+                    targets = jsonl_rows(rows).decode().splitlines()
+                    wire = queue.get_monitor(MONITOR_ID)
+                    if wire is None:
+                        wire = MonitorSpec(MONITOR_ID, "fingerprint", targets, 3600.0,
+                                           batch_size=batch, created_at=now[0]).to_wire()
+                    wire["targets"] = targets
+                    queue.put_monitor(wire)
+                    now[0] += 3600.0
+                    fired = service.tick()
+                    queue_work(proc, JOB_ROWS // batch)
+                    committed = service.drain()
+                    if (fired, committed) != (1, 1):
+                        raise AssertionError(f"queue: epoch {k} fired {fired}, "
+                                             f"committed {committed}")
+                    epochs_s.append(time.perf_counter() - te)
+                feed = b"".join(blobs.get(key) for key in
+                                blobs.list(mfeed.feed_prefix(MONITOR_ID)))
+                if feed != monitor_feed:
+                    raise AssertionError("queue: the monitor feed differs from the monitor "
+                                         "phase's")
+                steps["monitor_s"] = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            max_err = check_calls(calls)
+            del calls
+        finally:
+            _PHASE[0] = "queue"
+            faults.clear_plan()
+            for f in closing:
+                f.result()
+            closer.shutdown()
+            if saved is None:
+                os.environ.pop("SWARM_TEMPLATES_DIR", None)
+            else:
+                os.environ["SWARM_TEMPLATES_DIR"] = saved
+    if any(launches[n] < 1 for n in MATCH_KERNELS):
+        raise AssertionError(f"queue: a match kernel was not launched: {launches}")
+    kinds = {}
+    for line in feed.splitlines():
+        rec = json.loads(line)
+        per = kinds.setdefault(rec["epoch"], {})
+        per[rec["kind"]] = per.get(rec["kind"], 0) + 1
+    emit({"phase": "queue", "device": str(dev), "steps_s": steps,
+          "dispatch_order": [h[0] for h in client.handed[:6]],
+          "jobs": len(client.handed), "recovery": {"seconds": recovery_s, **summary},
+          "dumps": {r: counter("swarm_trace_flight_dumps_total", reason=r) - dumps_before[r]
+                    for r in dump_reasons},
+          "monitor": {"epochs_s": epochs_s, "records": kinds, "feed_bytes": len(feed),
+                      "feed_identical": True},
+          "launches": launches, "max_abs_err": max_err,
+          "seconds": time.perf_counter() - t_phase, "card": smi})
     return {"launches": launches, "max_err": max_err}
 
 
@@ -7070,7 +7457,7 @@ def main(argv: list[str] | None = None) -> int:
 
 #: the phases ``--only`` runs alone (:func:`run_only`)
 ONLY = ("match", "telemetry", "timing", "mesh", "startup", "profiles", "refresh", "multihost",
-        "result_cache", "aot", "monitor")
+        "result_cache", "aot", "monitor", "queue")
 
 
 def run_only(smi: str, which: str) -> int:
@@ -7084,7 +7471,8 @@ def run_only(smi: str, which: str) -> int:
     ``fingerprint`` job that fills the compile cache it reads; or
     ``profiles`` (:func:`phase_profiles`), in a process of its own;
     ``refresh``, ``monitor`` or ``result_cache``, after the build
-    phase, its engines held to no fault; or ``multihost``, after the build phase, whose two
+    phase, its engines held to no fault; ``queue``, after the build
+    phase and the ``monitor`` phase whose feed it is held to; or ``multihost``, after the build phase, whose two
     processes then load the built libraries; or ``aot``, after the build
     phase (which the publisher publishes) and the corpus."""
     import importlib.util
@@ -7092,7 +7480,7 @@ def run_only(smi: str, which: str) -> int:
     if which == "profiles":
         phase_profiles(smi)
         return 0
-    if which in ("mesh", "refresh", "multihost", "result_cache", "monitor"):
+    if which in ("mesh", "refresh", "multihost", "result_cache", "monitor", "queue"):
         phase_build()
     if which == "multihost":
         phase_multihost(smi)
@@ -7103,6 +7491,11 @@ def run_only(smi: str, which: str) -> int:
         phase_aot(plants, smi)
         return 0
     templates, plants, db = phase_corpus()
+    if which == "queue":
+        track_engines()
+        monitor = no_faults("monitor", phase_monitor, templates, plants, db, smi)
+        no_faults("queue", phase_queue, templates, plants, db, smi, monitor["feed"])
+        return 0
     if which in ("telemetry", "mesh", "refresh", "result_cache", "monitor"):
         track_engines()
         phase = {"telemetry": ("telemetry_worker", phase_telemetry_worker),
@@ -7190,6 +7583,11 @@ def track_engines() -> None:
     MatchEngine.__init__ = tracked
 
 
+#: the engines whose degraded batches a phase injects on purpose: the
+#: resilience phase's, and the queue phase's dispatch-fault engine
+DEGRADE_PHASES = ("resilience_worker", "queue_dispatch_fault")
+
+
 def no_faults(name: str, fn, *args):
     """Run phase ``fn``; then no engine built by this or an earlier
     phase (the resilience phase's aside) may show a device fault or a
@@ -7198,7 +7596,7 @@ def no_faults(name: str, fn, *args):
     _PHASE[0] = name
     out = fn(*args)
     bad = [(phase, st.device_faults, st.degraded_batches) for phase, st in ENGINE_STATS
-           if phase != "resilience_worker" and (st.device_faults or st.degraded_batches)]
+           if phase not in DEGRADE_PHASES and (st.device_faults or st.degraded_batches)]
     if bad:
         raise AssertionError(f"device faults or degraded batches after {name}: {bad}")
     return out
@@ -7239,6 +7637,7 @@ def run_phases(smi: str) -> int:
     mesh = no_faults("mesh", phase_mesh, templates, plants, db, smi)
     refresh = no_faults("refresh", phase_refresh, templates, plants, db, smi)
     monitor = no_faults("monitor", phase_monitor, templates, plants, db, smi)
+    queue = no_faults("queue", phase_queue, templates, plants, db, smi, monitor["feed"])
     cache = no_faults("result_cache", phase_result_cache, templates, plants, db, smi)
     aot = no_faults("aot", phase_aot, plants, smi)
     for name in ("cluster_counts", "cluster_parent"):
@@ -7255,7 +7654,7 @@ def run_phases(smi: str) -> int:
     phase_command_worker()
     _PHASE[0] = "resilience_worker"
     phase_resilience_worker(templates, plants, db, smi)
-    checked = [phase for phase, _st in ENGINE_STATS if phase != "resilience_worker"]
+    checked = [phase for phase, _st in ENGINE_STATS if phase not in DEGRADE_PHASES]
     emit({"phase": "no_device_faults", "engines": len(checked),
           "by_phase": {p: checked.count(p) for p in dict.fromkeys(checked)},
           "device_faults": 0, "degraded_batches": 0})
@@ -7276,7 +7675,7 @@ def run_phases(smi: str) -> int:
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": max(max_err[name], job_err[name], svc_err.get(name, 0.0),
                                mesh["max_err"][name], refresh["max_err"][name],
-                               monitor["max_err"][name],
+                               monitor["max_err"][name], queue["max_err"][name],
                                cache["max_err"][name], multi["max_err"][name],
                                aot["max_err"][name]),
             "ms": t["ms"], "card_ms": t["card_ms"], "plain_ms": t["plain_ms"],
@@ -7329,6 +7728,8 @@ def run_phases(smi: str) -> int:
         summary[name]["refresh"] = {"launches": refresh["launches"][name]}
         # and on the monitor phase's epochs (40 chunk jobs)
         summary[name]["monitor"] = {"launches": monitor["launches"][name]}
+        # and on the queue phase's jobs (about 60, from the port's queue)
+        summary[name]["queue"] = {"launches": queue["launches"][name]}
         # and on the result_cache phase's writer's call (A, a cold tier)
         summary[name]["result_cache"] = {"launches": cache["launches"][name]}
         # and on the aot phase's joiner's job, from fetched libraries

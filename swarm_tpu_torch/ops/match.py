@@ -1179,7 +1179,12 @@ class DeviceDB:
         its host bytes, and a compacted dispatch's survivor max and
         phase-B width, go to the ``swarm_device_*`` families."""
         from swarm_tpu_torch.ops.regexdev import regex_verify
+        from swarm_tpu_torch.telemetry import tracing
 
+        # always-on flight-ring record BEFORE the fault point: when a
+        # seeded device.dispatch fault fires, the resulting flight dump
+        # carries the dispatch that tripped it (docs/OBSERVABILITY.md)
+        tracing.flight_event("device.dispatch")
         # stands in for a dispatch that never reached the card (an
         # allocation or launch failure): before the upload, so an
         # injected fault leaves nothing on the card; MatchEngine catches

@@ -105,6 +105,14 @@ class CircuitBreaker:
         self._state = state
         _BREAKER_OPEN.labels(name=self.name).set(1 if state == self.OPEN else 0)
         _BREAKER_TRANSITIONS.labels(name=self.name, state=state).inc()
+        if state == self.OPEN:
+            # flight recorder (docs/OBSERVABILITY.md): a breaker opening
+            # is a post-mortem moment — dump the recent span/event ring.
+            # FlightRecorder.dump is memory-only (sinks run on a daemon
+            # thread), so it is safe under self._lock.
+            from swarm_tpu_torch.telemetry import tracing
+
+            tracing.flight_dump("breaker_open", detail=self.name)
 
     def allow(self) -> bool:
         """Whether the protected call may proceed right now. In

@@ -156,6 +156,13 @@ class FaultPlan:
         if fire is None:
             return
         _FAULTS_INJECTED.labels(point=name).inc()
+        # flight recorder (docs/OBSERVABILITY.md): every injected fault
+        # dumps the last moments of process context. Memory-only +
+        # daemon-thread sinks, so safe here outside self._lock and
+        # cheap enough for chaos soaks.
+        from swarm_tpu_torch.telemetry import tracing
+
+        tracing.flight_dump("fault", detail=name)
         if fire.action == "sleep":
             time.sleep(float(fire.arg or "0"))
             return

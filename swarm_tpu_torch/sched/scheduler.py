@@ -89,7 +89,7 @@ from swarm_tpu_torch.sched.buckets import (
     BucketPlanner,
     PlannedBatch,
 )
-from swarm_tpu_torch.telemetry import REGISTRY
+from swarm_tpu_torch.telemetry import REGISTRY, tracing
 from swarm_tpu_torch.telemetry.sched_export import (
     SCHED_BATCH_AGE,
     SCHED_FLUSH_DEADLINE,
@@ -486,6 +486,11 @@ class BatchScheduler:
                 # Checked once per chunk — the feed's natural tick.
                 for pb in planner.flush_due(time.monotonic()):
                     SCHED_FLUSH_DEADLINE.labels(qos=pb.qos).inc()
+                    # always-on flight-ring record: a deadline preempt
+                    # is exactly the context a post-mortem wants
+                    tracing.flight_event(
+                        "sched.deadline_flush", qos=pb.qos, bucket=pb.bucket
+                    )
                     yield pb, None
             for pb in planner.flush_all():
                 yield pb, None

@@ -1,2 +1,3 @@
 """Control plane: the port's copy of ``swarm_tpu/server``, so far its
-durable queue journal (:mod:`~swarm_tpu_torch.server.journal`)."""
+queue side — the job queue service (:mod:`~swarm_tpu_torch.server.queue`)
+and its durable journal (:mod:`~swarm_tpu_torch.server.journal`)."""

@@ -12,8 +12,9 @@ module imports without them.
 The port's worker uses the state and blob roles through the shared
 result tier (``swarm_tpu_torch/cache``): the embedded stores make a
 one-host fleet's tier work with no side-car, Redis makes it fleet-wide.
-The document role and :func:`build_stores` are here for the server
-layer, which is not ported yet.
+The port's queue (``swarm_tpu_torch/server/queue.py``) takes all three
+roles; :func:`build_stores` makes them from a ``Config`` for the server
+layer.
 """
 
 from __future__ import annotations

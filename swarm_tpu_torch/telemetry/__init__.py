@@ -9,12 +9,14 @@ has.
   lines (``ts, trace_id, job_id, phase, …``) keyed by the trace ID the
   client mints per scan and the server hands the worker on each job;
 - :mod:`~swarm_tpu_torch.telemetry.tracing` — the worker's span
-  collector per job attempt.
+  collector per job attempt, the always-on flight recorder and the
+  queue's per-scan waterfall assembler.
 
 Families, kinds, help strings, label names and buckets are the
 reference's, letter for letter: the JAX server and its scrapers read
-them. A family of a layer the port does not have yet (the server's, the
-queue's own, the fleet's) is not registered; ``journal_export`` also
+them. A family of a layer the port does not have yet (the server app's,
+the fleet's) is not registered; the queue's own register when
+``server/queue.py`` is imported; ``journal_export`` also
 registers the queue's recovery families, as the reference's does; the
 ``swarm_aot_*`` families count the port's kernel libraries
 (:mod:`~swarm_tpu_torch.telemetry.aot_export`).

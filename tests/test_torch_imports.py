@@ -91,6 +91,9 @@ def test_module_list_covers_the_slice():
         "swarm_tpu_torch.monitor.service", "swarm_tpu_torch.telemetry.monitor_export",
         "swarm_tpu_torch.server", "swarm_tpu_torch.server.journal",
         "swarm_tpu_torch.telemetry.journal_export",
+        # the server's queue side, the whole config and the flight recorder
+        "swarm_tpu_torch.server.queue", "swarm_tpu_torch.telemetry.trace_export",
+        "swarm_tpu_torch.telemetry.tracing",
     } <= names
 
 

@@ -13,13 +13,14 @@ package's (``swarm_tpu/monitor``), on the CPU.
 - the feed's blobs, marks, ``seq_base`` and ``stream_feed`` (a scripted
   writer, a resume cursor, the idle timeout under a fake clock, a
   removed monitor) give the same bytes;
-- the port's ``MonitorService`` and the JAX one, each on its own JAX
-  ``JobQueueService`` over memory stores (the port's service takes its
-  queue as an argument), driven with ``run_thread=False`` and a fake
-  clock through the same script of ticks, drains, a shed, a late
-  chunk, a corpus delta, a refire and a restart: the spec wires after
-  every step, the feed's bytes, the plane entries, the events and the
-  ``swarm_monitor_*`` deltas are equal;
+- the port's ``MonitorService`` and the JAX one, each on a
+  ``JobQueueService`` over memory stores (the service takes its queue
+  as an argument): both on a JAX queue, and each on its own package's
+  queue. Driven with ``run_thread=False`` and a fake clock through the
+  same script of ticks, drains, a shed, a late chunk, a corpus delta, a
+  refire and a restart, the spec wires after every step, the feed's
+  bytes, the plane entries, the events and the ``swarm_monitor_*``
+  deltas are equal;
 - a CPU ``refresh_corpus`` of the port's engine notifies a listener
   once, with the port's ``corpus_digest`` (which by design differs
   from the JAX package's for the same templates).
@@ -53,6 +54,8 @@ import swarm_tpu.stores as j_stores
 import swarm_tpu.telemetry.events as j_events
 import swarm_tpu.telemetry.metrics as j_metrics
 import swarm_tpu_torch.cache.tier as t_tier
+import swarm_tpu_torch.config as t_config
+import swarm_tpu_torch.datamodel as t_dm
 import swarm_tpu_torch.gateway.qoscache as t_qoscache
 import swarm_tpu_torch.monitor as t_monitor
 import swarm_tpu_torch.monitor.diff as t_diff
@@ -60,9 +63,11 @@ import swarm_tpu_torch.monitor.feed as t_feed
 import swarm_tpu_torch.monitor.notify as t_notify
 import swarm_tpu_torch.monitor.service as t_service
 import swarm_tpu_torch.monitor.spec as t_spec
+import swarm_tpu_torch.server.queue as t_queue
 import swarm_tpu_torch.stores as t_stores
 import swarm_tpu_torch.telemetry.events as t_events
 import swarm_tpu_torch.telemetry.metrics as t_metrics
+import swarm_tpu.datamodel as j_dm
 from swarm_tpu.config import Config
 
 PKG = {
@@ -528,7 +533,8 @@ def test_stream_feed_equals_jax(from_seq, alive):
 
 
 # ---------------------------------------------------------------------------
-# MonitorService against its own JAX queue service
+# MonitorService against a queue service: a JAX one for both packages,
+# or each package's own
 
 
 class FakeTime:
@@ -557,18 +563,28 @@ def verdict_line(target: str, epoch: int) -> str:
     return f"steady:{target}"
 
 
-class Harness:
-    """One package's MonitorService on its own JAX ``JobQueueService``
-    (memory stores), a fake clock, and a ``submit`` that fires the epoch
-    through the queue and writes the scripted chunk outputs."""
+#: the queue package a service runs over: ``jax`` (both services on a
+#: JAX queue) or ``own`` (each on its own package's queue)
+QUEUES = {"jax": {"jax": (j_queue, Config, j_stores, j_dm),
+                  "torch": (j_queue, Config, j_stores, j_dm)},
+          "own": {"jax": (j_queue, Config, j_stores, j_dm),
+                  "torch": (t_queue, t_config.Config, t_stores, t_dm)}}
 
-    def __init__(self, side: str, monkeypatch):
+
+class Harness:
+    """One package's MonitorService on its own ``JobQueueService``
+    (memory stores) of the ``queues`` package, a fake clock, and a
+    ``submit`` that fires the epoch through the queue and writes the
+    scripted chunk outputs."""
+
+    def __init__(self, side: str, monkeypatch, queues: str = "jax"):
         self.p = PKG[side]
         self.now = 1_700_000_000.0
-        monkeypatch.setattr(j_queue, "time", FakeTime(lambda: self.now))
-        self.queue = j_queue.JobQueueService(
-            Config(lease_seconds=5.0), j_stores.MemoryStateStore(), j_stores.MemoryBlobStore(),
-            j_stores.MemoryDocStore())
+        queue, config, stores, self.dm = QUEUES[queues][side]
+        monkeypatch.setattr(queue, "time", FakeTime(lambda: self.now))
+        self.queue = queue.JobQueueService(
+            config(lease_seconds=5.0), stores.MemoryStateStore(), stores.MemoryBlobStore(),
+            stores.MemoryDocStore())
         self.tier = self.p.tier.SharedResultTier(t_stores.MemoryStateStore(),
                                                  t_stores.MemoryBlobStore())
         self.calls: list = []
@@ -604,7 +620,7 @@ class Harness:
             self.shed.discard((spec.monitor_id, epoch))
             return None
         result = self.queue.fire_monitor_epoch(spec.to_wire(), scan_id, epoch)
-        from swarm_tpu.datamodel import chunk_input_key, chunk_output_key
+        chunk_input_key, chunk_output_key = self.dm.chunk_input_key, self.dm.chunk_output_key
 
         coarse = spec.module == "coarse"
         for i in range(result["chunks"]):
@@ -709,10 +725,11 @@ def drive(h: Harness) -> list:
     return log
 
 
-def test_service_equals_jax(monkeypatch, capsys):
+@pytest.mark.parametrize("queues", QUEUES)
+def test_service_equals_jax(queues, monkeypatch, capsys):
     got = {}
     for side in SIDES:
-        h = Harness(side, monkeypatch)
+        h = Harness(side, monkeypatch, queues)
         try:
             before = h.monitor_samples()
             log = drive(h)
@@ -750,14 +767,15 @@ def test_service_equals_jax(monkeypatch, capsys):
     assert t["moved"][("swarm_monitor_epochs_fired_total", ())] > 0
 
 
-def test_restarted_service_resumes_the_same_epoch(monkeypatch, capsys):
+@pytest.mark.parametrize("queues", QUEUES)
+def test_restarted_service_resumes_the_same_epoch(queues, monkeypatch, capsys):
     """A fire with no mark, then a new service over the same queue: the
     reconcile picks the epoch up and its diff commits once, under the
     fired scan id, equal in both packages; a second drain commits
     nothing."""
     got = {}
     for side in SIDES:
-        h = Harness(side, monkeypatch)
+        h = Harness(side, monkeypatch, queues)
         try:
             MonitorSpec = h.p.spec.MonitorSpec
             h.queue.put_monitor(MonitorSpec("r", "fingerprint", _targets_of(7, "r"), 60.0,

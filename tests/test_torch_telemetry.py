@@ -527,6 +527,7 @@ def _port_families() -> dict:
     from swarm_tpu_torch.ops import engine, match, workflows  # noqa: F401
     from swarm_tpu_torch.resilience import breaker, faults, heartbeat, spool  # noqa: F401
     from swarm_tpu_torch.sched import scheduler  # noqa: F401
+    from swarm_tpu_torch.server import queue  # noqa: F401
 
     t_engine_export._gauges()
     return dict(t_metrics.REGISTRY._metrics)
@@ -536,6 +537,7 @@ def test_every_port_family_is_the_reference_family():
     import swarm_tpu.resilience.heartbeat  # noqa: F401
     import swarm_tpu.resilience.spool  # noqa: F401
     import swarm_tpu.sched.scheduler  # noqa: F401
+    import swarm_tpu.server.queue  # noqa: F401
 
     j_engine_export._gauges()
     port = _port_families()
@@ -552,6 +554,17 @@ def test_every_port_family_is_the_reference_family():
     want_lanes = sorted(n for n in ref if n.startswith(lanes))
     assert sorted(n for n in port if n.startswith(lanes)) == want_lanes
     assert len(want_lanes) == 9
+    # the families the JAX queue module and the trace families register,
+    # all of them
+    import swarm_tpu.server.queue as j_queue
+    import swarm_tpu.telemetry.trace_export as j_trace_export
+
+    want_server = {v.name for m in (j_queue, j_trace_export) for v in vars(m).values()
+                   if isinstance(v, j_metrics._Metric)}
+    assert want_server <= set(port)
+    assert {"swarm_job_phase_seconds", "swarm_trace_assembled_total",
+            "swarm_trace_flight_dumps_total", "swarm_queue_express_served_total"} <= want_server
+    assert len([n for n in want_server if n.startswith("swarm_queue_")]) == 11
     rendered = t_metrics.REGISTRY.render()
     assert j_metrics.parse_exposition(rendered) == t_metrics.parse_exposition(rendered)
 

@@ -12,6 +12,8 @@
     python3 chip_smoke.py --only refresh     # device, build, corpus, refresh
     python3 chip_smoke.py --only monitor     # device, build, corpus, monitor
     python3 chip_smoke.py --only queue       # device, build, corpus, monitor, queue
+    python3 chip_smoke.py --only server      # device, build, worker, corpus, monitor, queue,
+                                             #   server
     python3 chip_smoke.py --only result_cache  # device, build, corpus, result_cache
     python3 chip_smoke.py --only multihost   # device, build, multihost (two processes)
     python3 chip_smoke.py --only aot         # device, build, corpus, aot
@@ -194,6 +196,15 @@ prints one JSON line per phase:
    degraded and dumped; a dead letter; then the monitor service over
    this queue, whose feed must equal the monitor phase's byte for
    byte. Every chunk's output equals the stand-in server's.
+14b'''. ``server`` — the port's own server (see :func:`phase_server`):
+   ``SwarmServer`` over HTTP with the journal, tracing and the process
+   fleet. The queue phase's bulk scan by ``POST /queue``, run by the
+   port's worker in this process over HTTP: ``/raw`` and ``/stream``
+   equal the queue phase's outputs, ``/trace`` a waterfall without
+   orphans; a ``jarm`` scan equal to the worker phase's; ``/spin-up``
+   of one ``python -m swarm_tpu_torch.worker`` node on ``cuda`` that
+   runs an interactive scan from the built libraries and is torn down
+   by idleness; ``/healthz``, ``/metrics`` and ``/get-statuses``.
 14c. ``result_cache`` — the fleet result tier (see
    :func:`phase_result_cache`): two workers' engines in this process
    over ``cache_backend=memory``, the match corpus, 2,048 rows. A walks
@@ -297,7 +308,8 @@ phase's traced pipelined call, and its launches and times on the
 service corpus, and for each grid of the mesh phase, with the seq-halo
 calls' times for phase A and the verify; and its launches on the batch
 after the refresh phase's last refresh, on the monitor phase's
-epochs, on the queue phase's jobs, on the result_cache phase's
+epochs, on the queue phase's jobs, on the server phase's
+scans, on the result_cache phase's
 writer's call, on each grid of the multihost phase, and on the aot
 phase's joiner; the cluster kernels also on the joiner), the
 ``nvidia-smi`` line, and
@@ -2469,7 +2481,18 @@ def phase_trace(big: np.ndarray) -> None:
     emit({"phase": "trace", "n": big.shape[0], "radius": radius, **out})
 
 
+def jarm_by_index(output: bytes, targets: list) -> bytes:
+    """A ``jarm`` job's output with each listener's ``127.0.0.1:<port>``
+    written as its index in the fleet's listing: two fleets of the same
+    shapes, on other ports, give the same bytes."""
+    index = {t: i for i, t in enumerate(targets)}
+    return re.sub(rb"127\.0\.0\.1:\d+", lambda m: b"target%d" % index[m.group(0).decode()],
+                  output)
+
+
 def phase_worker() -> dict:
+    """→ {"launches": by kernel, "output": the job's output by target
+    index (:func:`jarm_by_index`)}."""
     from swarm_tpu_torch.ops import kernels
     from swarm_tpu_torch.worker.runtime import JobProcessor, WorkerConfig
 
@@ -2516,7 +2539,7 @@ def phase_worker() -> dict:
         "lines": len(lines), "clusters": len(clusters), "seconds": seconds,
         "launches": launches, "cpu_twin_identical": True,
     })
-    return launches
+    return {"launches": launches, "output": jarm_by_index(stub.output, fleet.targets)}
 
 
 # ---------------------------------------------------------------------------
@@ -4516,8 +4539,9 @@ QUEUE_IDLE_POLLS = 20
 
 class QueueClient:
     """The worker's server client over an in-process ``JobQueueService``:
-    each call does what the server's route does (``server/app.py`` in
-    the JAX package), without HTTP. Records every job handed out; after
+    each call does what the port's server route does
+    (``swarm_tpu_torch/server/app.py``, which the server phase drives
+    over HTTP), without HTTP. Records every job handed out; after
     ``QUEUE_IDLE_POLLS`` empty polls in a row it answers with a drain
     order, so a worker that waits for a job that never comes returns."""
 
@@ -4613,7 +4637,8 @@ def phase_queue(templates, plants, db, smi: str, monitor_feed: bytes) -> dict:
     feed equals ``monitor_feed`` byte for byte. Every recorded
     match-kernel call is exact against its plain version and every
     match kernel launched.
-    → {"launches": by kernel over (a)–(f), "max_err": by kernel}."""
+    → {"launches": by kernel over (a)–(f), "max_err": by kernel,
+    "bulk_output": the bulk scan's chunk outputs in order}."""
     import tempfile
 
     from swarm_tpu_torch.cache.tier import SharedResultTier
@@ -4876,6 +4901,295 @@ def phase_queue(templates, plants, db, smi: str, monitor_feed: bytes) -> dict:
                     for r in dump_reasons},
           "monitor": {"epochs_s": epochs_s, "records": kinds, "feed_bytes": len(feed),
                       "feed_identical": True},
+          "launches": launches, "max_abs_err": max_err,
+          "seconds": time.perf_counter() - t_phase, "card": smi})
+    bulk = b"".join(want["\n".join(chunk).encode()] for chunk in _chunks_of(bulk_lines, batch))
+    return {"launches": launches, "max_err": max_err, "bulk_output": bulk}
+
+
+#: the server phase's spawned fleet node (name prefix), and the seconds
+#: it may take from ``/spin-up`` to its scan's end, and then to its
+#: teardown by idleness
+SERVER_NODE_PREFIX = "chipnode"
+#: the device of the server phase's workers (the CPU only to rehearse it)
+SERVER_DEVICE = "cuda"
+SERVER_NODE_TIMEOUT_S = 240.0
+SERVER_TEARDOWN_TIMEOUT_S = 60.0
+#: the metric families ``/metrics`` must render on the server phase
+SERVER_FAMILIES = (
+    "swarm_fleet_nodes", "swarm_fleet_target_nodes", "swarm_fleet_forecast_rate",
+    "swarm_fleet_scale_events_total", "swarm_fleet_preemptions_total",
+    "swarm_fleet_coldstart_seconds_bucket", "swarm_http_requests_total",
+    "swarm_http_request_seconds_bucket", "swarm_server_uptime_seconds", "swarm_queue_depth",
+    "swarm_jobs_by_state", "swarm_queue_jobs_queued_total",
+    "swarm_queue_jobs_dispatched_total", "swarm_gateway_latency_seconds_bucket",
+    "swarm_gateway_queued_by_tenant", "swarm_gateway_admitted_total")
+
+
+def _wait_for(what: str, ready, timeout_s: float, poll_s: float = 0.1):
+    """Poll ``ready()`` until it returns a true value → that value;
+    raises after ``timeout_s``."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        got = ready()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise AssertionError(f"server: {what} after {timeout_s} s")
+        time.sleep(poll_s)
+
+
+def phase_server(templates, plants, db, smi: str, bulk_output: bytes,
+                 jarm_output: bytes) -> dict:
+    """The port's own server on the card: ``SwarmServer`` (port
+    ``server/app.py``) on 127.0.0.1, port 0, local blob and doc roots in
+    a temporary directory, the journal and tracing on, the process fleet
+    provider, every request over HTTP.
+
+    (a) the queue phase's bulk rows (2,048 ``realistic_rows`` seed 11)
+    by ``POST /queue`` as a ``fingerprint`` scan of 8 chunks of 256, run
+    by the port's worker in a thread of this process (``JobProcessor``
+    on ``cuda``, its ``ServerClient`` over HTTP): ``/raw`` equals
+    ``bulk_output`` (the queue phase's chunk outputs in order),
+    ``/stream`` the same bytes, ``/trace`` a waterfall without orphans.
+    (b) a ``jarm`` scan of a ``SyntheticTlsFleet(per_shape=8)`` in one
+    chunk: its output, each listener as its index, equals the worker
+    phase's (``jarm_output``), both cluster kernels launched. (c)
+    ``POST /spin-up`` of one node: the port's ``ProcessProvider`` starts
+    ``python -m swarm_tpu_torch.worker`` on ``cuda``, which loads the
+    kernel libraries the build phase left (no library file is added to
+    ``swarm_tpu_torch/_build/``) and runs an interactive scan of the
+    bulk rows' first 512 (2 chunks, ``X-Swarm-QoS: interactive``) whose
+    ``/raw`` equals the same rows' output in (a); idleness then tears
+    the node down. (d) ``/healthz`` (uptime, depth, jobs by state),
+    ``/metrics`` (:data:`SERVER_FAMILIES`) and ``/get-statuses`` (every
+    scan at 100%). Every recorded match-kernel call of the in-process
+    worker is exact against its plain version.
+    The ``jarm`` output also equals its CPU twin's over the same
+    listeners (the cluster kernels' plain versions).
+    → {"launches": by kernel over (a)–(b), "max_err": by kernel}."""
+    import tempfile
+
+    import requests
+
+    from swarm_tpu_torch.config import Config
+    from swarm_tpu_torch.gateway.qos import QOS_HEADER
+    from swarm_tpu_torch.ops import kernels
+    from swarm_tpu_torch.ops.engine import MatchEngine
+    from swarm_tpu_torch.server.app import SwarmServer
+    from swarm_tpu_torch.server.fleet import ProcessProvider
+    from swarm_tpu_torch.telemetry import tracing
+    from swarm_tpu_torch.telemetry.metrics import parse_exposition
+    from swarm_tpu_torch.worker.runtime import JobProcessor, WorkerConfig
+
+    t_phase = time.perf_counter()
+    steps: dict = {}
+    batch = JOB_ROWS // MONITOR_CHUNKS
+    rows = realistic_rows(JOB_ROWS, seed=11, plants=plants)
+    for i, d in enumerate(rows):
+        d["host"] = f"198.18.{i // 256}.{i % 256}"
+    lines = jsonl_rows(rows).decode().splitlines()
+    live = lines[:2 * batch]
+    build_dir = REPO / "swarm_tpu_torch" / "_build"
+    libs_before = sorted(p.name for p in build_dir.glob("*.so"))
+    saved_env = {k: os.environ.get(k) for k in (
+        "SWARM_TEMPLATES_DIR", "SWARM_MODULES_DIR", "SWARM_POLL_INTERVAL_IDLE_S",
+        "SWARM_POLL_INTERVAL_BUSY_S")}
+    was_tracing = tracing.enabled()
+    spawned: list = []
+    with tempfile.TemporaryDirectory() as root:
+        cfg = Config(host="127.0.0.1", port=0, api_key=API_KEY,
+                     blob_root=f"{root}/blobs", doc_root=f"{root}/docs",
+                     journal_enabled=True, trace_enabled=True, fleet_provider="process",
+                     idle_polls_before_teardown=3, lease_seconds=600.0)
+        srv = SwarmServer(cfg)
+        srv.start_background()
+        fleet = srv.fleet
+        if not isinstance(fleet, ProcessProvider):
+            raise AssertionError(f"server: the fleet is a {type(fleet).__name__}")
+        base = cfg.server_url
+        session = requests.Session()
+        session.headers["Authorization"] = f"Bearer {API_KEY}"
+
+        def get(path: str, **kw):
+            r = session.get(base + path, timeout=60, **kw)
+            if r.status_code != 200:
+                raise AssertionError(f"server: GET {path} answered {r.status_code}: "
+                                     f"{r.text[:300]}")
+            return r
+
+        def submit(scan_id: str, module: str, content: list, size: int, **headers) -> None:
+            r = session.post(base + "/queue", timeout=60, headers=headers, json={
+                "module": module, "file_content": content, "batch_size": size,
+                "scan_id": scan_id})
+            if r.status_code != 200:
+                raise AssertionError(f"server: POST /queue {scan_id}: {r.status_code} {r.text}")
+
+        def scan(scan_id: str) -> dict:
+            for s in get("/get-statuses").json()["scans"]:
+                if s["scan_id"] == scan_id:
+                    return s
+            return {}
+
+        def work(proc, n: int) -> None:
+            """``n`` chunks through the in-process worker, in a thread."""
+            failed: list = []
+
+            def run():
+                try:
+                    queue_work(proc, n)
+                except BaseException as e:  # re-raised on this thread
+                    failed.append(e)
+
+            t = threading.Thread(target=run, name="chip-server-worker")
+            t.start()
+            t.join(timeout=SERVER_NODE_TIMEOUT_S)
+            if t.is_alive():
+                raise AssertionError(f"server: the worker did not run {n} chunks")
+            if failed:
+                raise failed[0]
+
+        corpus_dir = f"{root}/corpus"
+        os.makedirs(corpus_dir)
+        os.environ["SWARM_TEMPLATES_DIR"] = corpus_dir
+        try:
+            wcfg = WorkerConfig(server_url=base, api_key=API_KEY, worker_id="chip-server",
+                                modules_dir=str(REPO / "modules"), poll_interval_idle_s=0.05,
+                                poll_interval_busy_s=0.0)
+            proc = JobProcessor(wcfg, device=SERVER_DEVICE, work_dir=f"{root}/work")
+            proc.engines = {corpus_dir: MatchEngine(templates, db=db, device=SERVER_DEVICE)}
+            kernels.reset_launches()
+            with kernels.record_calls() as calls:
+                # (a) the fingerprint scan over HTTP
+                t0 = time.perf_counter()
+                submit("chipsrv_1", "fingerprint", lines, batch,
+                       **{"X-Swarm-Tenant": "bulk", "X-Swarm-Trace": "c0ffee00" * 4})
+                work(proc, JOB_ROWS // batch)
+                raw = get("/raw/chipsrv_1").content
+                if raw != bulk_output:
+                    raise AssertionError("server: /raw/chipsrv_1 differs from the queue "
+                                         "phase's outputs")
+                records = [json.loads(x) for x in
+                           get("/stream/chipsrv_1").content.splitlines()]
+                streamed = "".join(r["data"] for r in records if "data" in r).encode()
+                if streamed != bulk_output or records[-1].get("event") != "end":
+                    raise AssertionError(f"server: /stream/chipsrv_1 gave {len(streamed)} "
+                                         f"bytes, last record {records[-1]}")
+                doc = get("/trace/chipsrv_1").json()
+                orphans = tracing.waterfall_orphans(doc)
+                if orphans or doc.get("trace_id") != "c0ffee00" * 4:
+                    raise AssertionError(f"server: waterfall of trace {doc.get('trace_id')} "
+                                         f"with orphans {orphans[:3]}")
+                steps["fingerprint_s"] = time.perf_counter() - t0
+
+                # (b) the jarm scan over HTTP
+                t0 = time.perf_counter()
+                with SyntheticTlsFleet(per_shape=8) as tls:
+                    submit("chipjarm_1", "jarm", tls.targets, len(tls.targets))
+                    work(proc, 1)
+                    jarm_raw = get("/raw/chipjarm_1").content
+                    # the same module on the CPU (the plain versions of
+                    # both cluster kernels) over the same listeners
+                    cpu = JobProcessor(wcfg, device="cpu", work_dir=f"{root}/cpu")
+                    twin = cpu._execute_jarm(cpu.registry.load("jarm"),
+                                             ("\n".join(tls.targets) + "\n").encode())
+                    got = jarm_by_index(jarm_raw, tls.targets)
+                if got != jarm_output or jarm_raw != twin:
+                    raise AssertionError("server: the jarm scan differs from the worker "
+                                         "phase's output or from its CPU twin")
+                steps["jarm_s"] = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+            # the cluster kernels' labels are integers: the jarm output
+            # equal to its CPU twin's is their exactness
+            max_err = {**check_calls(calls), "cluster_counts": 0.0, "cluster_parent": 0.0}
+            del calls, proc, cpu
+            if any(launches[n] < 1 for n in MATCH_KERNELS + ("cluster_counts",
+                                                             "cluster_parent")):
+                raise AssertionError(f"server: a kernel was not launched: {launches}")
+
+            # (c) a spawned node on the card, torn down by idleness
+            t0 = time.perf_counter()
+            os.environ.update({
+                "SWARM_TEMPLATES_DIR": str(yaml_corpus()),
+                "SWARM_MODULES_DIR": str(REPO / "modules"),
+                "SWARM_POLL_INTERVAL_IDLE_S": "0.1", "SWARM_POLL_INTERVAL_BUSY_S": "0.0"})
+            submit("chipnode_1", "fingerprint", live, batch, **{QOS_HEADER: "interactive"})
+            spun_at = time.time()
+            r = session.post(base + "/spin-up", timeout=60,
+                             json={"prefix": SERVER_NODE_PREFIX, "nodes": 1})
+            if r.status_code != 202:
+                raise AssertionError(f"server: /spin-up answered {r.status_code}")
+            node = f"{SERVER_NODE_PREFIX}1"
+            _wait_for("no node", lambda: fleet.list_nodes(SERVER_NODE_PREFIX), 30.0)
+            with fleet._lock:
+                spawned.extend(fleet._procs.values())
+            _wait_for("the node's scan did not complete",
+                      lambda: scan("chipnode_1").get("percent_complete") == 100
+                      or any(p.poll() is not None for p in spawned),
+                      SERVER_NODE_TIMEOUT_S, 0.25)
+            jobs = {k: v for k, v in get("/get-statuses").json()["jobs"].items()
+                    if k.startswith("chipnode_1_")}
+            if sorted(jobs) != ["chipnode_1_0", "chipnode_1_1"] or any(
+                    j["status"] != "complete" or j["worker_id"] != node for j in jobs.values()):
+                raise AssertionError(f"server: the node's jobs {jobs} "
+                                     f"(exit {[p.poll() for p in spawned]})")
+            node_raw = get("/raw/chipnode_1").content
+            if node_raw != bulk_output[:len(node_raw)] or node_raw.count(b"\n") != len(live):
+                raise AssertionError("server: the node's /raw differs from (a)'s first "
+                                     "512 rows")
+            first_job_s = min(j["completed_at"] for j in jobs.values()) - spun_at
+            steps["node_scan_s"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            _wait_for("the idle node was not torn down",
+                      lambda: not fleet.list_nodes(SERVER_NODE_PREFIX),
+                      SERVER_TEARDOWN_TIMEOUT_S, 0.25)
+            for p in spawned:
+                p.wait(timeout=SERVER_TEARDOWN_TIMEOUT_S)
+            steps["teardown_s"] = time.perf_counter() - t1
+            libs_after = sorted(p.name for p in build_dir.glob("*.so"))
+            if libs_after != libs_before:
+                raise AssertionError(f"server: the node built libraries: "
+                                     f"{sorted(set(libs_after) - set(libs_before))}")
+
+            # (d) the server's own surfaces
+            health = session.get(base + "/healthz", headers={"Authorization": ""},
+                                 timeout=60).json()
+            if (health["status"] != "ok" or health["uptime_seconds"] <= 0
+                    or health["queue_depth"] != 0
+                    or health["jobs_by_state"] != {"complete": 8 + 1 + 2}):
+                raise AssertionError(f"server: /healthz {health}")
+            exposition = session.get(base + "/metrics", timeout=60)
+            names = {n for n, _l, _v in parse_exposition(exposition.text)}
+            missing = [f for f in SERVER_FAMILIES if f not in names]
+            if exposition.status_code != 200 or missing:
+                raise AssertionError(f"server: /metrics lacks {missing}")
+            scans = get("/get-statuses").json()["scans"]
+            if sorted(s["scan_id"] for s in scans) != ["chipjarm_1", "chipnode_1",
+                                                       "chipsrv_1"] or any(
+                    s["percent_complete"] != 100 for s in scans):
+                raise AssertionError(f"server: scans {scans}")
+        finally:
+            for p in spawned:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            fleet.shutdown()
+            srv.shutdown()
+            session.close()
+            tracing.set_enabled(was_tracing)
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    emit({"phase": "server", "device": SERVER_DEVICE, "steps_s": steps,
+          "bytes_compared": {"raw": len(bulk_output), "stream": len(bulk_output),
+                             "jarm": len(jarm_output), "node_raw": len(node_raw)},
+          "waterfall_spans": len(doc.get("spans", ())),
+          "node": {"spin_up_to_first_job_s": first_job_s, "worker": node,
+                   "exit_code": [p.returncode for p in spawned],
+                   "libraries_built": 0},
+          "healthz": {k: health[k] for k in ("queue_depth", "jobs_by_state", "generation")},
           "launches": launches, "max_abs_err": max_err,
           "seconds": time.perf_counter() - t_phase, "card": smi})
     return {"launches": launches, "max_err": max_err}
@@ -7457,7 +7771,7 @@ def main(argv: list[str] | None = None) -> int:
 
 #: the phases ``--only`` runs alone (:func:`run_only`)
 ONLY = ("match", "telemetry", "timing", "mesh", "startup", "profiles", "refresh", "multihost",
-        "result_cache", "aot", "monitor", "queue")
+        "result_cache", "aot", "monitor", "queue", "server")
 
 
 def run_only(smi: str, which: str) -> int:
@@ -7472,7 +7786,9 @@ def run_only(smi: str, which: str) -> int:
     ``profiles`` (:func:`phase_profiles`), in a process of its own;
     ``refresh``, ``monitor`` or ``result_cache``, after the build
     phase, its engines held to no fault; ``queue``, after the build
-    phase and the ``monitor`` phase whose feed it is held to; or ``multihost``, after the build phase, whose two
+    phase and the ``monitor`` phase whose feed it is held to; ``server``,
+    after the build phase, the ``worker`` phase (its jarm output) and
+    the ``monitor`` and ``queue`` phases (the outputs it is held to); or ``multihost``, after the build phase, whose two
     processes then load the built libraries; or ``aot``, after the build
     phase (which the publisher publishes) and the corpus."""
     import importlib.util
@@ -7480,8 +7796,10 @@ def run_only(smi: str, which: str) -> int:
     if which == "profiles":
         phase_profiles(smi)
         return 0
-    if which in ("mesh", "refresh", "multihost", "result_cache", "monitor", "queue"):
+    if which in ("mesh", "refresh", "multihost", "result_cache", "monitor", "queue", "server"):
         phase_build()
+    if which == "server":
+        worker = phase_worker()
     if which == "multihost":
         phase_multihost(smi)
         return 0
@@ -7491,10 +7809,13 @@ def run_only(smi: str, which: str) -> int:
         phase_aot(plants, smi)
         return 0
     templates, plants, db = phase_corpus()
-    if which == "queue":
+    if which in ("queue", "server"):
         track_engines()
         monitor = no_faults("monitor", phase_monitor, templates, plants, db, smi)
-        no_faults("queue", phase_queue, templates, plants, db, smi, monitor["feed"])
+        queue = no_faults("queue", phase_queue, templates, plants, db, smi, monitor["feed"])
+        if which == "server":
+            no_faults("server", phase_server, templates, plants, db, smi,
+                      queue["bulk_output"], worker["output"])
         return 0
     if which in ("telemetry", "mesh", "refresh", "result_cache", "monitor"):
         track_engines()
@@ -7613,9 +7934,9 @@ def run_phases(smi: str) -> int:
     summary = phase_kernels(rng, big, b1_rate)
     phase_scale(big, smi)
     phase_trace(big)
-    launches = phase_worker()
+    worker = phase_worker()
     for name, entry in summary.items():
-        entry["launches"] = launches[name]
+        entry["launches"] = worker["launches"][name]
     templates, plants, db = phase_corpus()
     # early: late in a run, after many profiler traces, the profiled job's
     # trace once held no device event (an open defect; the worker fails
@@ -7638,11 +7959,16 @@ def run_phases(smi: str) -> int:
     refresh = no_faults("refresh", phase_refresh, templates, plants, db, smi)
     monitor = no_faults("monitor", phase_monitor, templates, plants, db, smi)
     queue = no_faults("queue", phase_queue, templates, plants, db, smi, monitor["feed"])
+    server = no_faults("server", phase_server, templates, plants, db, smi,
+                       queue["bulk_output"], worker["output"])
     cache = no_faults("result_cache", phase_result_cache, templates, plants, db, smi)
     aot = no_faults("aot", phase_aot, plants, smi)
     for name in ("cluster_counts", "cluster_parent"):
-        summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], aot["max_err"][name])
+        summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"], aot["max_err"][name],
+                                           server["max_err"][name])
         summary[name]["aot_joiner"] = {"launches": aot["launches"][name]}
+        # and on the server phase's jarm scan, over HTTP
+        summary[name]["server"] = {"launches": server["launches"][name]}
     multi = phase_multihost(smi)
     phase_startup_worker(plants, smi)
     svc_timing, svc_launches, svc_err = no_faults("service", phase_service, smi)
@@ -7676,7 +8002,7 @@ def run_phases(smi: str) -> int:
             "max_abs_err": max(max_err[name], job_err[name], svc_err.get(name, 0.0),
                                mesh["max_err"][name], refresh["max_err"][name],
                                monitor["max_err"][name], queue["max_err"][name],
-                               cache["max_err"][name], multi["max_err"][name],
+                               server["max_err"][name], cache["max_err"][name], multi["max_err"][name],
                                aot["max_err"][name]),
             "ms": t["ms"], "card_ms": t["card_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
@@ -7730,6 +8056,8 @@ def run_phases(smi: str) -> int:
         summary[name]["monitor"] = {"launches": monitor["launches"][name]}
         # and on the queue phase's jobs (about 60, from the port's queue)
         summary[name]["queue"] = {"launches": queue["launches"][name]}
+        # and on the server phase's fingerprint scan, over HTTP
+        summary[name]["server"] = {"launches": server["launches"][name]}
         # and on the result_cache phase's writer's call (A, a cold tier)
         summary[name]["result_cache"] = {"launches": cache["launches"][name]}
         # and on the aot phase's joiner's job, from fetched libraries

@@ -453,6 +453,9 @@ class JobProcessor:
         self._engine_stats_mark: Optional[tuple] = None
         #: the current job's scan counters (an active job's), perf fields
         self._scan_perf_extra: dict = {}
+        #: cooperative stop of a worker run in a thread: the poll loop
+        #: returns before its next poll, without draining
+        self.stop_requested = False
         #: the drain order's reason, set by SIGTERM, an X-Swarm-Drain
         #: answer or a caller: the poll loop finishes its current chunk,
         #: then runs :meth:`drain` and returns
@@ -514,8 +517,9 @@ class JobProcessor:
     def process_jobs(self) -> None:
         """The poll loop; returns after ``cfg.max_jobs`` chunks that
         returned when set (a chunk whose processing raises is not
-        counted, as the JAX worker counts), or after a drain."""
-        while True:
+        counted, as the JAX worker counts), after a drain, or once
+        ``stop_requested`` is set."""
+        while not self.stop_requested:
             if self.drain_requested is not None:
                 # process_chunk is synchronous: reaching this check
                 # means no chunk is in flight

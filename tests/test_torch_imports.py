@@ -94,7 +94,16 @@ def test_module_list_covers_the_slice():
         # the server's queue side, the whole config and the flight recorder
         "swarm_tpu_torch.server.queue", "swarm_tpu_torch.telemetry.trace_export",
         "swarm_tpu_torch.telemetry.tracing",
+        # the server's app side: the fleet and the REST server
+        "swarm_tpu_torch.server.fleet", "swarm_tpu_torch.server.app",
     } <= names
+    # ``python -m swarm_tpu_torch.server`` (imported by
+    # test_server_main_runs_without_jax, not here: importing it serves)
+    import swarm_tpu_torch
+
+    every = {info.name for info in pkgutil.walk_packages(swarm_tpu_torch.__path__,
+                                                         "swarm_tpu_torch.")}
+    assert "swarm_tpu_torch.server.__main__" in every
 
 
 def _entry_points():
@@ -182,3 +191,32 @@ def test_chip_smoke_imports_nothing_of_jax():
     roots = {n.split(".")[0] for n in names}
     assert "swarm_tpu_torch" in roots and "torch" in roots
     assert not roots & {"jax", "jaxlib", "swarm_tpu"}
+
+
+def test_server_main_runs_without_jax():
+    """``python -m swarm_tpu_torch.server --help`` prints the server's
+    usage, and the interpreter that ran it holds no ``jax`` and no
+    ``swarm_tpu`` module."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "swarm_tpu_torch.server", "--help"], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "swarm_tpu_torch C2 server" in proc.stdout
+    assert "--api-key" in proc.stdout and "--port" in proc.stdout
+    code = (
+        "import json, runpy, sys\n"
+        "sys.argv = ['swarm_tpu_torch.server', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('swarm_tpu_torch.server', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'swarm_tpu' or m.startswith('swarm_tpu.'))\n"
+        "print(json.dumps({'bad': bad, 'app': 'swarm_tpu_torch.server.app' in sys.modules}))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result == {"bad": [], "app": True}

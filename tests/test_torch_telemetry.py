@@ -527,7 +527,7 @@ def _port_families() -> dict:
     from swarm_tpu_torch.ops import engine, match, workflows  # noqa: F401
     from swarm_tpu_torch.resilience import breaker, faults, heartbeat, spool  # noqa: F401
     from swarm_tpu_torch.sched import scheduler  # noqa: F401
-    from swarm_tpu_torch.server import queue  # noqa: F401
+    from swarm_tpu_torch.server import app, fleet, queue  # noqa: F401
 
     t_engine_export._gauges()
     return dict(t_metrics.REGISTRY._metrics)
@@ -537,6 +537,7 @@ def test_every_port_family_is_the_reference_family():
     import swarm_tpu.resilience.heartbeat  # noqa: F401
     import swarm_tpu.resilience.spool  # noqa: F401
     import swarm_tpu.sched.scheduler  # noqa: F401
+    import swarm_tpu.server.app  # noqa: F401
     import swarm_tpu.server.queue  # noqa: F401
 
     j_engine_export._gauges()
@@ -565,6 +566,23 @@ def test_every_port_family_is_the_reference_family():
     assert {"swarm_job_phase_seconds", "swarm_trace_assembled_total",
             "swarm_trace_flight_dumps_total", "swarm_queue_express_served_total"} <= want_server
     assert len([n for n in want_server if n.startswith("swarm_queue_")]) == 11
+    # the fleet's six families and the server app's HTTP and scrape-time
+    # families, all of them, with their pre-seeded label values
+    import swarm_tpu.server.app as j_app
+    import swarm_tpu.telemetry.fleet_export as j_fleet_export
+
+    want_app = {v.name for m in (j_app, j_fleet_export) for v in vars(m).values()
+                if isinstance(v, j_metrics._Metric)}
+    assert {n for n in want_app if n.startswith("swarm_fleet_")} == {
+        "swarm_fleet_nodes", "swarm_fleet_target_nodes", "swarm_fleet_forecast_rate",
+        "swarm_fleet_scale_events_total", "swarm_fleet_preemptions_total",
+        "swarm_fleet_coldstart_seconds"}
+    assert {n for n in want_app if n.startswith("swarm_http_")} == {
+        "swarm_http_requests_total", "swarm_http_request_seconds"}
+    assert want_app <= set(port)
+    for name in want_app:
+        if name.startswith("swarm_fleet_"):
+            assert sorted(port[name]._data) == sorted(ref[name]._data), name
     rendered = t_metrics.REGISTRY.render()
     assert j_metrics.parse_exposition(rendered) == t_metrics.parse_exposition(rendered)
 

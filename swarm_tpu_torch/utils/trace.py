@@ -8,8 +8,9 @@
 - :func:`maybe_device_profile` — wraps a block in a ``torch.profiler``
   trace (a Chrome trace: the host's ``record_function`` spans and, on a
   CUDA device, the card's kernels and copies) when
-  ``SWARM_PROFILE_DIR`` is set; free when it is not. On the card the
-  trace must name every kernel the block launched, or the block raises.
+  ``SWARM_PROFILE_DIR`` is set; free when it is not. On the card a
+  trace that does not name every kernel the block launched is kept as
+  lost and reported, never taken for the block's profile.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import json
 import os
 import threading
 import time
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 PROFILE_ENV = "SWARM_PROFILE_DIR"
 
@@ -112,7 +113,8 @@ def check_profile(trace_path: str, launched: dict, symbols: dict) -> None:
 
 @contextlib.contextmanager
 def maybe_device_profile(
-    tag: str, profile_dir: Optional[str] = None, device=None
+    tag: str, profile_dir: Optional[str] = None, device=None,
+    on_lost: Optional[Callable[[ProfileError], None]] = None,
 ) -> Iterator[bool]:
     """``torch.profiler`` trace around the block when profiling is on.
 
@@ -120,10 +122,12 @@ def maybe_device_profile(
     trace is recorded. The CPU activity is always traced, the CUDA
     activity when ``device`` is a CUDA device. On a clean exit the trace
     lands in ``<dir>/<tag>/trace_<ns>.json`` (Chrome trace format). A
-    profiler that cannot start or export raises, and so does a CUDA
-    trace that lacks a kernel the block launched through
-    ``ops.kernels`` (:class:`ProfileError`): a job is never reported
-    profiled when its trace misses the card's work."""
+    profiler that cannot start or export raises. A CUDA trace that lacks
+    a kernel the block launched through ``ops.kernels`` is lost: it is
+    kept as ``trace_<ns>.lost.json``, so that no reader takes it for the
+    block's profile, and its :class:`ProfileError` goes to ``on_lost``,
+    or is raised when ``on_lost`` is None. The block's own work stands
+    either way: the loss is the profiler's."""
     root = profile_dir if profile_dir is not None else os.environ.get(PROFILE_ENV)
     if not root:
         yield False
@@ -131,15 +135,15 @@ def maybe_device_profile(
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from swarm_tpu_torch.ops import kernels
+
     target = os.path.join(root, tag)
     os.makedirs(target, exist_ok=True)
     activities = [ProfilerActivity.CPU]
     on_card = device is not None and torch.device(device).type == "cuda"
     if on_card:
-        from swarm_tpu_torch.ops import kernels
-
         activities.append(ProfilerActivity.CUDA)
-        before = dict(kernels.LAUNCHES)
+    before = dict(kernels.LAUNCHES)
     with profile(activities=activities) as prof:
         yield True
         if on_card:
@@ -147,6 +151,15 @@ def maybe_device_profile(
             torch.cuda.synchronize(device)
     path = os.path.join(target, f"trace_{time.time_ns()}.json")
     prof.export_chrome_trace(path)
-    if on_card:
-        launched = {k: n - before.get(k, 0) for k, n in kernels.LAUNCHES.items()}
+    # a wrapper counts only its kernel's launches on the card: a block
+    # on the CPU launched nothing, and its trace misses nothing
+    launched = {k: n - before.get(k, 0) for k, n in kernels.LAUNCHES.items()}
+    try:
         check_profile(path, launched, kernels.SYMBOLS)
+    except ProfileError as e:
+        lost = path[: -len(".json")] + ".lost.json"
+        os.replace(path, lost)
+        err = ProfileError(f"{e}; kept as {lost}")
+        if on_lost is None:
+            raise err from None
+        on_lost(err)

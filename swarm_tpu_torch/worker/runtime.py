@@ -781,9 +781,19 @@ class JobProcessor:
         # kept by name: after a successful execute the engine's deltas
         # become device and walk child spans under it
         exec_span = tracing.span("execute", module=job.get("module"))
+        # a trace that lost the card's kernels is the profiler's fault,
+        # not the job's: the job goes on to upload and complete, as the
+        # JAX worker's does, and its perf fields carry the loss
+        lost_profile: list = []
+
+        def profile_lost(err) -> None:
+            print(f"profile lost: {err}")
+            lost_profile.append(str(err))
+
         try:
             with (timer.phase("execute"),
-                  maybe_device_profile(job_id, device=self.device), exec_span):
+                  maybe_device_profile(job_id, device=self.device, on_lost=profile_lost),
+                  exec_span):
                 # fail (or delay) this chunk's execution; the detail
                 # carries the job id, so a plan can poison one job
                 fault_point("executor.run", detail=job_id)
@@ -821,6 +831,8 @@ class JobProcessor:
         perf["output_bytes"] = len(output)
         perf.update(self._engine_perf_delta())
         perf.update(self._scan_perf_extra)
+        if lost_profile:
+            perf["profile_lost"] = lost_profile[0]
         ctx = tracing.current_context()
         if ctx is not None:
             self._synth_engine_spans(ctx, perf, exec_span)

@@ -96,6 +96,9 @@ def test_module_list_covers_the_slice():
         "swarm_tpu_torch.telemetry.tracing",
         # the server's app side: the fleet and the REST server
         "swarm_tpu_torch.server.fleet", "swarm_tpu_torch.server.app",
+        # the client and the benchmark sampler
+        "swarm_tpu_torch.client", "swarm_tpu_torch.client.cli",
+        "swarm_tpu_torch.client.tables", "swarm_tpu_torch.benchmark",
     } <= names
     # ``python -m swarm_tpu_torch.server`` (imported by
     # test_server_main_runs_without_jax, not here: importing it serves)
@@ -103,7 +106,7 @@ def test_module_list_covers_the_slice():
 
     every = {info.name for info in pkgutil.walk_packages(swarm_tpu_torch.__path__,
                                                          "swarm_tpu_torch.")}
-    assert "swarm_tpu_torch.server.__main__" in every
+    assert {"swarm_tpu_torch.server.__main__", "swarm_tpu_torch.client.__main__"} <= every
 
 
 def _entry_points():
@@ -220,3 +223,33 @@ def test_server_main_runs_without_jax():
     assert proc.returncode == 0, proc.stderr
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result == {"bad": [], "app": True}
+
+
+@pytest.mark.parametrize("module, usage", [
+    ("swarm_tpu_torch.client", "--server-url"),
+    ("swarm_tpu_torch.benchmark", "--rows-per-second"),
+])
+def test_client_and_sampler_load_neither_torch_nor_jax(module, usage):
+    """``python -m swarm_tpu_torch.client --help`` and ``python -m
+    swarm_tpu_torch.benchmark --help`` print their usage, and the
+    interpreter that ran each holds no ``torch``, no ``jax`` and no
+    ``swarm_tpu`` module: the client and the sampler touch no device."""
+    proc = subprocess.run([sys.executable, "-m", module, "--help"], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert usage in proc.stdout
+    code = (
+        "import json, runpy, sys\n"
+        f"sys.argv = [{module!r}, '--help']\n"
+        "try:\n"
+        f"    runpy.run_module({module!r}, run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'swarm_tpu'))\n"
+        "print(json.dumps({'bad': bad}))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"bad": []}

@@ -49,6 +49,7 @@ import requests
 import torch
 
 import swarm_tpu.cache.tier as j_tier
+import swarm_tpu.client.cli as j_cli
 import swarm_tpu.config as j_config
 import swarm_tpu.datamodel as j_dm
 import swarm_tpu.gateway.qos as j_qos
@@ -64,6 +65,7 @@ import swarm_tpu.stores as j_stores
 import swarm_tpu.telemetry.metrics as j_metrics
 import swarm_tpu.telemetry.tracing as j_tracing
 import swarm_tpu_torch.cache.tier as t_tier
+import swarm_tpu_torch.client.cli as t_cli
 import swarm_tpu_torch.config as t_config
 import swarm_tpu_torch.datamodel as t_dm
 import swarm_tpu_torch.gateway.qos as t_qos
@@ -87,12 +89,13 @@ PKG = {
                            queue=j_queue, stores=j_stores, metrics=j_metrics,
                            tracing=j_tracing, faults=j_faults, qos=j_qos, tier=j_tier,
                            mfeed=j_mfeed, mdiff=j_mdiff, mspec=j_mspec, breaker=j_breaker,
-                           worker_pkg="swarm_tpu"),
+                           cli=j_cli, worker_pkg="swarm_tpu"),
     "torch": SimpleNamespace(name="torch", app=t_app, config=t_config, dm=t_dm,
                              fleet=t_fleet, queue=t_queue, stores=t_stores,
                              metrics=t_metrics, tracing=t_tracing, faults=t_faults,
                              qos=t_qos, tier=t_tier, mfeed=t_mfeed, mdiff=t_mdiff,
-                             mspec=t_mspec, breaker=t_breaker, worker_pkg="swarm_tpu_torch"),
+                             mspec=t_mspec, breaker=t_breaker, cli=t_cli,
+                             worker_pkg="swarm_tpu_torch"),
 }
 SIDES = ("jax", "torch")
 KEY = "testkey"

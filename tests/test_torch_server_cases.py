@@ -7,7 +7,7 @@ deltas equal.
 
 - ``tests/test_monitor.py``: the registry over HTTP, an epoch's fire,
   diff, feed and provenance, a paused spec, a feed resumed after a
-  disconnect (the JAX package's ``JobClient``: the wire is the same),
+  disconnect (each package's own ``JobClient``),
   two kill-9 recoveries, the zero-dispatch steady state, and the corpus
   delta's out-of-cadence epoch (each package's own engine, the port's
   on the CPU) with its kill-9 twin;
@@ -31,8 +31,6 @@ import time
 from pathlib import Path
 
 import pytest
-
-from swarm_tpu.client.cli import JobClient
 
 from test_torch_server import AUTH, one_torch_thread, run_case  # noqa: F401
 
@@ -180,7 +178,7 @@ def m_feed_mid_stream_disconnect_resumes_without_dups(e):
         if len(acked) == 2:
             break
     resp.close()
-    client = JobClient(e.base(srv), AUTH["Authorization"].split()[1])
+    client = e.p.cli.JobClient(e.base(srv), AUTH["Authorization"].split()[1])
     resumed = []
     for rec in client.monitor_feed("m1", from_seq=acked[-1]["seq"] + 1):
         resumed.append(rec)

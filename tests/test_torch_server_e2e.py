@@ -21,10 +21,10 @@ same scripts, through the harness of ``tests/test_torch_server.py``.
 
 Real workers run on the real clock and post real seconds, so these
 scripts compare what they saw (bytes, codes, statuses, orders), not the
-stores. The client-rendering cases (``render_workers``, the CLI's
-``workers`` / ``jobs`` / ``scans``, ``stream``, ``tail``,
-``spinup`` / ``recycle``) wait for the port's client. Everything
-compared is bytes, strings or numbers: tolerance 0.
+stores. Each side drives its server through its own package's
+``JobClient``; the client-rendering cases are in
+``tests/test_torch_client.py``. Everything compared is bytes, strings
+or numbers: tolerance 0.
 """
 
 import json
@@ -34,8 +34,6 @@ from pathlib import Path
 
 import pytest
 import requests
-
-from swarm_tpu.client.cli import JobClient
 
 from test_torch_server import KEY, PKG, one_torch_thread, run_case  # noqa: F401
 
@@ -65,7 +63,7 @@ def _stack(e, **kw):
     cfg = e.config(modules_dir=_modules(e), poll_interval_idle_s=0.05,
                    poll_interval_busy_s=0.01, **kw)
     srv = e.server(cfg=cfg)
-    return cfg, srv, JobClient(cfg.resolve_url(), KEY)
+    return cfg, srv, e.p.cli.JobClient(cfg.resolve_url(), KEY)
 
 
 def _scan_file(e, name: str, text: str) -> str:
@@ -175,7 +173,7 @@ def e_fleet_spinup_scan_teardown(e):
     srv = e.server(cfg=cfg, fleet=fleet)
     fleet = srv.fleet
     e.extra_shutdown.append(fleet.shutdown)
-    client = JobClient(cfg.resolve_url(), KEY)
+    client = e.p.cli.JobClient(cfg.resolve_url(), KEY)
     seen = [type(fleet).__name__, client.spin_up("flt", 2)[0]]
     deadline = time.monotonic() + 30
     while len(fleet.list_nodes("flt")) < 2 and time.monotonic() < deadline:
@@ -324,10 +322,8 @@ def e_trace_id_propagates_end_to_end(e):
 
     cfg, srv, client = _stack(e)
     events = []
-    # the client's events are the JAX package's; the worker's its own
-    unsubscribe = [j_telemetry.subscribe(events.append)]
-    if e.side == "torch":
-        unsubscribe.append(t_telemetry.subscribe(events.append))
+    # the client, the server and the worker of a side are its package's
+    unsubscribe = [(t_telemetry if e.side == "torch" else j_telemetry).subscribe(events.append)]
     try:
         code, _ = client.start_scan(_scan_file(e, "targets.txt", "alpha\nbeta\n"),
                                     "echo", 0, 0)

@@ -17,7 +17,9 @@ the worker's spans, events and families) against the JAX package's.
   traced and untraced: the same ``perf`` keys in the same order, the
   same span names and nesting, the same ``rows_processed``, the same
   registry deltas, and the same output traced and untraced; a profiled
-  job's output and its trace;
+  job's output and its trace, and a profiled job whose trace lost the
+  card's kernels completing with the same output, its trace kept as
+  lost;
 - the resilience families' deltas under a fault plan.
 """
 
@@ -838,6 +840,35 @@ def test_profiled_job_is_byte_identical(stack, tmp_path, monkeypatch):
     [trace] = list((tmp_path / out["job"]["job_id"]).glob("trace_*.json"))
     assert json.loads(trace.read_text())["traceEvents"]
     assert not (tmp_path / plain["job"]["job_id"]).exists()
+
+
+def test_lost_profile_still_completes_the_job(stack, tmp_path, monkeypatch, capsys):
+    """A profile that lost the card's kernels (its check substituted by
+    one that fails, as ``torch.profiler`` now and then loses them on
+    the card) does not fail the job, as it never does in the JAX worker:
+    the ``tpu`` job uploads the unprofiled job's output and completes;
+    its trace is kept as ``trace_<ns>.lost.json`` and no whole trace is
+    left; the worker prints the loss and the job's perf fields carry
+    it."""
+    blob = jsonl(64)
+    plain = stack.scan(stack.port, "fp", blob)
+
+    def lost(path, launched, symbols):
+        raise t_trace.ProfileError(f"the profile {path} holds no device event of "
+                                   "['match_md5_kernel']")
+
+    monkeypatch.setattr(t_trace, "check_profile", lost)
+    monkeypatch.setenv("SWARM_PROFILE_DIR", str(tmp_path))
+    out = stack.scan(stack.port, "fp", blob)
+    job = out["job"]
+    assert job["status"] == "complete" and out["output"] == plain["output"]
+    [trace] = list((tmp_path / job["job_id"]).iterdir())
+    assert trace.name.startswith("trace_") and trace.name.endswith(".lost.json")
+    assert json.loads(trace.read_text())["traceEvents"]
+    assert "match_md5_kernel" in job["perf"]["profile_lost"]
+    assert job["perf"]["profile_lost"].endswith(f"kept as {trace}")
+    assert "profile_lost" not in plain["job"]["perf"]
+    assert f"profile lost: {job['perf']['profile_lost']}" in capsys.readouterr().out
 
 
 # ---------------------------------------------------------------------------
